@@ -1,0 +1,206 @@
+"""Kernel dispatch and the per-leaf seed scheme, mirroring
+:mod:`repro.kernels.ops`.
+
+Dispatch: :func:`zo_dual_matmul`, :func:`zo_dual_flash_attention` and
+:func:`zo_noise` launch kernels K2, K3 and K1 for CUDA tensors and run
+the plain PyTorch versions for CPU tensors (the wrappers decide by the
+tensor's device; there is no backend knob).
+
+Seed scheme: every parameter leaf gets ``seed_leaf = base_seed +
+fnv1a(path)`` (int32, wrapping), and its noise is defined on the
+canonical 2-D view (prod(shape[:-1]), shape[-1]).  A leaf stacked along a
+leading scan axis (reps, K, N) is one (reps*K, N) field and rep r reads
+rows [r*K, (r+1)*K) through ``row_offset``, so per-rep kernel calls and
+whole-leaf replay regenerate the same direction.  Seeds are Python ints
+(or int32 numpy arrays for seed vectors): they derive on the host and
+reach the kernels as launch arguments.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import zo_matmul as ZM
+
+zo_noise = ZM.zo_noise
+zo_noise_rows = ZM.zo_noise_rows
+zo_dual_matmul = ZM.zo_dual_matmul
+zo_dual_flash_attention = FA.zo_dual_flash_attention
+
+_M32 = 0xFFFFFFFF
+
+
+def _int32(v: int) -> int:
+    v &= _M32
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+# ===========================================================================
+# per-layer seed derivation + tree-level noise utilities
+# ===========================================================================
+
+def path_hash(path: str) -> int:
+    """Stable 31-bit FNV-1a hash of a '/'-joined tree path."""
+    h = 2166136261
+    for ch in path.encode():
+        h = ((h ^ ch) * 16777619) & _M32
+    return h & 0x7FFFFFFF
+
+
+def fold_seed(seed, i):
+    """Derive a child int32 seed, elementwise over numpy arrays (one call
+    folds a whole client-seed vector by a step index).  Scalars in give a
+    Python int out."""
+    s = np.asarray(seed, np.int64)
+    ii = np.asarray(i, np.int64)
+    shape = np.broadcast_shapes(s.shape, ii.shape)
+    s = (np.broadcast_to(s, shape) & _M32).astype(np.uint32).reshape(-1)
+    ii = (np.broadcast_to(ii, shape) & _M32).astype(np.uint32).reshape(-1)
+    x = (s ^ (ii * np.uint32(0x9E3779B9))) + np.uint32(0x7F4A7C15)
+    x = x ^ (x >> np.uint32(15))
+    x = x * np.uint32(0x2C1B3C6D)
+    x = x ^ (x >> np.uint32(12))
+    out = x.view(np.int32).reshape(shape)
+    return int(out) if out.ndim == 0 else out
+
+
+def leaf_seed_tree(tree, base_seed, pred=None):
+    """Per-leaf seeds ``base_seed + path_hash(path)`` (int32 wrapping
+    add) mirroring ``tree``.  ``None`` leaves and leaves rejected by
+    ``pred(path)`` map to ``None``: layers skip perturbation for them."""
+    base = int(base_seed)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}" if path else str(k))
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, f"{path}/{i}" if path else str(i))
+                              for i, v in enumerate(node))
+        if node is None:
+            return None
+        if pred is not None and not pred(path):
+            return None
+        return _int32(base + path_hash(path))
+
+    return walk(tree, "")
+
+
+# score-probe seed scheme: the per-layer score field's seed is the
+# layer's wq leaf seed folded with a fixed salt
+ATTN_SCORE_SALT = path_hash("attn/scores")
+
+
+def attn_score_seed(seeds):
+    """``fold_seed(seed(wq/w), ATTN_SCORE_SALT)``; None when wq is not
+    ZO-seeded (frozen / LoRA-only layers skip the score probe)."""
+    if not isinstance(seeds, dict):
+        return None
+    sw = seeds.get("wq")
+    sw = sw.get("w") if isinstance(sw, dict) else None
+    if sw is None:
+        return None
+    return fold_seed(sw, ATTN_SCORE_SALT)
+
+
+def attn_score_field(seed, n_heads, seq_q, seq_kv, row_offset=0, *,
+                     device):
+    """Materialized (H, Sq, Skv) score-noise field: head h, query row i,
+    kv column j reads ``U[row_offset + h*Sq + i, j]``."""
+    u = zo_noise(seed, (n_heads * seq_q, seq_kv), row_offset, device=device)
+    return u.reshape(n_heads, seq_q, seq_kv)
+
+
+def attn_kv_seed_pred(path: str) -> bool:
+    """Seed predicate for ``attn_probe="scores"``: the attention k/v
+    projections are not weight-perturbed (both streams attend the clean
+    k/v; the probe moves to the score field), so their leaves leave both
+    the client's seeds and the server's replay."""
+    return "attn/wk/" not in path and "attn/wv/" not in path
+
+
+def any_seed(seeds) -> bool:
+    if seeds is None:
+        return False
+    if isinstance(seeds, dict):
+        return any(any_seed(v) for v in seeds.values())
+    if isinstance(seeds, (list, tuple)):
+        return any(any_seed(v) for v in seeds)
+    return True
+
+
+def leaf_noise(seed, shape, rep=0, *, device):
+    """U(seed) for one (possibly rep-sliced) leaf on its canonical 2-D
+    view; ``rep`` offsets the rows for a slice of a stacked leaf."""
+    shape = tuple(int(s) for s in shape) or (1,)
+    cols = shape[-1]
+    rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+    return zo_noise(seed, (rows, cols), row_offset=int(rep) * rows,
+                    device=device).reshape(shape)
+
+
+def kernel_direction_tree(params, seeds):
+    """Materialized f32 direction U for a whole tree: the replay-side
+    oracle of the in-kernel stream (None seed -> zeros)."""
+    def walk(p, s):
+        if isinstance(p, dict):
+            return {k: walk(v, None if s is None else s[k])
+                    for k, v in p.items()}
+        if isinstance(p, (list, tuple)):
+            return type(p)(walk(v, None if s is None else s[i])
+                           for i, v in enumerate(p))
+        if p is None:
+            return None
+        if s is None:
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return leaf_noise(s, p.shape, device=p.device)
+
+    return walk(params, seeds)
+
+
+def perturb_tree(params, seeds, mu, rep=0):
+    """theta + mu*U(seeds) with U materialized per leaf."""
+    def walk(p, s):
+        if s is None:
+            return p
+        if isinstance(p, dict):
+            return {k: walk(v, s[k]) for k, v in p.items()}
+        if isinstance(p, (list, tuple)):
+            return type(p)(walk(v, s[i]) for i, v in enumerate(p))
+        if p is None:
+            return None
+        u = leaf_noise(s, p.shape, rep, device=p.device)
+        return (p.to(torch.float32) + float(mu) * u).to(p.dtype)
+
+    return walk(params, seeds)
+
+
+@dataclasses.dataclass(frozen=True)
+class Perturb:
+    """Perturbation context threaded through the client's dual-probe
+    forward, whose activations carry [clean; perturbed] halves stacked
+    along the leading batch axis.  (The JAX package's single-probe mode,
+    ``dual=False``, runs kernels K4/K5, which are not ported yet.)
+
+    ``seeds`` mirrors the layer's param subtree (ints / None); ``rep`` is
+    the scan-segment repeat index (row offset into stacked leaves).
+    """
+    seeds: Any
+    mu: float
+    rep: int = 0
+
+
+def psub(perturb: Perturb | None, key):
+    """Narrow a Perturb to a child subtree; None when nothing under
+    ``key`` is seeded."""
+    if perturb is None or perturb.seeds is None:
+        return None
+    s = perturb.seeds
+    sub = s.get(key) if isinstance(s, dict) else s[key]
+    if not any_seed(sub):
+        return None
+    return dataclasses.replace(perturb, seeds=sub)

@@ -1,0 +1,76 @@
+"""Plain PyTorch versions of the kernels, mirroring
+:mod:`repro.kernels.ref` op for op.  They are the CPU path of every
+wrapper and the reference each CUDA kernel is held to on the card."""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -2.0e38
+
+
+def zo_matmul_ref(x, w, u, mu):
+    """y = x @ (W + mu*U) with U materialized explicitly."""
+    wf = w.to(torch.float32) + float(mu) * u.to(torch.float32)
+    return (x.to(torch.float32) @ wf).to(x.dtype)
+
+
+def matmul_ref(x, w):
+    return (x.to(torch.float32) @ w.to(torch.float32)).to(x.dtype)
+
+
+def zo_dual_matmul_ref(xa, xb, w, u, mu_a, mu_b, *, perturb_a=False,
+                       perturb_b=True):
+    """Dual probe with U materialized: one branch per (x, mu) pair."""
+    ya = zo_matmul_ref(xa, w, u, mu_a) if perturb_a else matmul_ref(xa, w)
+    yb = zo_matmul_ref(xb, w, u, mu_b) if perturb_b else matmul_ref(xb, w)
+    return ya, yb
+
+
+def _attend(q, k, v, *, u=None, mu=0.0, causal=True, window=0, cap=0.0,
+            scale=None):
+    """Full-score attention of one stream; ``u`` (H, Sq, Skv) is added to
+    the scores after the soft-cap and before the mask."""
+    B, Sq, H, D = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    sc = scale if scale is not None else D ** -0.5
+    qr = q.reshape(B, Sq, Kv, G, D).to(torch.float32)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qr, k.to(torch.float32)) * sc
+    if cap and cap > 0:
+        s = cap * torch.tanh(s / cap)
+    if u is not None:
+        s = s + float(mu) * u.reshape(Kv, G, Sq, Skv)[None]
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    kv_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= kv_pos
+    if window and window > 0:
+        mask &= (q_pos - kv_pos) < window
+    s = torch.where(mask[None, None, None], s,
+                    torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, cap=0.0,
+                        scale=None):
+    """Naive full-score attention with GQA/local/softcap semantics."""
+    return _attend(q, k, v, causal=causal, window=window, cap=cap,
+                   scale=scale)
+
+
+def zo_dual_flash_attention_ref(qa, qb, k, v, *, kb=None, vb=None, u=None,
+                                mu_a=0.0, mu_b=0.0, perturb_a=False,
+                                perturb_b=True, causal=True, window=0,
+                                cap=0.0, scale=None):
+    """Dual-probe attention: both streams from one definition.  ``u`` is
+    the (H, Sq, Skv) score-noise field; ``kb``/``vb`` give the b-stream
+    its own K/V (weight-probe mode)."""
+    kw = dict(causal=causal, window=window, cap=cap, scale=scale)
+    oa = _attend(qa, k, v, u=u if perturb_a else None, mu=mu_a, **kw)
+    ob = _attend(qb, kb if kb is not None else k,
+                 vb if vb is not None else v,
+                 u=u if perturb_b else None, mu=mu_b, **kw)
+    return oa, ob

@@ -1,0 +1,97 @@
+"""Wrappers of kernels K1 (``csrc/zo_noise.cu``) and K2
+(``csrc/zo_dual_matmul.cu``), the counterparts of ``zo_noise`` and
+``zo_dual_matmul`` in :mod:`repro.kernels.zo_matmul`.
+
+A wrapper launches its kernel for CUDA tensors, on PyTorch's current
+stream, and raises if the launch fails.  It takes the plain PyTorch
+version only for tensors on the CPU.  ``LAUNCHES`` counts kernel
+launches (never plain-version calls), so a run can show that it went
+through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import noise as N
+from repro_torch.kernels import ref as R
+
+LAUNCHES = {"zo_noise": 0, "zo_dual_matmul": 0}
+
+
+def zo_noise(seed, shape, row_offset=0, col_offset=0, *, device):
+    """K1, field mode: U(seed) on a (rows, cols) window at a global
+    offset, f32."""
+    dev = torch.device(device)
+    rows, cols = (int(s) for s in shape)
+    if dev.type == "cpu":
+        return N.uniform_noise(seed, (rows, cols), row_offset, col_offset,
+                               device=dev)
+    out = torch.empty((rows, cols), dtype=torch.float32, device=dev)
+    build.require_cuda("zo_noise", out)
+    if out.numel():
+        err = build.library("zo_noise").zo_noise_field(
+            out.data_ptr(), rows, cols, int(N._u32(seed)),
+            int(N._u32(row_offset)), int(N._u32(col_offset)),
+            build.stream(dev))
+        build.check(err, "zo_noise")
+        LAUNCHES["zo_noise"] += 1
+    return out
+
+
+def zo_noise_rows(seed, ids: torch.Tensor, n_cols: int):
+    """K1, gathered mode: ``U[ids[..., None], arange(n_cols)]`` with
+    shape ``ids.shape + (n_cols,)``, f32."""
+    if ids.device.type == "cpu":
+        cols = torch.arange(n_cols, dtype=torch.int64, device=ids.device)
+        return N.uniform_noise_at(seed, ids[..., None], cols)
+    flat = ids.reshape(-1).to(torch.int32).contiguous()
+    out = torch.empty((flat.numel(), n_cols), dtype=torch.float32,
+                      device=ids.device)
+    dev = build.require_cuda("zo_noise_rows", flat, out)
+    if out.numel():
+        err = build.library("zo_noise").zo_noise_rows(
+            out.data_ptr(), flat.data_ptr(), flat.numel(), n_cols,
+            int(N._u32(seed)), build.stream(dev))
+        build.check(err, "zo_noise_rows")
+        LAUNCHES["zo_noise"] += 1
+    return out.reshape(tuple(ids.shape) + (n_cols,))
+
+
+def zo_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
+                   perturb_a: bool = False, perturb_b: bool = True):
+    """K2: ``(xa @ (W + mu_a*U), xb @ (W + mu_b*U))`` for one read of W.
+
+    xa, xb: (M, K); w: (K, N); one dtype, f32 or bf16; f32 accumulation,
+    outputs in x's dtype.  ``perturb_a`` / ``perturb_b`` select the
+    streams that see the noise (clean + perturbed by default;
+    ``perturb_a=True, mu_b=-mu_a`` is the antithetic pair).
+    """
+    if xa.device.type == "cpu":
+        u = None
+        if perturb_a or perturb_b:
+            u = N.uniform_noise(seed, w.shape, row_offset, device=w.device)
+        return R.zo_dual_matmul_ref(xa, xb, w, u, mu_a, mu_b,
+                                    perturb_a=perturb_a, perturb_b=perturb_b)
+    dev = build.require_cuda("zo_dual_matmul", xa, xb, w)
+    if xa.dim() != 2 or w.dim() != 2 or xb.shape != xa.shape \
+            or xa.shape[1] != w.shape[0]:
+        raise ValueError(f"zo_dual_matmul: shapes {tuple(xa.shape)}, "
+                         f"{tuple(xb.shape)} @ {tuple(w.shape)}")
+    if not (xa.dtype == xb.dtype == w.dtype) or xa.dtype not in \
+            build.DTYPE_CODES:
+        raise ValueError(f"zo_dual_matmul: dtypes {xa.dtype}, {xb.dtype}, "
+                         f"{w.dtype}; expected one of f32 / bf16")
+    M, K = xa.shape
+    Nn = w.shape[1]
+    ya = torch.empty((M, Nn), dtype=xa.dtype, device=dev)
+    yb = torch.empty((M, Nn), dtype=xa.dtype, device=dev)
+    if ya.numel():
+        err = build.library("zo_dual_matmul").zo_dual_matmul(
+            xa.data_ptr(), xb.data_ptr(), w.data_ptr(), ya.data_ptr(),
+            yb.data_ptr(), M, K, Nn, build.DTYPE_CODES[xa.dtype],
+            int(perturb_a), int(perturb_b), int(N._u32(seed)), float(mu_a),
+            float(mu_b), int(N._u32(row_offset)), build.stream(dev))
+        build.check(err, "zo_dual_matmul")
+        LAUNCHES["zo_dual_matmul"] += 1
+    return ya, yb

@@ -1,0 +1,78 @@
+"""Model configuration: the fields of :class:`repro.models.config.
+ModelConfig` that the dense transformer family reads, with the same
+names and defaults."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One layer = mixer + ffn."""
+    mixer: str = "global_attn"     # global_attn | local_attn
+    ffn: str = "dense"             # dense
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    pattern: tuple[LayerSpec, ...] = (LayerSpec(),)
+    head_dim: int = 0              # 0 => d_model // n_heads
+    qkv_bias: bool = False
+    tie_embeddings: bool = True
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
+    post_norm: bool = False        # gemma2-style post-block norms
+    activation: str = "silu"
+    gated_mlp: bool = True
+    rope_kind: str = "rope"        # rope | none
+    rope_theta: float = 10000.0
+    attn_softcap: float | None = None
+    final_softcap: float | None = None
+    attn_scale: float | None = None
+    window: int = 4096             # local-attention window
+    # --- SFL split ---
+    cut_layers: int = 2            # client-side depth (the cut layer)
+    aux_layers: int = 0            # extra transformer blocks in the aux head
+    # --- numerics ---
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    # --- server attention (plain PyTorch online softmax) ---
+    attn_impl: str = "blocked"     # naive | blocked
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
+    attn_probe: str = "weights"    # weights | scores: where the dual probe
+                                   # perturbs attention (q/k/v/o weights,
+                                   # or the pre-softmax scores with k/v
+                                   # shared between the streams)
+    family: str = "dense"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def vocab_padded(self) -> int:
+        return ((self.vocab + 255) // 256) * 256
+
+    def torch_param_dtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    def torch_compute_dtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+    def layer_specs(self) -> tuple[LayerSpec, ...]:
+        reps = (self.n_layers + len(self.pattern) - 1) // len(self.pattern)
+        return (self.pattern * reps)[: self.n_layers]
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

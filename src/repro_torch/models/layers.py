@@ -1,0 +1,226 @@
+"""Core layers of the dense family: param init, norms, dense (plain and
+ZO-perturbed), embeddings, RoPE, MLP.  Plain functions on nested dicts
+of tensors, mirroring :mod:`repro.models.layers`.
+
+Init functions draw from an explicit ``torch.Generator``.  The draws
+cannot reproduce the JAX package's
+``jax.random`` init; parity tests load the JAX params through
+:func:`repro_torch.bridge.from_jax` instead.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as O
+
+
+def init_param(gen: torch.Generator, shape, dtype, init="normal",
+               scale=None):
+    """One leaf, drawn on ``gen``'s device."""
+    shape = tuple(int(s) for s in shape)
+    dev = gen.device
+    if init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    if init == "ones":
+        return torch.ones(shape, dtype=dtype, device=dev)
+    if init != "normal":
+        raise ValueError(init)
+    if scale is None:
+        fan_in = shape[0] if len(shape) > 1 else max(shape[-1], 1)
+        scale = 1.0 / math.sqrt(max(fan_in, 1))
+    z = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+    return (scale * z).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(gen, dim: int, dtype):
+    return {"scale": init_param(gen, (dim,), dtype, "zeros")}
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    # gemma-style (1 + scale); "zeros" init => identity at init
+    return (y * (1.0 + params["scale"].to(torch.float32))).to(dt)
+
+
+def init_layernorm(gen, dim: int, dtype):
+    return {"scale": init_param(gen, (dim,), dtype, "ones"),
+            "bias": init_param(gen, (dim,), dtype, "zeros")}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)
+            + params["bias"].to(torch.float32)).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Dense / embedding
+# ---------------------------------------------------------------------------
+
+def init_dense(gen, d_in: int, d_out: int, dtype, bias: bool = False,
+               scale=None):
+    p = {"w": init_param(gen, (d_in, d_out), dtype, "normal", scale)}
+    if bias:
+        p["b"] = init_param(gen, (d_out,), dtype, "zeros")
+    return p
+
+
+def dense(params, x, compute_dtype=None, perturb=None):
+    if perturb is not None and O.any_seed(perturb.seeds):
+        return _dense_perturbed(params, x, perturb, compute_dtype)
+    w = params["w"]
+    if compute_dtype is not None:
+        w = w.to(compute_dtype)
+        x = x.to(compute_dtype)
+    y = x @ w
+    if "lora_a" in params:  # low-rank adapter branch (pre-scaled at init)
+        y = y + (x @ params["lora_a"].to(x.dtype)) \
+            @ params["lora_b"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+def _pleaf(p, seed, mu, rep=0):
+    """theta + mu*U(seed) for one small leaf (bias / LoRA adapter)."""
+    if seed is None:
+        return p
+    u = O.leaf_noise(seed, p.shape, rep, device=p.device)
+    return (p.to(torch.float32) + float(mu) * u).to(p.dtype)
+
+
+def _dense_perturbed(params, x, perturb, compute_dtype=None):
+    """Dense with the ZO perturbation fused into the matmul (kernel K2 on
+    the card).  The activations carry [clean; perturbed] halves along the
+    leading axis and one read of W serves both; ``perturb.rep``
+    row-offsets the noise of a slice of a stacked leaf."""
+    w = params["w"]
+    if compute_dtype is not None:
+        w = w.to(compute_dtype)
+        x = x.to(compute_dtype)
+    seeds = perturb.seeds if isinstance(perturb.seeds, dict) else {}
+    mu, rep = perturb.mu, perturb.rep
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])   # batch axis leads: rows [0, M/2)
+    half = x2.shape[0] // 2           # of the dual stack are the clean half
+    off = int(rep) * w.shape[0]
+    sw = seeds.get("w")
+    if sw is None:
+        y2 = x2 @ w
+    else:
+        ya, yb = O.zo_dual_matmul(x2[:half].contiguous(),
+                                  x2[half:].contiguous(), w.contiguous(),
+                                  sw, 0.0, mu, row_offset=off)
+        y2 = torch.cat([ya, yb], dim=0)
+
+    if "lora_a" in params:
+        la = params["lora_a"].to(x2.dtype)
+        lb = params["lora_b"].to(x2.dtype)
+        lap = _pleaf(la, seeds.get("lora_a"), mu, rep)
+        lbp = _pleaf(lb, seeds.get("lora_b"), mu, rep)
+        y2 = y2 + torch.cat([(x2[:half] @ la) @ lb,
+                             (x2[half:] @ lap) @ lbp], dim=0)
+    if "b" in params:
+        b = params["b"]
+        bp = _pleaf(b, seeds.get("b"), mu, rep)
+        y2 = y2 + torch.cat(
+            [b.to(y2.dtype).expand(half, b.shape[-1]),
+             bp.to(y2.dtype).expand(y2.shape[0] - half, b.shape[-1])],
+            dim=0)
+    return y2.reshape(tuple(lead) + (w.shape[1],))
+
+
+def norm_apply(norm_fn, params, x, perturb=None):
+    """Apply a norm with optionally ZO-perturbed scale/bias; only the
+    perturbed half of the activation stack sees the noise."""
+    if perturb is None or not O.any_seed(perturb.seeds):
+        return norm_fn(params, x)
+    pp = O.perturb_tree(params, perturb.seeds, perturb.mu, perturb.rep)
+    half = x.shape[0] // 2
+    return torch.cat([norm_fn(params, x[:half]), norm_fn(pp, x[half:])],
+                     dim=0)
+
+
+def init_embedding(gen, vocab: int, dim: int, dtype):
+    return {"table": init_param(gen, (vocab, dim), dtype, "normal", 0.02)}
+
+
+def embed(params, ids, compute_dtype):
+    return params["table"].to(compute_dtype)[ids]
+
+
+def unembed(params, x, compute_dtype):
+    return x.to(compute_dtype) @ params["table"].to(compute_dtype).T
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def _rope_angles(positions, head_dim: int, theta: float):
+    # positions: (..., S); returns (..., S, head_dim//2)
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    return positions[..., None].to(torch.float32) * freqs
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (B, S, H, D); positions: (B, S) int."""
+    d = x.shape[-1]
+    ang = _rope_angles(positions, d, theta)          # (B, S, d/2)
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen, d_model: int, d_ff: int, dtype, gated: bool = True,
+             bias: bool = False):
+    p = {"up": init_dense(gen, d_model, d_ff, dtype, bias),
+         "down": init_dense(gen, d_ff, d_model, dtype, bias)}
+    if gated:
+        p["gate"] = init_dense(gen, d_model, d_ff, dtype, bias)
+    return p
+
+
+def _act(x, activation: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.silu(x) if activation == "silu" else F.gelu(x,
+                                                        approximate="tanh")
+
+
+def mlp(params, x, activation: str = "silu", compute_dtype=None,
+        perturb=None):
+    up = dense(params["up"], x, compute_dtype, O.psub(perturb, "up"))
+    if "gate" in params:
+        g = dense(params["gate"], x, compute_dtype, O.psub(perturb, "gate"))
+        h = _act(g, activation) * up
+    else:
+        h = _act(up, activation)
+    return dense(params["down"], h, compute_dtype, O.psub(perturb, "down"))
+
+
+def softcap(x, cap):
+    if cap is None or cap <= 0:
+        return x
+    return cap * torch.tanh(x / cap)

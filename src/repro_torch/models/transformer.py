@@ -1,0 +1,277 @@
+"""The dense transformer with its SFL split, mirroring
+:mod:`repro.models.transformer` (dense family, training paths).
+
+Layer stacks keep the JAX package's pattern compression: a segment is a
+tuple (one entry per position of the repeating unit) of block-param
+trees whose leaves are stacked along a leading ``reps`` axis.  The stack
+runs as a Python loop over reps, and the rep index rides in
+``Perturb.rep``: it row-offsets the noise of each stacked leaf, so the
+forward and the server's whole-leaf replay see the same direction.
+Renaming a path or unstacking the reps would change every seed.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as O
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.tree import tree_map
+
+ATTN_MIXERS = ("global_attn", "local_attn")
+
+
+# ---------------------------------------------------------------------------
+# one block
+# ---------------------------------------------------------------------------
+
+def _norm_init(cfg: ModelConfig):
+    return L.init_rmsnorm if cfg.norm == "rmsnorm" else L.init_layernorm
+
+
+def init_block(gen, spec: LayerSpec, cfg: ModelConfig):
+    if spec.mixer not in ATTN_MIXERS or spec.ffn != "dense":
+        raise NotImplementedError(f"{spec}: only the dense family is ported")
+    d, dt = cfg.d_model, cfg.torch_param_dtype()
+    ni = _norm_init(cfg)
+    p: dict[str, Any] = {"norm1": ni(gen, d, dt),
+                         "attn": A.init_attention(gen, cfg),
+                         "norm2": ni(gen, d, dt),
+                         "mlp": L.init_mlp(gen, d, cfg.d_ff, dt,
+                                           cfg.gated_mlp, False)}
+    if cfg.post_norm:
+        p["postnorm1"] = ni(gen, d, dt)
+        p["postnorm2"] = ni(gen, d, dt)
+    return p
+
+
+def _norm(cfg: ModelConfig, params, x, perturb=None):
+    fn = L.rmsnorm if cfg.norm == "rmsnorm" else L.layernorm
+    return L.norm_apply(fn, params, x, perturb)
+
+
+def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
+                positions=None, perturb=None):
+    if perturb is not None and not O.any_seed(perturb.seeds):
+        perturb = None
+    h = _norm(cfg, params["norm1"], x, O.psub(perturb, "norm1"))
+    o = A.attention_layer(params["attn"], h, cfg, positions=positions,
+                          local=(spec.mixer == "local_attn"),
+                          perturb=O.psub(perturb, "attn"))
+    if cfg.post_norm:
+        o = _norm(cfg, params["postnorm1"], o, O.psub(perturb, "postnorm1"))
+    x = x + o
+    h = _norm(cfg, params["norm2"], x, O.psub(perturb, "norm2"))
+    o = L.mlp(params["mlp"], h, cfg.activation, cfg.torch_compute_dtype(),
+              O.psub(perturb, "mlp"))
+    if cfg.post_norm:
+        o = _norm(cfg, params["postnorm2"], o, O.psub(perturb, "postnorm2"))
+    return x + o
+
+
+# ---------------------------------------------------------------------------
+# pattern-compressed stacks
+# ---------------------------------------------------------------------------
+
+def build_segments(specs: Sequence[LayerSpec]):
+    """Greedy compression of a spec list into (unit, repeats) segments."""
+    specs = list(specs)
+    segments: list[tuple[tuple[LayerSpec, ...], int]] = []
+    i = 0
+    n = len(specs)
+    while i < n:
+        best = ((specs[i],), 1)
+        for ul in range(1, min(8, n - i) + 1):
+            unit = tuple(specs[i:i + ul])
+            reps = 1
+            j = i + ul
+            while j + ul <= n and tuple(specs[j:j + ul]) == unit:
+                reps += 1
+                j += ul
+            if reps * ul > best[1] * len(best[0]):
+                best = (unit, reps)
+        segments.append(best)
+        i += len(best[0]) * best[1]
+    return segments
+
+
+def init_stack(gen, cfg: ModelConfig, specs: Sequence[LayerSpec]):
+    """A list of segment params, each a tuple (per unit position) of
+    block-param trees with a stacked leading 'layers' dim."""
+    out = []
+    for unit, reps in build_segments(specs):
+        per_rep = [tuple(init_block(gen, spec, cfg) for spec in unit)
+                   for _ in range(reps)]
+        out.append(tree_map(lambda *xs: torch.stack(xs), *per_rep))
+    return out
+
+
+def apply_stack(stack_params, x, cfg: ModelConfig,
+                specs: Sequence[LayerSpec], *, positions=None,
+                perturb=None):
+    """``perturb.seeds`` (if given) is a list mirroring ``stack_params``:
+    one seed per stacked leaf; rep r runs with ``Perturb.rep = r``."""
+    for si, (unit, reps) in enumerate(build_segments(specs)):
+        seg_params = stack_params[si]
+        seg_seeds = perturb.seeds[si] if perturb is not None else None
+        for r in range(reps):
+            params_rep = tree_map(lambda p: p[r], seg_params)
+            for j, spec in enumerate(unit):
+                pj = None
+                if seg_seeds is not None and O.any_seed(seg_seeds[j]):
+                    pj = dataclasses.replace(perturb, seeds=seg_seeds[j],
+                                             rep=r)
+                x = apply_block(params_rep[j], x, spec, cfg,
+                                positions=positions, perturb=pj)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# full language model with SFL split structure
+# ---------------------------------------------------------------------------
+
+def client_specs(cfg: ModelConfig):
+    return cfg.layer_specs()[: cfg.cut_layers]
+
+
+def server_specs(cfg: ModelConfig):
+    return cfg.layer_specs()[cfg.cut_layers:]
+
+
+def aux_specs(cfg: ModelConfig):
+    return tuple(cfg.layer_specs()[cfg.cut_layers:
+                                   cfg.cut_layers + cfg.aux_layers])
+
+
+def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda"):
+    """``{"client": ..., "server": ...}`` from a seeded random init.
+
+    client = embedding + first ``cut_layers`` blocks + aux head
+    server = remaining blocks + final norm (+ unembed when untied)
+
+    The draws come from a CPU generator and then move to ``device``, so
+    one seed gives the same params on every device.
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    dt = cfg.torch_param_dtype()
+    client: dict[str, Any] = {
+        "embed": L.init_embedding(gen, cfg.vocab_padded, cfg.d_model, dt),
+        "layers": init_stack(gen, cfg, client_specs(cfg)),
+        "aux": init_aux(gen, cfg),
+    }
+    server: dict[str, Any] = {
+        "layers": init_stack(gen, cfg, server_specs(cfg)),
+        "final_norm": _norm_init(cfg)(gen, cfg.d_model, dt),
+    }
+    if not cfg.tie_embeddings:
+        server["unembed"] = L.init_param(gen, (cfg.d_model, cfg.vocab_padded),
+                                         dt, "normal", 0.02)
+    return tree_map(lambda t: t.to(dev), {"client": client,
+                                          "server": server})
+
+
+def init_aux(gen, cfg: ModelConfig):
+    """Aux head: optional extra blocks + norm + (tied) unembed."""
+    p: dict[str, Any] = {"norm": _norm_init(cfg)(gen, cfg.d_model,
+                                                 cfg.torch_param_dtype())}
+    if cfg.aux_layers > 0:
+        p["layers"] = init_stack(gen, cfg, aux_specs(cfg))
+    return p
+
+
+def _embed_perturbed(client_params, cfg: ModelConfig, inputs, perturb):
+    """The embedding with the ZO table perturbation.  The noise rows are
+    gathered per token id (kernel K1's gathered mode on the card), never
+    materializing the (vocab, d_model) field.  Returns the stacked
+    [clean; perturbed] embedding on a doubled batch axis."""
+    cdt = cfg.torch_compute_dtype()
+    x = L.embed(client_params["embed"], inputs, cdt)
+    pe = O.psub(perturb, "embed")
+    st = None if pe is None else pe.seeds.get("table")
+    if st is None:
+        xp = x
+    else:
+        u = O.zo_noise_rows(st, inputs, x.shape[-1])
+        xp = (x.to(torch.float32) + float(perturb.mu) * u).to(cdt)
+    return torch.cat([x, xp], dim=0)
+
+
+def client_forward(client_params, cfg: ModelConfig, inputs, positions=None,
+                   perturb=None):
+    """Embedding + client blocks -> smashed data (cut-layer activations).
+    With ``perturb`` the clean and perturbed probes ride one pass on a
+    doubled batch axis."""
+    if perturb is not None and not O.any_seed(perturb.seeds):
+        perturb = None
+    if perturb is None:
+        x = L.embed(client_params["embed"], inputs, cfg.torch_compute_dtype())
+    else:
+        x = _embed_perturbed(client_params, cfg, inputs, perturb)
+        if positions is not None:
+            positions = torch.cat([positions, positions], dim=0)
+    return apply_stack(client_params["layers"], x, cfg, client_specs(cfg),
+                       positions=positions,
+                       perturb=O.psub(perturb, "layers"))
+
+
+def aux_forward(client_params, cfg: ModelConfig, smashed, positions=None,
+                perturb=None):
+    """Aux head on smashed data -> logits (the client-local predictor).
+    With ``perturb`` the tied unembedding perturbs the table for the
+    second half of the stack only, with the table noise materialised (the
+    embedding's leaf and seed)."""
+    if perturb is not None and not O.any_seed(perturb.seeds):
+        perturb = None
+    aux = client_params["aux"]
+    pa = O.psub(perturb, "aux")
+    x = smashed
+    if "layers" in aux:
+        x = apply_stack(aux["layers"], x, cfg, aux_specs(cfg),
+                        positions=positions, perturb=O.psub(pa, "layers"))
+    x = _norm(cfg, aux["norm"], x, O.psub(pa, "norm"))
+    pe = O.psub(perturb, "embed")
+    st = None if pe is None else pe.seeds.get("table")
+    if st is None:
+        logits = L.unembed(client_params["embed"], x, torch.float32)
+    else:
+        table = client_params["embed"]["table"].to(torch.float32)
+        tp = table + float(perturb.mu) * O.leaf_noise(st, table.shape,
+                                                      device=table.device)
+        half = x.shape[0] // 2
+        logits = torch.cat([x[:half].to(torch.float32) @ table.T,
+                            x[half:].to(torch.float32) @ tp.T], dim=0)
+    return L.softcap(logits, cfg.final_softcap)
+
+
+def server_forward(params, cfg: ModelConfig, smashed, positions=None):
+    """Server blocks on smashed data -> logits."""
+    server = params["server"]
+    x = apply_stack(server["layers"], smashed, cfg, server_specs(cfg),
+                    positions=positions)
+    x = _norm(cfg, server["final_norm"], x)
+    if cfg.tie_embeddings:
+        logits = L.unembed(params["client"]["embed"], x, torch.float32)
+    else:
+        logits = x.to(torch.float32) @ server["unembed"].to(torch.float32)
+    return L.softcap(logits, cfg.final_softcap)
+
+
+def lm_loss(logits, labels, vocab: int):
+    """Mean next-token cross entropy; labels == -100 are masked; the
+    padded vocab tail is excluded from the softmax."""
+    V = logits.shape[-1]
+    if V > vocab:
+        mask = torch.where(torch.arange(V, device=logits.device) >= vocab,
+                           -1e30, 0.0).to(logits.dtype)
+        logits = logits + mask
+    valid = labels != -100
+    labels_safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels_safe[..., None].long())[..., 0]
+    return -torch.sum(ll * valid) / torch.clamp(torch.sum(valid), min=1)

@@ -1,0 +1,56 @@
+"""Kernels K1-K3 on a CUDA card against their plain PyTorch versions.
+
+Imports neither JAX nor the JAX package, so it runs on the machine with
+the card (which has no JAX) with the repository's conftest skipped:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+Without a card the test skips.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import noise as N
+from repro_torch.kernels import ref as R
+from repro_torch.kernels import zo_matmul as ZM
+
+
+def _arrays(seed, *shapes, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(s) * scale).astype(np.float32)
+            for s in shapes]
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain():
+    """K1 bit for bit; K2 and K3 in f32 to 1e-4 (other summation order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    got = ZM.zo_noise(-5, (300, 130), 17, 3, device=dev)
+    assert torch.equal(got, N.uniform_noise(-5, (300, 130), 17, 3,
+                                            device=dev))
+    ids = torch.randint(0, 50432, (3, 40), device=dev)
+    assert torch.equal(ZM.zo_noise_rows(9, ids, 96), N.uniform_noise_at(
+        9, ids[..., None], torch.arange(96, device=dev)))
+    xa, xb, w = (torch.as_tensor(a, device=dev) for a in _arrays(
+        3, (100, 200), (100, 200), (200, 70), scale=0.3))
+    u = N.uniform_noise(4, w.shape, 200, device=dev)
+    for pa, pb in ((False, True), (True, True)):
+        ya, yb = ZM.zo_dual_matmul(xa, xb, w, 4, 0.1, -0.1, row_offset=200,
+                                   perturb_a=pa, perturb_b=pb)
+        ra, rb = R.zo_dual_matmul_ref(xa, xb, w, u, 0.1, -0.1, perturb_a=pa,
+                                      perturb_b=pb)
+        torch.testing.assert_close(ya, ra, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(yb, rb, rtol=1e-4, atol=1e-4)
+    qa, qb, k, v = (torch.as_tensor(a, device=dev) for a in _arrays(
+        4, (2, 70, 4, 64), (2, 70, 4, 64), (2, 70, 2, 64), (2, 70, 2, 64)))
+    un = N.uniform_noise(6, (4 * 70, 70), device=dev).reshape(4, 70, 70)
+    oa, ob = FA.zo_dual_flash_attention(qa, qb, k, v, seed=6, mu_b=0.3,
+                                        window=20, cap=5.0)
+    ra, rb = R.zo_dual_flash_attention_ref(qa, qb, k, v, u=un, mu_b=0.3,
+                                           window=20, cap=5.0)
+    torch.testing.assert_close(oa, ra, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ob, rb, rtol=1e-4, atol=1e-4)
