@@ -7,15 +7,23 @@ Phases, one line each (any failure exits non-zero):
   1. card: name and power limit, torch and CUDA versions; build the CUDA
      kernels from src/repro_torch/kernels/csrc with nvcc;
   2. K1 zo_noise vs its plain version: bit equality;
-  3. K2 zo_dual_matmul vs plain at gpt2-small's client shapes;
-  4. K3 zo_dual_flash_attention vs plain, both probe modes, plus GQA,
-     window, soft-cap and ragged lengths;
+  3. K2 zo_dual_matmul and K4 zo_matmul vs plain at gpt2-small's client
+     shapes (bf16) and ResNet-18's (f32); K4 == K2's b stream bit for bit;
+  4. K3 zo_dual_flash_attention and K5 flash_attention vs plain, both
+     probe modes, plus GQA, window, soft-cap and ragged lengths; K5 ==
+     K3's a stream bit for bit;
   5. one HERON-SFL round on gpt2-small at full width (N=2 clients, h=1,
      n_pairs=1, 4 x 256 tokens each, lean seed-replay uplink): losses,
      uplink bytes, wall time, peak memory and kernel launch counts; and a
      small round on the card held against the same round on the CPU;
-  6. kernel times (CUDA events, median) beside the plain version, a
-     PyTorch library yardstick and the card's bound.
+  6. the same for ResNet-18 on 32x32x3 images (N=5 clients, 64 images
+     each), and its small config on the card against the CPU;
+  7. the single-probe forwards (Perturb(dual=False): K4 and K5) of
+     gpt2-small and ResNet-18, each held against the perturbed half of
+     the dual forward on the same seeds;
+  8. kernel times (CUDA events, median) beside the plain version, a
+     PyTorch library yardstick and the card's bound; the fused dual probe
+     (K2, K3) against two single-probe passes (2 x K4, 2 x K5).
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -226,6 +234,67 @@ def check_k2(dev):
     return worst["bfloat16 mu 1e-3"]      # the main path's type and mu
 
 
+def k4_cases():
+    import torch
+    # (name, dtype, M, K, N): gpt2-small's client projections (bf16) and
+    # ResNet-18's client convs over im2col patches and aux fc (f32,
+    # 64 images of 32x32 per client)
+    return [("gpt2 768x768", torch.bfloat16, 1024, 768, 768),
+            ("gpt2 768x3072", torch.bfloat16, 1024, 768, 3072),
+            ("gpt2 3072x768", torch.bfloat16, 1024, 3072, 768),
+            ("resnet stem 27x64", torch.float32, 64 * 1024, 27, 64),
+            ("resnet block0 576x64", torch.float32, 64 * 1024, 576, 64),
+            ("resnet aux fc 64x10", torch.float32, 64, 64, 10)]
+
+
+def k4_plain(x, w, seed, mu, perturb, off):
+    from repro_torch.kernels import noise as N
+    from repro_torch.kernels import ref as R
+    if not perturb:
+        return R.matmul_ref(x, w)
+    return R.zo_matmul_ref(x, w, N.uniform_noise(seed, w.shape, off,
+                                                 device=w.device), mu)
+
+
+def check_k4(dev):
+    """K4 against its plain version with K2's tolerance (see check_k2),
+    perturbed and clean, at a nonzero row offset; and bit for bit against
+    the matching stream of K2 (clean a, perturbed b), which runs the same
+    tile loop in the same order."""
+    import torch
+    from repro_torch.kernels import zo_matmul as ZM
+    worst = {}
+    for name, dtype, M, K, Nn in k4_cases():
+        xa, xb, w = k2_inputs(dev, dtype, M, K, Nn, seed=1)
+        off = 2 * K
+        for mu in (1e-3, 0.5):
+            ya, yb = ZM.zo_dual_matmul(xa, xb, w, -99, 0.0, mu,
+                                       row_offset=off)
+            clean = ZM.zo_matmul(xa, w, -99, mu, row_offset=off,
+                                 perturb=False)
+            pert = ZM.zo_matmul(xb, w, -99, mu, row_offset=off)
+            if not (torch.equal(clean, ya) and torch.equal(pert, yb)):
+                fail(f"K4 {name} mu {mu} differs from K2's streams: max |d| "
+                     f"{max_abs(clean, ya)}, {max_abs(pert, yb)}")
+            for got, ref in ((clean, k4_plain(xa, w, -99, mu, False, off)),
+                             (pert, k4_plain(xb, w, -99, mu, True, off))):
+                d = (got.float() - ref.float()).abs()
+                r = ref.float().abs()
+                tol = 1e-4 * r.max()
+                if dtype == torch.bfloat16:
+                    tol = 2 ** -7 * r + tol
+                if not bool((d <= tol).all()):
+                    fail(f"K4 {name} mu {mu}: max |d| {float(d.max())}")
+                key = (f"{str(dtype).split('.')[-1]} mu "
+                       f"{'1e-3' if mu == 1e-3 else '0.5'}")
+                worst[key] = max(worst.get(key, 0.0), float(d.max()))
+        del xa, xb, w
+    log(3, f"K4 zo_matmul == plain within tolerance (perturbed and clean, "
+        f"row_offset 2K) and == K2's a / b streams bit for bit at "
+        f"{[c[0] + ' M=' + str(c[2]) for c in k4_cases()]}: max |d| {worst}")
+    return worst["bfloat16 mu 1e-3"]
+
+
 def k3_inputs(dev, dtype, B, S, H, Kv, D, seed=0):
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -283,32 +352,86 @@ def check_k3(dev):
     return worst["bfloat16 gpt2-small weights"]   # the main path's case
 
 
+def check_k5(dev):
+    """K5 against its plain version over K3's cases with K3's tolerance
+    (see check_k3); and bit for bit against each stream of K3 in the
+    weights mode, which runs the same stream code."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref as R
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, B, S, H, Kv, kw in k3_cases():
+            qa, qb, k, v, kb, vb = k3_inputs(dev, dtype, B, S, H, Kv, 64,
+                                             seed=2)
+            oa = FA.flash_attention(qa, k, v, **kw)
+            ob = FA.flash_attention(qb, kb, vb, **kw)
+            fa, fb = FA.zo_dual_flash_attention(
+                qa, qb, k, v, kb=kb, vb=vb, perturb_a=False,
+                perturb_b=False, **kw)
+            if not (torch.equal(oa, fa) and torch.equal(ob, fb)):
+                fail(f"K5 {dtype} {name} differs from K3's streams: max "
+                     f"|d| {max_abs(oa, fa)}, {max_abs(ob, fb)}")
+            ref = R.flash_attention_ref(qa, k, v, **kw)
+            d = (oa.float() - ref.float()).abs()
+            tol = (1e-4 if dtype == torch.float32
+                   else 2 ** -7 * ref.float().abs() + 1e-3)
+            if not bool((d <= tol).all()):
+                fail(f"K5 {dtype} {name}: max |d| {float(d.max())}")
+            worst[f"{str(dtype).split('.')[-1]} {name}"] = float(d.max())
+    log(4, "K5 flash_attention == plain within tolerance and == K3's a / b "
+        "streams (weights mode) bit for bit: B4 S256 H12 D64 and B2 S200 "
+        f"H8 Kv2 window 64 cap 30: max |d| {worst}")
+    return worst["bfloat16 gpt2-small"]
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the round
 # ---------------------------------------------------------------------------
+
+def _make_round(api, params, rb, n_clients, h, mu, lr, server_lr):
+    from repro_torch.core import protocols as P
+    from repro_torch.core import zo as Z
+    from repro_torch.optim.optimizers import adamw, zo_sgd
+    sopt = adamw(server_lr)
+    state = {"client": params["client"], "server": params["server"],
+             "opt_server": sopt.init(params["server"])}
+    rnd = P.make_fed_round(api, "heron", Z.ZOConfig(mu=mu, n_pairs=1),
+                           P.FedConfig(n_clients=n_clients, h=h),
+                           zo_sgd(lr), sopt, uplink="seed_replay",
+                           client_lr=lr)
+    return state, rb, rnd
+
 
 def _round_setup(cfg, dev, n_clients, h, batch, seq, mu, lr, server_lr,
                  seed=0):
     import torch
     from repro_torch.core import protocols as P
-    from repro_torch.core import zo as Z
     from repro_torch.models import transformer as T
-    from repro_torch.optim.optimizers import adamw, zo_sgd
-    params = T.init_lm(cfg, seed=seed, device=dev)
-    sopt = adamw(server_lr)
-    state = {"client": params["client"], "server": params["server"],
-             "opt_server": sopt.init(params["server"])}
     rng = np.random.default_rng(seed)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab,
                                         (n_clients, h, batch, seq + 1)),
                            device=dev)
     rb = {"inputs": toks[..., :-1], "labels": toks[..., 1:]}
-    rnd = P.make_fed_round(P.lm_api(cfg), "heron",
-                           Z.ZOConfig(mu=mu, n_pairs=1),
-                           P.FedConfig(n_clients=n_clients, h=h),
-                           zo_sgd(lr), sopt, uplink="seed_replay",
-                           client_lr=lr)
-    return state, rb, rnd
+    return _make_round(P.lm_api(cfg), T.init_lm(cfg, seed=seed, device=dev),
+                       rb, n_clients, h, mu, lr, server_lr)
+
+
+def _cnn_round_setup(cfg, dev, n_clients, h, batch, hw, mu, lr, server_lr,
+                     seed=0):
+    """Images and labels from a numpy seed (no dataset is downloaded)."""
+    import torch
+    from repro_torch.core import protocols as P
+    from repro_torch.models import cnn as CNN
+    rng = np.random.default_rng(seed)
+    rb = {"inputs": torch.as_tensor(rng.standard_normal(
+              (n_clients, h, batch, hw, hw, 3), dtype=np.float32),
+              device=dev),
+          "labels": torch.as_tensor(rng.integers(
+              0, cfg.classes, (n_clients, h, batch)), device=dev)}
+    return _make_round(P.cnn_api(cfg), CNN.init_cnn(cfg, seed=seed,
+                                                    device=dev),
+                       rb, n_clients, h, mu, lr, server_lr)
 
 
 def launch_counts():
@@ -325,54 +448,84 @@ def reset_counts():
             d[k] = 0
 
 
-def run_round(dev):
+def check_counts(what, counts, expect):
+    """``expect``: kernel -> launches, or None for "more than zero"."""
+    for k, want in expect.items():
+        if (counts[k] <= 0) if want is None else (counts[k] != want):
+            fail(f"{what}: launch counts {counts}, expected {expect} "
+                 "(None: more than zero)")
+
+
+def drive_round(phase, desc, setup, expect, round_seed=20261016):
+    """A warm-up round, then one timed round from the same state: finite
+    losses and params, moved client params, the kernels' launch counts
+    against ``expect``; then one more round under the profiler."""
     import torch
-    from repro_torch.configs.gpt2 import gpt2_small
     from repro_torch.tree import tree_leaves
-    cfg = gpt2_small()
-    state, rb, rnd = _round_setup(cfg, dev, n_clients=2, h=1, batch=4,
-                                  seq=256, mu=1e-3, lr=1e-4,
-                                  server_lr=2e-4)
-    rnd(state, rb, 20261016)                 # warm-up round
+    state, rb, rnd = setup
+    rnd(state, rb, round_seed)               # warm-up round
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    new_state, m = rnd(state, rb, 20261016)
+    new_state, m = rnd(state, rb, round_seed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     cl, sl = float(m["client_loss"]), float(m["server_loss"])
     if not (np.isfinite(cl) and np.isfinite(sl)):
-        fail(f"round losses not finite: client {cl} server {sl}")
+        fail(f"{desc}: losses not finite: client {cl} server {sl}")
     for t in tree_leaves(new_state["client"]) + tree_leaves(
             new_state["server"]):
         if not bool(torch.isfinite(t.float()).all()):
-            fail("round produced non-finite parameters")
+            fail(f"{desc}: non-finite parameters")
     moved = any(not torch.equal(a, b) for a, b in zip(
         tree_leaves(state["client"]), tree_leaves(new_state["client"])))
     if not moved:
-        fail("the seed-replay aggregate left every client leaf unchanged")
-    if counts["zo_dual_matmul"] != 48 or counts["zo_dual_flash_attention"] \
-            != 8 or counts["zo_noise"] <= 0:
-        fail(f"launch counts {counts}: expected 48 K2, 8 K3 and > 0 K1")
-    log(5, f"gpt2-small round (N=2 h=1 n_pairs=1, 4x256 tokens per client, "
-        f"seed_replay): client_loss {cl} server_loss {sl} uplink_bytes "
+        fail(f"{desc}: the seed-replay aggregate left every client leaf "
+             "unchanged")
+    check_counts(desc, counts, expect)
+    log(phase, f"{desc}: client_loss {cl} server_loss {sl} uplink_bytes "
         f"{m['uplink_bytes']} uplink_bytes_dense {m['uplink_bytes_dense']} "
         f"wall_s {wall} max_memory_allocated {peak} launches {counts}")
-    profile_round(rnd, state, rb, wall)
+    profile_round(phase, rnd, state, rb, round_seed, wall)
     return counts
 
 
-def profile_round(rnd, state, rb, wall_s):
+def run_round(dev):
+    from repro_torch.configs.gpt2 import gpt2_small
+    return drive_round(
+        5, "gpt2-small round (N=2 h=1 n_pairs=1, 4x256 tokens per client, "
+        "seed_replay)",
+        _round_setup(gpt2_small(), dev, n_clients=2, h=1, batch=4, seq=256,
+                     mu=1e-3, lr=1e-4, server_lr=2e-4),
+        {"zo_dual_matmul": 48, "zo_dual_flash_attention": 8,
+         "zo_noise": None, "zo_matmul": 0, "flash_attention": 0})
+
+
+def run_cnn_round(dev):
+    """ResNet-18 at full width: per client the stem conv, block0's c1 and
+    c2 (im2col) and the aux fc go through K2, 4 x 5 = 20 launches; the
+    norm leaves' noise and the replay through K1."""
+    from repro_torch.configs.resnet18_cifar import full_config
+    return drive_round(
+        6, "resnet18 round (N=5 h=1 n_pairs=1, 64 images 32x32x3 per "
+        "client, seed_replay)",
+        _cnn_round_setup(full_config(), dev, n_clients=5, h=1, batch=64,
+                         hw=32, mu=1e-3, lr=2e-2, server_lr=2e-3),
+        {"zo_dual_matmul": 20, "zo_dual_flash_attention": 0,
+         "zo_noise": None, "zo_matmul": 0, "flash_attention": 0})
+
+
+def profile_round(phase, rnd, state, rb, round_seed, wall_s):
     """Device time of one more round by kernel (torch.profiler), and the
     card's idle share of the unprofiled round's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        rnd(state, rb, 20261016)
+        rnd(state, rb, round_seed)
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -383,17 +536,17 @@ def profile_round(rnd, state, rb, wall_s):
         rows.append((us, ev.count, ev.key))
     busy_ms = sum(r[0] for r in rows) / 1e3
     if busy_ms <= 0:
-        log(5, "profile: the profiler saw no device time (not measured)")
+        log(phase, "profile: the profiler saw no device time (not measured)")
         return
     rows.sort(reverse=True)
     top = "; ".join(f"{k[:48]} x{n} {us / 1e3:.3f} ms" for us, n, k in
                     rows[:8])
-    log(5, f"profile: device busy {busy_ms:.3f} ms of the round's "
+    log(phase, f"profile: device busy {busy_ms:.3f} ms of the round's "
         f"{1e3 * wall_s:.3f} ms wall (idle share "
         f"{1 - busy_ms / (1e3 * wall_s):.3f}); top kernels: {top}")
 
 
-def check_small_round(dev):
+def check_small_round(phase, desc, setup_fn):
     """The same small round on the card and on the CPU: the card runs
     the kernels, the CPU their plain versions.  Tolerance: losses rtol
     1e-4; params |d| <= 1e-5 + 1e-4 |p| (f32, other summation orders,
@@ -401,43 +554,152 @@ def check_small_round(dev):
     because its first AdamW step, ~g/|g|, turns rounding in a near-zero
     gradient into an O(lr) change."""
     import torch
-    from repro_torch.configs.gpt2 import gpt2_tiny
     from repro_torch.tree import tree_leaves
-    cfg = gpt2_tiny()
-    out = {}
-    for d in (dev, torch.device("cpu")):
-        state, rb, rnd = _round_setup(cfg, d, n_clients=2, h=2, batch=2,
-                                      seq=32, mu=1e-2, lr=1e-3,
-                                      server_lr=1e-4, seed=3)
-        new, m = rnd(state, rb, 77)
-        out[d.type] = (new, m)
-    (gc, mc), (pc, mp) = out["cuda"], out["cpu"]
+    out = []
+    for d in (torch.device("cuda", 0), torch.device("cpu")):
+        state, rb, rnd = setup_fn(d)
+        out.append(rnd(state, rb, 77))
+    (gc, mc), (pc, mp) = out
     for k in ("client_loss", "server_loss"):
         a, b = float(mc[k]), float(mp[k])
         if not abs(a - b) <= 1e-4 * abs(b):
-            fail(f"small round {k}: card {a} vs cpu {b}")
+            fail(f"{desc} {k}: card {a} vs cpu {b}")
     worst = 0.0
     for part in ("client", "server"):
         for a, b in zip(tree_leaves(gc[part]), tree_leaves(pc[part])):
             a, b = a.cpu().float(), b.float()
             d = (a - b).abs()
             if not bool((d <= 1e-5 + 1e-4 * b.abs()).all()):
-                fail(f"small round {part} params: max |d| {float(d.max())}")
+                fail(f"{desc} {part} params: max |d| {float(d.max())}")
             worst = max(worst, float(d.max()))
-    log(5, f"gpt2-tiny round (N=2 h=2) on the card == on the CPU: losses "
+    log(phase, f"{desc} on the card == on the CPU: losses "
         f"{float(mc['client_loss'])} / {float(mc['server_loss'])}, max "
         f"param |d| {worst}")
 
 
+def check_small_rounds():
+    from repro_torch.configs.gpt2 import gpt2_tiny
+    from repro_torch.configs.resnet18_cifar import smoke_config
+    check_small_round(5, "gpt2-tiny round (N=2 h=2)", lambda d: _round_setup(
+        gpt2_tiny(), d, n_clients=2, h=2, batch=2, seq=32, mu=1e-2, lr=1e-3,
+        server_lr=1e-4, seed=3))
+    check_small_round(6, "cnn smoke_config round (N=2 h=2, 4 images 8x8)",
+                      lambda d: _cnn_round_setup(
+                          smoke_config(), d, n_clients=2, h=2, batch=4,
+                          hw=8, mu=1e-2, lr=1e-3, server_lr=1e-4, seed=3))
+
+
 # ---------------------------------------------------------------------------
-# phase 6: times
+# phase 7: the single-probe forwards
 # ---------------------------------------------------------------------------
 
-def time_kernels(dev, counts, errs):
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def single_probe(desc, dual_loss, single_loss, expect, rtol):
+    """One single-probe loss (launch counts against ``expect``) held
+    against the perturbed half l_pert of the dual forward on the same
+    seeds: the two evaluate one function of theta + mu*U."""
+    (l0, lp, _), dual_s = _timed(dual_loss)
+    single_loss()                            # warm-up
+    reset_counts()
+    ls, single_s = _timed(single_loss)
+    counts = launch_counts()
+    check_counts(desc, counts, expect)
+    lp, ls = float(lp), float(ls)
+    d = abs(ls - lp)
+    if not (np.isfinite(ls) and d <= rtol * abs(lp)):
+        fail(f"{desc}: single-probe loss {ls} vs dual l_pert {lp}")
+    log(7, f"{desc}: loss {ls} vs dual l_pert {lp} (l_clean {float(l0)}): "
+        f"|d| {d} <= {rtol} |l_pert|; wall_s single {single_s} dual "
+        f"{dual_s}; launches {counts}")
+    return counts
+
+
+def check_single_probe(dev):
+    """Tolerance: gpt2-small rtol 1e-3 (bf16 activations: the single and
+    dual forwards give bit-equal K4/K2 and K5/K3 outputs, but the library
+    norms and logit GEMMs see other batch shapes, and one bf16 rounding
+    step, 2^-8 relative, in the smashed data moves the loss by far less);
+    ResNet-18 rtol 1e-5 (f32 throughout)."""
+    import torch
+    from repro_torch.configs.gpt2 import gpt2_small
+    from repro_torch.configs.resnet18_cifar import full_config
+    from repro_torch.core import protocols as P
+    from repro_torch.kernels import ops as O
+    from repro_torch.models import cnn as CNN
+    from repro_torch.models import transformer as T
+    rng = np.random.default_rng(11)
+    mu = 1e-3
+    with torch.no_grad():
+        cfg = gpt2_small()
+        cp = T.init_lm(cfg, seed=0, device=dev)["client"]
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 257)),
+                               device=dev)
+        batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+        seeds = O.leaf_seed_tree(cp, 4242)
+        pz = O.Perturb(seeds=seeds, mu=mu, dual=False)
+
+        def lm_single():
+            s = T.client_forward(cp, cfg, batch["inputs"], perturb=pz)
+            return T.lm_loss(T.aux_forward(cp, cfg, s, perturb=pz),
+                             batch["labels"], cfg.vocab)
+
+        counts = single_probe(
+            "gpt2-small single-probe client+aux loss (4x256 tokens)",
+            lambda: P.lm_api(cfg).client_dual_loss(cp, batch, seeds, mu),
+            lm_single, {"zo_matmul": 24, "flash_attention": 4,
+                        "zo_dual_matmul": 0, "zo_dual_flash_attention": 0},
+            1e-3)
+        del cp
+
+        cfg = full_config()
+        cp = CNN.init_cnn(cfg, seed=0, device=dev)["client"]
+        batch = {"inputs": torch.as_tensor(rng.standard_normal(
+                     (64, 32, 32, 3), dtype=np.float32), device=dev),
+                 "labels": torch.as_tensor(rng.integers(0, 10, (64,)),
+                                           device=dev)}
+        seeds = O.leaf_seed_tree(cp, 4242)
+        pz = O.Perturb(seeds=seeds, mu=mu, dual=False)
+
+        def cnn_single():
+            s = CNN.client_forward(cp, batch["inputs"], cfg, pz)
+            return CNN.xent(CNN.aux_logits(cp, s, cfg, pz), batch["labels"])
+
+        single_probe(
+            "resnet18 single-probe client forward+aux loss (64 images)",
+            lambda: P.cnn_api(cfg).client_dual_loss(cp, batch, seeds, mu),
+            cnn_single, {"zo_matmul": 4, "flash_attention": 0,
+                         "zo_dual_matmul": 0}, 1e-5)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8: times
+# ---------------------------------------------------------------------------
+
+def abba(fa, fb):
+    """Times of ``fa`` and ``fb`` measured in turns a, b, b, a: the mean
+    of each pair, so a drift of the card's clock during the measurement
+    touches both alike."""
+    ta1, tb1, tb2, ta2 = (time_ms(f) for f in (fa, fb, fb, fa))
+    return (ta1 + ta2) / 2, (tb1 + tb2) / 2
+
+
+def time_kernels(dev, counts, counts_sp, errs):
+    """``counts``: launches of the gpt2-small round (K1-K3);
+    ``counts_sp``: of the gpt2-small single-probe forward (K4, K5)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import noise as N
+    from repro_torch.kernels import ops as O
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import zo_matmul as ZM
     rows = []
@@ -458,7 +720,7 @@ def time_kernels(dev, counts, errs):
                      HASH_OPS * ids.numel() * 768, "float32")
     k1.append(("rows 2048x768", ms, pl, b, by))
     for name, ms, pl, b, by in k1:
-        log(6, f"K1 {name}: kernel_ms {ms} plain_ms {pl} bound_ms {b} "
+        log(8, f"K1 {name}: kernel_ms {ms} plain_ms {pl} bound_ms {b} "
             f"({by})")
     _, ms, pl, b, by = k1[0]
     rows.append({"name": "zo_noise", "route": "cuda",
@@ -481,7 +743,7 @@ def time_kernels(dev, counts, errs):
         lib = time_ms(lambda: (torch.matmul(xa, wa), torch.matmul(xb, wb)))
         n_bytes = 2 * (2 * 1024 * K + K * Nn + 2 * 1024 * Nn)
         b, by = bound_ms(n_bytes, 2 * 2 * 1024 * K * Nn, "bfloat16")
-        log(6, f"K2 bf16 M=1024 {K}x{Nn}: kernel_ms {ms} plain_ms {pl} "
+        log(8, f"K2 bf16 M=1024 {K}x{Nn}: kernel_ms {ms} plain_ms {pl} "
             f"library_ms {lib} (two bf16 torch.matmul on materialised W, "
             f"W+mu*U) bound_ms {b} ({by})")
         k2_rows.append((K, Nn, ms, pl, lib, b, by))
@@ -518,7 +780,7 @@ def time_kernels(dev, counts, errs):
         F.scaled_dot_product_attention(t[0], t[2], t[3], is_causal=True),
         F.scaled_dot_product_attention(t[1], t[4], t[5], is_causal=True)))
     for mode, (ms, pl, b, by) in k3.items():
-        log(6, f"K3 bf16 B{B} S{S} H{H} D{D} {mode}: kernel_ms {ms} "
+        log(8, f"K3 bf16 B{B} S{S} H{H} D{D} {mode}: kernel_ms {ms} "
             f"plain_ms {pl} bound_ms {b} ({by})"
             + (f" library_ms {lib} (two causal SDPA calls)"
                if mode == "weights" else ""))
@@ -530,6 +792,61 @@ def time_kernels(dev, counts, errs):
                  "launches": counts["zo_dual_flash_attention"],
                  "max_abs_err": errs[2], "ms": ms, "plain_ms": pl,
                  "bound_ms": b, "bound_by": by, "library_ms": lib})
+
+    # K4: gpt2-small's up projection in bf16 (the main path's row) and
+    # ResNet-18's block conv over im2col patches in f32
+    k4 = []
+    for name, dtype, M, K, Nn in (k4_cases()[1], k4_cases()[4]):
+        _, x, w = k2_inputs(dev, dtype, M, K, Nn)
+        ms = time_ms(lambda: ZM.zo_matmul(x, w, 3, 1e-3))
+        pl = time_ms(lambda: k4_plain(x, w, 3, 1e-3, True, 0))
+        wp = (w.float() + 1e-3 * N.uniform_noise(3, w.shape, device=dev)
+              ).to(dtype)
+        lib = time_ms(lambda: torch.matmul(x, wp))
+        dn = str(dtype).split(".")[-1]
+        b, by = bound_ms(x.element_size() * (M * K + K * Nn + M * Nn),
+                         2 * M * K * Nn, dn)
+        log(8, f"K4 {dn} {name} M={M}: kernel_ms {ms} plain_ms {pl} "
+            f"library_ms {lib} (one {dn} torch.matmul on materialised "
+            f"W+mu*U) bound_ms {b} ({by})")
+        k4.append((ms, pl, lib, b, by))
+    ms, pl, lib, b, by = k4[0]
+    rows.append({"name": "zo_matmul", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/zo_matmul.cu",
+                 "replaces": "src/repro/kernels/zo_matmul.py:145",
+                 "launches": counts_sp["zo_matmul"], "max_abs_err": errs[3],
+                 "ms": ms, "plain_ms": pl, "bound_ms": b, "bound_by": by,
+                 "library_ms": lib})
+
+    # K5 at the main path's shape, bf16, one causal stream
+    ms = time_ms(lambda: FA.flash_attention(qa, k, v))
+    pl = time_ms(lambda: R.flash_attention_ref(qa, k, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        t[0], t[2], t[3], is_causal=True))
+    b, by = bound_ms(2 * 4 * B * S * H * D, n_ops // 2, "bfloat16")
+    log(8, f"K5 bf16 B{B} S{S} H{H} D{D}: kernel_ms {ms} plain_ms {pl} "
+        f"library_ms {lib} (one causal SDPA call) bound_ms {b} ({by})")
+    rows.append({"name": "flash_attention", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:115",
+                 "launches": counts_sp["flash_attention"],
+                 "max_abs_err": errs[4], "ms": ms, "plain_ms": pl,
+                 "bound_ms": b, "bound_by": by, "library_ms": lib})
+
+    # the fused dual probe against two single-probe passes
+    _, x, w = k2_inputs(dev, torch.bfloat16, 1024, 768, 3072)
+    fused, split = abba(lambda: O.zo_dual_forward(x, w, 3, 1e-3),
+                        lambda: O.zo_dual_forward_split(x, w, 3, 1e-3))
+    log(8, f"fused vs split, bf16 M=1024 768x3072: K2 zo_dual_forward "
+        f"{fused} ms, zo_dual_forward_split (2 x K4) {split} ms: split / "
+        f"fused {split / fused}")
+    fused, split = abba(
+        lambda: FA.zo_dual_flash_attention(qa, qb, k, v, kb=kb, vb=vb,
+                                           perturb_b=False),
+        lambda: (FA.flash_attention(qa, k, v), FA.flash_attention(qb, kb,
+                                                                  vb)))
+    log(8, f"fused vs split, bf16 B{B} S{S} H{H} D{D} weights mode: K3 "
+        f"{fused} ms, 2 x K5 {split} ms: split / fused {split / fused}")
     return rows
 
 
@@ -558,10 +875,13 @@ def main():
     for r in regs:
         log(1, r.strip())
 
-    errs = (check_k1(dev), check_k2(dev), check_k3(dev))
+    errs = (check_k1(dev), check_k2(dev), check_k3(dev), check_k4(dev),
+            check_k5(dev))
     counts = run_round(dev)
-    check_small_round(dev)
-    rows = time_kernels(dev, counts, errs)
+    run_cnn_round(dev)
+    check_small_rounds()
+    counts_sp = check_single_probe(dev)
+    rows = time_kernels(dev, counts, counts_sp, errs)
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

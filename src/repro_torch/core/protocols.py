@@ -2,9 +2,10 @@
 :mod:`repro.core.protocols` on the kernel noise stream.
 
 One round: each of N clients takes h local steps of the forward-only ZO
-estimator (the fused dual-probe forward: kernels K1-K3 on the card); the
-server takes sequential first-order AdamW steps on the clients' smashed
-data (``torch.autograd`` over plain PyTorch ops); the Fed-Server
+estimator (the fused dual-probe forward: kernels K1-K3 on the card, K2
+through im2col for the CNN's convs); the server takes sequential
+first-order AdamW steps on the clients' smashed data
+(``torch.autograd`` over plain PyTorch ops); the Fed-Server
 aggregates either the clients' full params (``uplink="dense"``) or
 rebuilds them from ``(seed, coeffs)`` alone (``uplink="seed_replay"``).
 Clients run in a Python loop where the JAX package uses ``vmap``.
@@ -25,6 +26,7 @@ from repro_torch.core import aggregate as AG
 from repro_torch.core import zo as Z
 from repro_torch.core.split import param_bytes
 from repro_torch.kernels import ops as O
+from repro_torch.models import cnn as CNN
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.optimizers import Optimizer
@@ -50,7 +52,7 @@ def lm_api(cfg: ModelConfig) -> ModelAPI:
         return T.lm_loss(logits, batch["labels"], cfg.vocab)
 
     def client_dual_loss(cp, batch, seeds, mu):
-        pz = O.Perturb(seeds=seeds, mu=mu)
+        pz = O.Perturb(seeds=seeds, mu=mu, dual=True)
         pos = batch.get("positions")
         s2 = T.client_forward(cp, cfg, batch["inputs"], pos, perturb=pz)
         pos2 = None if pos is None else torch.cat([pos, pos], dim=0)
@@ -63,6 +65,23 @@ def lm_api(cfg: ModelConfig) -> ModelAPI:
 
     seed_pred = O.attn_kv_seed_pred if cfg.attn_probe == "scores" else None
     return ModelAPI(server_loss, client_dual_loss, seed_pred)
+
+
+def cnn_api(cfg: CNN.CNNConfig) -> ModelAPI:
+    def server_loss(sp, cp_const, smashed, batch):
+        return CNN.xent(CNN.server_logits(sp, smashed, cfg),
+                        batch["labels"])
+
+    def client_dual_loss(cp, batch, seeds, mu):
+        pz = O.Perturb(seeds=seeds, mu=mu, dual=True)
+        s2 = CNN.client_forward(cp, batch["inputs"], cfg, pz)
+        logits2 = CNN.aux_logits(cp, s2, cfg, pz)
+        B = batch["inputs"].shape[0]
+        l0 = CNN.xent(logits2[:B], batch["labels"])
+        lp = CNN.xent(logits2[B:], batch["labels"])
+        return l0, lp, s2[:B]
+
+    return ModelAPI(server_loss, client_dual_loss)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -47,6 +47,13 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                     _F, _F, _U, _F, _F, _U, _P],
     },
+    "zo_matmul": {
+        "zo_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _U, _F, _U, _P],
+    },
+    "flash_attention": {
+        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _F, _F, _P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,10 @@
 """Kernel dispatch and the per-leaf seed scheme, mirroring
 :mod:`repro.kernels.ops`.
 
-Dispatch: :func:`zo_dual_matmul`, :func:`zo_dual_flash_attention` and
-:func:`zo_noise` launch kernels K2, K3 and K1 for CUDA tensors and run
-the plain PyTorch versions for CPU tensors (the wrappers decide by the
+Dispatch: :func:`zo_noise`, :func:`zo_dual_matmul`,
+:func:`zo_dual_flash_attention`, :func:`zo_matmul` and
+:func:`flash_attention` launch kernels K1-K5 for CUDA tensors and run the
+plain PyTorch versions for CPU tensors (the wrappers decide by the
 tensor's device; there is no backend knob).
 
 Seed scheme: every parameter leaf gets ``seed_leaf = base_seed +
@@ -30,8 +31,25 @@ zo_noise = ZM.zo_noise
 zo_noise_rows = ZM.zo_noise_rows
 zo_dual_matmul = ZM.zo_dual_matmul
 zo_dual_flash_attention = FA.zo_dual_flash_attention
+zo_matmul = ZM.zo_matmul
+flash_attention = FA.flash_attention
 
 _M32 = 0xFFFFFFFF
+
+
+def zo_dual_forward(x, w, seed, mu):
+    """(clean, perturbed) pair of the two-point estimator from ONE fused
+    pass (kernel K2: one read of W serves both)."""
+    return zo_dual_matmul(x, x, w, seed, 0.0, mu, perturb_a=False,
+                          perturb_b=True)
+
+
+def zo_dual_forward_split(x, w, seed, mu):
+    """The unfused baseline of :func:`zo_dual_forward`: two independent
+    passes over W (two K4 launches, clean then perturbed)."""
+    clean = zo_matmul(x, w, seed, 0.0, perturb=False)
+    pert = zo_matmul(x, w, seed, mu, perturb=True)
+    return clean, pert
 
 
 def _int32(v: int) -> int:
@@ -181,17 +199,19 @@ def perturb_tree(params, seeds, mu, rep=0):
 
 @dataclasses.dataclass(frozen=True)
 class Perturb:
-    """Perturbation context threaded through the client's dual-probe
-    forward, whose activations carry [clean; perturbed] halves stacked
-    along the leading batch axis.  (The JAX package's single-probe mode,
-    ``dual=False``, runs kernels K4/K5, which are not ported yet.)
+    """Perturbation context threaded through the client forward.
 
     ``seeds`` mirrors the layer's param subtree (ints / None); ``rep`` is
     the scan-segment repeat index (row offset into stacked leaves).
+    ``dual=True`` means the activations carry [clean; perturbed] halves
+    stacked along the leading batch axis and one fused pass (kernels K2,
+    K3) serves both; ``dual=False`` is the single-probe forward of
+    ``theta + mu*U`` alone (kernels K4, K5).
     """
     seeds: Any
     mu: float
     rep: int = 0
+    dual: bool = False
 
 
 def psub(perturb: Perturb | None, key):

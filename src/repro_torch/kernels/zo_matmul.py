@@ -1,6 +1,7 @@
-"""Wrappers of kernels K1 (``csrc/zo_noise.cu``) and K2
-(``csrc/zo_dual_matmul.cu``), the counterparts of ``zo_noise`` and
-``zo_dual_matmul`` in :mod:`repro.kernels.zo_matmul`.
+"""Wrappers of kernels K1 (``csrc/zo_noise.cu``), K2
+(``csrc/zo_dual_matmul.cu``) and K4 (``csrc/zo_matmul.cu``), the
+counterparts of ``zo_noise``, ``zo_dual_matmul`` and ``zo_matmul`` in
+:mod:`repro.kernels.zo_matmul`.
 
 A wrapper launches its kernel for CUDA tensors, on PyTorch's current
 stream, and raises if the launch fails.  It takes the plain PyTorch
@@ -16,7 +17,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import noise as N
 from repro_torch.kernels import ref as R
 
-LAUNCHES = {"zo_noise": 0, "zo_dual_matmul": 0}
+LAUNCHES = {"zo_noise": 0, "zo_dual_matmul": 0, "zo_matmul": 0}
 
 
 def zo_noise(seed, shape, row_offset=0, col_offset=0, *, device):
@@ -58,6 +59,22 @@ def zo_noise_rows(seed, ids: torch.Tensor, n_cols: int):
     return out.reshape(tuple(ids.shape) + (n_cols,))
 
 
+def _check_matmul(what, w, *xs):
+    """Device, contiguity, shapes and dtype of a K2 / K4 launch."""
+    dev = build.require_cuda(what, *xs, w)
+    x = xs[0]
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0] \
+            or any(t.shape != x.shape for t in xs):
+        raise ValueError(f"{what}: shapes "
+                         f"{[tuple(t.shape) for t in xs]} @ "
+                         f"{tuple(w.shape)}")
+    if any(t.dtype != w.dtype for t in xs) or w.dtype not in \
+            build.DTYPE_CODES:
+        raise ValueError(f"{what}: dtypes {[t.dtype for t in xs]}, "
+                         f"{w.dtype}; expected one of f32 / bf16")
+    return dev
+
+
 def zo_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
                    perturb_a: bool = False, perturb_b: bool = True):
     """K2: ``(xa @ (W + mu_a*U), xb @ (W + mu_b*U))`` for one read of W.
@@ -73,15 +90,7 @@ def zo_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
             u = N.uniform_noise(seed, w.shape, row_offset, device=w.device)
         return R.zo_dual_matmul_ref(xa, xb, w, u, mu_a, mu_b,
                                     perturb_a=perturb_a, perturb_b=perturb_b)
-    dev = build.require_cuda("zo_dual_matmul", xa, xb, w)
-    if xa.dim() != 2 or w.dim() != 2 or xb.shape != xa.shape \
-            or xa.shape[1] != w.shape[0]:
-        raise ValueError(f"zo_dual_matmul: shapes {tuple(xa.shape)}, "
-                         f"{tuple(xb.shape)} @ {tuple(w.shape)}")
-    if not (xa.dtype == xb.dtype == w.dtype) or xa.dtype not in \
-            build.DTYPE_CODES:
-        raise ValueError(f"zo_dual_matmul: dtypes {xa.dtype}, {xb.dtype}, "
-                         f"{w.dtype}; expected one of f32 / bf16")
+    dev = _check_matmul("zo_dual_matmul", w, xa, xb)
     M, K = xa.shape
     Nn = w.shape[1]
     ya = torch.empty((M, Nn), dtype=xa.dtype, device=dev)
@@ -95,3 +104,30 @@ def zo_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
         build.check(err, "zo_dual_matmul")
         LAUNCHES["zo_dual_matmul"] += 1
     return ya, yb
+
+
+def zo_matmul(x, w, seed, mu, *, row_offset=0, perturb: bool = True):
+    """K4: ``y = x @ (W + mu*U(seed))``, or ``x @ W`` with
+    ``perturb=False`` (the clean pass of the two-pass baseline).
+
+    x: (M, K); w: (K, N); one dtype, f32 or bf16; f32 accumulation,
+    output in x's dtype.  Equals stream b of :func:`zo_dual_matmul` with
+    the same (seed, mu, row_offset) bit for bit on the card.
+    """
+    if x.device.type == "cpu":
+        if not perturb:
+            return R.matmul_ref(x, w)
+        u = N.uniform_noise(seed, w.shape, row_offset, device=w.device)
+        return R.zo_matmul_ref(x, w, u, mu)
+    dev = _check_matmul("zo_matmul", w, x)
+    M, K = x.shape
+    Nn = w.shape[1]
+    y = torch.empty((M, Nn), dtype=x.dtype, device=dev)
+    if y.numel():
+        err = build.library("zo_matmul").zo_matmul(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), M, K, Nn,
+            build.DTYPE_CODES[x.dtype], int(perturb), int(N._u32(seed)),
+            float(mu), int(N._u32(row_offset)), build.stream(dev))
+        build.check(err, "zo_matmul")
+        LAUNCHES["zo_matmul"] += 1
+    return y

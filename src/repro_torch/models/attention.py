@@ -6,7 +6,8 @@ The server's first-order step differentiates plain PyTorch attention
 einsum), as the JAX package differentiates XLA code.  The client's dual
 probe runs both estimator streams through ONE fused pass,
 :func:`repro_torch.kernels.ops.zo_dual_flash_attention` (kernel K3 on the
-card).
+card); the single probe runs its one stream through
+:func:`repro_torch.kernels.ops.flash_attention` (kernel K5).
 """
 from __future__ import annotations
 
@@ -131,8 +132,9 @@ def _dual_probe_attention(q, k, v, cfg: ModelConfig, *, window: int,
 def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
                     local: bool = False, perturb=None):
     """Self-attention for training: q/k/v projections, RoPE, attention,
-    output projection.  ``perturb`` (the ZO dual probe) fuses weight noise
-    into the projections and runs the fused dual attention."""
+    output projection.  ``perturb`` (the ZO probe) fuses weight noise into
+    the projections; the dual probe runs the fused dual attention and the
+    single probe the single-stream flash kernel."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     cdt = cfg.torch_compute_dtype()
@@ -140,7 +142,8 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
     # score-probe mode: k/v come from the CLEAN half only and wk/wv are
     # never weight-perturbed (ops.attn_kv_seed_pred keeps the estimator
     # and replay seed streams consistent with this)
-    score_probe = perturb is not None and cfg.attn_probe == "scores"
+    score_probe = (perturb is not None and perturb.dual
+                   and cfg.attn_probe == "scores")
     q = _split_heads(L.dense(params["wq"], x, cdt, psub(perturb, "wq")),
                      cfg.n_heads, hd)
     xkv = x[: x.shape[0] // 2] if score_probe else x
@@ -159,10 +162,17 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
         k = L.apply_rope(k, kv_positions, cfg.rope_theta)
     elif cfg.rope_kind != "none":
         raise NotImplementedError(f"rope_kind={cfg.rope_kind!r}")
-    if perturb is not None:
+    if perturb is not None and perturb.dual:
         o = _dual_probe_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), cfg, window=window,
                                   perturb=perturb, score_probe=score_probe)
+    elif perturb is not None:
+        # the single probe's one stream through the flash kernel; the
+        # unperturbed forward stays on the differentiable plain versions
+        o = O.flash_attention(q.contiguous(), k.contiguous(),
+                              v.contiguous(), causal=True, window=window,
+                              cap=cfg.attn_softcap or 0.0,
+                              scale=cfg.attn_scale)
     elif cfg.attn_impl == "naive":
         o = naive_attention(q, k, v, causal=True, window=window,
                             cap=cfg.attn_softcap, scale=cfg.attn_scale)

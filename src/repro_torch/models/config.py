@@ -7,7 +7,7 @@ import dataclasses
 
 import torch
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,10 +65,10 @@ class ModelConfig:
         return ((self.vocab + 255) // 256) * 256
 
     def torch_param_dtype(self) -> torch.dtype:
-        return _DTYPES[self.param_dtype]
+        return DTYPES[self.param_dtype]
 
     def torch_compute_dtype(self) -> torch.dtype:
-        return _DTYPES[self.compute_dtype]
+        return DTYPES[self.compute_dtype]
 
     def layer_specs(self) -> tuple[LayerSpec, ...]:
         reps = (self.n_layers + len(self.pattern) - 1) // len(self.pattern)

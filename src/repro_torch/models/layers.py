@@ -104,16 +104,17 @@ def _pleaf(p, seed, mu, rep=0):
 
 
 def _dense_perturbed(params, x, perturb, compute_dtype=None):
-    """Dense with the ZO perturbation fused into the matmul (kernel K2 on
-    the card).  The activations carry [clean; perturbed] halves along the
-    leading axis and one read of W serves both; ``perturb.rep``
-    row-offsets the noise of a slice of a stacked leaf."""
+    """Dense with the ZO perturbation fused into the matmul.  In dual
+    mode the activations carry [clean; perturbed] halves along the
+    leading axis and one read of W serves both (kernel K2 on the card);
+    in single-probe mode the whole batch sees ``W + mu*U`` (kernel K4).
+    ``perturb.rep`` row-offsets the noise of a slice of a stacked leaf."""
     w = params["w"]
     if compute_dtype is not None:
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
     seeds = perturb.seeds if isinstance(perturb.seeds, dict) else {}
-    mu, rep = perturb.mu, perturb.rep
+    mu, rep, dual = perturb.mu, perturb.rep, perturb.dual
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])   # batch axis leads: rows [0, M/2)
     half = x2.shape[0] // 2           # of the dual stack are the clean half
@@ -121,35 +122,46 @@ def _dense_perturbed(params, x, perturb, compute_dtype=None):
     sw = seeds.get("w")
     if sw is None:
         y2 = x2 @ w
-    else:
+    elif dual:
         ya, yb = O.zo_dual_matmul(x2[:half].contiguous(),
                                   x2[half:].contiguous(), w.contiguous(),
                                   sw, 0.0, mu, row_offset=off)
         y2 = torch.cat([ya, yb], dim=0)
+    else:
+        y2 = O.zo_matmul(x2.contiguous(), w.contiguous(), sw, mu,
+                         row_offset=off)
 
     if "lora_a" in params:
         la = params["lora_a"].to(x2.dtype)
         lb = params["lora_b"].to(x2.dtype)
         lap = _pleaf(la, seeds.get("lora_a"), mu, rep)
         lbp = _pleaf(lb, seeds.get("lora_b"), mu, rep)
-        y2 = y2 + torch.cat([(x2[:half] @ la) @ lb,
-                             (x2[half:] @ lap) @ lbp], dim=0)
+        if dual:
+            y2 = y2 + torch.cat([(x2[:half] @ la) @ lb,
+                                 (x2[half:] @ lap) @ lbp], dim=0)
+        else:
+            y2 = y2 + (x2 @ lap) @ lbp
     if "b" in params:
         b = params["b"]
         bp = _pleaf(b, seeds.get("b"), mu, rep)
-        y2 = y2 + torch.cat(
-            [b.to(y2.dtype).expand(half, b.shape[-1]),
-             bp.to(y2.dtype).expand(y2.shape[0] - half, b.shape[-1])],
-            dim=0)
+        if dual:
+            y2 = y2 + torch.cat(
+                [b.to(y2.dtype).expand(half, b.shape[-1]),
+                 bp.to(y2.dtype).expand(y2.shape[0] - half, b.shape[-1])],
+                dim=0)
+        else:
+            y2 = y2 + bp.to(y2.dtype)
     return y2.reshape(tuple(lead) + (w.shape[1],))
 
 
 def norm_apply(norm_fn, params, x, perturb=None):
-    """Apply a norm with optionally ZO-perturbed scale/bias; only the
-    perturbed half of the activation stack sees the noise."""
+    """Apply a norm with optionally ZO-perturbed scale/bias; in dual mode
+    only the perturbed half of the activation stack sees the noise."""
     if perturb is None or not O.any_seed(perturb.seeds):
         return norm_fn(params, x)
     pp = O.perturb_tree(params, perturb.seeds, perturb.mu, perturb.rep)
+    if not perturb.dual:
+        return norm_fn(pp, x)
     half = x.shape[0] // 2
     return torch.cat([norm_fn(params, x[:half]), norm_fn(pp, x[half:])],
                      dim=0)

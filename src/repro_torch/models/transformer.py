@@ -188,8 +188,8 @@ def init_aux(gen, cfg: ModelConfig):
 def _embed_perturbed(client_params, cfg: ModelConfig, inputs, perturb):
     """The embedding with the ZO table perturbation.  The noise rows are
     gathered per token id (kernel K1's gathered mode on the card), never
-    materializing the (vocab, d_model) field.  Returns the stacked
-    [clean; perturbed] embedding on a doubled batch axis."""
+    materializing the (vocab, d_model) field.  In dual mode returns the
+    stacked [clean; perturbed] embedding on a doubled batch axis."""
     cdt = cfg.torch_compute_dtype()
     x = L.embed(client_params["embed"], inputs, cdt)
     pe = O.psub(perturb, "embed")
@@ -199,21 +199,22 @@ def _embed_perturbed(client_params, cfg: ModelConfig, inputs, perturb):
     else:
         u = O.zo_noise_rows(st, inputs, x.shape[-1])
         xp = (x.to(torch.float32) + float(perturb.mu) * u).to(cdt)
-    return torch.cat([x, xp], dim=0)
+    return torch.cat([x, xp], dim=0) if perturb.dual else xp
 
 
 def client_forward(client_params, cfg: ModelConfig, inputs, positions=None,
                    perturb=None):
     """Embedding + client blocks -> smashed data (cut-layer activations).
-    With ``perturb`` the clean and perturbed probes ride one pass on a
-    doubled batch axis."""
+    With ``perturb`` the forward is ZO-perturbed; ``perturb.dual`` rides
+    the clean and perturbed probes on one pass over a doubled batch
+    axis."""
     if perturb is not None and not O.any_seed(perturb.seeds):
         perturb = None
     if perturb is None:
         x = L.embed(client_params["embed"], inputs, cfg.torch_compute_dtype())
     else:
         x = _embed_perturbed(client_params, cfg, inputs, perturb)
-        if positions is not None:
+        if perturb.dual and positions is not None:
             positions = torch.cat([positions, positions], dim=0)
     return apply_stack(client_params["layers"], x, cfg, client_specs(cfg),
                        positions=positions,
@@ -223,9 +224,9 @@ def client_forward(client_params, cfg: ModelConfig, inputs, positions=None,
 def aux_forward(client_params, cfg: ModelConfig, smashed, positions=None,
                 perturb=None):
     """Aux head on smashed data -> logits (the client-local predictor).
-    With ``perturb`` the tied unembedding perturbs the table for the
-    second half of the stack only, with the table noise materialised (the
-    embedding's leaf and seed)."""
+    With ``perturb`` the tied unembedding perturbs the table (the
+    embedding's leaf and seed, its noise materialised): for the second
+    half of the stack in dual mode, for the whole batch otherwise."""
     if perturb is not None and not O.any_seed(perturb.seeds):
         perturb = None
     aux = client_params["aux"]
@@ -243,9 +244,12 @@ def aux_forward(client_params, cfg: ModelConfig, smashed, positions=None,
         table = client_params["embed"]["table"].to(torch.float32)
         tp = table + float(perturb.mu) * O.leaf_noise(st, table.shape,
                                                       device=table.device)
-        half = x.shape[0] // 2
-        logits = torch.cat([x[:half].to(torch.float32) @ table.T,
-                            x[half:].to(torch.float32) @ tp.T], dim=0)
+        if perturb.dual:
+            half = x.shape[0] // 2
+            logits = torch.cat([x[:half].to(torch.float32) @ table.T,
+                                x[half:].to(torch.float32) @ tp.T], dim=0)
+        else:
+            logits = x.to(torch.float32) @ tp.T
     return L.softcap(logits, cfg.final_softcap)
 
 

@@ -1,4 +1,6 @@
-"""Kernels K1-K3 on a CUDA card against their plain PyTorch versions.
+"""Kernels K1-K5 on a CUDA card against their plain PyTorch versions,
+and the single-probe kernels against the matching stream of the fused
+ones bit for bit.
 
 Imports neither JAX nor the JAX package, so it runs on the machine with
 the card (which has no JAX) with the repository's conftest skipped:
@@ -54,3 +56,46 @@ def test_cuda_kernels_match_plain():
                                            window=20, cap=5.0)
     torch.testing.assert_close(oa, ra, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(ob, rb, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_single_probe_kernels_match_plain_and_fused_streams():
+    """K4 and K5 in f32 to 1e-4 of their plain versions (other summation
+    order), over ragged shapes (K = 27, N = 10; Skv = 70 against the
+    64-wide kv tile); and bit for bit equal to the matching stream of K2
+    and K3, which run the same tile code."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    for (M, K, Nn) in ((100, 27, 64), (130, 64, 10)):
+        xa, x, w = (torch.as_tensor(a, device=dev) for a in _arrays(
+            5, (M, K), (M, K), (K, Nn), scale=0.3))
+        u = N.uniform_noise(8, w.shape, 2 * K, device=dev)
+        for perturb in (True, False):
+            y = ZM.zo_matmul(x, w, 8, 0.1, row_offset=2 * K,
+                             perturb=perturb)
+            ref = (R.zo_matmul_ref(x, w, u, 0.1) if perturb
+                   else R.matmul_ref(x, w))
+            torch.testing.assert_close(y, ref, rtol=1e-4, atol=1e-4)
+            ya, yb = ZM.zo_dual_matmul(xa, x, w, 8, 0.0, 0.1,
+                                       row_offset=2 * K, perturb_b=perturb)
+            assert torch.equal(y, yb)
+        xh, wh = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        _, yb = ZM.zo_dual_matmul(xh, xh, wh, 8, 0.0, 0.1)
+        assert torch.equal(ZM.zo_matmul(xh, wh, 8, 0.1), yb)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, qb, k, v, kb, vb = (torch.as_tensor(a, device=dev).to(dtype)
+                               for a in _arrays(
+            6, (2, 70, 4, 64), (2, 70, 4, 64), (2, 70, 2, 64),
+            (2, 70, 2, 64), (2, 70, 2, 64), (2, 70, 2, 64)))
+        for kw in (dict(), dict(window=20, cap=5.0),
+                   dict(causal=False, cap=3.0)):
+            o = FA.flash_attention(q, k, v, **kw)
+            if dtype == torch.float32:
+                torch.testing.assert_close(
+                    o, R.flash_attention_ref(q, k, v, **kw), rtol=1e-4,
+                    atol=1e-4)
+            oa, _ = FA.zo_dual_flash_attention(
+                q, qb, k, v, kb=kb, vb=vb, perturb_a=False,
+                perturb_b=False, **kw)
+            assert torch.equal(o, oa)
