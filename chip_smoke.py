@@ -23,9 +23,20 @@ Phases, one line each (any failure exits non-zero):
      the dual forward on the same seeds;
   8. kernel times (CUDA events, median) beside the plain version, a
      PyTorch library yardstick and the card's bound; the fused dual probe
-     (K2, K3) against two single-probe passes (2 x K4, 2 x K5).
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+     (K2, K3) against two single-probe passes (2 x K4, 2 x K5); K6
+     forward and reverse at the RG-LRU round's shapes;
+  9. K6 rg_lru_scan vs its plain version: forward and reverse mode bit
+     for bit at the round's shapes and ragged ones, its autograd backward
+     against autograd through the plain loop;
+ 10. one HERON-SFL round on recurrentgemma-9b at full width, depth cut
+     38 -> 8 layers (N=2 clients, h=1, 2 x 512 tokens each, lean
+     seed-replay uplink): the RG-LRU client blocks through the whole-block
+     fallback (K1 noise, K6 scan), the server's RG-LRU blocks through K6
+     forward and backward; and its smoke config on the card against the
+     CPU.
+Phases 9 and 10 run before phase 8's timings.  The line before the last
+is the kernel table as JSON; the last line is {"ok": true, "device":
+{...}}.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -389,11 +400,12 @@ def check_k5(dev):
 # phase 5: the round
 # ---------------------------------------------------------------------------
 
-def _make_round(api, params, rb, n_clients, h, mu, lr, server_lr):
+def _make_round(api, params, rb, n_clients, h, mu, lr, server_lr,
+                server_eps=1e-8):
     from repro_torch.core import protocols as P
     from repro_torch.core import zo as Z
     from repro_torch.optim.optimizers import adamw, zo_sgd
-    sopt = adamw(server_lr)
+    sopt = adamw(server_lr, eps=server_eps)
     state = {"client": params["client"], "server": params["server"],
              "opt_server": sopt.init(params["server"])}
     rnd = P.make_fed_round(api, "heron", Z.ZOConfig(mu=mu, n_pairs=1),
@@ -404,7 +416,7 @@ def _make_round(api, params, rb, n_clients, h, mu, lr, server_lr):
 
 
 def _round_setup(cfg, dev, n_clients, h, batch, seq, mu, lr, server_lr,
-                 seed=0):
+                 seed=0, draw_on_device=False, server_eps=1e-8):
     import torch
     from repro_torch.core import protocols as P
     from repro_torch.models import transformer as T
@@ -413,8 +425,10 @@ def _round_setup(cfg, dev, n_clients, h, batch, seq, mu, lr, server_lr,
                                         (n_clients, h, batch, seq + 1)),
                            device=dev)
     rb = {"inputs": toks[..., :-1], "labels": toks[..., 1:]}
-    return _make_round(P.lm_api(cfg), T.init_lm(cfg, seed=seed, device=dev),
-                       rb, n_clients, h, mu, lr, server_lr)
+    params = T.init_lm(cfg, seed=seed, device=dev,
+                       draw_on_device=draw_on_device)
+    return _make_round(P.lm_api(cfg), params, rb, n_clients, h, mu, lr,
+                       server_lr, server_eps)
 
 
 def _cnn_round_setup(cfg, dev, n_clients, h, batch, hw, mu, lr, server_lr,
@@ -436,14 +450,16 @@ def _cnn_round_setup(cfg, dev, n_clients, h, batch, hw, mu, lr, server_lr,
 
 def launch_counts():
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rg_lru as RG
     from repro_torch.kernels import zo_matmul as ZM
-    return {**ZM.LAUNCHES, **FA.LAUNCHES}
+    return {**ZM.LAUNCHES, **FA.LAUNCHES, **RG.LAUNCHES}
 
 
 def reset_counts():
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rg_lru as RG
     from repro_torch.kernels import zo_matmul as ZM
-    for d in (ZM.LAUNCHES, FA.LAUNCHES):
+    for d in (ZM.LAUNCHES, FA.LAUNCHES, RG.LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -489,6 +505,7 @@ def drive_round(phase, desc, setup, expect, round_seed=20261016):
     log(phase, f"{desc}: client_loss {cl} server_loss {sl} uplink_bytes "
         f"{m['uplink_bytes']} uplink_bytes_dense {m['uplink_bytes_dense']} "
         f"wall_s {wall} max_memory_allocated {peak} launches {counts}")
+    del new_state               # the profiled round needs its memory
     profile_round(phase, rnd, state, rb, round_seed, wall)
     return counts
 
@@ -501,7 +518,8 @@ def run_round(dev):
         _round_setup(gpt2_small(), dev, n_clients=2, h=1, batch=4, seq=256,
                      mu=1e-3, lr=1e-4, server_lr=2e-4),
         {"zo_dual_matmul": 48, "zo_dual_flash_attention": 8,
-         "zo_noise": None, "zo_matmul": 0, "flash_attention": 0})
+         "zo_noise": None, "zo_matmul": 0, "flash_attention": 0,
+         "rg_lru_scan": 0})
 
 
 def run_cnn_round(dev):
@@ -515,7 +533,8 @@ def run_cnn_round(dev):
         _cnn_round_setup(full_config(), dev, n_clients=5, h=1, batch=64,
                          hw=32, mu=1e-3, lr=2e-2, server_lr=2e-3),
         {"zo_dual_matmul": 20, "zo_dual_flash_attention": 0,
-         "zo_noise": None, "zo_matmul": 0, "flash_attention": 0})
+         "zo_noise": None, "zo_matmul": 0, "flash_attention": 0,
+         "rg_lru_scan": 0})
 
 
 def profile_round(phase, rnd, state, rb, round_seed, wall_s):
@@ -681,6 +700,130 @@ def check_single_probe(dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 9-10: K6 and the RG-LRU round
+# ---------------------------------------------------------------------------
+
+# (B, S, W) of K6 on the recurrentgemma round: every launch gets one half
+# of a client's dual batch or one client's server batch, 2 x 512 tokens
+# at lru_width 4096 (the whole-block fallback runs the clean and the
+# perturbed half apart); (4, 512, 4096) is the stacked dual batch
+K6_SHAPES = ((2, 512, 4096), (4, 512, 4096))
+K6_RAGGED = ((1, 77, 1000), (1, 509, 4099), (3, 130, 129))
+K6_GRAD_TOL = 1e-6
+
+
+def k6_inputs(dev, B, S, W, seed=0):
+    """a in (0.3, 0.999), the band RG-LRU's a = exp(-8 softplus(lam) r)
+    lives in; b and the incoming gradient g standard normal."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = 0.3 + 0.699 * torch.rand((B, S, W), generator=gen, device=dev)
+    b = torch.randn((B, S, W), generator=gen, device=dev)
+    g = torch.randn((B, S, W), generator=gen, device=dev)
+    return a, b, g
+
+
+def check_k6(dev):
+    """K6 forward and reverse mode against the plain loops with
+    ``torch.equal``: both round each step as a multiply, then an add.  The
+    autograd backward (K6 reverse) against autograd through the plain loop
+    within K6_GRAD_TOL relative and absolute: the two form the same
+    two-term sums and products, so they are equal in practice."""
+    import torch
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import rg_lru as RG
+    worst = 0.0
+    for B, S, W in K6_SHAPES + K6_RAGGED:
+        a, b, g = k6_inputs(dev, B, S, W, seed=B * S)
+        h = RG.rg_lru_scan(a, b)
+        ref = R.rg_lru_scan_ref(a, b)
+        if not torch.equal(h, ref):
+            fail(f"K6 forward ({B}, {S}, {W}) differs from plain: max |d| "
+                 f"{max_abs(h, ref)}")
+        da, db = RG.rg_lru_scan_reverse(a, g, h)
+        rda, rdb = R.rg_lru_scan_reverse_ref(a, g, h)
+        if not (torch.equal(da, rda) and torch.equal(db, rdb)):
+            fail(f"K6 reverse ({B}, {S}, {W}) differs from plain: max |d| "
+                 f"{max_abs(da, rda)}, {max_abs(db, rdb)}")
+        ta, tb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        ka, kb = torch.autograd.grad(torch.sum(RG.rg_lru_scan(ta, tb) * g),
+                                     (ta, tb))
+        pa, pb = torch.autograd.grad(
+            torch.sum(R.rg_lru_scan_ref(ta, tb) * g), (ta, tb))
+        for got, want in ((ka, pa), (kb, pb)):
+            d = (got - want).abs()
+            if not bool((d <= K6_GRAD_TOL * (1 + want.abs())).all()):
+                fail(f"K6 backward ({B}, {S}, {W}): max |d| "
+                     f"{float(d.max())}")
+            worst = max(worst, float(d.max()))
+        del a, b, g, h, ref, da, db, rda, rdb, ta, tb, ka, kb, pa, pb
+    log(9, f"K6 rg_lru_scan == plain bit for bit, forward and reverse mode, "
+        f"at {K6_SHAPES + K6_RAGGED}; autograd backward vs autograd through "
+        f"the plain loop: max |d| {worst} (tolerance {K6_GRAD_TOL} x (1 + "
+        f"|ref|))")
+    return 0.0
+
+
+def rg_round_config():
+    """recurrentgemma-9b at full width, depth cut 38 -> 8 layers: the
+    port's AdamW keeps f32 m and v, 63 GB for the full 7.88 B-param
+    server, which with its bf16 weights and gradients does not fit one
+    80 GB card.  8 layers keep the client's two RG-LRU blocks
+    (cut_layers=2) and give the server two repeats of (local_attn, rg_lru,
+    rg_lru)."""
+    from repro_torch.configs.recurrentgemma_9b import full_config
+    return full_config().replace(n_layers=8)
+
+
+def run_rg_round(dev, card):
+    """Launches: K6 24 = 8 client (2 RG-LRU blocks x 2 halves of the dual
+    batch x 2 clients) + 8 server forward (4 RG-LRU blocks x 2 clients) + 8
+    server backward.  K1 134 = per client 50 (the embedding's noise rows
+    1; the fallback's theta + mu*U of the two client blocks, 15 leaves
+    each, 30; the aux norm 1 and the tied table's field 1; the client's
+    direction tree, 17 leaves, 17) x 2, and the seed replay's two
+    direction trees, 34.  No K2-K5: the fallback's products are plain
+    matmuls and the server's local attention the plain blocked version.
+    The weights come from the card's generator (seeded): 2.83 B normals
+    from the CPU generator would take tens of seconds."""
+    from repro_torch.core.split import param_bytes
+    from repro_torch.tree import tree_leaves
+    cfg = rg_round_config()
+    setup = _round_setup(cfg, dev, n_clients=2, h=1, batch=2, seq=512,
+                         mu=1e-3, lr=1e-4, server_lr=2e-4,
+                         draw_on_device=True)
+    state = setup[0]
+    n_c = sum(t.numel() for t in tree_leaves(state["client"]))
+    n_s = sum(t.numel() for t in tree_leaves(state["server"]))
+    log(10, f"recurrentgemma-9b at full width (d_model 4096, lru_width "
+        f"4096, 16 heads, 1 KV head, head_dim 256, d_ff 12288, vocab "
+        f"256000, bf16), n_layers cut 38 -> 8: client {n_c} params "
+        f"({param_bytes(state['client'])} B), server {n_s} params")
+    del state
+    counts = drive_round(
+        10, f"recurrentgemma-9b 8-layer round (N=2 h=1 n_pairs=1, 2x512 "
+        f"tokens per client, seed_replay) on {card}", setup,
+        {"rg_lru_scan": 24, "zo_noise": 134, "zo_dual_matmul": 0,
+         "zo_dual_flash_attention": 0, "zo_matmul": 0,
+         "flash_attention": 0})
+    del setup
+    return counts
+
+
+def check_rg_small_round():
+    """The recurrentgemma smoke config (f32) on the card against the CPU.
+    The server's AdamW eps is 1e-6: its first step is g/(|g| + eps), and
+    a gradient entry that is rounding noise (~1e-9) moves a param by
+    O(lr) at eps 1e-8; at 1e-6 by under lr/1000."""
+    from repro_torch.configs.recurrentgemma_9b import smoke_config
+    check_small_round(10, "recurrentgemma smoke_config round (N=2 h=2, "
+                      "2x16 tokens)", lambda d: _round_setup(
+                          smoke_config(), d, n_clients=2, h=2, batch=2,
+                          seq=16, mu=1e-2, lr=1e-3, server_lr=1e-4, seed=3,
+                          server_eps=1e-6))
+
+
+# ---------------------------------------------------------------------------
 # phase 8: times
 # ---------------------------------------------------------------------------
 
@@ -692,9 +835,10 @@ def abba(fa, fb):
     return (ta1 + ta2) / 2, (tb1 + tb2) / 2
 
 
-def time_kernels(dev, counts, counts_sp, errs):
+def time_kernels(dev, counts, counts_sp, counts_rg, errs):
     """``counts``: launches of the gpt2-small round (K1-K3);
-    ``counts_sp``: of the gpt2-small single-probe forward (K4, K5)."""
+    ``counts_sp``: of the gpt2-small single-probe forward (K4, K5);
+    ``counts_rg``: of the recurrentgemma round (K6)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -833,6 +977,35 @@ def time_kernels(dev, counts, counts_sp, errs):
                  "max_abs_err": errs[4], "ms": ms, "plain_ms": pl,
                  "bound_ms": b, "bound_by": by, "library_ms": lib})
 
+    # K6 forward and reverse at the RG-LRU round's shapes; bytes: a, b
+    # read and h written (12 B per element) forward, a, g, h read and da,
+    # db written (20 B) reverse; 2 and 3 f32 operations per element
+    from repro_torch.kernels import rg_lru as RG
+    k6 = {}
+    for shape in K6_SHAPES:
+        a, b, g = k6_inputs(dev, *shape)
+        h = RG.rg_lru_scan(a, b)
+        n = int(np.prod(shape))
+        for mode, fn, plain, nb, no in (
+                ("forward", lambda: RG.rg_lru_scan(a, b),
+                 lambda: R.rg_lru_scan_ref(a, b), 12, 2),
+                ("reverse", lambda: RG.rg_lru_scan_reverse(a, g, h),
+                 lambda: R.rg_lru_scan_reverse_ref(a, g, h), 20, 3)):
+            ms = time_ms(fn)
+            pl = time_ms(plain, reps=5)     # S small launches per call
+            bd, by = bound_ms(nb * n, no * n, "float32")
+            log(8, f"K6 {mode} f32 {shape}: kernel_ms {ms} plain_ms "
+                f"{pl} bound_ms {bd} ({by}); library none")
+            k6[(shape, mode)] = (ms, pl, bd, by)
+        del a, b, g, h
+    ms, pl, bd, by = k6[(K6_SHAPES[0], "forward")]
+    rows.append({"name": "rg_lru_scan", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/rg_lru_scan.cu",
+                 "replaces": "src/repro/kernels/rg_lru.py:50",
+                 "launches": counts_rg["rg_lru_scan"], "max_abs_err": errs[5],
+                 "ms": ms, "plain_ms": pl, "bound_ms": bd, "bound_by": by,
+                 "library_ms": None})
+
     # the fused dual probe against two single-probe passes
     _, x, w = k2_inputs(dev, torch.bfloat16, 1024, 768, 3072)
     fused, split = abba(lambda: O.zo_dual_forward(x, w, 3, 1e-3),
@@ -881,7 +1054,11 @@ def main():
     run_cnn_round(dev)
     check_small_rounds()
     counts_sp = check_single_probe(dev)
-    rows = time_kernels(dev, counts, counts_sp, errs)
+    errs += (check_k6(dev),)
+    counts_rg = run_rg_round(dev, card)
+    torch.cuda.empty_cache()
+    check_rg_small_round()
+    rows = time_kernels(dev, counts, counts_sp, counts_rg, errs)
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -54,6 +54,9 @@ SIGNATURES = {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _F, _F, _P],
     },
+    "rg_lru_scan": {
+        "rg_lru_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

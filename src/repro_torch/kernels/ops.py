@@ -2,9 +2,9 @@
 :mod:`repro.kernels.ops`.
 
 Dispatch: :func:`zo_noise`, :func:`zo_dual_matmul`,
-:func:`zo_dual_flash_attention`, :func:`zo_matmul` and
-:func:`flash_attention` launch kernels K1-K5 for CUDA tensors and run the
-plain PyTorch versions for CPU tensors (the wrappers decide by the
+:func:`zo_dual_flash_attention`, :func:`zo_matmul`,
+:func:`flash_attention` and :func:`rg_lru_scan` launch kernels K1-K6 for
+CUDA tensors and run the plain PyTorch versions for CPU tensors (the wrappers decide by the
 tensor's device; there is no backend knob).
 
 Seed scheme: every parameter leaf gets ``seed_leaf = base_seed +
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import rg_lru as RG
 from repro_torch.kernels import zo_matmul as ZM
 
 zo_noise = ZM.zo_noise
@@ -33,6 +34,8 @@ zo_dual_matmul = ZM.zo_dual_matmul
 zo_dual_flash_attention = FA.zo_dual_flash_attention
 zo_matmul = ZM.zo_matmul
 flash_attention = FA.flash_attention
+# the Pallas wrapper's bt / bw are TPU tiles; K6 takes none
+rg_lru_scan = RG.rg_lru_scan
 
 _M32 = 0xFFFFFFFF
 

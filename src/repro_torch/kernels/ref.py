@@ -74,3 +74,32 @@ def zo_dual_flash_attention_ref(qa, qb, k, v, *, kb=None, vb=None, u=None,
                  vb if vb is not None else v,
                  u=u if perturb_b else None, mu=mu_b, **kw)
     return oa, ob
+
+
+def rg_lru_scan_ref(a, b):
+    """Sequential plain version of h_t = a_t h_{t-1} + b_t from a zero f32
+    state over (B, S, W), each step a multiply then an add.  Autograd
+    differentiates it on the CPU."""
+    h = torch.zeros_like(a[:, 0], dtype=torch.float32)
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(a.dtype)
+
+
+def rg_lru_scan_reverse_ref(a, g, h):
+    """The gradient of :func:`rg_lru_scan_ref` given ``g`` = dL/dh and the
+    forward's ``h``: ``G_t = g_t + a_{t+1} G_{t+1}`` (``G_S = 0``) run
+    backwards over time, then ``db = G`` and ``da_t = G_t h_{t-1}``
+    (``h_{-1} = 0``).  Returns ``(da, db)``."""
+    G = torch.zeros_like(g[:, 0], dtype=torch.float32)
+    a_next = torch.zeros_like(G)
+    gs = [None] * g.shape[1]
+    for t in reversed(range(g.shape[1])):
+        G = g[:, t] + a_next * G
+        gs[t] = G
+        a_next = a[:, t]
+    db = torch.stack(gs, dim=1)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return db * h_prev, db

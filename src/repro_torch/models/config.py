@@ -1,6 +1,6 @@
 """Model configuration: the fields of :class:`repro.models.config.
-ModelConfig` that the dense transformer family reads, with the same
-names and defaults."""
+ModelConfig` that the dense transformer family and the RG-LRU hybrid
+(RecurrentGemma) read, with the same names and defaults."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,7 +13,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """One layer = mixer + ffn."""
-    mixer: str = "global_attn"     # global_attn | local_attn
+    mixer: str = "global_attn"     # global_attn | local_attn | rg_lru
     ffn: str = "dense"             # dense
 
 
@@ -40,6 +40,9 @@ class ModelConfig:
     final_softcap: float | None = None
     attn_scale: float | None = None
     window: int = 4096             # local-attention window
+    # --- recurrent (recurrentgemma) ---
+    lru_width: int = 0             # 0 => d_model
+    conv_width: int = 4
     # --- SFL split ---
     cut_layers: int = 2            # client-side depth (the cut layer)
     aux_layers: int = 0            # extra transformer blocks in the aux head

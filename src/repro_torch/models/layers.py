@@ -1,5 +1,5 @@
-"""Core layers of the dense family: param init, norms, dense (plain and
-ZO-perturbed), embeddings, RoPE, MLP.  Plain functions on nested dicts
+"""Core layers: param init, norms, dense (plain and ZO-perturbed),
+embeddings, RoPE, MLP, the depthwise causal conv1d of the RG-LRU block.  Plain functions on nested dicts
 of tensors, mirroring :mod:`repro.models.layers`.
 
 Init functions draw from an explicit ``torch.Generator``.  The draws
@@ -26,6 +26,13 @@ def init_param(gen: torch.Generator, shape, dtype, init="normal",
         return torch.zeros(shape, dtype=dtype, device=dev)
     if init == "ones":
         return torch.ones(shape, dtype=dtype, device=dev)
+    if init == "lru_lambda":
+        # RG-LRU Lambda: a uniform in a stable band, parametrized via
+        # softplus^{-1}(-log(a)/c) with c=8
+        u = 0.9 + (0.999 - 0.9) * torch.rand(
+            shape, generator=gen, dtype=torch.float32, device=dev)
+        a = -torch.log(u) * 8.0
+        return torch.log(torch.expm1(a)).to(dtype)
     if init != "normal":
         raise ValueError(init)
     if scale is None:
@@ -230,6 +237,28 @@ def mlp(params, x, activation: str = "silu", compute_dtype=None,
     else:
         h = _act(up, activation)
     return dense(params["down"], h, compute_dtype, O.psub(perturb, "down"))
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal conv1d (the RG-LRU block's)
+# ---------------------------------------------------------------------------
+
+def init_conv1d(gen, dim: int, dtype, width: int = 4):
+    return {"w": init_param(gen, (width, dim), dtype, "normal", 0.1),
+            "b": init_param(gen, (dim,), dtype, "zeros")}
+
+
+def causal_conv1d(params, x):
+    """x: (B, S, C) depthwise causal conv over the sequence, in x's
+    dtype.  The training form only: the streaming ``state`` of the JAX
+    version is decode, which is not ported."""
+    w = params["w"].to(x.dtype)                       # (width, C)
+    width = w.shape[0]
+    ctx = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(width):
+        out = out + ctx[:, i:i + x.shape[1], :] * w[i]
+    return out + params["b"].to(x.dtype)
 
 
 def softcap(x, cap):

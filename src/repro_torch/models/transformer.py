@@ -1,5 +1,6 @@
-"""The dense transformer with its SFL split, mirroring
-:mod:`repro.models.transformer` (dense family, training paths).
+"""The transformer stack with its SFL split, mirroring
+:mod:`repro.models.transformer` (training paths of the dense family and
+of the RG-LRU hybrid, RecurrentGemma).
 
 Layer stacks keep the JAX package's pattern compression: a segment is a
 tuple (one entry per position of the repeating unit) of block-param
@@ -8,6 +9,11 @@ runs as a Python loop over reps, and the rep index rides in
 ``Perturb.rep``: it row-offsets the noise of each stacked leaf, so the
 forward and the server's whole-leaf replay see the same direction.
 Renaming a path or unstacking the reps would change every seed.
+
+A block whose mixer has no fused ZO lowering (RG-LRU) runs its perturbed
+forward through the whole-block fallback: ``theta + mu*U`` materialised
+for the block's leaves (kernel K1) and the plain block run on it, as the
+JAX package does.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as O
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as REC
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.tree import tree_map
 
@@ -35,15 +42,18 @@ def _norm_init(cfg: ModelConfig):
 
 
 def init_block(gen, spec: LayerSpec, cfg: ModelConfig):
-    if spec.mixer not in ATTN_MIXERS or spec.ffn != "dense":
-        raise NotImplementedError(f"{spec}: only the dense family is ported")
+    if spec.mixer not in ATTN_MIXERS + ("rg_lru",) or spec.ffn != "dense":
+        raise NotImplementedError(f"{spec}: only the attention and RG-LRU "
+                                  "mixers with a dense FFN are ported")
     d, dt = cfg.d_model, cfg.torch_param_dtype()
     ni = _norm_init(cfg)
-    p: dict[str, Any] = {"norm1": ni(gen, d, dt),
-                         "attn": A.init_attention(gen, cfg),
-                         "norm2": ni(gen, d, dt),
-                         "mlp": L.init_mlp(gen, d, cfg.d_ff, dt,
-                                           cfg.gated_mlp, False)}
+    p: dict[str, Any] = {"norm1": ni(gen, d, dt)}
+    if spec.mixer == "rg_lru":
+        p["rec"] = REC.init_rg_lru(gen, cfg)
+    else:
+        p["attn"] = A.init_attention(gen, cfg)
+    p["norm2"] = ni(gen, d, dt)
+    p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dt, cfg.gated_mlp, False)
     if cfg.post_norm:
         p["postnorm1"] = ni(gen, d, dt)
         p["postnorm2"] = ni(gen, d, dt)
@@ -55,14 +65,34 @@ def _norm(cfg: ModelConfig, params, x, perturb=None):
     return L.norm_apply(fn, params, x, perturb)
 
 
+def _block_fallback(params, x, spec: LayerSpec, cfg: ModelConfig, perturb):
+    """Whole-block fallback for mixers without a fused kernel lowering
+    (RG-LRU, which reads no positions): materialise theta + mu*U for the
+    block's seeded leaves and run the unmodified block on it.  The noise
+    is the same per-leaf hash stream, so replay stays exact.  Dual mode
+    runs the clean params on the first half of the batch and the
+    perturbed ones on the second."""
+    pp = O.perturb_tree(params, perturb.seeds, perturb.mu, perturb.rep)
+    if not perturb.dual:
+        return apply_block(pp, x, spec, cfg)
+    half = x.shape[0] // 2
+    return torch.cat([apply_block(params, x[:half], spec, cfg),
+                      apply_block(pp, x[half:], spec, cfg)], dim=0)
+
+
 def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
                 positions=None, perturb=None):
     if perturb is not None and not O.any_seed(perturb.seeds):
         perturb = None
+    if perturb is not None and spec.mixer not in ATTN_MIXERS:
+        return _block_fallback(params, x, spec, cfg, perturb)
     h = _norm(cfg, params["norm1"], x, O.psub(perturb, "norm1"))
-    o = A.attention_layer(params["attn"], h, cfg, positions=positions,
-                          local=(spec.mixer == "local_attn"),
-                          perturb=O.psub(perturb, "attn"))
+    if spec.mixer in ATTN_MIXERS:
+        o = A.attention_layer(params["attn"], h, cfg, positions=positions,
+                              local=(spec.mixer == "local_attn"),
+                              perturb=O.psub(perturb, "attn"))
+    else:
+        o = REC.rg_lru_block(params["rec"], h, cfg)
     if cfg.post_norm:
         o = _norm(cfg, params["postnorm1"], o, O.psub(perturb, "postnorm1"))
     x = x + o
@@ -148,17 +178,20 @@ def aux_specs(cfg: ModelConfig):
                                    cfg.cut_layers + cfg.aux_layers])
 
 
-def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda"):
+def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda",
+            draw_on_device: bool = False):
     """``{"client": ..., "server": ...}`` from a seeded random init.
 
     client = embedding + first ``cut_layers`` blocks + aux head
     server = remaining blocks + final norm (+ unembed when untied)
 
-    The draws come from a CPU generator and then move to ``device``, so
-    one seed gives the same params on every device.
+    By default the draws come from a CPU generator and then move to
+    ``device``, so one seed gives the same params on every device.
+    ``draw_on_device=True`` draws on ``device``'s own generator instead:
+    other values for the same seed, but billions of params in seconds.
     """
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(dev if draw_on_device else "cpu").manual_seed(seed)
     dt = cfg.torch_param_dtype()
     client: dict[str, Any] = {
         "embed": L.init_embedding(gen, cfg.vocab_padded, cfg.d_model, dt),
@@ -185,6 +218,19 @@ def init_aux(gen, cfg: ModelConfig):
     return p
 
 
+def _embed_scale(cfg: ModelConfig, x):
+    """gemma / recurrentgemma scale the embedding by sqrt(d_model), the
+    constant rounded to the compute dtype first as in the JAX package."""
+    if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
+    return x
+
+
+def embed_inputs(client_params, cfg: ModelConfig, inputs):
+    return _embed_scale(cfg, L.embed(client_params["embed"], inputs,
+                                     cfg.torch_compute_dtype()))
+
+
 def _embed_perturbed(client_params, cfg: ModelConfig, inputs, perturb):
     """The embedding with the ZO table perturbation.  The noise rows are
     gathered per token id (kernel K1's gathered mode on the card), never
@@ -199,7 +245,8 @@ def _embed_perturbed(client_params, cfg: ModelConfig, inputs, perturb):
     else:
         u = O.zo_noise_rows(st, inputs, x.shape[-1])
         xp = (x.to(torch.float32) + float(perturb.mu) * u).to(cdt)
-    return torch.cat([x, xp], dim=0) if perturb.dual else xp
+    return _embed_scale(cfg, torch.cat([x, xp], dim=0) if perturb.dual
+                        else xp)
 
 
 def client_forward(client_params, cfg: ModelConfig, inputs, positions=None,
@@ -211,7 +258,7 @@ def client_forward(client_params, cfg: ModelConfig, inputs, positions=None,
     if perturb is not None and not O.any_seed(perturb.seeds):
         perturb = None
     if perturb is None:
-        x = L.embed(client_params["embed"], inputs, cfg.torch_compute_dtype())
+        x = embed_inputs(client_params, cfg, inputs)
     else:
         x = _embed_perturbed(client_params, cfg, inputs, perturb)
         if perturb.dual and positions is not None:

@@ -1,4 +1,4 @@
-"""Kernels K1-K5 on a CUDA card against their plain PyTorch versions,
+"""Kernels K1-K6 on a CUDA card against their plain PyTorch versions,
 and the single-probe kernels against the matching stream of the fused
 ones bit for bit.
 
@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import noise as N
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import rg_lru as RG
 from repro_torch.kernels import zo_matmul as ZM
 
 
@@ -99,3 +100,33 @@ def test_cuda_single_probe_kernels_match_plain_and_fused_streams():
                 q, qb, k, v, kb=kb, vb=vb, perturb_a=False,
                 perturb_b=False, **kw)
             assert torch.equal(o, oa)
+
+
+@pytest.mark.gpu
+def test_cuda_rg_lru_scan_matches_plain():
+    """K6 forward and reverse mode bit for bit against the plain loops
+    (each step a multiply, then an add, in both), over ragged shapes (S
+    and W not multiples of the 16-step chunk or the 64-thread block); its
+    autograd backward against autograd through the plain loop to 1e-6
+    (the same two-term sums, so equal in practice)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    for (B, S, W) in ((1, 37, 70), (3, 130, 129)):
+        rng = np.random.default_rng(B)
+        a = torch.as_tensor(rng.uniform(0.3, 0.999, (B, S, W)).astype(
+            np.float32), device=dev)
+        b, g = (torch.as_tensor(x, device=dev) for x in _arrays(
+            B + 1, (B, S, W), (B, S, W)))
+        h = RG.rg_lru_scan(a, b)
+        assert torch.equal(h, R.rg_lru_scan_ref(a, b))
+        da, db = RG.rg_lru_scan_reverse(a, g, h)
+        rda, rdb = R.rg_lru_scan_reverse_ref(a, g, h)
+        assert torch.equal(da, rda) and torch.equal(db, rdb)
+        ta, tb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        ka, kb = torch.autograd.grad(torch.sum(RG.rg_lru_scan(ta, tb) * g),
+                                     (ta, tb))
+        pa, pb = torch.autograd.grad(
+            torch.sum(R.rg_lru_scan_ref(ta, tb) * g), (ta, tb))
+        torch.testing.assert_close(ka, pa, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(kb, pb, rtol=1e-6, atol=1e-6)
