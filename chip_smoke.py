@@ -8,23 +8,31 @@ Phases, one line each (any failure exits non-zero):
      kernels from src/repro_torch/kernels/csrc with nvcc;
   2. K1 zo_noise vs its plain version: bit equality;
   3. K2 zo_dual_matmul and K4 zo_matmul vs plain at gpt2-small's client
-     shapes (bf16) and ResNet-18's (f32); K4 == K2's b stream bit for bit;
+     shapes (bf16, the tensor-core route, also held to the route's split
+     arithmetic ref.zo_matmul_split_ref) and ResNet-18's (f32, the
+     CUDA-core loop); K4 == K2's streams bit for bit; the route counters;
   4. K3 zo_dual_flash_attention and K5 flash_attention vs plain, both
      probe modes, plus GQA, window, soft-cap and ragged lengths; K5 ==
      K3's a stream bit for bit;
   5. one HERON-SFL round on gpt2-small at full width (N=2 clients, h=1,
      n_pairs=1, 4 x 256 tokens each, lean seed-replay uplink): losses,
-     uplink bytes, wall time, peak memory and kernel launch counts; and a
-     small round on the card held against the same round on the CPU;
+     uplink bytes, wall time, peak memory and kernel launch counts (all 48
+     K2 launches on the tensor-core route); and a small round on the card
+     held against the same round on the CPU;
   6. the same for ResNet-18 on 32x32x3 images (N=5 clients, 64 images
      each), and its small config on the card against the CPU;
   7. the single-probe forwards (Perturb(dual=False): K4 and K5) of
      gpt2-small and ResNet-18, each held against the perturbed half of
-     the dual forward on the same seeds;
+     the dual forward on the same seeds; the gpt2-small dual losses
+     through K2 against the same with K2 swapped for its plain version;
   8. kernel times (CUDA events, median) beside the plain version, a
-     PyTorch library yardstick and the card's bound; the fused dual probe
-     (K2, K3) against two single-probe passes (2 x K4, 2 x K5); K6
-     forward and reverse at the RG-LRU round's shapes;
+     PyTorch library yardstick and the card's bound; K2 / K4 bf16 on both
+     routes (tensor cores and the CUDA-core loop) and the host cost of a
+     launch on each; the fused dual probe (K2, K3) against two
+     single-probe passes (2 x K4, 2 x K5); K6 forward and reverse at the
+     RG-LRU round's shapes; each kernel's registers, shared memory and
+     spills from the compiler's report, and the HGMMA count of the
+     tensor-core kernels' SASS;
   9. K6 rg_lru_scan vs its plain version: forward and reverse mode bit
      for bit at the round's shapes and ragged ones, its autograd backward
      against autograd through the plain loop;
@@ -57,6 +65,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # f32 off tensor cores
 HASH_OPS = 21          # integer and float operations per K1 element
 REPS = 30
+# substrings of the port's CUDA kernels' names (csrc/*.cu)
+OUR_KERNELS = ("zo_noise", "zo_dual_matmul_kernel", "zo_matmul_kernel",
+               "zo_wgmma_kernel", "fa_kernel", "rg_lru_scan_kernel")
 
 
 def log(phase, msg):
@@ -202,6 +213,27 @@ def k2_plain(xa, xb, w, seed, mu_a, mu_b, pa, pb, off):
                                 perturb_b=pb)
 
 
+def split_ok(got, x, w, u, mu, perturb):
+    """The tensor-core route against its own arithmetic
+    (ref.zo_matmul_split_ref, f32 sums): half a bf16 step of the output
+    rounding (2^-8 relative) plus one f32 ulp of the sum of |products| per
+    wgmma step (two per k16 step when perturbed: hi and lo), for the
+    tensor cores' other accumulation order.  Returns (ok, max |d|)."""
+    import torch
+    from repro_torch.kernels import ref as R
+    emu = R.zo_matmul_split_ref(x, w, u, mu, perturb=perturb,
+                                out_dtype=torch.float32)
+    if perturb:
+        hi, lo = R.split_bf16(w.float() + float(mu) * u)
+        mag = x.float().abs() @ (hi.float().abs() + lo.float().abs())
+    else:
+        mag = x.float().abs() @ w.float().abs()
+    steps = (2 if perturb else 1) * -(-x.shape[1] // 16)
+    d = (got.float() - emu).abs()
+    ok = bool((d <= 2 ** -8 * emu.abs() + steps * 2 ** -23 * mag).all())
+    return ok, float(d.max())
+
+
 def check_k2(dev):
     """Tolerance: f32 sums in another order differ by ~sqrt(K) f32 ulps,
     so |d| <= 1e-4 * max|ref|.  In bf16 the kernel and the plain version
@@ -209,22 +241,42 @@ def check_k2(dev):
     rounding boundary they differ by one bf16 step, 2^-7 relative, so
     |d| <= 2^-7 |ref| + 1e-4 max|ref| elementwise.  A wrong noise, row
     offset or stream flag moves the outputs by ~mu*sqrt(K)*|x|, far
-    above both."""
+    above both.  bf16 launches take the tensor-core route (the counter
+    says so) and are also held to the route's split arithmetic
+    (:func:`split_ok`); f32 launches take the CUDA-core loop."""
     import torch
+    from repro_torch.kernels import noise as N
     from repro_torch.kernels import zo_matmul as ZM
     worst = {}
     for dtype in (torch.bfloat16, torch.float32):
         for K, Nn in K2_SHAPES:
             xa, xb, w = k2_inputs(dev, dtype, 1024, K, Nn)
+            off = 2 * K
+            u = N.uniform_noise(-99, w.shape, off, device=dev)
             for pa, pb, mu_a, mu_b in K2_FLAGS:
                 # mu 1e-3 on the main path; 0.5 makes a wrong U visible
                 for scale in (1.0, 500.0):
                     ma, mb = mu_a * scale, mu_b * scale
-                    off = 2 * K
+                    tc0 = ZM.LAUNCHES["zo_dual_matmul_tc"]
                     ya, yb = ZM.zo_dual_matmul(xa, xb, w, -99, ma, mb,
                                                row_offset=off, perturb_a=pa,
                                                perturb_b=pb)
+                    want_tc = int(dtype == torch.bfloat16)
+                    if ZM.LAUNCHES["zo_dual_matmul_tc"] - tc0 != want_tc:
+                        fail(f"K2 {dtype} {K}x{Nn}: expected "
+                             f"{want_tc} tensor-core launch, counters "
+                             f"{ZM.LAUNCHES}")
                     ra, rb = k2_plain(xa, xb, w, -99, ma, mb, pa, pb, off)
+                    if dtype == torch.bfloat16:
+                        for got, x, m, p in ((ya, xa, ma, pa),
+                                             (yb, xb, mb, pb)):
+                            ok, dmax = split_ok(got, x, w, u, m, p)
+                            if not ok:
+                                fail(f"K2 bf16 {K}x{Nn} flags {pa},{pb} mu "
+                                     f"{ma},{mb}: off the split arithmetic,"
+                                     f" max |d| {dmax}")
+                            worst["bf16 vs split"] = max(
+                                worst.get("bf16 vs split", 0.0), dmax)
                     for got, ref in ((ya, ra), (yb, rb)):
                         d = (got.float() - ref.float()).abs()
                         r = ref.float().abs()
@@ -241,7 +293,8 @@ def check_k2(dev):
                         worst[key] = max(worst.get(key, 0.0),
                                          float(d.max()))
     log(3, f"K2 zo_dual_matmul == plain within tolerance at M=1024, K x N "
-        f"in {K2_SHAPES}, flags (F,T),(T,T): max |d| {worst}")
+        f"in {K2_SHAPES}, flags (F,T),(T,T), bf16 on the tensor-core route "
+        f"and within tolerance of its split arithmetic: max |d| {worst}")
     return worst["bfloat16 mu 1e-3"]      # the main path's type and mu
 
 
@@ -273,6 +326,7 @@ def check_k4(dev):
     the matching stream of K2 (clean a, perturbed b), which runs the same
     tile loop in the same order."""
     import torch
+    from repro_torch.kernels import noise as N
     from repro_torch.kernels import zo_matmul as ZM
     worst = {}
     for name, dtype, M, K, Nn in k4_cases():
@@ -281,12 +335,26 @@ def check_k4(dev):
         for mu in (1e-3, 0.5):
             ya, yb = ZM.zo_dual_matmul(xa, xb, w, -99, 0.0, mu,
                                        row_offset=off)
+            tc0 = ZM.LAUNCHES["zo_matmul_tc"]
             clean = ZM.zo_matmul(xa, w, -99, mu, row_offset=off,
                                  perturb=False)
             pert = ZM.zo_matmul(xb, w, -99, mu, row_offset=off)
+            want_tc = 2 * int(dtype == torch.bfloat16)
+            if ZM.LAUNCHES["zo_matmul_tc"] - tc0 != want_tc:
+                fail(f"K4 {name}: expected {want_tc} tensor-core launches, "
+                     f"counters {ZM.LAUNCHES}")
             if not (torch.equal(clean, ya) and torch.equal(pert, yb)):
                 fail(f"K4 {name} mu {mu} differs from K2's streams: max |d| "
                      f"{max_abs(clean, ya)}, {max_abs(pert, yb)}")
+            if dtype == torch.bfloat16:
+                u = N.uniform_noise(-99, w.shape, off, device=dev)
+                for got, x, p in ((clean, xa, False), (pert, xb, True)):
+                    ok, dmax = split_ok(got, x, w, u, mu, p)
+                    if not ok:
+                        fail(f"K4 {name} mu {mu} perturb {p}: off the split "
+                             f"arithmetic, max |d| {dmax}")
+                    worst["bf16 vs split"] = max(
+                        worst.get("bf16 vs split", 0.0), dmax)
             for got, ref in ((clean, k4_plain(xa, w, -99, mu, False, off)),
                              (pert, k4_plain(xb, w, -99, mu, True, off))):
                 d = (got.float() - ref.float()).abs()
@@ -302,7 +370,8 @@ def check_k4(dev):
         del xa, xb, w
     log(3, f"K4 zo_matmul == plain within tolerance (perturbed and clean, "
         f"row_offset 2K) and == K2's a / b streams bit for bit at "
-        f"{[c[0] + ' M=' + str(c[2]) for c in k4_cases()]}: max |d| {worst}")
+        f"{[c[0] + ' M=' + str(c[2]) for c in k4_cases()]} (bf16 on the "
+        f"tensor-core route, f32 on the CUDA-core loop): max |d| {worst}")
     return worst["bfloat16 mu 1e-3"]
 
 
@@ -517,9 +586,9 @@ def run_round(dev):
         "seed_replay)",
         _round_setup(gpt2_small(), dev, n_clients=2, h=1, batch=4, seq=256,
                      mu=1e-3, lr=1e-4, server_lr=2e-4),
-        {"zo_dual_matmul": 48, "zo_dual_flash_attention": 8,
-         "zo_noise": None, "zo_matmul": 0, "flash_attention": 0,
-         "rg_lru_scan": 0})
+        {"zo_dual_matmul": 48, "zo_dual_matmul_tc": 48,
+         "zo_dual_flash_attention": 8, "zo_noise": None, "zo_matmul": 0,
+         "flash_attention": 0, "rg_lru_scan": 0})
 
 
 def run_cnn_round(dev):
@@ -532,9 +601,9 @@ def run_cnn_round(dev):
         "client, seed_replay)",
         _cnn_round_setup(full_config(), dev, n_clients=5, h=1, batch=64,
                          hw=32, mu=1e-3, lr=2e-2, server_lr=2e-3),
-        {"zo_dual_matmul": 20, "zo_dual_flash_attention": 0,
-         "zo_noise": None, "zo_matmul": 0, "flash_attention": 0,
-         "rg_lru_scan": 0})
+        {"zo_dual_matmul": 20, "zo_dual_matmul_tc": 0,
+         "zo_dual_flash_attention": 0, "zo_noise": None, "zo_matmul": 0,
+         "flash_attention": 0, "rg_lru_scan": 0})
 
 
 def profile_round(phase, rnd, state, rb, round_seed, wall_s):
@@ -563,6 +632,9 @@ def profile_round(phase, rnd, state, rb, round_seed, wall_s):
     log(phase, f"profile: device busy {busy_ms:.3f} ms of the round's "
         f"{1e3 * wall_s:.3f} ms wall (idle share "
         f"{1 - busy_ms / (1e3 * wall_s):.3f}); top kernels: {top}")
+    ours = "; ".join(f"{k[:64]} x{n} {us / 1e3:.3f} ms" for us, n, k in rows
+                     if any(t in k for t in OUR_KERNELS))
+    log(phase, f"profile: the port's kernels: {ours}")
 
 
 def check_small_round(phase, desc, setup_fn):
@@ -641,6 +713,42 @@ def single_probe(desc, dual_loss, single_loss, expect, rtol):
     return counts
 
 
+def plain_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
+                      perturb_a=False, perturb_b=True):
+    """K2's plain version behind the wrapper's signature: phase 7 swaps it
+    in for ``ops.zo_dual_matmul``, inside this script only."""
+    return k2_plain(xa, xb, w, seed, mu_a, mu_b, perturb_a, perturb_b,
+                    row_offset)
+
+
+def check_dual_vs_plain(desc, dual_loss, rtol):
+    """The dual losses (l_clean, l_pert) through K2 against the same
+    forward with ``ops.zo_dual_matmul`` swapped for its plain version (no
+    K2 launch), each within ``rtol``: K2's bf16 outputs differ from the
+    plain version's by at most one bf16 rounding step (2^-8 relative),
+    which moves a mean cross-entropy by far less than 1e-3 of itself."""
+    from repro_torch.kernels import ops as O
+    from repro_torch.kernels import zo_matmul as ZM
+    l0, lp, _ = dual_loss()
+    n0 = ZM.LAUNCHES["zo_dual_matmul"]
+    saved = O.zo_dual_matmul
+    O.zo_dual_matmul = plain_dual_matmul
+    try:
+        r0, rp, _ = dual_loss()
+    finally:
+        O.zo_dual_matmul = saved
+    if ZM.LAUNCHES["zo_dual_matmul"] != n0:
+        fail(f"{desc}: the plain pass launched K2")
+    pairs = [(float(l0), float(r0)), (float(lp), float(rp))]
+    for a, b in pairs:
+        if not (np.isfinite(a) and abs(a - b) <= rtol * abs(b)):
+            fail(f"{desc}: kernels {a} vs plain {b}")
+    log(7, f"{desc}: (l_clean, l_pert) through K2 {pairs[0][0]}, "
+        f"{pairs[1][0]} vs with K2's plain version {pairs[0][1]}, "
+        f"{pairs[1][1]}: |d| {abs(pairs[0][0] - pairs[0][1])}, "
+        f"{abs(pairs[1][0] - pairs[1][1])} <= {rtol} |plain|")
+
+
 def check_single_probe(dev):
     """Tolerance: gpt2-small rtol 1e-3 (bf16 activations: the single and
     dual forwards give bit-equal K4/K2 and K5/K3 outputs, but the library
@@ -670,12 +778,15 @@ def check_single_probe(dev):
             return T.lm_loss(T.aux_forward(cp, cfg, s, perturb=pz),
                              batch["labels"], cfg.vocab)
 
+        lm_dual = lambda: P.lm_api(cfg).client_dual_loss(  # noqa: E731
+            cp, batch, seeds, mu)
         counts = single_probe(
             "gpt2-small single-probe client+aux loss (4x256 tokens)",
-            lambda: P.lm_api(cfg).client_dual_loss(cp, batch, seeds, mu),
-            lm_single, {"zo_matmul": 24, "flash_attention": 4,
-                        "zo_dual_matmul": 0, "zo_dual_flash_attention": 0},
-            1e-3)
+            lm_dual, lm_single, {"zo_matmul": 24, "zo_matmul_tc": 24,
+                                 "flash_attention": 4, "zo_dual_matmul": 0,
+                                 "zo_dual_flash_attention": 0}, 1e-3)
+        check_dual_vs_plain("gpt2-small dual client+aux losses (4x256 "
+                            "tokens)", lm_dual, 1e-3)
         del cp
 
         cfg = full_config()
@@ -694,8 +805,8 @@ def check_single_probe(dev):
         single_probe(
             "resnet18 single-probe client forward+aux loss (64 images)",
             lambda: P.cnn_api(cfg).client_dual_loss(cp, batch, seeds, mu),
-            cnn_single, {"zo_matmul": 4, "flash_attention": 0,
-                         "zo_dual_matmul": 0}, 1e-5)
+            cnn_single, {"zo_matmul": 4, "zo_matmul_tc": 0,
+                         "flash_attention": 0, "zo_dual_matmul": 0}, 1e-5)
     return counts
 
 
@@ -804,8 +915,8 @@ def run_rg_round(dev, card):
         10, f"recurrentgemma-9b 8-layer round (N=2 h=1 n_pairs=1, 2x512 "
         f"tokens per client, seed_replay) on {card}", setup,
         {"rg_lru_scan": 24, "zo_noise": 134, "zo_dual_matmul": 0,
-         "zo_dual_flash_attention": 0, "zo_matmul": 0,
-         "flash_attention": 0})
+         "zo_dual_matmul_tc": 0, "zo_dual_flash_attention": 0,
+         "zo_matmul": 0, "zo_matmul_tc": 0, "flash_attention": 0})
     del setup
     return counts
 
@@ -833,6 +944,120 @@ def abba(fa, fb):
     touches both alike."""
     ta1, tb1, tb2, ta2 = (time_ms(f) for f in (fa, fb, fb, fa))
     return (ta1 + ta2) / 2, (tb1 + tb2) / 2
+
+
+def misaligned(x):
+    """A copy of ``x`` one element into a buffer: contiguous, but not
+    16-byte aligned, so K2 / K4 take the CUDA-core loop for it."""
+    import torch
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    out = buf[1:1 + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def expect_route(what, fn, key, want):
+    """Run ``fn`` once and check that it added ``want`` to the route
+    counter ``key``."""
+    from repro_torch.kernels import zo_matmul as ZM
+    n0 = ZM.LAUNCHES[key]
+    fn()
+    if ZM.LAUNCHES[key] - n0 != want:
+        fail(f"{what}: expected {want} launch(es) counted under {key}, "
+             f"counters {ZM.LAUNCHES}")
+
+
+def host_us(fn, n=400):
+    """Host time of one call of ``fn`` in us, enqueue only (no sync inside
+    the loop): the median of three runs of ``n`` calls."""
+    import torch
+    out = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out.append(1e6 * (time.perf_counter() - t0) / n)
+        torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def _demangle(names):
+    import shutil
+    if not names or shutil.which("c++filt") is None:
+        return dict(zip(names, names))
+    out = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True, timeout=60)
+    return dict(zip(names, out.stdout.splitlines()))
+
+
+def compiler_report():
+    """Registers, static shared memory and spills of every kernel, from
+    the compiler's report in ``_build/<library>.log`` (``-Xptxas=-v``)."""
+    import re
+    from repro_torch.kernels import build
+    rows, serialized = [], set()
+    for lib in build.SIGNATURES:
+        cur = None
+        for line in (build.BUILD_DIR / f"{lib}.log").read_text(
+                errors="replace").splitlines():
+            m = re.search(r"C7512.*serialized.*function '([^']+)'", line)
+            if m:
+                serialized.add(m.group(1))
+                continue
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                cur = {"lib": lib, "fn": m.group(1)}
+                rows.append(cur)
+            elif cur is not None:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if m:
+                    cur["spills"] = int(m.group(1)) + int(m.group(2))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    cur["regs"] = int(m.group(1))
+                    sm = re.search(r"(\d+) bytes smem", line)
+                    cur["smem"] = int(sm.group(1)) if sm else 0
+    names = _demangle([r["fn"] for r in rows])
+    for r in rows:
+        dyn = (" (+ the dynamic ring of zo_wgmma_matmul.cuh)"
+               if "zo_wgmma" in r["fn"] else "")
+        ser = ("; ptxas serializes its wgmmas (C7512)"
+               if r["fn"] in serialized else "")
+        log(8, f"{r['lib']}: {names[r['fn']]}: {r.get('regs')} registers, "
+            f"{r.get('smem')} bytes static shared memory{dyn}, "
+            f"{r.get('spills')} bytes spilled (stores + loads){ser}")
+    return rows
+
+
+def check_hgmma():
+    """The tensor-core kernels of K2 and K4 hold HGMMA (wgmma)
+    instructions in their SASS (cuobjdump -sass of the built library)."""
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log(8, "HGMMA: cuobjdump not found (not checked)")
+        return
+    for lib in ("zo_dual_matmul", "zo_matmul"):
+        sass = subprocess.run([tool, "-sass", str(build._lib_path(lib))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        per_fn, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[-1].strip()
+                per_fn[fn] = 0
+            elif fn is not None and "HGMMA" in line:
+                per_fn[fn] += 1
+        names = _demangle(list(per_fn))
+        tc = {names[f]: n for f, n in per_fn.items() if "zo_wgmma" in f}
+        if not tc or min(tc.values()) == 0:
+            fail(f"{lib}: no HGMMA in the tensor-core kernels' SASS: {tc}")
+        loop = sum(n for f, n in per_fn.items() if "zo_wgmma" not in f)
+        log(8, f"{lib} SASS: HGMMA instructions per tensor-core kernel "
+            f"{tc}; in the CUDA-core loop's kernels {loop}")
 
 
 def time_kernels(dev, counts, counts_sp, counts_rg, errs):
@@ -874,11 +1099,18 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs):
                  "ms": ms, "plain_ms": pl, "bound_ms": b, "bound_by": by,
                  "library_ms": None})
 
-    # K2 at the client shapes, bf16 (the config's compute type)
+    # K2 at the client shapes, bf16 (the config's compute type), on the
+    # tensor-core route and on the CUDA-core loop (x one element into a
+    # buffer, not 16-byte aligned, so the wrapper takes the loop)
     k2_rows = []
     for K, Nn in K2_SHAPES:
         xa, xb, w = k2_inputs(dev, torch.bfloat16, 1024, K, Nn)
-        ms = time_ms(lambda: ZM.zo_dual_matmul(xa, xb, w, 3, 0.0, 1e-3))
+        xm = misaligned(xa)
+        tc = lambda: ZM.zo_dual_matmul(xa, xb, w, 3, 0.0, 1e-3)  # noqa
+        loop = lambda: ZM.zo_dual_matmul(xm, xb, w, 3, 0.0, 1e-3)  # noqa
+        expect_route("K2", tc, "zo_dual_matmul_tc", 1)
+        expect_route("K2", loop, "zo_dual_matmul_tc", 0)
+        ms, loop_ms = time_ms(tc), time_ms(loop)
         pl = time_ms(lambda: k2_plain(xa, xb, w, 3, 0.0, 1e-3, False, True,
                                       0))
         wa = w
@@ -887,10 +1119,22 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs):
         lib = time_ms(lambda: (torch.matmul(xa, wa), torch.matmul(xb, wb)))
         n_bytes = 2 * (2 * 1024 * K + K * Nn + 2 * 1024 * Nn)
         b, by = bound_ms(n_bytes, 2 * 2 * 1024 * K * Nn, "bfloat16")
-        log(8, f"K2 bf16 M=1024 {K}x{Nn}: kernel_ms {ms} plain_ms {pl} "
-            f"library_ms {lib} (two bf16 torch.matmul on materialised W, "
-            f"W+mu*U) bound_ms {b} ({by})")
+        log(8, f"K2 bf16 M=1024 {K}x{Nn}: kernel_ms {ms} (tensor cores) "
+            f"loop_ms {loop_ms} (CUDA-core loop) plain_ms {pl} library_ms "
+            f"{lib} (two bf16 torch.matmul on materialised W, W+mu*U) "
+            f"bound_ms {b} ({by})")
         k2_rows.append((K, Nn, ms, pl, lib, b, by))
+        if (K, Nn) == K2_SHAPES[0]:
+            # 16 rows, so the card keeps up with the host on both routes
+            xs, xsm = xa[:16], misaligned(xa[:16])
+            h_tc = host_us(lambda: ZM.zo_dual_matmul(xs, xs, w, 3, 0.0,
+                                                     1e-3))
+            h_loop = host_us(lambda: ZM.zo_dual_matmul(xsm, xs, w, 3, 0.0,
+                                                       1e-3))
+            log(8, f"K2 host time per launch (wrapper, no sync), bf16 M=16 "
+                f"{K}x{Nn}: tensor-core route {h_tc} us (encodes 3 TMA maps) "
+                f"vs CUDA-core loop {h_loop} us: difference {h_tc - h_loop} "
+                f"us")
     _, _, ms, pl, lib, b, by = k2_rows[1]            # 768 x 3072 (up)
     rows.append({"name": "zo_dual_matmul", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/zo_dual_matmul.cu",
@@ -937,12 +1181,23 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs):
                  "max_abs_err": errs[2], "ms": ms, "plain_ms": pl,
                  "bound_ms": b, "bound_by": by, "library_ms": lib})
 
-    # K4: gpt2-small's up projection in bf16 (the main path's row) and
-    # ResNet-18's block conv over im2col patches in f32
+    # K4: gpt2-small's three client shapes in bf16 (the tensor-core route,
+    # and the CUDA-core loop beside it; 768x3072 is the main path's row)
+    # and ResNet-18's block conv over im2col patches in f32
     k4 = []
-    for name, dtype, M, K, Nn in (k4_cases()[1], k4_cases()[4]):
+    for name, dtype, M, K, Nn in k4_cases()[:3] + [k4_cases()[4]]:
         _, x, w = k2_inputs(dev, dtype, M, K, Nn)
         ms = time_ms(lambda: ZM.zo_matmul(x, w, 3, 1e-3))
+        loop = ""
+        if dtype == torch.bfloat16:
+            xm = misaligned(x)
+            expect_route("K4", lambda: ZM.zo_matmul(x, w, 3, 1e-3),
+                         "zo_matmul_tc", 1)
+            expect_route("K4", lambda: ZM.zo_matmul(xm, w, 3, 1e-3),
+                         "zo_matmul_tc", 0)
+            loop = (f" (tensor cores) loop_ms "
+                    f"{time_ms(lambda: ZM.zo_matmul(xm, w, 3, 1e-3))} "
+                    f"(CUDA-core loop)")
         pl = time_ms(lambda: k4_plain(x, w, 3, 1e-3, True, 0))
         wp = (w.float() + 1e-3 * N.uniform_noise(3, w.shape, device=dev)
               ).to(dtype)
@@ -950,11 +1205,11 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs):
         dn = str(dtype).split(".")[-1]
         b, by = bound_ms(x.element_size() * (M * K + K * Nn + M * Nn),
                          2 * M * K * Nn, dn)
-        log(8, f"K4 {dn} {name} M={M}: kernel_ms {ms} plain_ms {pl} "
+        log(8, f"K4 {dn} {name} M={M}: kernel_ms {ms}{loop} plain_ms {pl} "
             f"library_ms {lib} (one {dn} torch.matmul on materialised "
             f"W+mu*U) bound_ms {b} ({by})")
         k4.append((ms, pl, lib, b, by))
-    ms, pl, lib, b, by = k4[0]
+    ms, pl, lib, b, by = k4[1]
     rows.append({"name": "zo_matmul", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/zo_matmul.cu",
                  "replaces": "src/repro/kernels/zo_matmul.py:145",
@@ -1038,15 +1293,8 @@ def main():
     log(1, f"card {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     secs = build.build_all()
-    regs = []
-    for name in build.SIGNATURES:
-        for line in (build.BUILD_DIR / f"{name}.log").read_text(
-                errors="replace").splitlines():
-            if "registers" in line:
-                regs.append(f"{name}: {line.split('ptxas info    :')[-1]}")
-    log(1, f"built kernels in {secs:.1f} s")
-    for r in regs:
-        log(1, r.strip())
+    log(1, f"built kernels in {secs:.1f} s (registers, shared memory and "
+        f"spills per kernel in phase 8)")
 
     errs = (check_k1(dev), check_k2(dev), check_k3(dev), check_k4(dev),
             check_k5(dev))
@@ -1059,6 +1307,8 @@ def main():
     torch.cuda.empty_cache()
     check_rg_small_round()
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs)
+    compiler_report()
+    check_hgmma()
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -41,6 +41,8 @@ SIGNATURES = {
     "zo_dual_matmul": {
         "zo_dual_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U,
                            _F, _F, _U, _P],
+        "zo_dual_matmul_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U,
+                              _F, _F, _U, _P],
     },
     "zo_dual_flash_attention": {
         "zo_dual_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -49,6 +51,7 @@ SIGNATURES = {
     },
     "zo_matmul": {
         "zo_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _U, _F, _U, _P],
+        "zo_matmul_tc": [_P, _P, _P, _I, _I, _I, _I, _U, _F, _U, _P],
     },
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

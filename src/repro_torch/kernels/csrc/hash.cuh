@@ -1,6 +1,6 @@
 // The counter-hash noise stream U(seed)[r, c], the one device definition
-// shared by kernels K1 (zo_noise.cu), K2 (zo_dual_matmul.cu) and K3
-// (zo_dual_flash_attention.cu).
+// shared by kernels K1 (zo_noise.cu), K2 (zo_dual_matmul.cu), K3
+// (zo_dual_flash_attention.cu) and K4 (zo_matmul.cu).
 //
 // It must equal, bit for bit, `_mix_bits` / `_bits_to_uniform` of
 // src/repro/kernels/zo_matmul.py and the plain PyTorch version in
@@ -15,16 +15,30 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-__device__ __forceinline__ uint32_t zo_mix_bits(uint32_t seed, uint32_t r,
-                                                uint32_t c) {
-  uint32_t x = (r * 0x9E3779B9u) ^ (c * 0x85EBCA6Bu);
-  x ^= seed * 0x27D4EB2Fu + 0x165667B1u;
+// The first XOR of the mix takes a row term, a column term and a seed term,
+// so a tile loop can hoist the row and column parts (zo_mix_row /
+// zo_mix_col) and finish each element with zo_mix_final; XOR is
+// associative, so the split form gives the same bits.
+__device__ __forceinline__ uint32_t zo_mix_row(uint32_t seed, uint32_t r) {
+  return (r * 0x9E3779B9u) ^ (seed * 0x27D4EB2Fu + 0x165667B1u);
+}
+
+__device__ __forceinline__ uint32_t zo_mix_col(uint32_t c) {
+  return c * 0x85EBCA6Bu;
+}
+
+__device__ __forceinline__ uint32_t zo_mix_final(uint32_t x) {
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x;
+}
+
+__device__ __forceinline__ uint32_t zo_mix_bits(uint32_t seed, uint32_t r,
+                                                uint32_t c) {
+  return zo_mix_final(zo_mix_row(seed, r) ^ zo_mix_col(c));
 }
 
 __device__ __forceinline__ float zo_bits_to_uniform(uint32_t bits) {

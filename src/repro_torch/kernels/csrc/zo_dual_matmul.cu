@@ -4,20 +4,28 @@
 // (rows shifted by row_offset for a leaf stacked along a scan axis).
 //
 // Replaces the Pallas kernel `_zo_dual_kernel` / `zo_dual_matmul` of
-// src/repro/kernels/zo_matmul.py.  The tile loop is zo_tile_matmul.cuh's,
-// run with TWO streams: one read of W and one noise tile per k step serve
-// both losses of the pair.  perturb_a / perturb_b are template parameters,
-// as the TPU kernel's static flags.  The same loop with one stream is K4
-// (zo_matmul.cu), which therefore matches either stream bit for bit.
+// src/repro/kernels/zo_matmul.py.  Two routes, each run with TWO streams,
+// so one read of W and one noise tile per k step serve both losses of the
+// pair; perturb_a / perturb_b are template parameters, as the TPU kernel's
+// static flags:
+//   * zo_dual_matmul_tc: bf16 operands on the tensor cores
+//     (zo_wgmma_matmul.cuh: TMA ring, wgmma with the perturbed W fragment
+//     split into two bf16 terms in registers);
+//   * zo_dual_matmul: the CUDA-core tile loop (zo_tile_matmul.cuh), for f32
+//     and for bf16 shapes the tensor-core route does not take (K or N not
+//     a multiple of 8, a pointer not 16-byte aligned).
+// K4 (zo_matmul.cu) runs the same two routes with one stream, so it matches
+// either stream bit for bit on the same route.
 //
 // Bound on the H100: at gpt2-small's client shapes (M = 1024 rows per
 // stream, K x N up to 768 x 3072) the work is ~9.7 GFLOP for ~20 MB, so
-// the bf16 tensor-core rate bounds it (~10 us).  This simple design runs
-// f32 FMAs on the CUDA cores (67 TFLOP/s peak, before the hash and the
-// shared-memory traffic), so it sits far above that bound.  What it leaves
-// on the table: wgmma on bf16 tiles, TMA loads into a multi-stage ring,
-// and generating the noise tile once per W tile across the M blocks.
+// the bf16 tensor-core rate bounds it (~10 us).  The tensor-core route runs
+// 3 wgmmas per k16 step for a clean + perturbed pair (the perturbed stream's
+// hi and lo terms), so its own floor is 1.5x that bound, plus the hash of
+// each W element once per 128 rows.  The CUDA-core loop runs f32 FMAs (67
+// TFLOP/s peak) and sits far above the bound; it stays as the f32 route.
 #include "zo_tile_matmul.cuh"
+#include "zo_wgmma_matmul.cuh"
 
 namespace {
 
@@ -70,4 +78,17 @@ extern "C" int zo_dual_matmul(const void* xa, const void* xb, const void* w,
     return launch<float>(xa, xb, w, ya, yb, M, K, N, perturb_a, perturb_b,
                          seed, mu_a, mu_b, row_offset, s);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int zo_dual_matmul_tc(const void* xa, const void* xb,
+                                 const void* w, void* ya, void* yb, int M,
+                                 int K, int N, int perturb_a, int perturb_b,
+                                 unsigned int seed, float mu_a, float mu_b,
+                                 unsigned int row_offset, void* stream) {
+  const void* const x[2] = {xa, xb};
+  void* const y[2] = {ya, yb};
+  const float mu[2] = {mu_a, mu_b};
+  const unsigned mask = (perturb_a ? 1u : 0u) | (perturb_b ? 2u : 0u);
+  return zo_wgmma::launch<2>(x, w, y, mu, mask, M, K, N, seed, row_offset,
+                             (cudaStream_t)stream);
 }

@@ -4,25 +4,27 @@
 // (rows shifted by row_offset for a leaf stacked along a scan axis).
 //
 // Replaces the Pallas kernel `_zo_matmul_kernel` / `zo_matmul` of
-// src/repro/kernels/zo_matmul.py.  It is the tile loop of
-// zo_tile_matmul.cuh with ONE stream, the loop K2 (zo_dual_matmul.cu) runs
-// with two, so K4 equals K2's matching stream bit for bit (the property
-// the TPU kernels' docstring claims).  `perturb` is a template parameter,
-// as the TPU kernel's static flag: with it off the kernel is the plain
-// blocked matmul, the clean pass of the unfused two-pass baseline
-// (`zo_dual_forward_split`).  The single-probe model forward calls it for
-// every perturbed dense layer and, over im2col patches, every perturbed
-// conv.  f32 or bf16 inputs, f32 accumulation, output in x's type; ragged
-// edges are masked.
+// src/repro/kernels/zo_matmul.py.  It runs K2's (zo_dual_matmul.cu) two
+// routes with ONE stream: bf16 operands on the tensor cores
+// (zo_matmul_tc, zo_wgmma_matmul.cuh) where K and N are multiples of 8 and
+// the pointers 16-byte aligned, everything else on the CUDA-core tile loop
+// (zo_matmul, zo_tile_matmul.cuh).  On the same route K4 equals K2's
+// matching stream bit for bit (the property the TPU kernels' docstring
+// claims).  `perturb` is a template parameter, as the TPU kernel's static
+// flag: with it off the kernel is the plain blocked matmul, the clean pass
+// of the unfused two-pass baseline (`zo_dual_forward_split`).  The
+// single-probe model forward calls it for every perturbed dense layer and,
+// over im2col patches, every perturbed conv.  f32 accumulation, output in
+// x's type; ragged edges are masked.
 //
 // Bound on the H100: at gpt2-small's client shapes (M = 1024, K x N up to
 // 768 x 3072, bf16) ~4.8 GFLOP for ~11 MB, so the tensor-core rate bounds
-// it (~5 us); at ResNet-18's block convs (f32, M = 65536, 576 x 64) the
-// 4.8 GFLOP at the f32 rate bound it (~72 us, the 151 MB of patches take
-// ~45 us).  Like K2 it runs f32 FMAs on the
-// CUDA cores from shared memory, far above both bounds; wgmma, TMA and a
-// multi-stage ring are what it leaves on the table.
+// it (~5 us; the perturbed pass runs two wgmmas per k16 step, hi and lo);
+// at ResNet-18's block convs (f32, M = 65536, 576 x 64) the 4.8 GFLOP at
+// the f32 rate bound it (~72 us, the 151 MB of patches take ~45 us), and
+// the f32 CUDA-core loop sits above that.
 #include "zo_tile_matmul.cuh"
+#include "zo_wgmma_matmul.cuh"
 
 namespace {
 
@@ -62,4 +64,14 @@ extern "C" int zo_matmul(const void* x, const void* w, void* y, int M, int K,
   if (dtype == REPRO_DTYPE_F32)
     return launch<float>(x, w, y, M, K, N, perturb, seed, mu, row_offset, s);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int zo_matmul_tc(const void* x, const void* w, void* y, int M,
+                            int K, int N, int perturb, unsigned int seed,
+                            float mu, unsigned int row_offset, void* stream) {
+  const void* const xs[1] = {x};
+  void* const ys[1] = {y};
+  const float mus[1] = {mu};
+  return zo_wgmma::launch<1>(xs, w, ys, mus, perturb ? 1u : 0u, M, K, N,
+                             seed, row_offset, (cudaStream_t)stream);
 }

@@ -18,6 +18,31 @@ def matmul_ref(x, w):
     return (x.to(torch.float32) @ w.to(torch.float32)).to(x.dtype)
 
 
+def split_bf16(p):
+    """The two bf16 terms of an f32 tensor: ``hi = bf16(p)`` and ``lo =
+    bf16(p - hi)`` (``p - hi`` is exact in f32); ``hi + lo`` is within
+    2^-16 of ``p``, relative."""
+    hi = p.to(torch.bfloat16)
+    return hi, (p - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+def zo_matmul_split_ref(x, w, u, mu, *, perturb=True, out_dtype=None):
+    """The arithmetic of K2 / K4's tensor-core route for bf16 operands:
+    ``p = w + mu*u`` in f32 (a multiply, then an add), split into
+    :func:`split_bf16`'s two terms, ``y = x@hi + x@lo`` with every product
+    exact and f32 sums; ``perturb=False`` gives ``x @ w`` on W's own bf16
+    values.  Only tests and ``chip_smoke.py`` use it; the output is in
+    ``out_dtype`` (x's by default)."""
+    xf = x.to(torch.float32)
+    if perturb:
+        hi, lo = split_bf16(w.to(torch.float32) + float(mu) *
+                            u.to(torch.float32))
+        y = xf @ hi.to(torch.float32) + xf @ lo.to(torch.float32)
+    else:
+        y = xf @ w.to(torch.float32)
+    return y.to(out_dtype or x.dtype)
+
+
 def zo_dual_matmul_ref(xa, xb, w, u, mu_a, mu_b, *, perturb_a=False,
                        perturb_b=True):
     """Dual probe with U materialized: one branch per (x, mu) pair."""

@@ -8,6 +8,13 @@ stream, and raises if the launch fails.  It takes the plain PyTorch
 version only for tensors on the CPU.  ``LAUNCHES`` counts kernel
 launches (never plain-version calls), so a run can show that it went
 through the kernels.
+
+K2 and K4 have two routes on the card, chosen by
+:func:`tensor_core_route`: bf16 operands whose shapes and pointers suit
+TMA run on the tensor cores (``csrc/zo_wgmma_matmul.cuh``), everything
+else on the CUDA-core tile loop (``csrc/zo_tile_matmul.cuh``).
+``LAUNCHES["zo_dual_matmul"]`` / ``["zo_matmul"]`` count every launch;
+the ``_tc`` keys count those that took the tensor cores.
 """
 from __future__ import annotations
 
@@ -17,7 +24,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels import noise as N
 from repro_torch.kernels import ref as R
 
-LAUNCHES = {"zo_noise": 0, "zo_dual_matmul": 0, "zo_matmul": 0}
+LAUNCHES = {"zo_noise": 0, "zo_dual_matmul": 0, "zo_dual_matmul_tc": 0,
+            "zo_matmul": 0, "zo_matmul_tc": 0}
 
 
 def zo_noise(seed, shape, row_offset=0, col_offset=0, *, device):
@@ -75,6 +83,16 @@ def _check_matmul(what, w, *xs):
     return dev
 
 
+def tensor_core_route(dtype, K: int, N: int, ptrs) -> bool:
+    """Whether a K2 / K4 launch of (M, K) @ (K, N) runs on the tensor
+    cores: bf16 operands, K and N positive multiples of 8 (TMA's row
+    strides are multiples of 16 bytes) and every base pointer in ``ptrs``
+    16-byte aligned (TMA's base addresses).  Anything else takes the
+    CUDA-core loop.  A pure function of its arguments: it needs no card."""
+    return (dtype == torch.bfloat16 and K > 0 and N > 0 and K % 8 == 0
+            and N % 8 == 0 and all(int(p) % 16 == 0 for p in ptrs))
+
+
 def zo_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
                    perturb_a: bool = False, perturb_b: bool = True):
     """K2: ``(xa @ (W + mu_a*U), xb @ (W + mu_b*U))`` for one read of W.
@@ -96,13 +114,21 @@ def zo_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
     ya = torch.empty((M, Nn), dtype=xa.dtype, device=dev)
     yb = torch.empty((M, Nn), dtype=xa.dtype, device=dev)
     if ya.numel():
-        err = build.library("zo_dual_matmul").zo_dual_matmul(
-            xa.data_ptr(), xb.data_ptr(), w.data_ptr(), ya.data_ptr(),
-            yb.data_ptr(), M, K, Nn, build.DTYPE_CODES[xa.dtype],
-            int(perturb_a), int(perturb_b), int(N._u32(seed)), float(mu_a),
-            float(mu_b), int(N._u32(row_offset)), build.stream(dev))
+        lib = build.library("zo_dual_matmul")
+        ptrs = (xa.data_ptr(), xb.data_ptr(), w.data_ptr(), ya.data_ptr(),
+                yb.data_ptr())
+        rest = (int(perturb_a), int(perturb_b), int(N._u32(seed)),
+                float(mu_a), float(mu_b), int(N._u32(row_offset)),
+                build.stream(dev))
+        tc = tensor_core_route(xa.dtype, K, Nn, ptrs)
+        if tc:
+            err = lib.zo_dual_matmul_tc(*ptrs, M, K, Nn, *rest)
+        else:
+            err = lib.zo_dual_matmul(*ptrs, M, K, Nn,
+                                     build.DTYPE_CODES[xa.dtype], *rest)
         build.check(err, "zo_dual_matmul")
         LAUNCHES["zo_dual_matmul"] += 1
+        LAUNCHES["zo_dual_matmul_tc"] += int(tc)
     return ya, yb
 
 
@@ -112,7 +138,8 @@ def zo_matmul(x, w, seed, mu, *, row_offset=0, perturb: bool = True):
 
     x: (M, K); w: (K, N); one dtype, f32 or bf16; f32 accumulation,
     output in x's dtype.  Equals stream b of :func:`zo_dual_matmul` with
-    the same (seed, mu, row_offset) bit for bit on the card.
+    the same (seed, mu, row_offset) bit for bit on the card when both take
+    the same route.
     """
     if x.device.type == "cpu":
         if not perturb:
@@ -124,10 +151,17 @@ def zo_matmul(x, w, seed, mu, *, row_offset=0, perturb: bool = True):
     Nn = w.shape[1]
     y = torch.empty((M, Nn), dtype=x.dtype, device=dev)
     if y.numel():
-        err = build.library("zo_matmul").zo_matmul(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), M, K, Nn,
-            build.DTYPE_CODES[x.dtype], int(perturb), int(N._u32(seed)),
-            float(mu), int(N._u32(row_offset)), build.stream(dev))
+        lib = build.library("zo_matmul")
+        ptrs = (x.data_ptr(), w.data_ptr(), y.data_ptr())
+        rest = (int(perturb), int(N._u32(seed)), float(mu),
+                int(N._u32(row_offset)), build.stream(dev))
+        tc = tensor_core_route(x.dtype, K, Nn, ptrs)
+        if tc:
+            err = lib.zo_matmul_tc(*ptrs, M, K, Nn, *rest)
+        else:
+            err = lib.zo_matmul(*ptrs, M, K, Nn, build.DTYPE_CODES[x.dtype],
+                                *rest)
         build.check(err, "zo_matmul")
         LAUNCHES["zo_matmul"] += 1
+        LAUNCHES["zo_matmul_tc"] += int(tc)
     return y

@@ -130,3 +130,73 @@ def test_cuda_rg_lru_scan_matches_plain():
             torch.sum(R.rg_lru_scan_ref(ta, tb) * g), (ta, tb))
         torch.testing.assert_close(ka, pa, rtol=1e-6, atol=1e-6)
         torch.testing.assert_close(kb, pb, rtol=1e-6, atol=1e-6)
+
+
+def _k2_ok(got, ref):
+    """chip_smoke.check_k2's bf16 tolerance, elementwise: one bf16
+    rounding step (2^-7 relative) plus 1e-4 of max|ref| for f32 sums in
+    another order."""
+    d = (got.float() - ref.float()).abs()
+    r = ref.float().abs()
+    return bool((d <= 2 ** -7 * r + 1e-4 * r.max()).all())
+
+
+def _split_ok(got, x, w, u, mu, perturb):
+    """Against the route's own arithmetic (ref.zo_matmul_split_ref, f32
+    sums): half a bf16 step of the output rounding (2^-8 relative) plus
+    one f32 ulp of the sum of |products| per wgmma step (two per k16 step
+    when perturbed), for the tensor cores' other accumulation order."""
+    emu = R.zo_matmul_split_ref(x, w, u, mu, perturb=perturb,
+                                out_dtype=torch.float32)
+    if perturb:
+        hi, lo = R.split_bf16(w.float() + mu * u)
+        mag = x.float().abs() @ (hi.float().abs() + lo.float().abs())
+    else:
+        mag = x.float().abs() @ w.float().abs()
+    steps = (2 if perturb else 1) * -(-x.shape[1] // 16)
+    d = (got.float() - emu).abs()
+    return bool((d <= 2 ** -8 * emu.abs() + steps * 2 ** -23 * mag).all())
+
+
+@pytest.mark.gpu
+def test_cuda_zo_matmul_tensor_core_route():
+    """K2 and K4 on the bf16 tensor-core route at ragged shapes (the M, K
+    and N tails of the 128 x 64 x 64 tiles, and M = 1): within check_k2's
+    tolerance of the plain version and within a few f32 ulps of the
+    route's split arithmetic; K4 equal to K2's clean and perturbed streams
+    bit for bit; the route counters show which route each call took,
+    including a bf16 N = 70 call on the CUDA-core loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    for M, K, Nn in ((1000, 776, 840), (1, 776, 840), (300, 64, 70)):
+        xa, xb, w = (torch.as_tensor(a, device=dev).to(torch.bfloat16)
+                     for a in _arrays(M + K, (M, K), (M, K), (K, Nn)))
+        w = (w.float() * K ** -0.5).to(torch.bfloat16)
+        u = N.uniform_noise(11, w.shape, 3 * K, device=dev)
+        tc = Nn % 8 == 0
+        for mu in (1e-3, 0.5):
+            for pa, pb, ma, mb in ((False, True, 0.0, mu),
+                                   (True, True, mu, -mu)):
+                before = dict(ZM.LAUNCHES)
+                ya, yb = ZM.zo_dual_matmul(xa, xb, w, 11, ma, mb,
+                                           row_offset=3 * K, perturb_a=pa,
+                                           perturb_b=pb)
+                ka = ZM.zo_matmul(xa, w, 11, ma, row_offset=3 * K,
+                                  perturb=pa)
+                kb = ZM.zo_matmul(xb, w, 11, mb, row_offset=3 * K,
+                                  perturb=pb)
+                assert ZM.LAUNCHES["zo_dual_matmul"] == \
+                    before["zo_dual_matmul"] + 1
+                assert ZM.LAUNCHES["zo_matmul"] == before["zo_matmul"] + 2
+                assert ZM.LAUNCHES["zo_dual_matmul_tc"] == \
+                    before["zo_dual_matmul_tc"] + int(tc)
+                assert ZM.LAUNCHES["zo_matmul_tc"] == \
+                    before["zo_matmul_tc"] + 2 * int(tc)
+                assert torch.equal(ka, ya) and torch.equal(kb, yb)
+                ra, rb = R.zo_dual_matmul_ref(xa, xb, w, u, ma, mb,
+                                              perturb_a=pa, perturb_b=pb)
+                assert _k2_ok(ya, ra) and _k2_ok(yb, rb)
+                if tc:
+                    assert _split_ok(ya, xa, w, u, ma, pa)
+                    assert _split_ok(yb, xb, w, u, mb, pb)
