@@ -12,13 +12,15 @@ Phases, one line each (any failure exits non-zero):
      arithmetic ref.zo_matmul_split_ref) and ResNet-18's (f32, the
      CUDA-core loop); K4 == K2's streams bit for bit; the route counters;
   4. K3 zo_dual_flash_attention and K5 flash_attention vs plain, both
-     probe modes, plus GQA, window, soft-cap and ragged lengths; K5 ==
-     K3's a stream bit for bit;
+     probe modes, plus GQA, window, soft-cap and ragged lengths, at
+     head_dim 64, 128 and 256, bf16 on the tensor-core route and on the
+     CUDA-core loop and f32 on the loop (which refuses head_dim 256); K5
+     == K3's streams bit for bit on both routes; the route counters;
   5. one HERON-SFL round on gpt2-small at full width (N=2 clients, h=1,
      n_pairs=1, 4 x 256 tokens each, lean seed-replay uplink): losses,
      uplink bytes, wall time, peak memory and kernel launch counts (all 48
-     K2 launches on the tensor-core route); and a small round on the card
-     held against the same round on the CPU;
+     K2 and all 8 K3 launches on the tensor-core route); and a small
+     round on the card held against the same round on the CPU;
   6. the same for ResNet-18 on 32x32x3 images (N=5 clients, 64 images
      each), and its small config on the card against the CPU;
   7. the single-probe forwards (Perturb(dual=False): K4 and K5) of
@@ -28,7 +30,9 @@ Phases, one line each (any failure exits non-zero):
   8. kernel times (CUDA events, median) beside the plain version, a
      PyTorch library yardstick and the card's bound; K2 / K4 bf16 on both
      routes (tensor cores and the CUDA-core loop) and the host cost of a
-     launch on each; the fused dual probe (K2, K3) against two
+     launch on each; K3 (both modes) and K5 bf16 on both routes at
+     head_dim 64 (gpt2-small), 128 and 256 (the loop: 64 and 128); the
+     fused dual probe (K2, K3) against two
      single-probe passes (2 x K4, 2 x K5); K6 forward and reverse at the
      RG-LRU round's shapes; each kernel's registers, shared memory and
      spills from the compiler's report, and the HGMMA count of the
@@ -67,7 +71,8 @@ HASH_OPS = 21          # integer and float operations per K1 element
 REPS = 30
 # substrings of the port's CUDA kernels' names (csrc/*.cu)
 OUR_KERNELS = ("zo_noise", "zo_dual_matmul_kernel", "zo_matmul_kernel",
-               "zo_wgmma_kernel", "fa_kernel", "rg_lru_scan_kernel")
+               "zo_wgmma_kernel", "fa_kernel", "fa_wgmma_kernel",
+               "rg_lru_scan_kernel")
 
 
 def log(phase, msg):
@@ -384,25 +389,79 @@ def k3_inputs(dev, dtype, B, S, H, Kv, D, seed=0):
 
 
 def k3_cases():
-    # (name, B, S, H, Kv, kwargs); the main path's shape first
-    return [("gpt2-small", 4, 256, 12, 12, dict()),
-            ("gqa-window-cap-ragged", 2, 200, 8, 2,
-             dict(window=64, cap=30.0))]
+    # (name, B, S, H, Kv, D, kwargs); the main path's shape first, then
+    # qwen2-1.5b's heads (12 q, 2 kv, head_dim 128) and recurrentgemma-9b's
+    # (16 q, 1 kv, head_dim 256) with a window
+    return [("gpt2-small", 4, 256, 12, 12, 64, dict()),
+            ("gqa-window-cap-ragged", 2, 200, 8, 2, 64,
+             dict(window=64, cap=30.0)),
+            ("d128-qwen2-heads-window", 2, 300, 12, 2, 128,
+             dict(window=100)),
+            ("d256-recurrentgemma-heads-window", 1, 1024, 16, 1, 256,
+             dict(window=512))]
+
+
+def k3_routes():
+    """(name, dtype, tensor cores?): bf16 with aligned inputs takes the
+    tensor cores; bf16 one element into a buffer (not 16-byte aligned)
+    and f32 take the CUDA-core loop."""
+    import torch
+    return [("bf16 tensor cores", torch.bfloat16, True),
+            ("bf16 loop", torch.bfloat16, False),
+            ("f32 loop", torch.float32, False)]
+
+
+def route_inputs(xs, tc):
+    """The inputs as the route needs them: as they are for the tensor
+    cores, misaligned copies (:func:`misaligned`) for the loop."""
+    return list(xs) if tc else [misaligned(x) for x in xs]
+
+
+def expect_fa_route(what, before, key, want):
+    from repro_torch.kernels import flash_attention as FA
+    if FA.LAUNCHES[key] - before[key] != want:
+        fail(f"{what}: expected {want} launch(es) counted under {key}, "
+             f"counters {FA.LAUNCHES}")
+
+
+def check_loop_refuses_d256(dev):
+    """The CUDA-core loop is not compiled for head_dim 256 (its f32 tiles
+    do not fit shared memory): f32 K3 and K5 raise, naming the route."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    qa, qb, k, v, _, _ = k3_inputs(dev, torch.float32, 1, 64, 2, 1, 256)
+    for what, fn in (("K3", lambda: FA.zo_dual_flash_attention(qa, qb, k,
+                                                                v)),
+                     ("K5", lambda: FA.flash_attention(qa, k, v))):
+        before = dict(FA.LAUNCHES)
+        try:
+            fn()
+        except ValueError as e:
+            if "CUDA-core loop" not in str(e):
+                fail(f"{what} f32 head_dim 256: unclear refusal: {e}")
+        else:
+            fail(f"{what} f32 head_dim 256 ran; expected a refusal")
+        if FA.LAUNCHES != before:
+            fail(f"{what} f32 head_dim 256 launched: {FA.LAUNCHES}")
 
 
 def check_k3(dev):
     """Tolerance: f32 |d| <= 1e-4 (outputs are convex combinations of v,
     |v| < 5; the online softmax sums in another order than the full
     softmax).  bf16: one bf16 rounding step of the output, 2^-7 |ref|,
-    plus 1e-3."""
-    import torch
+    plus 1e-3.  Each case on each route that is compiled for its
+    head_dim; the route counter shows where each call went."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import ref as R
+    import torch
     worst = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        for name, B, S, H, Kv, kw in k3_cases():
-            qa, qb, k, v, kb, vb = k3_inputs(dev, dtype, B, S, H, Kv, 64)
+    for rname, dtype, tc in k3_routes():
+        for name, B, S, H, Kv, D, kw in k3_cases():
+            if not tc and D not in FA.HEAD_DIMS["CUDA-core loop"]:
+                continue
+            ins = k3_inputs(dev, dtype, B, S, H, Kv, D)
+            qa, qb, k, v, kb, vb = route_inputs(ins, tc)
             u = N.uniform_noise(77, (H * S, S), 5 * H * S,
                                 device=dev).reshape(H, S, S)
             modes = [("weights", dict(kb=kb, vb=vb, perturb_a=False,
@@ -413,8 +472,11 @@ def check_k3(dev):
                                                 perturb_b=True, mu_a=0.5,
                                                 mu_b=-0.5))]
             for mode, mkw in modes:
+                before = dict(FA.LAUNCHES)
                 oa, ob = FA.zo_dual_flash_attention(
                     qa, qb, k, v, seed=77, row_offset=5 * H * S, **mkw, **kw)
+                expect_fa_route(f"K3 {rname} {name} {mode}", before,
+                                "zo_dual_flash_attention_tc", int(tc))
                 ra, rb = R.zo_dual_flash_attention_ref(
                     qa, qb, k, v, u=u, **mkw, **kw)
                 for got, ref in ((oa, ra), (ob, rb)):
@@ -422,47 +484,56 @@ def check_k3(dev):
                     tol = (1e-4 if dtype == torch.float32
                            else 2 ** -7 * ref.float().abs() + 1e-3)
                     if not bool((d <= tol).all()):
-                        fail(f"K3 {dtype} {name} {mode}: max |d| "
+                        fail(f"K3 {rname} {name} {mode}: max |d| "
                              f"{float(d.max())}")
-                    key = f"{str(dtype).split('.')[-1]} {name} {mode}"
+                    key = f"{rname} {name} {mode}"
                     worst[key] = max(worst.get(key, 0.0), float(d.max()))
+            del qa, qb, k, v, kb, vb, ins, u
+    check_loop_refuses_d256(dev)
     log(4, "K3 zo_dual_flash_attention == plain within tolerance: "
-        "B4 S256 H12 D64 and B2 S200 H8 Kv2 window 64 cap 30; weights, "
-        f"scores and antithetic scores modes: max |d| {worst}")
-    return worst["bfloat16 gpt2-small weights"]   # the main path's case
+        f"{[c[0] for c in k3_cases()]}; weights, scores and antithetic "
+        "scores modes; bf16 on the tensor cores (every head_dim) and on the "
+        "CUDA-core loop (64, 128), f32 on the loop (64, 128; head_dim 256 "
+        f"refused, as it should be): max |d| {worst}")
+    return worst["bf16 tensor cores gpt2-small weights"]   # the main path
 
 
 def check_k5(dev):
     """K5 against its plain version over K3's cases with K3's tolerance
     (see check_k3); and bit for bit against each stream of K3 in the
-    weights mode, which runs the same stream code."""
+    weights mode on the same route, which runs the same stream code."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref as R
     worst = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        for name, B, S, H, Kv, kw in k3_cases():
-            qa, qb, k, v, kb, vb = k3_inputs(dev, dtype, B, S, H, Kv, 64,
-                                             seed=2)
+    for rname, dtype, tc in k3_routes():
+        for name, B, S, H, Kv, D, kw in k3_cases():
+            if not tc and D not in FA.HEAD_DIMS["CUDA-core loop"]:
+                continue
+            qa, qb, k, v, kb, vb = route_inputs(
+                k3_inputs(dev, dtype, B, S, H, Kv, D, seed=2), tc)
+            before = dict(FA.LAUNCHES)
             oa = FA.flash_attention(qa, k, v, **kw)
             ob = FA.flash_attention(qb, kb, vb, **kw)
+            expect_fa_route(f"K5 {rname} {name}", before,
+                            "flash_attention_tc", 2 * int(tc))
             fa, fb = FA.zo_dual_flash_attention(
                 qa, qb, k, v, kb=kb, vb=vb, perturb_a=False,
                 perturb_b=False, **kw)
             if not (torch.equal(oa, fa) and torch.equal(ob, fb)):
-                fail(f"K5 {dtype} {name} differs from K3's streams: max "
+                fail(f"K5 {rname} {name} differs from K3's streams: max "
                      f"|d| {max_abs(oa, fa)}, {max_abs(ob, fb)}")
             ref = R.flash_attention_ref(qa, k, v, **kw)
             d = (oa.float() - ref.float()).abs()
             tol = (1e-4 if dtype == torch.float32
                    else 2 ** -7 * ref.float().abs() + 1e-3)
             if not bool((d <= tol).all()):
-                fail(f"K5 {dtype} {name}: max |d| {float(d.max())}")
-            worst[f"{str(dtype).split('.')[-1]} {name}"] = float(d.max())
+                fail(f"K5 {rname} {name}: max |d| {float(d.max())}")
+            worst[f"{rname} {name}"] = float(d.max())
     log(4, "K5 flash_attention == plain within tolerance and == K3's a / b "
-        "streams (weights mode) bit for bit: B4 S256 H12 D64 and B2 S200 "
-        f"H8 Kv2 window 64 cap 30: max |d| {worst}")
-    return worst["bfloat16 gpt2-small"]
+        "streams (weights mode) bit for bit on both routes: "
+        f"{[c[0] for c in k3_cases()]}: max |d| {worst}")
+    return worst["bf16 tensor cores gpt2-small"]
 
 
 # ---------------------------------------------------------------------------
@@ -587,8 +658,9 @@ def run_round(dev):
         _round_setup(gpt2_small(), dev, n_clients=2, h=1, batch=4, seq=256,
                      mu=1e-3, lr=1e-4, server_lr=2e-4),
         {"zo_dual_matmul": 48, "zo_dual_matmul_tc": 48,
-         "zo_dual_flash_attention": 8, "zo_noise": None, "zo_matmul": 0,
-         "flash_attention": 0, "rg_lru_scan": 0})
+         "zo_dual_flash_attention": 8, "zo_dual_flash_attention_tc": 8,
+         "zo_noise": None, "zo_matmul": 0, "flash_attention": 0,
+         "rg_lru_scan": 0})
 
 
 def run_cnn_round(dev):
@@ -602,8 +674,9 @@ def run_cnn_round(dev):
         _cnn_round_setup(full_config(), dev, n_clients=5, h=1, batch=64,
                          hw=32, mu=1e-3, lr=2e-2, server_lr=2e-3),
         {"zo_dual_matmul": 20, "zo_dual_matmul_tc": 0,
-         "zo_dual_flash_attention": 0, "zo_noise": None, "zo_matmul": 0,
-         "flash_attention": 0, "rg_lru_scan": 0})
+         "zo_dual_flash_attention": 0, "zo_dual_flash_attention_tc": 0,
+         "zo_noise": None, "zo_matmul": 0, "flash_attention": 0,
+         "rg_lru_scan": 0})
 
 
 def profile_round(phase, rnd, state, rb, round_seed, wall_s):
@@ -783,7 +856,9 @@ def check_single_probe(dev):
         counts = single_probe(
             "gpt2-small single-probe client+aux loss (4x256 tokens)",
             lm_dual, lm_single, {"zo_matmul": 24, "zo_matmul_tc": 24,
-                                 "flash_attention": 4, "zo_dual_matmul": 0,
+                                 "flash_attention": 4,
+                                 "flash_attention_tc": 4,
+                                 "zo_dual_matmul": 0,
                                  "zo_dual_flash_attention": 0}, 1e-3)
         check_dual_vs_plain("gpt2-small dual client+aux losses (4x256 "
                             "tokens)", lm_dual, 1e-3)
@@ -806,7 +881,8 @@ def check_single_probe(dev):
             "resnet18 single-probe client forward+aux loss (64 images)",
             lambda: P.cnn_api(cfg).client_dual_loss(cp, batch, seeds, mu),
             cnn_single, {"zo_matmul": 4, "zo_matmul_tc": 0,
-                         "flash_attention": 0, "zo_dual_matmul": 0}, 1e-5)
+                         "flash_attention": 0, "flash_attention_tc": 0,
+                         "zo_dual_matmul": 0}, 1e-5)
     return counts
 
 
@@ -916,7 +992,8 @@ def run_rg_round(dev, card):
         f"tokens per client, seed_replay) on {card}", setup,
         {"rg_lru_scan": 24, "zo_noise": 134, "zo_dual_matmul": 0,
          "zo_dual_matmul_tc": 0, "zo_dual_flash_attention": 0,
-         "zo_matmul": 0, "zo_matmul_tc": 0, "flash_attention": 0})
+         "zo_dual_flash_attention_tc": 0, "zo_matmul": 0, "zo_matmul_tc": 0,
+         "flash_attention": 0, "flash_attention_tc": 0})
     del setup
     return counts
 
@@ -1022,7 +1099,9 @@ def compiler_report():
     names = _demangle([r["fn"] for r in rows])
     for r in rows:
         dyn = (" (+ the dynamic ring of zo_wgmma_matmul.cuh)"
-               if "zo_wgmma" in r["fn"] else "")
+               if "zo_wgmma" in r["fn"] else
+               " (+ the dynamic Q tiles and ring of flash_wgmma.cuh)"
+               if "fa_wgmma" in r["fn"] else "")
         ser = ("; ptxas serializes its wgmmas (C7512)"
                if r["fn"] in serialized else "")
         log(8, f"{r['lib']}: {names[r['fn']]}: {r.get('regs')} registers, "
@@ -1032,7 +1111,7 @@ def compiler_report():
 
 
 def check_hgmma():
-    """The tensor-core kernels of K2 and K4 hold HGMMA (wgmma)
+    """The tensor-core kernels of K2, K4, K3 and K5 hold HGMMA (wgmma)
     instructions in their SASS (cuobjdump -sass of the built library)."""
     import shutil
     from repro_torch.kernels import build
@@ -1040,7 +1119,10 @@ def check_hgmma():
     if not os.path.exists(tool):
         log(8, "HGMMA: cuobjdump not found (not checked)")
         return
-    for lib in ("zo_dual_matmul", "zo_matmul"):
+    for lib, tag in (("zo_dual_matmul", "zo_wgmma"),
+                     ("zo_matmul", "zo_wgmma"),
+                     ("zo_dual_flash_attention", "fa_wgmma"),
+                     ("flash_attention", "fa_wgmma")):
         sass = subprocess.run([tool, "-sass", str(build._lib_path(lib))],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -1052,12 +1134,151 @@ def check_hgmma():
             elif fn is not None and "HGMMA" in line:
                 per_fn[fn] += 1
         names = _demangle(list(per_fn))
-        tc = {names[f]: n for f, n in per_fn.items() if "zo_wgmma" in f}
+        tc = {names[f]: n for f, n in per_fn.items() if tag in f}
         if not tc or min(tc.values()) == 0:
             fail(f"{lib}: no HGMMA in the tensor-core kernels' SASS: {tc}")
-        loop = sum(n for f, n in per_fn.items() if "zo_wgmma" not in f)
+        loop = sum(n for f, n in per_fn.items() if tag not in f)
         log(8, f"{lib} SASS: HGMMA instructions per tensor-core kernel "
             f"{tc}; in the CUDA-core loop's kernels {loop}")
+
+
+# (name, B, S, H, Kv, D, kwargs) of phase 8's attention times: the main
+# path's shape, qwen2-1.5b's heads and recurrentgemma-9b's heads (its
+# 2048-wide local window cut to 512 so the window bites at S = 1024)
+TIME_ATTN = [("gpt2-small", 4, 256, 12, 12, 64, {}),
+             ("qwen2-1.5b heads", 2, 512, 12, 2, 128, {}),
+             ("recurrentgemma-9b heads window 512", 1, 1024, 16, 1, 256,
+              dict(window=512))]
+
+
+def attn_pairs(S, window=0):
+    """The (q, kv) pairs a causal call over S positions scores, within
+    ``window`` of the diagonal if it is set: the work this data needs."""
+    q = np.arange(S)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(S, int)
+    return int((q + 1 - lo).sum())
+
+
+def time_attention(dev, counts, counts_sp, errs):
+    """K3 (weights and scores mode) and K5 in bf16 at TIME_ATTN's shapes:
+    the tensor-core route, the CUDA-core loop beside it (an input one
+    element into a buffer; head_dim 64 and 128), the plain version,
+    PyTorch's SDPA and the bound.  Returns the kernel-table rows of K3 and
+    K5 at the main path's shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import noise as N
+    from repro_torch.kernels import ref as R
+    out = {}
+    for name, B, S, H, Kv, D, kw in TIME_ATTN:
+        qa, qb, k, v, kb, vb = k3_inputs(dev, torch.bfloat16, B, S, H, Kv, D)
+        qm = misaligned(qa)
+        loop_ok = D in FA.HEAD_DIMS["CUDA-core loop"]
+        window = kw.get("window", 0)
+        q_bytes, kv_bytes = 2 * B * S * H * D, 2 * B * S * Kv * D
+        ops = 4 * D * attn_pairs(S, window) * B * H   # QK^T and PV, a stream
+        pos = torch.arange(S, device=dev)
+        allowed = pos[:, None] >= pos[None, :]
+        if window:
+            allowed &= (pos[:, None] - pos[None, :]) < window
+        t = [x.transpose(1, 2).contiguous() for x in (qa, qb, k, v, kb, vb)]
+        gqa = Kv != H
+
+        def sdpa(q_, k_, v_, mask=None):
+            if mask is None and not window:
+                return F.scaled_dot_product_attention(q_, k_, v_,
+                                                      is_causal=True,
+                                                      enable_gqa=gqa)
+            return F.scaled_dot_product_attention(
+                q_, k_, v_, attn_mask=allowed if mask is None else mask,
+                enable_gqa=gqa)
+
+        u = N.uniform_noise(9, (H * S, S), device=dev).reshape(H, S, S)
+        fmask = (1e-3 * u + torch.where(allowed, 0.0, float("-inf"))
+                 ).to(torch.bfloat16)[None]
+        cases = (
+            ("K3 weights", "zo_dual_flash_attention_tc",
+             lambda x: FA.zo_dual_flash_attention(x, qb, k, v, kb=kb, vb=vb,
+                                                  perturb_b=False, **kw),
+             lambda: R.zo_dual_flash_attention_ref(
+                 qa, qb, k, v, kb=kb, vb=vb, perturb_b=False, **kw),
+             lambda: (sdpa(t[0], t[2], t[3]), sdpa(t[1], t[4], t[5])),
+             "two SDPA calls", 4 * q_bytes + 4 * kv_bytes, 2 * ops),
+            ("K3 scores", "zo_dual_flash_attention_tc",
+             lambda x: FA.zo_dual_flash_attention(x, qb, k, v, seed=9,
+                                                  mu_b=1e-3, **kw),
+             lambda: R.zo_dual_flash_attention_ref(
+                 qa, qb, k, v, mu_b=1e-3, **kw, u=N.uniform_noise(
+                     9, (H * S, S), device=dev).reshape(H, S, S)),
+             lambda: (sdpa(t[0], t[2], t[3]), sdpa(t[1], t[2], t[3], fmask)),
+             "two SDPA calls, the second with a float attn_mask mu*U + the "
+             "mask's -inf, U materialised", 4 * q_bytes + 2 * kv_bytes,
+             2 * ops),
+            ("K5", "flash_attention_tc",
+             lambda x: FA.flash_attention(x, k, v, **kw),
+             lambda: R.flash_attention_ref(qa, k, v, **kw),
+             lambda: sdpa(t[0], t[2], t[3]), "one SDPA call",
+             2 * q_bytes + 2 * kv_bytes, ops))
+        for what, key, fn, plain, lib, lib_desc, n_bytes, n_ops in cases:
+            before = dict(FA.LAUNCHES)
+            fn(qa)
+            expect_fa_route(f"{what} {name}", before, key, 1)
+            ms = time_ms(lambda: fn(qa))
+            loop = "refused (head_dim 256)"
+            if loop_ok:
+                before = dict(FA.LAUNCHES)
+                fn(qm)
+                expect_fa_route(f"{what} {name} (loop)", before, key, 0)
+                loop = time_ms(lambda: fn(qm))
+            pl = time_ms(plain, reps=10)
+            lb = time_ms(lib)
+            b, by = bound_ms(n_bytes, n_ops, "bfloat16")
+            log(8, f"{what} bf16 {name} (B{B} S{S} H{H} Kv{Kv} D{D}"
+                f"{' window ' + str(window) if window else ''}): kernel_ms "
+                f"{ms} (tensor cores) loop_ms {loop} (CUDA-core loop) "
+                f"plain_ms {pl} library_ms {lb} ({lib_desc}) bound_ms {b} "
+                f"({by})")
+            out[(what, name)] = (ms, pl, lb, b, by)
+        if name == TIME_ATTN[0][0]:
+            fused, split = abba(
+                lambda: FA.zo_dual_flash_attention(qa, qb, k, v, kb=kb,
+                                                   vb=vb, perturb_b=False),
+                lambda: (FA.flash_attention(qa, k, v),
+                         FA.flash_attention(qb, kb, vb)))
+            log(8, f"fused vs split, bf16 {name} weights mode (tensor "
+                f"cores): K3 {fused} ms, 2 x K5 {split} ms: split / fused "
+                f"{split / fused}")
+            # how K5's time grows with the kv tiles of its longest block,
+            # beside the card's floor for one launch
+            by_len = []
+            for s2 in (64, 256, 1024):
+                q2, _, k2, v2, _, _ = k3_inputs(dev, torch.bfloat16, B, s2,
+                                                H, Kv, D)
+                t2 = time_ms(lambda: FA.flash_attention(q2, k2, v2))
+                by_len.append(f"S={s2} {t2} ms")
+            one = torch.zeros(1, device=dev)
+            log(8, f"K5 bf16 B{B} H{H} D{D} causal by length (1, 4 and 16 kv "
+                f"tiles in the longest block): {', '.join(by_len)}; one "
+                f"1-element add_ (the launch floor) "
+                f"{time_ms(lambda: one.add_(1.0))} ms")
+        del qa, qb, k, v, kb, vb, qm, t, u, fmask
+    main = TIME_ATTN[0][0]
+    ms, pl, lb, b, by = out[("K3 weights", main)]
+    k3 = {"name": "zo_dual_flash_attention", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/zo_dual_flash_attention.cu",
+          "replaces": "src/repro/kernels/flash_attention.py:296",
+          "launches": counts["zo_dual_flash_attention"],
+          "max_abs_err": errs[2], "ms": ms, "plain_ms": pl, "bound_ms": b,
+          "bound_by": by, "library_ms": lb}
+    ms, pl, lb, b, by = out[("K5", main)]
+    k5 = {"name": "flash_attention", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+          "replaces": "src/repro/kernels/flash_attention.py:115",
+          "launches": counts_sp["flash_attention"], "max_abs_err": errs[4],
+          "ms": ms, "plain_ms": pl, "bound_ms": b, "bound_by": by,
+          "library_ms": lb}
+    return k3, k5
 
 
 def time_kernels(dev, counts, counts_sp, counts_rg, errs):
@@ -1065,8 +1286,6 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs):
     ``counts_sp``: of the gpt2-small single-probe forward (K4, K5);
     ``counts_rg``: of the recurrentgemma round (K6)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import ops as O
     from repro_torch.kernels import ref as R
@@ -1143,43 +1362,9 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs):
                  "ms": ms, "plain_ms": pl, "bound_ms": b, "bound_by": by,
                  "library_ms": lib})
 
-    # K3 at the main path's shape, bf16, both modes
-    B, S, H, D = 4, 256, 12, 64
-    qa, qb, k, v, kb, vb = k3_inputs(dev, torch.bfloat16, B, S, H, H, D)
-    pairs = S * (S + 1) // 2                       # causal (q, kv) pairs
-    n_ops = 2 * 4 * D * pairs * B * H              # QK + PV, two streams
-    k3 = {}
-    for mode, kw in (("weights", dict(kb=kb, vb=vb, perturb_b=False)),
-                     ("scores", dict(mu_b=1e-3, seed=9))):
-        ms = time_ms(lambda: FA.zo_dual_flash_attention(qa, qb, k, v, **kw))
-        if mode == "weights":
-            pl = time_ms(lambda: R.zo_dual_flash_attention_ref(
-                qa, qb, k, v, kb=kb, vb=vb, perturb_b=False))
-            n_in = 6
-        else:
-            pl = time_ms(lambda: R.zo_dual_flash_attention_ref(
-                qa, qb, k, v, u=N.uniform_noise(
-                    9, (H * S, S), device=dev).reshape(H, S, S), mu_b=1e-3))
-            n_in = 4
-        b, by = bound_ms(2 * (n_in + 2) * B * S * H * D, n_ops, "bfloat16")
-        k3[mode] = (ms, pl, b, by)
-    t = [x.transpose(1, 2).contiguous() for x in (qa, qb, k, v, kb, vb)]
-    lib = time_ms(lambda: (
-        F.scaled_dot_product_attention(t[0], t[2], t[3], is_causal=True),
-        F.scaled_dot_product_attention(t[1], t[4], t[5], is_causal=True)))
-    for mode, (ms, pl, b, by) in k3.items():
-        log(8, f"K3 bf16 B{B} S{S} H{H} D{D} {mode}: kernel_ms {ms} "
-            f"plain_ms {pl} bound_ms {b} ({by})"
-            + (f" library_ms {lib} (two causal SDPA calls)"
-               if mode == "weights" else ""))
-    ms, pl, b, by = k3["weights"]
-    rows.append({"name": "zo_dual_flash_attention", "route": "cuda",
-                 "source":
-                 "src/repro_torch/kernels/csrc/zo_dual_flash_attention.cu",
-                 "replaces": "src/repro/kernels/flash_attention.py:296",
-                 "launches": counts["zo_dual_flash_attention"],
-                 "max_abs_err": errs[2], "ms": ms, "plain_ms": pl,
-                 "bound_ms": b, "bound_by": by, "library_ms": lib})
+    # K3 and K5 (phase 8's attention rows, the main path's first)
+    k3_row, k5_row = time_attention(dev, counts, counts_sp, errs)
+    rows.append(k3_row)
 
     # K4: gpt2-small's three client shapes in bf16 (the tensor-core route,
     # and the CUDA-core loop beside it; 768x3072 is the main path's row)
@@ -1217,20 +1402,7 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs):
                  "ms": ms, "plain_ms": pl, "bound_ms": b, "bound_by": by,
                  "library_ms": lib})
 
-    # K5 at the main path's shape, bf16, one causal stream
-    ms = time_ms(lambda: FA.flash_attention(qa, k, v))
-    pl = time_ms(lambda: R.flash_attention_ref(qa, k, v))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        t[0], t[2], t[3], is_causal=True))
-    b, by = bound_ms(2 * 4 * B * S * H * D, n_ops // 2, "bfloat16")
-    log(8, f"K5 bf16 B{B} S{S} H{H} D{D}: kernel_ms {ms} plain_ms {pl} "
-        f"library_ms {lib} (one causal SDPA call) bound_ms {b} ({by})")
-    rows.append({"name": "flash_attention", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-                 "replaces": "src/repro/kernels/flash_attention.py:115",
-                 "launches": counts_sp["flash_attention"],
-                 "max_abs_err": errs[4], "ms": ms, "plain_ms": pl,
-                 "bound_ms": b, "bound_by": by, "library_ms": lib})
+    rows.append(k5_row)
 
     # K6 forward and reverse at the RG-LRU round's shapes; bytes: a, b
     # read and h written (12 B per element) forward, a, g, h read and da,
@@ -1268,13 +1440,6 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs):
     log(8, f"fused vs split, bf16 M=1024 768x3072: K2 zo_dual_forward "
         f"{fused} ms, zo_dual_forward_split (2 x K4) {split} ms: split / "
         f"fused {split / fused}")
-    fused, split = abba(
-        lambda: FA.zo_dual_flash_attention(qa, qb, k, v, kb=kb, vb=vb,
-                                           perturb_b=False),
-        lambda: (FA.flash_attention(qa, k, v), FA.flash_attention(qb, kb,
-                                                                  vb)))
-    log(8, f"fused vs split, bf16 B{B} S{S} H{H} D{D} weights mode: K3 "
-        f"{fused} ms, 2 x K5 {split} ms: split / fused {split / fused}")
     return rows
 
 

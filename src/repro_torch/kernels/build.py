@@ -48,6 +48,9 @@ SIGNATURES = {
         "zo_dual_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                     _F, _F, _U, _F, _F, _U, _P],
+        "zo_dual_flash_attention_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                       _I, _F, _F, _U, _F, _F, _U, _P],
     },
     "zo_matmul": {
         "zo_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _U, _F, _U, _P],
@@ -56,6 +59,8 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _F, _F, _P],
+        "flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _F, _P],
     },
     "rg_lru_scan": {
         "rg_lru_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -5,25 +5,32 @@
 // Replaces the Pallas kernel `_fa_kernel` / `flash_attention` of
 // src/repro/kernels/flash_attention.py.  There the kv axis is a sequential
 // grid axis with (m, l, acc) in VMEM scratch, and the wrapper transposes
-// to (B*H, S, D) and pads Skv to the block; here one block owns
-// (batch*head, 64 query rows), loops over 64-wide kv tiles itself with
-// flash_tile.cuh's stream code, reads the (B, S, heads, D) layout with
-// its own offsets and masks the ragged Skv tail.  It is the stream code K3
-// (zo_dual_flash_attention.cu) runs twice per sweep, so K5 equals K3's
-// stream in the weights mode bit for bit.  The single-probe model forward
-// calls it for the attention of every perturbed layer.  GQA (q head h
-// reads kv head h / (H / Kv)), causal masking, a local window and the
-// soft-cap; the finite NEG_INF = -2e38 and l >= 1e-30 as in the TPU
-// kernel.  D is a template parameter: 16, 32 or 64.  Q, K, V and the
-// probability tile take 66.5 KB of dynamic shared memory at D = 64, so the
-// launch raises the 48 KB default with cudaFuncSetAttribute.
+// to (B*H, S, D) and pads Skv to the block; here one block owns one
+// 64-row query tile of one (batch, head) and loops over the kv tiles
+// itself, reading the (B, S, heads, D) layout with its own offsets.  GQA
+// (q head h reads kv head h / (H / Kv)), causal masking, a local window
+// and the soft-cap; the finite NEG_INF = -2e38 and l >= 1e-30 as in the TPU
+// kernel.  The single-probe model forward calls it for the attention of
+// every perturbed layer.  Two routes, each the one-stream instance of
+// K3's (zo_dual_flash_attention.cu), so K5 equals K3's stream in the
+// weights mode bit for bit on either:
+//   * flash_attention_tc: bf16 operands on the tensor cores
+//     (flash_wgmma.cuh: TMA ring, wgmma for Q K^T and P V, the softmax on
+//     the accumulator fragments in registers), D in {16, 32, 64, 128, 256};
+//   * flash_attention: the CUDA-core loop (flash_tile.cuh), for f32 and
+//     for bf16 whose pointers TMA cannot take, D in {16, 32, 64, 128}: its
+//     f32 tiles do not fit shared memory at D = 256.
 //
 // Bound on the H100: at gpt2-small (B=4, S=256, H=12, D=64, bf16) a call
 // reads q, k, v and writes o, ~6.3 MB, and does ~0.4 GFLOP on its causal
-// half, so memory bounds it (~1.9 us).  Like K3 it does the products with
-// f32 FMAs on the CUDA cores from shared memory; mma/wgmma on bf16 tiles
-// and a cp.async/TMA ring are what it leaves on the table.
+// half, so memory bounds it (~1.9 us).  The CUDA-core loop sits far above
+// that: f32 FMAs from shared memory.  The tensor-core route loads each
+// tile once with TMA and keeps the products on the tensor cores and the
+// softmax in registers; at this shape its 192 blocks run 1-4 kv tiles
+// each, so the latency of a tile's load, its two dependent wgmma groups
+// and its softmax set the time, not bytes or operations.
 #include "flash_tile.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -118,6 +125,23 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   REPRO_FA_CASE(16)
   REPRO_FA_CASE(32)
   REPRO_FA_CASE(64)
+  REPRO_FA_CASE(128)
 #undef REPRO_FA_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_attention_tc(const void* q, const void* k,
+                                  const void* v, void* o, int B, int Sq,
+                                  int Skv, int H, int Kv, int head_dim,
+                                  int causal, int window, float cap,
+                                  float scale, void* stream) {
+  const void* const qs[1] = {q};
+  const void* const ks[1] = {k};
+  const void* const vs[1] = {v};
+  void* const os[1] = {o};
+  const float mu[1] = {0.0f};
+  const int perturb[1] = {0};
+  return fa_wgmma::launch<1>(qs, ks, vs, os, mu, perturb, false, B, Sq, Skv,
+                             H, Kv, head_dim, causal, window, cap, scale, 0u,
+                             0u, (cudaStream_t)stream);
 }

@@ -5,11 +5,8 @@
 // Replaces the Pallas kernel `_zo_dual_fa_kernel` /
 // `zo_dual_flash_attention` of src/repro/kernels/flash_attention.py.
 // There the kv axis is a sequential grid axis with (m, l, acc) in VMEM
-// scratch; here one block owns (batch*head, 64 query rows) and loops over
-// 64-wide kv tiles itself, running flash_tile.cuh's stream code once per
-// stream (the same code K5, flash_attention.cu, runs for its one stream,
-// so in the weights mode each stream equals a K5 call bit for bit).  Two
-// modes:
+// scratch; here a block owns one 64-row query tile of one (batch, head)
+// and loops over the kv tiles itself.  Two modes:
 //   * weights probe (kb != k): each stream attends its own K/V (the weight
 //     noise was applied upstream by K2); the sweep, positions and mask are
 //     shared;
@@ -17,20 +14,32 @@
 //     a perturbed stream adds mu * U[row_offset + h*Sq + q, kv] (hash.cuh)
 //     to its scores after the soft-cap and before the mask.
 // GQA reads kv head h / (H / Kv); causal masking, a local window and the
-// soft-cap are supported; kv tiles masked for every row of the block are
-// skipped (flash_tile.cuh).  D is a template parameter: 16, 32 or 64.  Q,
-// K, V of both streams and the probability tile live in dynamic shared
-// memory as f32 (116 KB in the weights mode at D = 64, above the 48 KB
-// default, so the launch raises the limit with cudaFuncSetAttribute).
+// soft-cap are supported; kv tiles masked for every row of the query tile
+// are skipped.  Two routes, each running the stream code K5
+// (flash_attention.cu) runs for its one stream, so in the weights mode
+// each stream equals a K5 call on the same route bit for bit:
+//   * zo_dual_flash_attention_tc: bf16 operands on the tensor cores
+//     (flash_wgmma.cuh: one consumer warpgroup per stream, a producer warp
+//     with a TMA ring of K/V tiles, wgmma for Q K^T and P V with P split
+//     into two bf16 terms, the softmax and the score noise on the
+//     accumulator fragments in registers), D in {16, 32, 64, 128, 256};
+//   * zo_dual_flash_attention: the CUDA-core loop (flash_tile.cuh; Q, K, V
+//     and P as f32 in shared memory), for f32 and for bf16 whose pointers
+//     TMA cannot take, D in {16, 32, 64, 128}.  At D = 128 the weights
+//     mode takes 214,784 bytes of shared memory; at D = 256 its f32 tiles
+//     would take 417 KB, so the wrapper refuses f32 there.
 //
 // Bound on the H100: at gpt2-small (B=4, S=256, H=12, D=64) a call reads
 // q, k, v of both streams and writes two outputs, ~12.6 MB in bf16, and
-// does ~0.8 GFLOP on its causal half, so memory bounds it (~3.8 us).  This
-// simple design does the products with f32 FMAs on the CUDA cores, reads
-// shared memory at every FMA, and runs one block per SM; mma/wgmma on
-// bf16 tiles, K/V in bf16 shared memory and a cp.async/TMA ring are what
-// it leaves on the table.
+// does ~0.8 GFLOP on its causal half, so memory bounds it (~3.8 us).  The
+// CUDA-core loop reads shared memory at every f32 FMA and runs one block
+// per SM.  The tensor-core route reads each tile once with TMA, runs both
+// products on the tensor cores (the P V product twice, for P's hi and lo
+// terms) and keeps the scores in registers; at this shape its 192 blocks
+// run 1-4 kv tiles each, so per-tile latency (the load, two dependent
+// wgmma groups, the softmax between them) sets the time.
 #include "flash_tile.cuh"
+#include "flash_wgmma.cuh"
 #include "hash.cuh"
 
 namespace {
@@ -170,6 +179,25 @@ extern "C" int zo_dual_flash_attention(
   REPRO_FA_CASE(16)
   REPRO_FA_CASE(32)
   REPRO_FA_CASE(64)
+  REPRO_FA_CASE(128)
 #undef REPRO_FA_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int zo_dual_flash_attention_tc(
+    const void* qa, const void* qb, const void* k, const void* v,
+    const void* kb, const void* vb, void* oa, void* ob, int B, int Sq,
+    int Skv, int H, int Kv, int head_dim, int shared_kv, int perturb_a,
+    int perturb_b, int causal, int window, float cap, float scale,
+    unsigned int seed, float mu_a, float mu_b, unsigned int row_offset,
+    void* stream) {
+  const void* const qs[2] = {qa, qb};
+  const void* const ks[2] = {k, kb};
+  const void* const vs[2] = {v, vb};
+  void* const os[2] = {oa, ob};
+  const float mu[2] = {mu_a, mu_b};
+  const int perturb[2] = {perturb_a, perturb_b};
+  return fa_wgmma::launch<2>(qs, ks, vs, os, mu, perturb, shared_kv != 0, B,
+                             Sq, Skv, H, Kv, head_dim, causal, window, cap,
+                             scale, seed, row_offset, (cudaStream_t)stream);
 }

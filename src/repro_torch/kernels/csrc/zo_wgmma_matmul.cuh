@@ -61,7 +61,9 @@
 // pointer is 16-byte aligned; anything else takes the CUDA-core loop.  The
 // tensor maps are encoded on the host at each launch, with
 // cuTensorMapEncodeTiled fetched from the driver through the runtime (no
-// -lcuda), and passed as __grid_constant__ kernel parameters.
+// -lcuda), and passed as __grid_constant__ kernel parameters.  The PTX
+// wrappers and the encoder shared with the flash-attention kernels are in
+// hopper.cuh.
 #pragma once
 
 #include <cstdint>
@@ -70,8 +72,11 @@
 #include <cuda_runtime.h>
 
 #include "hash.cuh"
+#include "hopper.cuh"
 
 namespace zo_wgmma {
+
+using namespace hopper;
 
 constexpr int BN = 64;       // W columns per block: the wgmma M
 constexpr int BM = 128;      // x rows per block: the wgmma N
@@ -108,59 +113,6 @@ struct Args {
 // PTX wrappers
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete.  A wait that has not
-// completed after ~2^34 cycles (seconds) means a fault in the pipeline: it
-// traps, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long t0 = clock64();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1ll << 34)) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c_inner,
-                                            int c_outer) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c_inner),
-      "r"(c_outer)
-      : "memory");
-}
-
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
@@ -172,35 +124,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
 // the consumer warpgroups' own barrier (the producer warp does not take part)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(128 * CONSUMERS) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keep a register's value where it is across an asynchronous wgmma: the
-// compiler may not move, reuse or spill it between issue and wait.
-__device__ __forceinline__ void pin(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-__device__ __forceinline__ void pin(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-
-// Shared-memory descriptor of a K-major operand tile with 128-byte swizzle:
-// 8-row groups 1024 bytes apart (the stride field), the leading field unused.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
 // d (64 rows x 128 cols, f32) += a (64 x 16, bf16, registers) * b (16 x 128,
@@ -233,18 +156,6 @@ __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// two f32 -> packed bf16x2, round to nearest; a in the low half
-__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ float low_f32(uint32_t v) {
-  return __uint_as_float(v << 16);
-}
-__device__ __forceinline__ float high_f32(uint32_t v) {
-  return __uint_as_float(v & 0xFFFF0000u);
 }
 
 // ---------------------------------------------------------------------------
@@ -459,31 +370,6 @@ __global__ void __launch_bounds__(THREADS, 1)
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
 
 // a row-major bf16 (rows, cols) matrix, tiles of box_rows x box_cols with
 // 128-byte swizzle; out-of-range elements load as zeros

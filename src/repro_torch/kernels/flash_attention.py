@@ -7,6 +7,15 @@ A kernel launches for CUDA tensors (or raises); CPU tensors take the
 plain versions of :mod:`repro_torch.kernels.ref`, K3's with the score
 field materialised from the same hash stream.  ``LAUNCHES`` counts
 kernel launches only.
+
+K3 and K5 have two routes on the card, chosen by :func:`route`: bf16
+operands whose pointers suit TMA run on the tensor cores
+(``csrc/flash_wgmma.cuh``), everything else on the CUDA-core loop
+(``csrc/flash_tile.cuh``).  Each route is compiled for the head widths
+in ``HEAD_DIMS``; a launch the loop would take at a width it lacks
+raises.  ``LAUNCHES["zo_dual_flash_attention"]``
+/ ``["flash_attention"]`` count every launch; the ``_tc`` keys count
+those that took the tensor cores.
 """
 from __future__ import annotations
 
@@ -16,14 +25,58 @@ from repro_torch.kernels import build
 from repro_torch.kernels import noise as N
 from repro_torch.kernels import ref as R
 
-LAUNCHES = {"zo_dual_flash_attention": 0, "flash_attention": 0}
-HEAD_DIMS = (16, 32, 64)   # head widths the kernel is compiled for
+LAUNCHES = {"zo_dual_flash_attention": 0, "zo_dual_flash_attention_tc": 0,
+            "flash_attention": 0, "flash_attention_tc": 0}
+# head widths each route is compiled for; the loop's f32 tiles of Q, K, V
+# and P do not fit 227 KB of shared memory at 256
+HEAD_DIMS = {"tensor cores": (16, 32, 64, 128, 256),
+             "CUDA-core loop": (16, 32, 64, 128)}
 
 
-def _check_attention(what, qs, ks):
+def tc_kv_tile(head_dim: int) -> int:
+    """The kv tile width of the tensor-core route: 64 columns, 32 at
+    head_dim 256 (so K3's weights mode fits shared memory)."""
+    return 32 if head_dim > 128 else 64
+
+
+def tensor_core_route(dtype, head_dim: int, seq_kv: int, ptrs) -> bool:
+    """Whether a K3 / K5 launch runs on the tensor cores: bf16 operands, a
+    head width in ``HEAD_DIMS["tensor cores"]``, a non-empty K/V and every
+    base pointer in ``ptrs`` 16-byte aligned (TMA's base addresses; its
+    row strides, multiples of head_dim, are then multiples of 16 bytes).
+    Anything else takes the CUDA-core loop.  A pure function of its
+    arguments: it needs no card."""
+    return (dtype == torch.bfloat16
+            and head_dim in HEAD_DIMS["tensor cores"] and seq_kv > 0
+            and all(int(p) % 16 == 0 for p in ptrs))
+
+
+def route(what: str, dtype, head_dim: int, seq_kv: int, ptrs) -> bool:
+    """The route of a K3 / K5 launch on the card: True for the tensor
+    cores (:func:`tensor_core_route`), False for the CUDA-core loop.
+    Raises where the loop would take a head width it is not compiled for,
+    saying why.  A pure function of its arguments: it needs no card."""
+    if tensor_core_route(dtype, head_dim, seq_kv, ptrs):
+        return True
+    if head_dim not in HEAD_DIMS["CUDA-core loop"]:
+        why = ("f32 operands" if dtype == torch.float32 else
+               "bf16 operands the tensor cores cannot take (a pointer not "
+               "16-byte aligned, or an empty K/V)")
+        raise ValueError(
+            f"{what}: head_dim {head_dim} with {why} goes to the CUDA-core "
+            f"loop, which is compiled for head_dim in "
+            f"{HEAD_DIMS['CUDA-core loop']} (its f32 tiles of Q, K, V and "
+            "P do not fit 227 KB of shared memory at 256); the tensor-core "
+            "route (bf16, 16-byte-aligned pointers) takes head_dim in "
+            f"{HEAD_DIMS['tensor cores']}")
+    return False
+
+
+def _check_attention(what, qs, ks, outs):
     """Device, contiguity, shapes and dtype of a K3 / K5 launch: every
     tensor of ``qs`` is (B, Sq, H, D) like the first, every tensor of
-    ``ks`` (B, Skv, Kv, D) like the first, with H a multiple of Kv."""
+    ``ks`` (B, Skv, Kv, D) like the first, with H a multiple of Kv.
+    Returns the device and :func:`route`'s choice."""
     q, k = qs[0], ks[0]
     dev = build.require_cuda(what, *qs, *ks)
     if q.dim() != 4 or k.dim() != 4 or k.shape[0] != q.shape[0] \
@@ -35,13 +88,11 @@ def _check_attention(what, qs, ks):
             f"{what}: q {[tuple(t.shape) for t in qs]}, k/v "
             f"{[tuple(t.shape) for t in ks]}: expected (B, S, H, D) and "
             "(B, S, Kv, D) with H a multiple of Kv")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {q.shape[3]} not in "
-                         f"{HEAD_DIMS}")
     dtypes = {t.dtype for t in (*qs, *ks)}
     if len(dtypes) != 1 or q.dtype not in build.DTYPE_CODES:
         raise ValueError(f"{what}: dtypes {dtypes}")
-    return dev
+    return dev, route(what, q.dtype, q.shape[3], k.shape[1],
+                      [t.data_ptr() for t in (*qs, *ks, *outs)])
 
 
 def zo_dual_flash_attention(qa, qb, k, v, kb=None, vb=None, seed=0,
@@ -72,21 +123,27 @@ def zo_dual_flash_attention(qa, qb, k, v, kb=None, vb=None, seed=0,
             window=window, cap=cap, scale=scale)
     shared = kb is None
     kb, vb = (k, v) if shared else (kb, vb)
-    dev = _check_attention("zo_dual_flash_attention", (qa, qb),
-                           (k, v, kb, vb))
     oa = torch.empty_like(qa)
     ob = torch.empty_like(qb)
+    dev, tc = _check_attention("zo_dual_flash_attention", (qa, qb),
+                               (k, v, kb, vb), (oa, ob))
     if oa.numel():
         sc = float(scale) if scale is not None else D ** -0.5
-        err = build.library("zo_dual_flash_attention").zo_dual_flash_attention(
-            qa.data_ptr(), qb.data_ptr(), k.data_ptr(), v.data_ptr(),
-            kb.data_ptr(), vb.data_ptr(), oa.data_ptr(), ob.data_ptr(),
-            B, Sq, Skv, H, Kv, D, build.DTYPE_CODES[qa.dtype], int(shared),
-            int(perturb_a), int(perturb_b), int(causal), int(window or 0),
-            cap, sc, int(N._u32(seed)), float(mu_a), float(mu_b),
-            int(N._u32(row_offset)), build.stream(dev))
+        lib = build.library("zo_dual_flash_attention")
+        ptrs = (qa.data_ptr(), qb.data_ptr(), k.data_ptr(), v.data_ptr(),
+                kb.data_ptr(), vb.data_ptr(), oa.data_ptr(), ob.data_ptr())
+        shape = (B, Sq, Skv, H, Kv, D)
+        rest = (int(shared), int(perturb_a), int(perturb_b), int(causal),
+                int(window or 0), cap, sc, int(N._u32(seed)), float(mu_a),
+                float(mu_b), int(N._u32(row_offset)), build.stream(dev))
+        if tc:
+            err = lib.zo_dual_flash_attention_tc(*ptrs, *shape, *rest)
+        else:
+            err = lib.zo_dual_flash_attention(
+                *ptrs, *shape, build.DTYPE_CODES[qa.dtype], *rest)
         build.check(err, "zo_dual_flash_attention")
         LAUNCHES["zo_dual_flash_attention"] += 1
+        LAUNCHES["zo_dual_flash_attention_tc"] += int(tc)
     return oa, ob
 
 
@@ -95,21 +152,26 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0,
     """K5: single-stream flash attention, q (B, Sq, H, D) against k, v
     (B, Skv, Kv, D), GQA, causal, local window and soft-cap.  Equals
     stream a of :func:`zo_dual_flash_attention` in the weights mode bit
-    for bit on the card."""
+    for bit on the card when both take the same route."""
     cap = float(cap or 0.0)
     if q.device.type == "cpu":
         return R.flash_attention_ref(q, k, v, causal=causal, window=window,
                                      cap=cap, scale=scale)
-    dev = _check_attention("flash_attention", (q,), (k, v))
+    o = torch.empty_like(q)
+    dev, tc = _check_attention("flash_attention", (q,), (k, v), (o,))
     B, Sq, H, D = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
-    o = torch.empty_like(q)
     if o.numel():
         sc = float(scale) if scale is not None else D ** -0.5
-        err = build.library("flash_attention").flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq,
-            Skv, H, Kv, D, build.DTYPE_CODES[q.dtype], int(causal),
-            int(window or 0), cap, sc, build.stream(dev))
+        lib = build.library("flash_attention")
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+        rest = (int(causal), int(window or 0), cap, sc, build.stream(dev))
+        if tc:
+            err = lib.flash_attention_tc(*ptrs, B, Sq, Skv, H, Kv, D, *rest)
+        else:
+            err = lib.flash_attention(*ptrs, B, Sq, Skv, H, Kv, D,
+                                      build.DTYPE_CODES[q.dtype], *rest)
         build.check(err, "flash_attention")
         LAUNCHES["flash_attention"] += 1
+        LAUNCHES["flash_attention_tc"] += int(tc)
     return o

@@ -86,6 +86,62 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, cap=0.0,
                    scale=scale)
 
 
+def flash_attention_tc_ref(q, k, v, *, bkv, u=None, mu=0.0, causal=True,
+                           window=0, cap=0.0, scale=None, split_p=True):
+    """The arithmetic of one stream of K3 / K5's tensor-core route for bf16
+    operands (``csrc/flash_wgmma.cuh``): an online softmax over kv tiles
+    of ``bkv`` columns; ``q . k`` with every bf16 product exact and f32
+    sums; scale, soft-cap, ``mu * u`` (``u`` (H, Sq, Skv), as in
+    :func:`_attend`) and the finite mask on the f32 scores; ``p = exp(s -
+    m)`` in f32, fed to ``p @ v`` as :func:`split_bf16`'s two terms
+    (``split_p``) or rounded once to bf16; ``acc / max(l, 1e-30)``.  Only
+    tests and ``chip_smoke.py`` use it; the output is in q's dtype."""
+    B, Sq, H, D = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    sc = scale if scale is not None else D ** -0.5
+    qf = q.reshape(B, Sq, Kv, G, D).to(torch.float32)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    if u is not None:
+        u = u.reshape(Kv, G, Sq, Skv)[None]
+    dev = q.device
+    m = torch.full((B, Kv, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Kv, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Kv, G, Sq, D), dtype=torch.float32, device=dev)
+    q_pos = torch.arange(Sq, device=dev)[:, None]
+    for kv0 in range(0, Skv, bkv):
+        kv1 = min(kv0 + bkv, Skv)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf[:, kv0:kv1]) * sc
+        if cap and cap > 0:
+            s = cap * torch.tanh(s / cap)
+        if u is not None:
+            s = s + float(mu) * u[..., kv0:kv1]
+        kv_pos = torch.arange(kv0, kv1, device=dev)[None, :]
+        mask = torch.ones((Sq, kv1 - kv0), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= q_pos >= kv_pos
+        if window and window > 0:
+            mask &= (q_pos - kv_pos) < window
+        s = torch.where(mask, s, torch.tensor(NEG_INF, device=dev))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        vt = vf[:, kv0:kv1]
+        if split_p:
+            hi, lo = split_bf16(p)
+            pv = (torch.einsum("bkgqs,bskd->bkgqd", hi.to(torch.float32), vt)
+                  + torch.einsum("bkgqs,bskd->bkgqd", lo.to(torch.float32),
+                                 vt))
+        else:
+            pv = torch.einsum("bkgqs,bskd->bkgqd",
+                              p.to(torch.bfloat16).to(torch.float32), vt)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
 def zo_dual_flash_attention_ref(qa, qb, k, v, *, kb=None, vb=None, u=None,
                                 mu_a=0.0, mu_b=0.0, perturb_a=False,
                                 perturb_b=True, causal=True, window=0,

@@ -1,13 +1,13 @@
 """Kernels K1-K6 on a CUDA card against their plain PyTorch versions,
-and the single-probe kernels against the matching stream of the fused
-ones bit for bit.
+the single-probe kernels against the matching stream of the fused ones
+bit for bit, and the bf16 tensor-core routes of K2 / K4 and K3 / K5.
 
 Imports neither JAX nor the JAX package, so it runs on the machine with
 the card (which has no JAX) with the repository's conftest skipped:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-Without a card the test skips.
+Without a card the tests skip.
 """
 import numpy as np
 import pytest
@@ -200,3 +200,80 @@ def test_cuda_zo_matmul_tensor_core_route():
                 if tc:
                     assert _split_ok(ya, xa, w, u, ma, pa)
                     assert _split_ok(yb, xb, w, u, mb, pb)
+
+
+def _k3_ok(got, ref):
+    """chip_smoke.check_k3's bf16 tolerance, elementwise: one bf16
+    rounding step of the output (2^-7 relative) plus 1e-3."""
+    d = (got.float() - ref.float()).abs()
+    return bool((d <= 2 ** -7 * ref.float().abs() + 1e-3).all())
+
+
+def _misaligned(x):
+    """A copy of ``x`` one element into a buffer: contiguous, not
+    16-byte aligned, so K3 / K5 take the CUDA-core loop for it."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    out = buf[1:1 + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_tensor_core_route():
+    """K3 and K5 on the bf16 tensor-core route at head_dim 64 and 256
+    (ragged S against the 64-row query tile and the kv tile, GQA, a
+    window, a soft-cap): within check_k3's tolerance of the plain version
+    in the weights, scores and antithetic scores modes; K5 equal to K3's
+    weights-mode streams bit for bit, on the tensor cores and (head_dim
+    64, inputs not 16-byte aligned) on the CUDA-core loop; the route
+    counters show where each call went; f32 at head_dim 256 is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    for (B, S, H, Kv, D, kw) in ((2, 200, 8, 2, 64, dict(window=64,
+                                                          cap=30.0)),
+                                 (1, 300, 4, 1, 256, dict(window=100))):
+        qa, qb, k, v, kb, vb = (torch.as_tensor(a, device=dev).to(
+            torch.bfloat16) for a in _arrays(
+            D + S, (B, S, H, D), (B, S, H, D), (B, S, Kv, D), (B, S, Kv, D),
+            (B, S, Kv, D), (B, S, Kv, D)))
+        u = N.uniform_noise(13, (H * S, S), 3 * H * S,
+                            device=dev).reshape(H, S, S)
+        for mkw in (dict(kb=kb, vb=vb, perturb_a=False, perturb_b=False),
+                    dict(perturb_a=False, perturb_b=True, mu_b=0.5),
+                    dict(perturb_a=True, perturb_b=True, mu_a=0.5,
+                         mu_b=-0.5)):
+            before = dict(FA.LAUNCHES)
+            oa, ob = FA.zo_dual_flash_attention(qa, qb, k, v, seed=13,
+                                                row_offset=3 * H * S,
+                                                **mkw, **kw)
+            assert FA.LAUNCHES["zo_dual_flash_attention_tc"] == \
+                before["zo_dual_flash_attention_tc"] + 1
+            ra, rb = R.zo_dual_flash_attention_ref(qa, qb, k, v, u=u, **mkw,
+                                                   **kw)
+            assert _k3_ok(oa, ra) and _k3_ok(ob, rb)
+        routes = [((qa, qb, k, v, kb, vb), 1)]
+        if D in FA.HEAD_DIMS["CUDA-core loop"]:
+            routes.append(([_misaligned(x) for x in (qa, qb, k, v, kb, vb)],
+                           0))
+        for (xa, xb, xk, xv, xkb, xvb), tc in routes:
+            before = dict(FA.LAUNCHES)
+            o5a = FA.flash_attention(xa, xk, xv, **kw)
+            o5b = FA.flash_attention(xb, xkb, xvb, **kw)
+            oa, ob = FA.zo_dual_flash_attention(xa, xb, xk, xv, kb=xkb,
+                                                vb=xvb, perturb_a=False,
+                                                perturb_b=False, **kw)
+            assert FA.LAUNCHES["flash_attention"] == \
+                before["flash_attention"] + 2
+            assert FA.LAUNCHES["flash_attention_tc"] == \
+                before["flash_attention_tc"] + 2 * tc
+            assert FA.LAUNCHES["zo_dual_flash_attention_tc"] == \
+                before["zo_dual_flash_attention_tc"] + tc
+            assert torch.equal(o5a, oa) and torch.equal(o5b, ob)
+            assert _k3_ok(o5a, R.flash_attention_ref(xa, xk, xv, **kw))
+    q, k, v = (torch.as_tensor(a, device=dev) for a in _arrays(
+        9, (1, 64, 2, 256), (1, 64, 1, 256), (1, 64, 1, 256)))
+    with pytest.raises(ValueError, match="CUDA-core loop"):
+        FA.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="CUDA-core loop"):
+        FA.zo_dual_flash_attention(q, q, k, v)

@@ -87,6 +87,36 @@ def test_zo_dual_flash_attention_plain_vs_pallas(kw, kv_heads, mode):
     np.testing.assert_allclose(ob.numpy(), np.asarray(rb), **TOL)
 
 
+@pytest.mark.parametrize("kw", VARIANTS)
+@pytest.mark.parametrize("mode", ["weights", "scores", "antithetic"])
+@pytest.mark.parametrize("head_dim", [128, 256])
+def test_zo_dual_flash_attention_plain_vs_pallas_wide_heads(head_dim, mode,
+                                                            kw):
+    """K3's CPU path at the head widths the card's tensor-core route added
+    (qwen2's 128, recurrentgemma's 256), GQA 2:1, both probe modes;
+    Skv = 29 is ragged against the Pallas kv block of 16."""
+    B, Sq, Skv, H, Kv, D = 2, 32, 29, 4, 2, head_dim
+    qa, qb, k, v, kb, vb = _arrays(
+        7, (B, Sq, H, D), (B, Sq, H, D), (B, Skv, Kv, D), (B, Skv, Kv, D),
+        (B, Skv, Kv, D), (B, Skv, Kv, D))
+    args = dict(seed=-77, row_offset=2 * H * Sq)
+    if mode == "weights":
+        args.update(kb=kb, vb=vb, perturb_a=False, perturb_b=False)
+    elif mode == "scores":
+        args.update(mu_b=0.3, perturb_a=False, perturb_b=True)
+    else:
+        args.update(mu_a=0.3, mu_b=-0.3, perturb_a=True, perturb_b=True)
+    ra, rb = JFA.zo_dual_flash_attention(qa, qb, k, v, bq=16, bk=16,
+                                         interpret=True, **args, **kw)
+    targs = {n: torch.as_tensor(a) if isinstance(a, np.ndarray) else a
+             for n, a in args.items()}
+    oa, ob = FA.zo_dual_flash_attention(
+        torch.as_tensor(qa), torch.as_tensor(qb), torch.as_tensor(k),
+        torch.as_tensor(v), **targs, **kw)
+    np.testing.assert_allclose(oa.numpy(), np.asarray(ra), **TOL)
+    np.testing.assert_allclose(ob.numpy(), np.asarray(rb), **TOL)
+
+
 def test_flash_attention_ref_vs_pallas():
     q, k, v = _arrays(2, (2, 32, 4, 16), (2, 29, 2, 16), (2, 29, 2, 16))
     ref = JFA.flash_attention(q, k, v, causal=True, window=8, cap=5.0,

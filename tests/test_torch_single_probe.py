@@ -82,6 +82,22 @@ def test_flash_attention_plain_vs_pallas(kw, kv_heads):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("kw", [dict(causal=True),
+                                dict(causal=True, window=8, cap=5.0),
+                                dict(causal=False, cap=3.0)])
+@pytest.mark.parametrize("kv_heads", [4, 2])
+@pytest.mark.parametrize("head_dim", [128, 256])
+def test_flash_attention_plain_vs_pallas_wide_heads(head_dim, kv_heads, kw):
+    """K5's CPU path at the head widths the card's tensor-core route
+    added (qwen2's 128, recurrentgemma's 256); Skv = 29 is ragged."""
+    q, k, v = _arrays(5, (2, 32, 4, head_dim), (2, 29, kv_heads, head_dim),
+                      (2, 29, kv_heads, head_dim))
+    ref = JFA.flash_attention(q, k, v, bq=16, bk=16, interpret=True, **kw)
+    got = FA.flash_attention(torch.as_tensor(q), torch.as_tensor(k),
+                             torch.as_tensor(v), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
 def _lm_single_loss(mod, cp, cfg, inputs, labels, pz, rules=()):
     """client + aux forward under one probe, then the LM loss."""
     s = mod.client_forward(cp, cfg, *rules, inputs, perturb=pz)
