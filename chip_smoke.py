@@ -4,23 +4,29 @@
     python3 chip_smoke.py
 
 Phases, one line each (any failure exits non-zero):
-  1. card: name and power limit, torch and CUDA versions; build the CUDA
-     kernels from src/repro_torch/kernels/csrc with nvcc;
-  2. K1 zo_noise vs its plain version: bit equality;
+  1. card: name, power limit, SM count and top SM clock, torch and CUDA
+     versions; build the CUDA kernels from src/repro_torch/kernels/csrc
+     with nvcc;
+  2. K1 zo_noise vs its plain version, bit for bit (torch.equal): every
+     K1 call of a gpt2-small round (recorded, then run again on fresh
+     inputs: the theta + mu*U trees, the direction trees, the noise rows),
+     and the field, accumulate and perturb modes over the gpt2-small and
+     recurrentgemma-9b client trees (the plain version in row windows);
   3. K2 zo_dual_matmul and K4 zo_matmul vs plain at gpt2-small's client
      shapes (bf16, the tensor-core route, also held to the route's split
      arithmetic ref.zo_matmul_split_ref) and ResNet-18's (f32, the
      CUDA-core loop); K4 == K2's streams bit for bit; the route counters;
   4. K3 zo_dual_flash_attention and K5 flash_attention vs plain, both
      probe modes, plus GQA, window, soft-cap and ragged lengths, at
-     head_dim 64, 128 and 256, bf16 on the tensor-core route and on the
-     CUDA-core loop and f32 on the loop (which refuses head_dim 256); K5
-     == K3's streams bit for bit on both routes; the route counters;
+     head_dim 8, 64, 112, 128 and 256, bf16 on the tensor-core route and
+     on the CUDA-core loop and f32 on the loop; K5 == K3's streams bit for
+     bit on both routes; the route counters; head_dim 264 refused;
   5. one HERON-SFL round on gpt2-small at full width (N=2 clients, h=1,
      n_pairs=1, 4 x 256 tokens each, lean seed-replay uplink): losses,
-     uplink bytes, wall time, peak memory and kernel launch counts (all 48
-     K2 and all 8 K3 launches on the tensor-core route); and a small
-     round on the card held against the same round on the CPU;
+     uplink bytes, wall time, peak memory, device busy time and idle share,
+     and kernel launch counts (all 48 K2 and all 8 K3 launches on the
+     tensor-core route, K1 as phase 2 recorded); and a small round on the
+     card held against the same round on the CPU;
   6. the same for ResNet-18 on 32x32x3 images (N=5 clients, 64 images
      each), and its small config on the card against the CPU;
   7. the single-probe forwards (Perturb(dual=False): K4 and K5) of
@@ -28,24 +34,25 @@ Phases, one line each (any failure exits non-zero):
      the dual forward on the same seeds; the gpt2-small dual losses
      through K2 against the same with K2 swapped for its plain version;
   8. kernel times (CUDA events, median) beside the plain version, a
-     PyTorch library yardstick and the card's bound; K2 / K4 bf16 on both
-     routes (tensor cores and the CUDA-core loop) and the host cost of a
-     launch on each; K3 (both modes) and K5 bf16 on both routes at
-     head_dim 64 (gpt2-small), 128 and 256 (the loop: 64 and 128); the
-     fused dual probe (K2, K3) against two
+     PyTorch library yardstick and the card's bound; K1 per leaf and per
+     client tree in each mode beside the composition it replaced (a K1
+     launch per leaf and the tensor code); K2 / K4 bf16 on both routes
+     (tensor cores and the CUDA-core loop) and the host cost of a launch
+     on each; K3 (both modes) and K5 bf16 on both routes at head_dim 64
+     (gpt2-small), 128 and 256; the fused dual probe (K2, K3) against two
      single-probe passes (2 x K4, 2 x K5); K6 forward and reverse at the
      RG-LRU round's shapes; each kernel's registers, shared memory and
-     spills from the compiler's report, and the HGMMA count of the
-     tensor-core kernels' SASS;
+     spills from the compiler's report, the HGMMA count of the
+     tensor-core kernels' SASS and K1's SASS opcode histogram;
   9. K6 rg_lru_scan vs its plain version: forward and reverse mode bit
      for bit at the round's shapes and ragged ones, its autograd backward
      against autograd through the plain loop;
  10. one HERON-SFL round on recurrentgemma-9b at full width, depth cut
      38 -> 8 layers (N=2 clients, h=1, 2 x 512 tokens each, lean
      seed-replay uplink): the RG-LRU client blocks through the whole-block
-     fallback (K1 noise, K6 scan), the server's RG-LRU blocks through K6
-     forward and backward; and its smoke config on the card against the
-     CPU.
+     fallback (K1 perturb trees, K6 scan), the server's RG-LRU blocks
+     through K6 forward and backward; and its smoke config on the card
+     against the CPU.
 Phases 9 and 10 run before phase 8's timings.  The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
@@ -67,7 +74,18 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # f32 off tensor cores
-HASH_OPS = 21          # integer and float operations per K1 element
+# K1's instructions per element of the field, by class, read from the
+# SASS of csrc/zo_noise.cu (phase 8 prints each kernel's opcode
+# histogram): the hash's LOP3 and SHF (integer), its two IMAD, one I2F
+# (the u32 -> f32 conversion) and the f32 multiplies and add of
+# zo_bits_to_uniform.  The epilogues' extra work is in k1_ops.
+K1_SASS_PER_ELEMENT = {"integer": 7, "imad": 2, "conversion": 1, "fp32": 4}
+# instructions per clock per SM by class (CUDA C++ Programming Guide,
+# "Throughput of Native Arithmetic Instructions", compute capability 9.0);
+# "issue": four schedulers, one warp instruction each per clock
+PIPE_RATES = {"integer": 64, "imad": 64, "conversion": 16, "fp32": 128,
+              "issue": 128}
+CARD = {}              # SM count and top SM clock, read in main()
 REPS = 30
 # substrings of the port's CUDA kernels' names (csrc/*.cu)
 OUR_KERNELS = ("zo_noise", "zo_dual_matmul_kernel", "zo_matmul_kernel",
@@ -144,42 +162,165 @@ def max_abs(a, b):
 # phases 2-4: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def k1_fields(dev):
-    """(seed, (rows, cols), row_offset) of the fields K1 draws on the
-    gpt2-small round: each client leaf whole on its canonical 2-D view
-    (the client direction and the server's replay; the tied table is the
-    largest), and each leaf's last leading-axis slice at its row offset
-    (a stacked leaf's last rep, as the per-rep norm perturbation reads
-    it), plus a 1024x3072 window at row_offset 2*768."""
-    from repro_torch.configs.gpt2 import gpt2_small
-    from repro_torch.kernels import ops as O
-    from repro_torch.models import transformer as T
-    from repro_torch.tree import tree_leaves
-    client = T.init_lm(gpt2_small(), seed=0, device=dev)["client"]
-    out = [(-123456789, (1024, 3072), 2 * 768)]
-    for p, s in zip(tree_leaves(client), tree_leaves(
-            O.leaf_seed_tree(client, -123456789))):
-        shape = tuple(p.shape)
-        rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
-        out.append((s, (rows, shape[-1]), 0))
-        if len(shape) > 1:
-            per = rows // shape[0]
-            out.append((s, (per, shape[-1]), (shape[0] - 1) * per))
-    return sorted(set(out), key=lambda f: -f[1][0] * f[1][1])
+# rows of U the plain version draws at once: its int64 temporaries for
+# 2^25 entries take ~0.3 GB each
+PLAIN_CHUNK = 1 << 25
 
 
-def check_k1(dev):
+def k1_plain(seg, r0, r1, dev):
+    """The plain U (f32) of rows [r0, r1) of a K1 segment, on the card."""
     import torch
     from repro_torch.kernels import noise as N
+    if seg.seed is None:
+        return torch.zeros((r1 - r0, seg.cols), device=dev)
+    return N.uniform_noise(seg.seed, (r1 - r0, seg.cols), seg.row_offset + r0,
+                           seg.col_offset, device=dev)
+
+
+def check_k1_tree(what, mode, segments, outs, ins=None, scale=None,
+                  mu=0.0):
+    """One K1 tree call against the plain tensor code of its mode on the
+    same inputs, leaf by leaf in row windows of PLAIN_CHUNK entries, with
+    ``torch.equal``; and one launch per segment table."""
+    import torch
     from repro_torch.kernels import zo_matmul as ZM
-    fields = k1_fields(dev)
-    for seed, shape, off in fields:
-        got = ZM.zo_noise(seed, shape, off, 0, device=dev)
-        ref = N.uniform_noise(seed, shape, off, 0, device=dev)
-        if not torch.equal(got, ref):
-            fail(f"K1 field {shape} at row_offset {off} seed {seed} differs "
-                 f"from plain: max |d| = {max_abs(got, ref)}")
-        del got, ref
+    dev = outs[0].device
+    before = [o.clone() for o in outs] if mode == "accumulate" else None
+    n0 = ZM.LAUNCHES["zo_noise"]
+    ZM.zo_noise_tree(mode, segments, outs, ins, scale, mu)
+    want = len(ZM.plan_launches(segments))
+    if ZM.LAUNCHES["zo_noise"] - n0 != want:
+        fail(f"K1 {what} {mode}: {ZM.LAUNCHES['zo_noise'] - n0} launches, "
+             f"expected {want}")
+    for i, seg in enumerate(segments):
+        o = outs[i].view(seg.rows, seg.cols)
+        step = max(1, PLAIN_CHUNK // seg.cols)
+        for r0 in range(0, seg.rows, step):
+            r1 = min(seg.rows, r0 + step)
+            u = k1_plain(seg, r0, r1, dev)
+            if mode == "field":
+                ref = u
+            elif mode == "accumulate":
+                ref = before[i].view(seg.rows, seg.cols)[r0:r1] + scale * u
+            else:
+                p = ins[i].view(seg.rows, seg.cols)[r0:r1]
+                ref = (p.to(torch.float32) + float(mu) * u).to(p.dtype)
+            if not torch.equal(o[r0:r1], ref):
+                fail(f"K1 {what} {mode}: leaf {i} {seg} rows [{r0}, {r1}) "
+                     f"differ from plain: max |d| {max_abs(o[r0:r1], ref)}")
+            del u, ref
+    return want
+
+
+def record_k1_calls(fn):
+    """Run ``fn`` with every K1 tree call recorded: ``[(mode, segments,
+    out dtypes, in dtypes, mu)]``, and the number of noise-rows calls."""
+    from repro_torch.kernels import ops as O
+    from repro_torch.kernels import zo_matmul as ZM
+    calls, rows = [], [0]
+    tree, gather = ZM.zo_noise_tree, O.zo_noise_rows
+
+    def rec_tree(mode, segments, outs, ins=None, scale=None, mu=0.0):
+        calls.append((mode, list(segments), [o.dtype for o in outs],
+                      None if ins is None else [t.dtype for t in ins],
+                      float(mu)))
+        return tree(mode, segments, outs, ins, scale, mu)
+
+    def rec_rows(seed, ids, n_cols):
+        rows[0] += 1
+        return gather(seed, ids, n_cols)
+
+    ZM.zo_noise_tree, O.zo_noise_rows = rec_tree, rec_rows
+    try:
+        fn()
+    finally:
+        ZM.zo_noise_tree, O.zo_noise_rows = tree, gather
+    return calls, rows[0]
+
+
+def k1_inputs(dev, mode, segments, dtypes, in_dtypes, seed):
+    """Fresh seeded outputs / accumulators and inputs for a K1 call."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    outs, ins = [], None
+    for seg, dt in zip(segments, dtypes):
+        n = seg.rows * seg.cols
+        outs.append(torch.randn(n, generator=gen, device=dev) if
+                    mode == "accumulate" else
+                    torch.empty(n, dtype=dt, device=dev))
+    if mode == "perturb":
+        ins = [torch.randn(seg.rows * seg.cols, generator=gen,
+                           device=dev).to(dt)
+               for seg, dt in zip(segments, in_dtypes)]
+    return outs, ins
+
+
+def check_k1_recorded(what, calls, dev):
+    """Each recorded K1 call of a round again on fresh inputs, against
+    the plain version: accumulate with a scale read from a 0-d view of a
+    device vector, as the replay reads it."""
+    import torch
+    scales = torch.tensor([0.37, -1.25e-3], device=dev)
+    n = 0
+    for k, (mode, segs, dts, in_dts, mu) in enumerate(calls):
+        outs, ins = k1_inputs(dev, mode, segs, dts, in_dts, seed=k)
+        n += check_k1_tree(f"{what} call {k}", mode, segs, outs, ins,
+                           scales[k % 2], mu)
+        del outs, ins
+    return n
+
+
+def check_k1_model_tree(what, client, dev):
+    """The three modes over a whole client tree with the round's seed
+    scheme: the field, an accumulation into a seeded f32 tree (scale from
+    a device vector), and theta + mu*U in the leaves' dtype."""
+    import torch
+    from repro_torch.kernels import ops as O
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(client)
+    seeds = tree_leaves(O.leaf_seed_tree(client, -123456789))
+    segs = [O.leaf_segment(s, p.shape) for p, s in zip(leaves, seeds)]
+    outs = [torch.empty(p.numel(), device=dev) for p in leaves]
+    check_k1_tree(what, "field", segs, outs)
+    del outs
+    outs, _ = k1_inputs(dev, "accumulate", segs, [torch.float32] * len(segs),
+                        None, seed=5)
+    check_k1_tree(what, "accumulate", segs, outs,
+                  scale=torch.tensor([0.0, -3e-4], device=dev)[1])
+    del outs
+    outs = [torch.empty_like(p).reshape(-1) for p in leaves]
+    check_k1_tree(what, "perturb", segs, outs,
+                  [p.reshape(-1) for p in leaves], mu=1e-3)
+    del outs
+    return len(segs), sum(p.numel() for p in leaves)
+
+
+def check_k1(dev, card):
+    """K1 against the plain tensor code, bit for bit: every K1 call of a
+    gpt2-small round (recorded, then run again on fresh inputs), the three
+    modes over the gpt2-small and recurrentgemma-9b client trees (the
+    256000 x 4096 table in row windows), a field at a row and column
+    offset, and the gathered rows.  Returns the gpt2-small round's K1
+    launches (phase 5 expects as many)."""
+    import torch
+    from repro_torch.configs.gpt2 import gpt2_small
+    from repro_torch.kernels import noise as N
+    from repro_torch.kernels import zo_matmul as ZM
+    from repro_torch.models import transformer as T
+    setup = _round_setup(gpt2_small(), dev, n_clients=2, h=1, batch=4,
+                         seq=256, mu=1e-3, lr=1e-4, server_lr=2e-4)
+    state, rb, rnd = setup
+    calls, n_rows = record_k1_calls(lambda: rnd(state, rb, 20261016))
+    n_tree = check_k1_recorded("gpt2-small round", calls, dev)
+    modes = {m: sum(1 for c in calls if c[0] == m)
+             for m in ("field", "accumulate", "perturb")}
+    n_leaves, n_el = check_k1_model_tree("gpt2-small client tree",
+                                         state["client"], dev)
+    del state, rb, rnd, setup
+    got = ZM.zo_noise(-5, (1024, 3072), 2 * 768, 3, device=dev)
+    if not torch.equal(got, N.uniform_noise(-5, (1024, 3072), 2 * 768, 3,
+                                            device=dev)):
+        fail("K1 field (1024, 3072) at offsets (1536, 3) differs from plain")
     rng = np.random.default_rng(1)
     ids = torch.as_tensor(np.append(rng.integers(0, 50432, 4 * 256 - 1),
                                     50431).reshape(4, 256), device=dev)
@@ -188,12 +329,23 @@ def check_k1(dev):
     ref_r = N.uniform_noise_at(-7, ids[..., None], cols)
     if not torch.equal(got_r, ref_r):
         fail(f"K1 rows differ from plain: max |d| = {max_abs(got_r, ref_r)}")
-    log(2, f"K1 zo_noise == plain bit for bit: {len(fields)} fields (every "
-        f"gpt2-small client leaf whole and its last leading slice at its "
-        f"row offset, the largest {fields[0][1]}; (1024, 3072) at "
-        f"row_offset 1536), seed -123456789 and the leaf seeds; rows (4, "
-        f"256) ids <= 50431 x 768")
-    return 0.0
+    log(2, f"K1 zo_noise == plain bit for bit: the gpt2-small round's "
+        f"{len(calls)} tree calls ({modes}; {n_tree} launches) and {n_rows} "
+        f"rows calls on fresh inputs; field, accumulate and perturb over "
+        f"the gpt2-small client tree ({n_leaves} leaves, {n_el} entries, one "
+        f"launch each); a field at offsets (1536, 3); rows (4, 256) ids <= "
+        f"50431 x 768")
+    params = T.init_lm(rg_round_config(), seed=0, device=dev,
+                       draw_on_device=True)
+    n_leaves, n_el = check_k1_model_tree("recurrentgemma-9b client tree",
+                                         params["client"], dev)
+    del params
+    torch.cuda.empty_cache()
+    log(2, f"K1 == plain bit for bit in the three modes over the "
+        f"recurrentgemma-9b client tree ({n_leaves} leaves, {n_el} entries, "
+        f"one launch each; the plain version in windows of {PLAIN_CHUNK} "
+        f"entries) on {card}")
+    return n_tree + n_rows
 
 
 def k2_inputs(dev, dtype, M, K, Nn, seed=0):
@@ -390,15 +542,21 @@ def k3_inputs(dev, dtype, B, S, H, Kv, D, seed=0):
 
 def k3_cases():
     # (name, B, S, H, Kv, D, kwargs); the main path's shape first, then
-    # qwen2-1.5b's heads (12 q, 2 kv, head_dim 128) and recurrentgemma-9b's
-    # (16 q, 1 kv, head_dim 256) with a window
+    # qwen2-1.5b's heads (12 q, 2 kv, head_dim 128), recurrentgemma-9b's
+    # (16 q, 1 kv, head_dim 256) with a window, the qwen2.5-32b smoke
+    # config's (8 q, 2 kv, head_dim 8) with a soft-cap and kimi-k2's
+    # head_dim 112 (GQA 8:1) with a window
     return [("gpt2-small", 4, 256, 12, 12, 64, dict()),
             ("gqa-window-cap-ragged", 2, 200, 8, 2, 64,
              dict(window=64, cap=30.0)),
             ("d128-qwen2-heads-window", 2, 300, 12, 2, 128,
              dict(window=100)),
             ("d256-recurrentgemma-heads-window", 1, 1024, 16, 1, 256,
-             dict(window=512))]
+             dict(window=512)),
+            ("d8-qwen2.5-32b-smoke-heads-cap", 2, 130, 8, 2, 8,
+             dict(cap=30.0)),
+            ("d112-kimi-k2-heads-window", 1, 300, 16, 2, 112,
+             dict(window=128))]
 
 
 def k3_routes():
@@ -424,12 +582,23 @@ def expect_fa_route(what, before, key, want):
              f"counters {FA.LAUNCHES}")
 
 
-def check_loop_refuses_d256(dev):
-    """The CUDA-core loop is not compiled for head_dim 256 (its f32 tiles
-    do not fit shared memory): f32 K3 and K5 raise, naming the route."""
+def check_loop_d256(dev):
+    """The CUDA-core loop runs f32 head_dim 256 (32-row tiles): K3 and K5
+    within the f32 tolerance of the plain version on a short ragged
+    sequence; a head past 256 raises, naming the limit, and launches
+    nothing."""
     import torch
     from repro_torch.kernels import flash_attention as FA
-    qa, qb, k, v, _, _ = k3_inputs(dev, torch.float32, 1, 64, 2, 1, 256)
+    from repro_torch.kernels import ref as R
+    qa, qb, k, v, _, _ = k3_inputs(dev, torch.float32, 1, 100, 2, 1, 256)
+    oa, ob = FA.zo_dual_flash_attention(qa, qb, k, v, perturb_b=False)
+    o5 = FA.flash_attention(qa, k, v)
+    ra, rb = R.zo_dual_flash_attention_ref(qa, qb, k, v, perturb_b=False)
+    worst = max(max_abs(oa, ra), max_abs(ob, rb), max_abs(o5, ra))
+    if worst > 1e-4 or not torch.equal(o5, oa):
+        fail(f"f32 head_dim 256 on the loop: max |d| {worst}, K5 == K3's "
+             f"stream a: {torch.equal(o5, oa)}")
+    qa, qb, k, v, _, _ = k3_inputs(dev, torch.float32, 1, 64, 2, 1, 264)
     for what, fn in (("K3", lambda: FA.zo_dual_flash_attention(qa, qb, k,
                                                                 v)),
                      ("K5", lambda: FA.flash_attention(qa, k, v))):
@@ -437,12 +606,13 @@ def check_loop_refuses_d256(dev):
         try:
             fn()
         except ValueError as e:
-            if "CUDA-core loop" not in str(e):
-                fail(f"{what} f32 head_dim 256: unclear refusal: {e}")
+            if "256" not in str(e):
+                fail(f"{what} head_dim 264: unclear refusal: {e}")
         else:
-            fail(f"{what} f32 head_dim 256 ran; expected a refusal")
+            fail(f"{what} head_dim 264 ran; expected a refusal")
         if FA.LAUNCHES != before:
-            fail(f"{what} f32 head_dim 256 launched: {FA.LAUNCHES}")
+            fail(f"{what} head_dim 264 launched: {FA.LAUNCHES}")
+    return worst
 
 
 def check_k3(dev):
@@ -458,8 +628,6 @@ def check_k3(dev):
     worst = {}
     for rname, dtype, tc in k3_routes():
         for name, B, S, H, Kv, D, kw in k3_cases():
-            if not tc and D not in FA.HEAD_DIMS["CUDA-core loop"]:
-                continue
             ins = k3_inputs(dev, dtype, B, S, H, Kv, D)
             qa, qb, k, v, kb, vb = route_inputs(ins, tc)
             u = N.uniform_noise(77, (H * S, S), 5 * H * S,
@@ -489,12 +657,13 @@ def check_k3(dev):
                     key = f"{rname} {name} {mode}"
                     worst[key] = max(worst.get(key, 0.0), float(d.max()))
             del qa, qb, k, v, kb, vb, ins, u
-    check_loop_refuses_d256(dev)
+    d256 = check_loop_d256(dev)
     log(4, "K3 zo_dual_flash_attention == plain within tolerance: "
         f"{[c[0] for c in k3_cases()]}; weights, scores and antithetic "
-        "scores modes; bf16 on the tensor cores (every head_dim) and on the "
-        "CUDA-core loop (64, 128), f32 on the loop (64, 128; head_dim 256 "
-        f"refused, as it should be): max |d| {worst}")
+        "scores modes; every head_dim on every route (bf16 on the tensor "
+        "cores and on the CUDA-core loop, f32 on the loop); f32 head_dim "
+        f"256 again on a ragged S=100 (max |d| {d256}); head_dim 264 "
+        f"refused, as it should be: max |d| {worst}")
     return worst["bf16 tensor cores gpt2-small weights"]   # the main path
 
 
@@ -508,8 +677,6 @@ def check_k5(dev):
     worst = {}
     for rname, dtype, tc in k3_routes():
         for name, B, S, H, Kv, D, kw in k3_cases():
-            if not tc and D not in FA.HEAD_DIMS["CUDA-core loop"]:
-                continue
             qa, qb, k, v, kb, vb = route_inputs(
                 k3_inputs(dev, dtype, B, S, H, Kv, D, seed=2), tc)
             before = dict(FA.LAUNCHES)
@@ -650,7 +817,11 @@ def drive_round(phase, desc, setup, expect, round_seed=20261016):
     return counts
 
 
-def run_round(dev):
+def run_round(dev, k1_launches):
+    """``k1_launches``: the K1 launches phase 2 recorded for this round
+    (per client the embedding's noise rows, ten theta + mu*U trees (the
+    norms, biases and the tied table) and the direction tree; the
+    replay's two direction trees)."""
     from repro_torch.configs.gpt2 import gpt2_small
     return drive_round(
         5, "gpt2-small round (N=2 h=1 n_pairs=1, 4x256 tokens per client, "
@@ -659,14 +830,16 @@ def run_round(dev):
                      mu=1e-3, lr=1e-4, server_lr=2e-4),
         {"zo_dual_matmul": 48, "zo_dual_matmul_tc": 48,
          "zo_dual_flash_attention": 8, "zo_dual_flash_attention_tc": 8,
-         "zo_noise": None, "zo_matmul": 0, "flash_attention": 0,
+         "zo_noise": k1_launches, "zo_matmul": 0, "flash_attention": 0,
          "rg_lru_scan": 0})
 
 
 def run_cnn_round(dev):
     """ResNet-18 at full width: per client the stem conv, block0's c1 and
-    c2 (im2col) and the aux fc go through K2, 4 x 5 = 20 launches; the
-    norm leaves' noise and the replay through K1."""
+    c2 (im2col) and the aux fc go through K2, 4 x 5 = 20 launches; K1 30:
+    per client four theta + mu*U trees (the GroupNorm leaves, the aux fc's
+    bias) and the direction tree, and the replay's five direction
+    trees."""
     from repro_torch.configs.resnet18_cifar import full_config
     return drive_round(
         6, "resnet18 round (N=5 h=1 n_pairs=1, 64 images 32x32x3 per "
@@ -675,7 +848,7 @@ def run_cnn_round(dev):
                          hw=32, mu=1e-3, lr=2e-2, server_lr=2e-3),
         {"zo_dual_matmul": 20, "zo_dual_matmul_tc": 0,
          "zo_dual_flash_attention": 0, "zo_dual_flash_attention_tc": 0,
-         "zo_noise": None, "zo_matmul": 0, "flash_attention": 0,
+         "zo_noise": 30, "zo_matmul": 0, "flash_attention": 0,
          "rg_lru_scan": 0})
 
 
@@ -965,12 +1138,12 @@ def rg_round_config():
 def run_rg_round(dev, card):
     """Launches: K6 24 = 8 client (2 RG-LRU blocks x 2 halves of the dual
     batch x 2 clients) + 8 server forward (4 RG-LRU blocks x 2 clients) + 8
-    server backward.  K1 134 = per client 50 (the embedding's noise rows
-    1; the fallback's theta + mu*U of the two client blocks, 15 leaves
-    each, 30; the aux norm 1 and the tied table's field 1; the client's
-    direction tree, 17 leaves, 17) x 2, and the seed replay's two
-    direction trees, 34.  No K2-K5: the fallback's products are plain
-    matmuls and the server's local attention the plain blocked version.
+    server backward.  K1 14 = per client 6 (the embedding's noise rows;
+    one theta + mu*U tree for each of the two client blocks' fallback, one
+    for the aux norm and one for the tied table; the direction tree, all
+    17 leaves in one launch) x 2, and the seed replay's two direction
+    trees.  No K2-K5: the fallback's products are plain matmuls and the
+    server's local attention the plain blocked version.
     The weights come from the card's generator (seeded): 2.83 B normals
     from the CPU generator would take tens of seconds."""
     from repro_torch.core.split import param_bytes
@@ -990,7 +1163,7 @@ def run_rg_round(dev, card):
     counts = drive_round(
         10, f"recurrentgemma-9b 8-layer round (N=2 h=1 n_pairs=1, 2x512 "
         f"tokens per client, seed_replay) on {card}", setup,
-        {"rg_lru_scan": 24, "zo_noise": 134, "zo_dual_matmul": 0,
+        {"rg_lru_scan": 24, "zo_noise": 14, "zo_dual_matmul": 0,
          "zo_dual_matmul_tc": 0, "zo_dual_flash_attention": 0,
          "zo_dual_flash_attention_tc": 0, "zo_matmul": 0, "zo_matmul_tc": 0,
          "flash_attention": 0, "flash_attention_tc": 0})
@@ -1162,7 +1335,7 @@ def attn_pairs(S, window=0):
 def time_attention(dev, counts, counts_sp, errs):
     """K3 (weights and scores mode) and K5 in bf16 at TIME_ATTN's shapes:
     the tensor-core route, the CUDA-core loop beside it (an input one
-    element into a buffer; head_dim 64 and 128), the plain version,
+    element into a buffer), the plain version,
     PyTorch's SDPA and the bound.  Returns the kernel-table rows of K3 and
     K5 at the main path's shape."""
     import torch
@@ -1174,7 +1347,6 @@ def time_attention(dev, counts, counts_sp, errs):
     for name, B, S, H, Kv, D, kw in TIME_ATTN:
         qa, qb, k, v, kb, vb = k3_inputs(dev, torch.bfloat16, B, S, H, Kv, D)
         qm = misaligned(qa)
-        loop_ok = D in FA.HEAD_DIMS["CUDA-core loop"]
         window = kw.get("window", 0)
         q_bytes, kv_bytes = 2 * B * S * H * D, 2 * B * S * Kv * D
         ops = 4 * D * attn_pairs(S, window) * B * H   # QK^T and PV, a stream
@@ -1225,12 +1397,10 @@ def time_attention(dev, counts, counts_sp, errs):
             fn(qa)
             expect_fa_route(f"{what} {name}", before, key, 1)
             ms = time_ms(lambda: fn(qa))
-            loop = "refused (head_dim 256)"
-            if loop_ok:
-                before = dict(FA.LAUNCHES)
-                fn(qm)
-                expect_fa_route(f"{what} {name} (loop)", before, key, 0)
-                loop = time_ms(lambda: fn(qm))
+            before = dict(FA.LAUNCHES)
+            fn(qm)
+            expect_fa_route(f"{what} {name} (loop)", before, key, 0)
+            loop = time_ms(lambda: fn(qm))
             pl = time_ms(plain, reps=10)
             lb = time_ms(lib)
             b, by = bound_ms(n_bytes, n_ops, "bfloat16")
@@ -1281,6 +1451,161 @@ def time_attention(dev, counts, counts_sp, errs):
     return k3, k5
 
 
+def k1_ops(mode, bf16=False):
+    """K1's instructions per element by class (the SASS counts of
+    K1_SASS_PER_ELEMENT, plus the epilogue: accumulate and perturb a
+    multiply and an add in f32; a bf16 perturb one integer op to widen p
+    and half a conversion to pack two outputs)."""
+    ops = dict(K1_SASS_PER_ELEMENT)
+    if mode != "field":
+        ops["fp32"] += 2
+    if bf16:
+        ops["integer"] += 1
+        ops["conversion"] += 0.5
+    ops["issue"] = sum(ops.values())
+    return ops
+
+
+def k1_bound(n_bytes, n_elems, mode, bf16=False):
+    """K1's least time: the larger of the bytes over the memory rate and,
+    for each instruction class, its instructions over its rate on every
+    SM at the card's top SM clock.  Returns (ms, what bounds it)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    ops = k1_ops(mode, bf16)
+    sms, hz = CARD["sms"], CARD["sm_clock_hz"]
+    t_ops, pipe = max((n_elems * ops[p] / (rate * sms * hz), p)
+                      for p, rate in PIPE_RATES.items())
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes"
+    return 1e3 * t_ops, f"operations ({pipe})"
+
+
+def time_k1_trees(dev):
+    """K1 over whole client trees, one launch per tree, beside the
+    composition it replaces (a K1 field launch per leaf, then the tensor
+    code of the mode: ``s * u`` and ``a + .``; ``p.float()``, ``mu * u``,
+    the add and ``.to(dtype)``), the plain version and the bound; and one
+    leaf of each."""
+    import torch
+    from repro_torch.configs.gpt2 import gpt2_small
+    from repro_torch.kernels import ops as O
+    from repro_torch.kernels import zo_matmul as ZM
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    def old_field(segs):
+        return [ZM.zo_noise(g.seed, (g.rows, g.cols), g.row_offset,
+                            device=dev) for g in segs]
+
+    def old_acc(acc, segs, sc):
+        return [a + sc * u.reshape(-1) for a, u in zip(acc,
+                                                       old_field(segs))]
+
+    def old_perturb(leaves, segs, mu):
+        return [(p.to(torch.float32) + float(mu) * u.view(p.shape)).to(
+            p.dtype) for p, u in zip(leaves, old_field(segs))]
+
+    def plain(mode, leaves, segs, acc, sc, mu):
+        out = []
+        for i, g in enumerate(segs):
+            u = k1_plain(g, 0, g.rows, dev)
+            out.append(u if mode == "field" else
+                       acc[i] + sc * u.reshape(-1) if mode == "accumulate"
+                       else (leaves[i].to(torch.float32) + float(mu) *
+                             u.view(leaves[i].shape)).to(leaves[i].dtype))
+        return out
+
+    for tname, cfg_fn in (("gpt2-small", gpt2_small),
+                          ("recurrentgemma-9b", rg_round_config)):
+        client = T.init_lm(cfg_fn(), seed=0, device=dev,
+                           draw_on_device=True)["client"]
+        leaves = tree_leaves(client)
+        seeds = tree_leaves(O.leaf_seed_tree(client, 7))
+        segs = [O.leaf_segment(s, p.shape) for p, s in zip(leaves, seeds)]
+        n = sum(p.numel() for p in leaves)
+        bf16 = leaves[0].dtype == torch.bfloat16
+        sc = torch.tensor([0.0, 1e-3], device=dev)[1]
+        big = n > 1e9                 # plain's int64 temporaries: skip
+        acc = [torch.zeros(p.numel(), device=dev) for p in leaves]
+        outs = [torch.empty(p.numel(), device=dev) for p in leaves]
+        pouts = [torch.empty_like(p).reshape(-1) for p in leaves]
+        pins = [p.reshape(-1) for p in leaves]
+        p_bytes = sum(2 * p.numel() * p.element_size() for p in leaves)
+        modes = (
+            ("field", lambda: ZM.zo_noise_tree("field", segs, outs),
+             lambda: old_field(segs), 4 * n, False),
+            ("accumulate",
+             lambda: ZM.zo_noise_tree("accumulate", segs, acc, scale=sc),
+             lambda: old_acc(acc, segs, sc), 8 * n, False),
+            ("perturb",
+             lambda: ZM.zo_noise_tree("perturb", segs, pouts, pins,
+                                      mu=1e-3),
+             lambda: old_perturb(leaves, segs, 1e-3), p_bytes, bf16))
+        for mode, tree_fn, old_fn, nb, mb in modes:
+            if big and mode != "accumulate":
+                continue
+            n0 = ZM.LAUNCHES["zo_noise"]
+            tree_fn()
+            launches = ZM.LAUNCHES["zo_noise"] - n0
+            t_old, t_tree = abba(old_fn, tree_fn)
+            pl = ("not timed (int64 temporaries of the whole tree)" if big
+                  else time_ms(lambda: plain(mode, leaves, segs, acc, sc,
+                                             1e-3), reps=5))
+            b, by = k1_bound(nb, n, mode, mb)
+            log(8, f"K1 {mode} over the {tname} client tree ({len(segs)} "
+                f"leaves, {n} entries{', bf16' if mb else ''}): tree_ms "
+                f"{t_tree} ({launches} launch) vs per-leaf composition "
+                f"{t_old} ms ({len(segs)} K1 launches + the tensor code): "
+                f"old / tree {t_old / t_tree}; plain_ms {pl} bound_ms {b} "
+                f"({by})")
+        if tname == "gpt2-small":
+            # the largest leaf after the tied table: a stacked MLP weight
+            i = sorted(range(len(segs)),
+                       key=lambda k: segs[k].rows * segs[k].cols)[-2]
+            g, a1 = segs[i], acc[i]
+            t_old, t_leaf = abba(
+                lambda: old_acc([a1], [g], sc),
+                lambda: ZM.zo_noise_tree("accumulate", [g], [a1], scale=sc))
+            b, by = k1_bound(8 * a1.numel(), a1.numel(), "accumulate")
+            log(8, f"K1 accumulate over one {g.rows}x{g.cols} leaf: "
+                f"leaf_ms {t_leaf} vs K1 field + s*u + a+. {t_old} ms: old "
+                f"/ new {t_old / t_leaf}; bound_ms {b} ({by})")
+        del client, leaves, acc, outs, pouts, pins
+        torch.cuda.empty_cache()
+
+
+def k1_sass():
+    """The opcode histogram of each K1 kernel's SASS (cuobjdump -sass of
+    the built library): the instruction classes K1_SASS_PER_ELEMENT is
+    read from."""
+    import collections
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log(8, "K1 SASS: cuobjdump not found (not read)")
+        return
+    sass = subprocess.run([tool, "-sass", str(build._lib_path("zo_noise"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    per_fn, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[-1].strip()
+            per_fn[fn] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                     line)
+        if fn is not None and m:
+            per_fn[fn][m.group(1)] += 1
+    names = _demangle(list(per_fn))
+    for f, hist in per_fn.items():
+        top = ", ".join(f"{k} {v}" for k, v in hist.most_common())
+        log(8, f"K1 SASS {names[f]}: {sum(hist.values())} instructions: "
+            f"{top}")
+
+
 def time_kernels(dev, counts, counts_sp, counts_rg, errs):
     """``counts``: launches of the gpt2-small round (K1-K3);
     ``counts_sp``: of the gpt2-small single-probe forward (K4, K5);
@@ -1293,30 +1618,31 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs):
     rows = []
 
     # K1: the tied-table field (the largest U a round draws), a weight
-    # leaf's field, and the gathered embedding rows
+    # leaf's field, the gathered embedding rows, and whole trees
     k1 = []
     for rr, cc in ((50432, 768), (768, 3072)):
         ms = time_ms(lambda: ZM.zo_noise(5, (rr, cc), device=dev))
         pl = time_ms(lambda: N.uniform_noise(5, (rr, cc), device=dev))
-        b, by = bound_ms(4 * rr * cc, HASH_OPS * rr * cc, "float32")
+        b, by = k1_bound(4 * rr * cc, rr * cc, "field")
         k1.append((f"field {rr}x{cc}", ms, pl, b, by))
     ids = torch.randint(0, 50257, (8, 256), device=dev)
     cols = torch.arange(768, device=dev)
     ms = time_ms(lambda: ZM.zo_noise_rows(5, ids, 768))
     pl = time_ms(lambda: N.uniform_noise_at(5, ids[..., None], cols))
-    b, by = bound_ms(4 * ids.numel() * (768 + 1),
-                     HASH_OPS * ids.numel() * 768, "float32")
+    b, by = k1_bound(4 * ids.numel() * (768 + 1), ids.numel() * 768,
+                     "field")
     k1.append(("rows 2048x768", ms, pl, b, by))
     for name, ms, pl, b, by in k1:
         log(8, f"K1 {name}: kernel_ms {ms} plain_ms {pl} bound_ms {b} "
             f"({by})")
+    time_k1_trees(dev)
     _, ms, pl, b, by = k1[0]
     rows.append({"name": "zo_noise", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/zo_noise.cu",
                  "replaces": "src/repro/kernels/zo_matmul.py:274",
                  "launches": counts["zo_noise"], "max_abs_err": errs[0],
-                 "ms": ms, "plain_ms": pl, "bound_ms": b, "bound_by": by,
-                 "library_ms": None})
+                 "ms": ms, "plain_ms": pl, "bound_ms": b,
+                 "bound_by": by.split(" ")[0], "library_ms": None})
 
     # K2 at the client shapes, bf16 (the config's compute type), on the
     # tensor-core route and on the CUDA-core loop (x one element into a
@@ -1455,15 +1781,21 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
-    log(1, f"card {card}; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}")
+    CARD["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    CARD["sm_clock_hz"] = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    log(1, f"card {card}; {CARD['sms']} SMs, top SM clock "
+        f"{CARD['sm_clock_hz'] / 1e6:.0f} MHz; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
     secs = build.build_all()
     log(1, f"built kernels in {secs:.1f} s (registers, shared memory and "
         f"spills per kernel in phase 8)")
 
-    errs = (check_k1(dev), check_k2(dev), check_k3(dev), check_k4(dev),
-            check_k5(dev))
-    counts = run_round(dev)
+    k1_round = check_k1(dev, card)
+    errs = (0.0, check_k2(dev), check_k3(dev), check_k4(dev), check_k5(dev))
+    counts = run_round(dev, k1_round)
     run_cnn_round(dev)
     check_small_rounds()
     counts_sp = check_single_probe(dev)
@@ -1474,6 +1806,7 @@ def main():
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs)
     compiler_report()
     check_hgmma()
+    k1_sass()
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -4,8 +4,9 @@ of the kernel noise stream, mirroring :mod:`repro.core.aggregate`.
 Seed replay rebuilds the cohort's client update from the lean uplink
 alone: per client an int32 seed and the (h, n_pairs) coefficients.  The
 (client, step, pair) stream is flattened in the JAX package's order,
-each entry regenerates one direction tree (kernel K1 on the card) and
-adds it into one f32 accumulator, applied to the global params once.
+each entry regenerates one direction tree and adds it into one f32
+accumulator in the same pass (kernel K1's accumulate mode on the card),
+applied to the global params once.
 """
 from __future__ import annotations
 
@@ -55,10 +56,11 @@ def seed_replay_aggregate_kernel(global_params, client_seeds, client_coeffs,
                                  lr: float, mask=None, seed_pred=None):
     """Reconstruct the FedAvg'd client update from (seed, coeff) uplinks.
 
-    One walk over the flattened stream: server memory is one f32
-    accumulator plus one direction tree, whatever the cohort's size.  (The
-    JAX package's ``chunk=`` bounds the memory of its vmapped direction
-    batches; an eager walk has none to bound.)
+    One walk over the flattened stream, each entry one K1 launch that
+    adds ``s * U`` into one f32 accumulator: server memory is the
+    accumulator, whatever the cohort's size, and no direction is
+    materialised.  (The JAX package's ``chunk=`` bounds the memory of its
+    vmapped direction batches; an eager walk has none to bound.)
     """
     n = client_coeffs.shape[0]
     if mask is None:
@@ -70,8 +72,7 @@ def seed_replay_aggregate_kernel(global_params, client_seeds, client_coeffs,
     acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                          device=p.device), global_params)
     for sp, s in zip(seeds, scales):
-        u = O.kernel_direction_tree(
-            global_params, O.leaf_seed_tree(global_params, sp, seed_pred))
-        acc = tree_map(lambda a, ul: a + s * ul, acc, u)
+        O.accumulate_direction_tree(
+            acc, O.leaf_seed_tree(global_params, sp, seed_pred), s)
     return tree_map(lambda p, a: (p.to(torch.float32) + a).to(p.dtype),
                     global_params, acc)

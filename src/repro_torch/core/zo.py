@@ -53,16 +53,25 @@ def zo_gradient_kernel(dual_loss_fn, params, base_seed, zo: ZOConfig,
     None placeholders (frozen leaves); their seeds are None and they are
     never perturbed.  Returns ``(grad_tree, info)``; ``info`` holds the
     last pair's clean loss and aux and the ``(n_pairs,)`` coefficients
-    (the lean uplink).
+    (the lean uplink).  Each pair adds ``coeff * U`` into the f32
+    gradient in one K1 launch (accumulate mode).  With ``n_pairs == 0``
+    the gradient is zero, and the loss and aux are the base seed's clean
+    half, as in the reference.
     """
     g = tree_map(_zeros_f32, params)
+    if zo.n_pairs == 0:
+        seeds = O.leaf_seed_tree(params, base_seed, seed_pred)
+        l0, _, aux = dual_loss_fn(params, seeds, zo.mu)
+        dev = l0.device if isinstance(l0, torch.Tensor) else None
+        return g, {"loss": l0, "aux": aux,
+                   "coeffs": torch.zeros((0,), dtype=torch.float32,
+                                         device=dev)}
     coeffs = []
     for sp in pair_seeds(base_seed, zo.n_pairs):
         seeds = O.leaf_seed_tree(params, sp, seed_pred)
         l0, lp, aux = dual_loss_fn(params, seeds, zo.mu)
         coeff = (lp - l0) / zo.mu / zo.n_pairs
-        u = O.kernel_direction_tree(params, seeds)
-        g = tree_map(lambda gl, ul: gl + coeff * ul, g, u)
+        O.accumulate_direction_tree(g, seeds, coeff)
         coeffs.append(coeff)
     return g, {"loss": l0, "aux": aux, "coeffs": torch.stack(coeffs)}
 
@@ -73,7 +82,6 @@ def replay_gradient_kernel(params, base_seed, coeffs, seed_pred=None):
     :func:`zo_gradient_kernel` minus the forward passes."""
     g = tree_map(_zeros_f32, params)
     for sp, coeff in zip(pair_seeds(base_seed, coeffs.shape[0]), coeffs):
-        u = O.kernel_direction_tree(
-            params, O.leaf_seed_tree(params, sp, seed_pred))
-        g = tree_map(lambda gl, ul: gl + coeff * ul, g, u)
+        O.accumulate_direction_tree(
+            g, O.leaf_seed_tree(params, sp, seed_pred), coeff)
     return g

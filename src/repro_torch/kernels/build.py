@@ -35,7 +35,7 @@ _P, _I, _LL, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # library -> C function -> argument types (all return the cudaError_t code)
 SIGNATURES = {
     "zo_noise": {
-        "zo_noise_field": [_P, _LL, _LL, _U, _U, _U, _P],
+        "zo_noise_tree": [_P, _P],
         "zo_noise_rows": [_P, _P, _LL, _LL, _U, _P],
     },
     "zo_dual_matmul": {

@@ -12,8 +12,10 @@
 // TMA tensor map over (D, heads, S, B) cuts a tile of 64 (Q) or BKV (K, V)
 // rows of one head as 64-column sub-tiles with 128-byte rows and 128-byte
 // swizzle; rows past S and columns past D load as zeros, so ragged tails
-// need no code and D = 16 or 32 runs as one zero-padded 64-column
-// sub-tile.
+// need no code.  A head width D (a multiple of 8, for TMA's 16-byte row
+// strides) runs at the compiled width DC = 16, 32, 64, 128 or 256 that
+// holds it: DC/16 k16 steps of Q K^T (the columns past D add exact zeros)
+// and ceil(DC/64) sub-tiles of O, whose columns past D are not stored.
 //
 // Products.  S = Q K^T is wgmma m64nBKVk16 with both operands in shared
 // memory, K-major (K's (S, D) rows are K-major for K^T): D/16 steps.  The
@@ -55,7 +57,7 @@
 // K5 equals the matching stream of K3 in the weights mode bit for bit.
 //
 // Route.  The wrappers (kernels/flash_attention.py) send a bf16 launch here
-// when D is 16, 32, 64, 128 or 256, Skv > 0 and every base pointer is
+// when D is a multiple of 8 up to 256, Skv > 0 and every base pointer is
 // 16-byte aligned (TMA's strides are then multiples of 16 bytes).
 #pragma once
 
@@ -99,7 +101,7 @@ struct Args {
   __nv_bfloat16* o[NA];
   float mu[NA];
   int perturb[NA];
-  int B, Sq, Skv, H, Kv, causal, window;
+  int B, Sq, Skv, H, Kv, D, causal, window;   // D: the real head width
   float cap, scale;
   uint32_t seed, row_offset;
 };
@@ -345,7 +347,7 @@ __device__ __forceinline__ void consume(const Args<NA>& a, int s, int wg,
   }
 
   // o / max(l, 1e-30), as o times the rounded reciprocal, into the rows
-  // below Sq and the columns below D
+  // below Sq and the columns below the real width a.D
   __nv_bfloat16* out = a.o[s];
   const float inv[2] = {__frcp_rn(fmaxf(l[0], 1e-30f)),
                         __frcp_rn(fmaxf(l[1], 1e-30f))};
@@ -356,9 +358,9 @@ __device__ __forceinline__ void consume(const Args<NA>& a, int s, int wg,
       const int r = (e >> 1) & 1;
       const int row = row0 + 8 * r;
       const int col = 64 * c + 8 * (e >> 2) + 2 * t4;
-      if (row < a.Sq && col < D)
+      if (row < a.Sq && col < a.D)
         *reinterpret_cast<__nv_bfloat162*>(
-            out + (((int64_t)b * a.Sq + row) * a.H + h) * D + col) =
+            out + (((int64_t)b * a.Sq + row) * a.H + h) * a.D + col) =
             __floats2bfloat162_rn(__fmul_rn(o[c][e], inv[r]),
                                   __fmul_rn(o[c][e + 1], inv[r]));
     }
@@ -500,7 +502,8 @@ int launch(const void* const (&q)[NA], const void* const (&k)[NA],
            int B, int Sq, int Skv, int H, int Kv, int D, int causal,
            int window, float cap, float scale, uint32_t seed,
            uint32_t row_offset, cudaStream_t stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || Kv <= 0 || H % Kv != 0)
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Kv <= 0 || H % Kv != 0 || D <= 0 ||
+      D > 256 || D % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const int bkv = D > 128 ? 32 : 64;
   Args<NA> a;
@@ -523,20 +526,18 @@ int launch(const void* const (&q)[NA], const void* const (&k)[NA],
   a.Skv = Skv;
   a.H = H;
   a.Kv = Kv;
+  a.D = D;
   a.causal = causal;
   a.window = window;
   a.cap = cap;
   a.scale = scale;
   a.seed = seed;
   a.row_offset = row_offset;
-  switch (D) {
-    case 16: return launch_dim<16, NA>(a, shared, noise, stream);
-    case 32: return launch_dim<32, NA>(a, shared, noise, stream);
-    case 64: return launch_dim<64, NA>(a, shared, noise, stream);
-    case 128: return launch_dim<128, NA>(a, shared, noise, stream);
-    case 256: return launch_dim<256, NA>(a, shared, noise, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (D <= 16) return launch_dim<16, NA>(a, shared, noise, stream);
+  if (D <= 32) return launch_dim<32, NA>(a, shared, noise, stream);
+  if (D <= 64) return launch_dim<64, NA>(a, shared, noise, stream);
+  if (D <= 128) return launch_dim<128, NA>(a, shared, noise, stream);
+  return launch_dim<256, NA>(a, shared, noise, stream);
 }
 
 }  // namespace fa_wgmma

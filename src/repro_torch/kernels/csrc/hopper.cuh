@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core routes of the
-// ZO matmul kernels (zo_wgmma_matmul.cuh) and the flash-attention kernels
-// (flash_wgmma.cuh): mbarriers, TMA loads, wgmma synchronisation, shared
+// ZO matmul kernels (zo_wgmma_matmul.cuh), the flash-attention kernels
+// (flash_wgmma.cuh) and the RG-LRU scan's ring (rg_lru_scan.cu):
+// mbarriers, TMA and cp.async loads, wgmma synchronisation, shared
 // memory descriptors with 128-byte swizzle, bf16 packing, and the host's
 // cuTensorMapEncodeTiled fetched from the driver through the runtime (no
 // -lcuda).
@@ -64,6 +65,37 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c_inner),
       "r"(c_outer)
       : "memory");
+}
+
+// coordinates innermost first; out-of-range elements (negative
+// coordinates included) arrive as zeros
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously; src_bytes 0 writes
+// a zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// One arrival on `bar` once this thread's earlier cp.async copies have
+// landed; the barrier's count includes it (.noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 // coordinates innermost first

@@ -9,11 +9,13 @@ field materialised from the same hash stream.  ``LAUNCHES`` counts
 kernel launches only.
 
 K3 and K5 have two routes on the card, chosen by :func:`route`: bf16
-operands whose pointers suit TMA run on the tensor cores
+operands whose head width and pointers suit TMA run on the tensor cores
 (``csrc/flash_wgmma.cuh``), everything else on the CUDA-core loop
-(``csrc/flash_tile.cuh``).  Each route is compiled for the head widths
-in ``HEAD_DIMS``; a launch the loop would take at a width it lacks
-raises.  ``LAUNCHES["zo_dual_flash_attention"]``
+(``csrc/flash_tile.cuh``).  Each route is compiled for the widths in
+``HEAD_DIMS`` and runs a head width D at the smallest of them that holds
+it (:func:`compiled_width`), the columns past D zero-filled as they load;
+the scale stays ``1/sqrt(D)`` of the real width.  Only D past
+``MAX_HEAD_DIM`` raises.  ``LAUNCHES["zo_dual_flash_attention"]``
 / ``["flash_attention"]`` count every launch; the ``_tc`` keys count
 those that took the tensor cores.
 """
@@ -27,49 +29,54 @@ from repro_torch.kernels import ref as R
 
 LAUNCHES = {"zo_dual_flash_attention": 0, "zo_dual_flash_attention_tc": 0,
             "flash_attention": 0, "flash_attention_tc": 0}
-# head widths each route is compiled for; the loop's f32 tiles of Q, K, V
-# and P do not fit 227 KB of shared memory at 256
+# the widths each route is compiled for; the loop's tiles are 32 rows at
+# 256, so its f32 Q, K, V and P fit 227 KB of shared memory
 HEAD_DIMS = {"tensor cores": (16, 32, 64, 128, 256),
-             "CUDA-core loop": (16, 32, 64, 128)}
+             "CUDA-core loop": (8, 16, 32, 64, 128, 256)}
+MAX_HEAD_DIM = 256
+
+
+def compiled_width(route_name: str, head_dim: int) -> int:
+    """The compiled width a head width runs at on ``route_name``: the
+    smallest of ``HEAD_DIMS[route_name]`` that holds it."""
+    for dc in HEAD_DIMS[route_name]:
+        if head_dim <= dc:
+            return dc
+    raise ValueError(f"head_dim {head_dim} > {MAX_HEAD_DIM}")
 
 
 def tc_kv_tile(head_dim: int) -> int:
-    """The kv tile width of the tensor-core route: 64 columns, 32 at
-    head_dim 256 (so K3's weights mode fits shared memory)."""
+    """The kv tile width of the tensor-core route: 64 columns, 32 past
+    head_dim 128 (so K3's weights mode fits shared memory)."""
     return 32 if head_dim > 128 else 64
 
 
 def tensor_core_route(dtype, head_dim: int, seq_kv: int, ptrs) -> bool:
     """Whether a K3 / K5 launch runs on the tensor cores: bf16 operands, a
-    head width in ``HEAD_DIMS["tensor cores"]``, a non-empty K/V and every
-    base pointer in ``ptrs`` 16-byte aligned (TMA's base addresses; its
-    row strides, multiples of head_dim, are then multiples of 16 bytes).
+    head width that is a multiple of 8 up to ``MAX_HEAD_DIM`` (TMA's row
+    strides are then multiples of 16 bytes), a non-empty K/V and every
+    base pointer in ``ptrs`` 16-byte aligned (TMA's base addresses).
     Anything else takes the CUDA-core loop.  A pure function of its
     arguments: it needs no card."""
-    return (dtype == torch.bfloat16
-            and head_dim in HEAD_DIMS["tensor cores"] and seq_kv > 0
+    return (dtype == torch.bfloat16 and 0 < head_dim <= MAX_HEAD_DIM
+            and head_dim % 8 == 0 and seq_kv > 0
             and all(int(p) % 16 == 0 for p in ptrs))
 
 
 def route(what: str, dtype, head_dim: int, seq_kv: int, ptrs) -> bool:
     """The route of a K3 / K5 launch on the card: True for the tensor
-    cores (:func:`tensor_core_route`), False for the CUDA-core loop.
-    Raises where the loop would take a head width it is not compiled for,
-    saying why.  A pure function of its arguments: it needs no card."""
-    if tensor_core_route(dtype, head_dim, seq_kv, ptrs):
-        return True
-    if head_dim not in HEAD_DIMS["CUDA-core loop"]:
-        why = ("f32 operands" if dtype == torch.float32 else
-               "bf16 operands the tensor cores cannot take (a pointer not "
-               "16-byte aligned, or an empty K/V)")
+    cores (:func:`tensor_core_route`), False for the CUDA-core loop, which
+    takes every head width up to ``MAX_HEAD_DIM`` in both dtypes.  Raises
+    for a width past it, saying why.  A pure function of its arguments:
+    it needs no card."""
+    if not 0 < head_dim <= MAX_HEAD_DIM:
         raise ValueError(
-            f"{what}: head_dim {head_dim} with {why} goes to the CUDA-core "
-            f"loop, which is compiled for head_dim in "
-            f"{HEAD_DIMS['CUDA-core loop']} (its f32 tiles of Q, K, V and "
-            "P do not fit 227 KB of shared memory at 256); the tensor-core "
-            "route (bf16, 16-byte-aligned pointers) takes head_dim in "
-            f"{HEAD_DIMS['tensor cores']}")
-    return False
+            f"{what}: head_dim {head_dim} is outside 1..{MAX_HEAD_DIM}: "
+            f"both routes are compiled for widths up to {MAX_HEAD_DIM} "
+            f"(tensor cores {HEAD_DIMS['tensor cores']}, CUDA-core loop "
+            f"{HEAD_DIMS['CUDA-core loop']}), and no config of the repo has "
+            "a wider head")
+    return tensor_core_route(dtype, head_dim, seq_kv, ptrs)
 
 
 def _check_attention(what, qs, ks, outs):

@@ -154,50 +154,96 @@ def any_seed(seeds) -> bool:
     return True
 
 
-def leaf_noise(seed, shape, rep=0, *, device):
-    """U(seed) for one (possibly rep-sliced) leaf on its canonical 2-D
-    view; ``rep`` offsets the rows for a slice of a stacked leaf."""
+def leaf_segment(seed, shape, rep=0) -> ZM.Segment:
+    """K1's segment for one (possibly rep-sliced) leaf: U(seed) on its
+    canonical 2-D view (prod(shape[:-1]), shape[-1]), ``rep`` offsetting
+    the rows for a slice of a stacked leaf."""
     shape = tuple(int(s) for s in shape) or (1,)
-    cols = shape[-1]
     rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
-    return zo_noise(seed, (rows, cols), row_offset=int(rep) * rows,
-                    device=device).reshape(shape)
+    return ZM.Segment(rows, shape[-1], seed, int(rep) * rows)
+
+
+def _paired_leaves(params, seeds, path=(), out=None):
+    """``[(path, leaf, seed)]`` over the non-None leaves of ``params``
+    with the matching node of ``seeds`` (None where a subtree has no
+    seeds), in traversal order.  (A plain recursion: a nested recursive
+    closure would hold the leaves in a reference cycle until the garbage
+    collector runs.)"""
+    out = [] if out is None else out
+    if isinstance(params, dict):
+        for k, v in params.items():
+            _paired_leaves(v, None if seeds is None else seeds[k],
+                           path + (k,), out)
+    elif isinstance(params, (list, tuple)):
+        for i, v in enumerate(params):
+            _paired_leaves(v, None if seeds is None else seeds[i],
+                           path + (i,), out)
+    elif params is not None:
+        out.append((path, params, seeds))
+    return out
+
+
+def _rebuild(tree, values, path=()):
+    """``tree`` with the leaves at the paths of ``values`` replaced."""
+    if path in values:
+        return values[path]
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, values, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, values, path + (i,))
+                          for i, v in enumerate(tree))
+    return tree
 
 
 def kernel_direction_tree(params, seeds):
-    """Materialized f32 direction U for a whole tree: the replay-side
-    oracle of the in-kernel stream (None seed -> zeros)."""
-    def walk(p, s):
-        if isinstance(p, dict):
-            return {k: walk(v, None if s is None else s[k])
-                    for k, v in p.items()}
-        if isinstance(p, (list, tuple)):
-            return type(p)(walk(v, None if s is None else s[i])
-                           for i, v in enumerate(p))
-        if p is None:
-            return None
-        if s is None:
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        return leaf_noise(s, p.shape, device=p.device)
+    """Materialized f32 direction U for a whole tree, one K1 launch for
+    its seeded leaves (None seed -> zeros): the replay-side oracle of the
+    in-kernel stream."""
+    leaves = _paired_leaves(params, seeds)
+    out, segs, outs = {}, [], []
+    for path, p, s in leaves:
+        u = (torch.zeros if s is None else torch.empty)(
+            p.shape, dtype=torch.float32, device=p.device)
+        out[path] = u
+        if s is not None:
+            segs.append(leaf_segment(s, p.shape))
+            outs.append(u)
+    ZM.zo_noise_tree("field", segs, outs)
+    return _rebuild(params, out)
 
-    return walk(params, seeds)
+
+def accumulate_direction_tree(acc, seeds, scale):
+    """``acc + scale * U(seeds)`` into the f32 tree ``acc`` in place, one
+    K1 launch for the whole tree: the direction accumulation of the ZO
+    gradient and of the seed replay.  A leaf whose seed is None adds
+    ``scale * 0``, as a zero direction does.  ``scale`` is a 0-d tensor
+    (or a number) that the kernel reads on the device."""
+    leaves = _paired_leaves(acc, seeds)
+    if not leaves:
+        return acc
+    dev = leaves[0][1].device
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
+    ZM.zo_noise_tree("accumulate",
+                     [leaf_segment(s, a.shape) for _, a, s in leaves],
+                     [a for _, a, _ in leaves], scale=scale)
+    return acc
 
 
 def perturb_tree(params, seeds, mu, rep=0):
-    """theta + mu*U(seeds) with U materialized per leaf."""
-    def walk(p, s):
-        if s is None:
-            return p
-        if isinstance(p, dict):
-            return {k: walk(v, s[k]) for k, v in p.items()}
-        if isinstance(p, (list, tuple)):
-            return type(p)(walk(v, s[i]) for i, v in enumerate(p))
-        if p is None:
-            return None
-        u = leaf_noise(s, p.shape, rep, device=p.device)
-        return (p.to(torch.float32) + float(mu) * u).to(p.dtype)
-
-    return walk(params, seeds)
+    """``theta + mu*U(seeds)`` leaf by leaf in the leaf's dtype, one K1
+    launch for the seeded leaves; leaves without a seed are returned as
+    they are."""
+    if seeds is None:
+        return params
+    leaves = [(path, p, s) for path, p, s in _paired_leaves(params, seeds)
+              if s is not None]
+    out = {path: torch.empty_like(p, memory_format=torch.contiguous_format)
+           for path, p, _ in leaves}
+    ZM.zo_noise_tree("perturb",
+                     [leaf_segment(s, p.shape, rep) for _, p, s in leaves],
+                     [out[path] for path, _, _ in leaves],
+                     ins=[p.contiguous() for _, p, _ in leaves], mu=mu)
+    return _rebuild(params, out)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,6 +7,8 @@ forward is K6 and whose backward is K6 in reverse mode, so the server's
 first-order step differentiates the recurrence through the kernel.  For
 CPU tensors it runs the plain sequential version, which autograd
 differentiates.  ``LAUNCHES`` counts K6 launches, forward and reverse.
+K6 takes any (B, S, W); the kernel chooses its loads (TMA where W % 4
+== 0 and the pointers are 16-byte aligned, cp.async otherwise).
 """
 from __future__ import annotations
 

@@ -9,6 +9,12 @@ version only for tensors on the CPU.  ``LAUNCHES`` counts kernel
 launches (never plain-version calls), so a run can show that it went
 through the kernels.
 
+K1 draws U(seed) for a list of leaves in one launch (:func:`zo_noise_tree`,
+one launch per ``MAX_SEGMENTS`` leaves) and hands each element to its
+consumer there: the field itself, ``acc + s*U`` into an f32 accumulator,
+or ``dtype(p + mu*U)``.  :func:`plan_launches` lays the leaves out as the
+kernel's segment table, a pure function of their shapes.
+
 K2 and K4 have two routes on the card, chosen by
 :func:`tensor_core_route`: bf16 operands whose shapes and pointers suit
 TMA run on the tensor cores (``csrc/zo_wgmma_matmul.cuh``), everything
@@ -17,6 +23,9 @@ else on the CUDA-core tile loop (``csrc/zo_tile_matmul.cuh``).
 the ``_tc`` keys count those that took the tensor cores.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import torch
 
@@ -27,24 +36,155 @@ from repro_torch.kernels import ref as R
 LAUNCHES = {"zo_noise": 0, "zo_dual_matmul": 0, "zo_dual_matmul_tc": 0,
             "zo_matmul": 0, "zo_matmul_tc": 0}
 
+# K1's table (csrc/zo_noise.cu): segments per launch, the tile, the modes
+MAX_SEGMENTS = 64
+TILE_ROWS, TILE_COLS = 32, 128
+MODES = {"field": 0, "accumulate": 1, "perturb": 2}
+_BF16, _ZERO, _VEC = 1, 2, 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """One leaf of a K1 launch: U(seed) on a (rows, cols) window at a
+    global (row_offset, col_offset); ``seed=None`` is a zero direction
+    (accumulate mode adds ``s*0``)."""
+    rows: int
+    cols: int
+    seed: int | None
+    row_offset: int = 0
+    col_offset: int = 0
+
+    @property
+    def tiles(self) -> int:
+        return (-(-self.rows // TILE_ROWS)) * (-(-self.cols // TILE_COLS))
+
+
+def plan_launches(segments, max_segments: int = MAX_SEGMENTS):
+    """The launches of a K1 tree call, a pure function of the segments:
+    ``[(indices, tile0s, tiles)]``, each launch at most ``max_segments``
+    segments with at least one tile, ``tile0s`` the prefix sums of their
+    tile counts and ``tiles`` the total.  Segments without elements take
+    no place.  Needs no card."""
+    out, idx, t0s, total = [], [], [], 0
+    for i, seg in enumerate(segments):
+        if seg.rows * seg.cols == 0:
+            continue
+        if len(idx) == max_segments:
+            out.append((idx, t0s, total))
+            idx, t0s, total = [], [], 0
+        idx.append(i)
+        t0s.append(total)
+        total += seg.tiles
+    if idx:
+        out.append((idx, t0s, total))
+    return out
+
+
+class _Segment(ctypes.Structure):
+    _fields_ = [("out", ctypes.c_void_p), ("inp", ctypes.c_void_p),
+                ("tile0", ctypes.c_longlong), ("rows", ctypes.c_uint),
+                ("cols", ctypes.c_uint), ("seed", ctypes.c_uint),
+                ("row_offset", ctypes.c_uint), ("col_offset", ctypes.c_uint),
+                ("col_tiles", ctypes.c_uint), ("flags", ctypes.c_uint),
+                ("unused", ctypes.c_uint)]
+
+
+class _Table(ctypes.Structure):
+    _fields_ = [("seg", _Segment * MAX_SEGMENTS), ("tiles", ctypes.c_longlong),
+                ("scale", ctypes.c_void_p), ("n", ctypes.c_int),
+                ("mode", ctypes.c_int), ("mu", ctypes.c_float),
+                ("unused", ctypes.c_int)]
+
+
+def _plain_noise(seg: Segment, device):
+    return N.uniform_noise(seg.seed, (seg.rows, seg.cols), seg.row_offset,
+                           seg.col_offset, device=device)
+
+
+def zo_noise_tree(mode: str, segments, outs, ins=None, scale=None,
+                  mu=0.0):
+    """K1 over a list of leaves, one launch per ``MAX_SEGMENTS``.
+
+    ``outs[i]`` and ``ins[i]`` are contiguous tensors of
+    ``segments[i].rows * segments[i].cols`` elements.  Modes:
+      * ``"field"``: ``outs[i] = U_i`` (f32);
+      * ``"accumulate"``: ``outs[i] += scale * U_i`` in place (f32;
+        ``scale`` a 0-d f32 tensor on the device, read by the kernel);
+      * ``"perturb"``: ``outs[i] = (ins[i].float() + mu*U_i).to(dtype)``
+        (f32 or bf16, ``outs[i]`` of ``ins[i]``'s dtype).
+    A segment with ``seed=None`` has U = 0.  CPU tensors run the plain
+    tensor code of each mode, leaf by leaf."""
+    code = MODES[mode]
+    if not outs:
+        return
+    dev = outs[0].device
+    if dev.type == "cpu":
+        for i, seg in enumerate(segments):
+            o = outs[i].view(seg.rows, seg.cols)
+            if mode == "field":
+                o.copy_(_plain_noise(seg, dev))
+            elif mode == "accumulate":
+                u = (torch.zeros((seg.rows, seg.cols), dtype=torch.float32)
+                     if seg.seed is None else _plain_noise(seg, dev))
+                o.copy_(o + scale * u)
+            else:
+                p = ins[i].view(seg.rows, seg.cols)
+                o.copy_((p.to(torch.float32) + float(mu)
+                         * _plain_noise(seg, dev)).to(p.dtype))
+        return
+    tensors = list(outs) + list(ins or [])
+    if mode == "accumulate":
+        tensors.append(scale)
+    build.require_cuda("zo_noise_tree", *tensors)
+    if mode == "accumulate" and (scale.dtype != torch.float32
+                                 or scale.numel() != 1):
+        raise ValueError(f"zo_noise_tree: scale must be one f32 value, got "
+                         f"{scale.dtype} {tuple(scale.shape)}")
+    for i, seg in enumerate(segments):
+        o = outs[i]
+        want = (ins[i].dtype if mode == "perturb" else torch.float32)
+        if o.dtype != want or o.numel() != seg.rows * seg.cols or (
+                mode == "perturb" and (ins[i].numel() != o.numel()
+                                       or want not in build.DTYPE_CODES)):
+            raise ValueError(f"zo_noise_tree {mode}: leaf {i} of {seg} is "
+                             f"{o.dtype} {tuple(o.shape)}")
+        if mode != "accumulate" and seg.seed is None:
+            raise ValueError(f"zo_noise_tree {mode}: leaf {i} has no seed")
+    lib = build.library("zo_noise")
+    for idx, t0s, tiles in plan_launches(segments):
+        t = _Table()
+        for k, (i, t0) in enumerate(zip(idx, t0s)):
+            seg, o = segments[i], outs[i]
+            p = ins[i] if mode == "perturb" else None
+            bf16 = o.dtype == torch.bfloat16
+            align = 8 if bf16 else 16
+            vec = seg.cols % 4 == 0 and all(
+                x.data_ptr() % align == 0 for x in (o, p) if x is not None)
+            t.seg[k] = _Segment(
+                o.data_ptr(), None if p is None else p.data_ptr(), t0,
+                seg.rows, seg.cols, N._u32(0 if seg.seed is None
+                                           else seg.seed),
+                N._u32(seg.row_offset), N._u32(seg.col_offset),
+                -(-seg.cols // TILE_COLS),
+                _BF16 * bf16 + _ZERO * (seg.seed is None) + _VEC * vec, 0)
+        t.tiles, t.n, t.mode, t.mu = tiles, len(idx), code, float(mu)
+        t.scale = scale.data_ptr() if mode == "accumulate" else None
+        build.check(lib.zo_noise_tree(ctypes.byref(t), build.stream(dev)),
+                    "zo_noise_tree")
+        LAUNCHES["zo_noise"] += 1
+
 
 def zo_noise(seed, shape, row_offset=0, col_offset=0, *, device):
     """K1, field mode: U(seed) on a (rows, cols) window at a global
-    offset, f32."""
+    offset, f32 (one segment)."""
     dev = torch.device(device)
     rows, cols = (int(s) for s in shape)
     if dev.type == "cpu":
         return N.uniform_noise(seed, (rows, cols), row_offset, col_offset,
                                device=dev)
     out = torch.empty((rows, cols), dtype=torch.float32, device=dev)
-    build.require_cuda("zo_noise", out)
-    if out.numel():
-        err = build.library("zo_noise").zo_noise_field(
-            out.data_ptr(), rows, cols, int(N._u32(seed)),
-            int(N._u32(row_offset)), int(N._u32(col_offset)),
-            build.stream(dev))
-        build.check(err, "zo_noise")
-        LAUNCHES["zo_noise"] += 1
+    zo_noise_tree("field", [Segment(rows, cols, seed, row_offset,
+                                    col_offset)], [out])
     return out
 
 

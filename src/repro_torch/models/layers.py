@@ -102,14 +102,6 @@ def dense(params, x, compute_dtype=None, perturb=None):
     return y
 
 
-def _pleaf(p, seed, mu, rep=0):
-    """theta + mu*U(seed) for one small leaf (bias / LoRA adapter)."""
-    if seed is None:
-        return p
-    u = O.leaf_noise(seed, p.shape, rep, device=p.device)
-    return (p.to(torch.float32) + float(mu) * u).to(p.dtype)
-
-
 def _dense_perturbed(params, x, perturb, compute_dtype=None):
     """Dense with the ZO perturbation fused into the matmul.  In dual
     mode the activations carry [clean; perturbed] halves along the
@@ -141,8 +133,8 @@ def _dense_perturbed(params, x, perturb, compute_dtype=None):
     if "lora_a" in params:
         la = params["lora_a"].to(x2.dtype)
         lb = params["lora_b"].to(x2.dtype)
-        lap = _pleaf(la, seeds.get("lora_a"), mu, rep)
-        lbp = _pleaf(lb, seeds.get("lora_b"), mu, rep)
+        lap = O.perturb_tree(la, seeds.get("lora_a"), mu, rep)
+        lbp = O.perturb_tree(lb, seeds.get("lora_b"), mu, rep)
         if dual:
             y2 = y2 + torch.cat([(x2[:half] @ la) @ lb,
                                  (x2[half:] @ lap) @ lbp], dim=0)
@@ -150,7 +142,7 @@ def _dense_perturbed(params, x, perturb, compute_dtype=None):
             y2 = y2 + (x2 @ lap) @ lbp
     if "b" in params:
         b = params["b"]
-        bp = _pleaf(b, seeds.get("b"), mu, rep)
+        bp = O.perturb_tree(b, seeds.get("b"), mu, rep)
         if dual:
             y2 = y2 + torch.cat(
                 [b.to(y2.dtype).expand(half, b.shape[-1]),

@@ -289,8 +289,7 @@ def aux_forward(client_params, cfg: ModelConfig, smashed, positions=None,
         logits = L.unembed(client_params["embed"], x, torch.float32)
     else:
         table = client_params["embed"]["table"].to(torch.float32)
-        tp = table + float(perturb.mu) * O.leaf_noise(st, table.shape,
-                                                      device=table.device)
+        tp = O.perturb_tree(table, st, perturb.mu)
         if perturb.dual:
             half = x.shape[0] // 2
             logits = torch.cat([x[:half].to(torch.float32) @ table.T,

@@ -102,18 +102,24 @@ def test_cuda_single_probe_kernels_match_plain_and_fused_streams():
             assert torch.equal(o, oa)
 
 
+# chip_smoke.py's K6_SHAPES (the recurrentgemma round's) and K6_RAGGED
+K6_SHAPES = ((2, 512, 4096), (4, 512, 4096))
+K6_RAGGED = ((1, 77, 1000), (1, 509, 4099), (3, 130, 129))
+
+
 @pytest.mark.gpu
 def test_cuda_rg_lru_scan_matches_plain():
     """K6 forward and reverse mode bit for bit against the plain loops
-    (each step a multiply, then an add, in both), over ragged shapes (S
-    and W not multiples of the 16-step chunk or the 64-thread block); its
-    autograd backward against autograd through the plain loop to 1e-6
-    (the same two-term sums, so equal in practice)."""
+    (each step a multiply, then an add, in both) at the round's shapes and
+    ragged ones (S and W not multiples of the 32-step stage or the
+    32-channel block; W % 4 != 0 takes the cp.async producer, the rest
+    TMA); its autograd backward against autograd through the plain loop to
+    1e-6 (the same two-term sums, so equal in practice)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
-    for (B, S, W) in ((1, 37, 70), (3, 130, 129)):
-        rng = np.random.default_rng(B)
+    for (B, S, W) in K6_SHAPES + K6_RAGGED + ((1, 37, 70),):
+        rng = np.random.default_rng(B * S)
         a = torch.as_tensor(rng.uniform(0.3, 0.999, (B, S, W)).astype(
             np.float32), device=dev)
         b, g = (torch.as_tensor(x, device=dev) for x in _arrays(
@@ -130,6 +136,71 @@ def test_cuda_rg_lru_scan_matches_plain():
             torch.sum(R.rg_lru_scan_ref(ta, tb) * g), (ta, tb))
         torch.testing.assert_close(ka, pa, rtol=1e-6, atol=1e-6)
         torch.testing.assert_close(kb, pb, rtol=1e-6, atol=1e-6)
+
+
+def _misaligned_by(x, elems):
+    """A contiguous copy of ``x`` ``elems`` elements into a buffer."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    out = buf[elems:elems + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.gpu
+def test_cuda_zo_noise_tree_modes_match_plain():
+    """K1's tree launch in its three modes, bit for bit against the plain
+    tensor code, over 70 leaves (two launches of the 64-segment table):
+    ragged widths (cols 1, 10, 130), f32 and bf16 leaves, leaves one
+    element into a buffer (the element-wise path), rep row offsets, and in
+    accumulate mode leaves without a seed (a zero direction) and a scale
+    read from a 0-d view of a device vector."""
+    from repro_torch.kernels import ops as O
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    shapes = [(3, 40, 768), (130,), (1,), (64, 10), (2, 33, 130), (300, 96),
+              (5, 4, 1)] * 10
+    leaves, seeds = [], []
+    for i, shp in enumerate(shapes):
+        x = torch.as_tensor(rng.standard_normal(shp).astype(np.float32),
+                            device=dev)
+        if i % 3 == 1:
+            x = x.to(torch.bfloat16)
+        if i % 4 == 2:
+            x = _misaligned_by(x, 1)
+        leaves.append(x)
+        seeds.append(int(rng.integers(-2**31, 2**31)))
+    cpu = [t.cpu() for t in leaves]
+    for rep in (0, 2):
+        n0 = ZM.LAUNCHES["zo_noise"]
+        got = O.perturb_tree(leaves, seeds, 0.37, rep)
+        assert ZM.LAUNCHES["zo_noise"] == n0 + 2
+        want = O.perturb_tree(cpu, seeds, 0.37, rep)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    n0 = ZM.LAUNCHES["zo_noise"]
+    u = O.kernel_direction_tree(leaves, seeds)
+    assert ZM.LAUNCHES["zo_noise"] == n0 + 2
+    for a, b in zip(u, O.kernel_direction_tree(cpu, seeds)):
+        assert torch.equal(a.cpu(), b)
+    acc = [_misaligned_by(t.float(), 3) if i % 5 == 0 else t.float()
+           for i, t in enumerate(leaves)]
+    acc_cpu = [t.cpu() for t in acc]
+    sc = torch.tensor([0.5, -1.3e-3, 7.0], device=dev)
+    part = [None if i % 6 == 5 else s for i, s in enumerate(seeds)]
+    for k in range(3):
+        n0 = ZM.LAUNCHES["zo_noise"]
+        O.accumulate_direction_tree(acc, part, sc[k])
+        assert ZM.LAUNCHES["zo_noise"] == n0 + 2
+        O.accumulate_direction_tree(acc_cpu, part, sc[k].cpu())
+    for a, b in zip(acc, acc_cpu):
+        assert torch.equal(a.cpu(), b)
+    ids = torch.randint(0, 50432, (3, 41), device=dev)
+    for n_cols in (96, 130):
+        assert torch.equal(ZM.zo_noise_rows(9, ids, n_cols),
+                           N.uniform_noise_at(9, ids[..., None], torch.arange(
+                               n_cols, device=dev)))
 
 
 def _k2_ok(got, ref):
@@ -220,19 +291,24 @@ def _misaligned(x):
 
 @pytest.mark.gpu
 def test_cuda_flash_attention_tensor_core_route():
-    """K3 and K5 on the bf16 tensor-core route at head_dim 64 and 256
-    (ragged S against the 64-row query tile and the kv tile, GQA, a
-    window, a soft-cap): within check_k3's tolerance of the plain version
-    in the weights, scores and antithetic scores modes; K5 equal to K3's
-    weights-mode streams bit for bit, on the tensor cores and (head_dim
-    64, inputs not 16-byte aligned) on the CUDA-core loop; the route
-    counters show where each call went; f32 at head_dim 256 is refused."""
+    """K3 and K5 on the bf16 tensor-core route at head_dim 64, 256, 8 and
+    112 (ragged S against the query and kv tiles, GQA, a window, a
+    soft-cap; 8 and 112 zero-filled to the compiled widths 16 and 128):
+    within check_k3's tolerance of the plain version in the weights,
+    scores and antithetic scores modes; K5 equal to K3's weights-mode
+    streams bit for bit, on the tensor cores and (inputs not 16-byte
+    aligned) on the CUDA-core loop; the route counters show where each
+    call went.  f32 at head_dim 8, 112 and 256 on the loop within
+    check_k3's f32 tolerance (1e-4), K5 equal to K3's stream; only a head
+    past 256 is refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
     for (B, S, H, Kv, D, kw) in ((2, 200, 8, 2, 64, dict(window=64,
                                                           cap=30.0)),
-                                 (1, 300, 4, 1, 256, dict(window=100))):
+                                 (1, 300, 4, 1, 256, dict(window=100)),
+                                 (2, 150, 4, 2, 8, dict(cap=5.0)),
+                                 (1, 200, 6, 2, 112, dict(window=70))):
         qa, qb, k, v, kb, vb = (torch.as_tensor(a, device=dev).to(
             torch.bfloat16) for a in _arrays(
             D + S, (B, S, H, D), (B, S, H, D), (B, S, Kv, D), (B, S, Kv, D),
@@ -252,10 +328,8 @@ def test_cuda_flash_attention_tensor_core_route():
             ra, rb = R.zo_dual_flash_attention_ref(qa, qb, k, v, u=u, **mkw,
                                                    **kw)
             assert _k3_ok(oa, ra) and _k3_ok(ob, rb)
-        routes = [((qa, qb, k, v, kb, vb), 1)]
-        if D in FA.HEAD_DIMS["CUDA-core loop"]:
-            routes.append(([_misaligned(x) for x in (qa, qb, k, v, kb, vb)],
-                           0))
+        routes = [((qa, qb, k, v, kb, vb), 1),
+                  ([_misaligned(x) for x in (qa, qb, k, v, kb, vb)], 0)]
         for (xa, xb, xk, xv, xkb, xvb), tc in routes:
             before = dict(FA.LAUNCHES)
             o5a = FA.flash_attention(xa, xk, xv, **kw)
@@ -271,9 +345,36 @@ def test_cuda_flash_attention_tensor_core_route():
                 before["zo_dual_flash_attention_tc"] + tc
             assert torch.equal(o5a, oa) and torch.equal(o5b, ob)
             assert _k3_ok(o5a, R.flash_attention_ref(xa, xk, xv, **kw))
+    # f32 on the loop at D = 8, 112 and 256 (32-row tiles) within
+    # check_k3's f32 tolerance in every mode, K5 == K3's streams
+    for D in (8, 112, 256):
+        q, qb, k, v, kb, vb = (torch.as_tensor(a, device=dev) for a in
+                               _arrays(D, (1, 100, 4, D), (1, 100, 4, D),
+                                       (1, 100, 2, D), (1, 100, 2, D),
+                                       (1, 100, 2, D), (1, 100, 2, D)))
+        u = N.uniform_noise(5, (4 * 100, 100), device=dev).reshape(4, 100,
+                                                                    100)
+        for mkw in (dict(kb=kb, vb=vb, perturb_a=False, perturb_b=False),
+                    dict(perturb_a=True, perturb_b=True, mu_a=0.5,
+                         mu_b=-0.5)):
+            oa, ob = FA.zo_dual_flash_attention(q, qb, k, v, seed=5,
+                                                window=40, **mkw)
+            ra, rb = R.zo_dual_flash_attention_ref(q, qb, k, v, u=u,
+                                                   window=40, **mkw)
+            torch.testing.assert_close(oa, ra, rtol=0, atol=1e-4)
+            torch.testing.assert_close(ob, rb, rtol=0, atol=1e-4)
+        o5 = FA.flash_attention(q, k, v, window=40)
+        oa, _ = FA.zo_dual_flash_attention(q, qb, k, v, kb=kb, vb=vb,
+                                           perturb_a=False, perturb_b=False,
+                                           window=40)
+        assert torch.equal(o5, oa)
+    # only a head past 256 is refused, by either route
     q, k, v = (torch.as_tensor(a, device=dev) for a in _arrays(
-        9, (1, 64, 2, 256), (1, 64, 1, 256), (1, 64, 1, 256)))
-    with pytest.raises(ValueError, match="CUDA-core loop"):
+        9, (1, 64, 2, 264), (1, 64, 1, 264), (1, 64, 1, 264)))
+    before = dict(FA.LAUNCHES)
+    with pytest.raises(ValueError, match="256"):
         FA.flash_attention(q, k, v)
-    with pytest.raises(ValueError, match="CUDA-core loop"):
-        FA.zo_dual_flash_attention(q, q, k, v)
+    with pytest.raises(ValueError, match="256"):
+        FA.zo_dual_flash_attention(q.to(torch.bfloat16), q.to(torch.bfloat16),
+                                   k.to(torch.bfloat16), v.to(torch.bfloat16))
+    assert FA.LAUNCHES == before

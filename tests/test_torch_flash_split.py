@@ -146,22 +146,33 @@ def test_tc_emulation_vs_pallas_bf16(mode, D):
     (torch.bfloat16, 64, 256, (0, 8), False),
     (torch.bfloat16, 64, 256, (2, 16), False),
     (torch.bfloat16, 64, 0, (0, 16), False),
-    (torch.bfloat16, 80, 256, (0, 16), False),
+    (torch.bfloat16, 80, 256, (0, 16), True),
     (torch.bfloat16, 512, 256, (0, 16), False),
+    (torch.bfloat16, 8, 256, (0, 16), True),
+    (torch.bfloat16, 112, 256, (0, 16), True),
+    (torch.bfloat16, 100, 256, (0, 16), False),
 ], ids=["gpt2", "D16", "D32", "D128", "D256", "f32", "f32-D128", "ptr8",
-        "ptr2", "Skv0", "D80", "D512"])
+        "ptr2", "Skv0", "D80", "D512", "D8", "D112", "D100"])
 def test_tensor_core_route_predicate(dtype, D, Skv, ptrs, want):
+    """The tensor cores take bf16 at any head width that is a multiple of
+    8 up to 256 (TMA's 16-byte row strides), with aligned pointers and a
+    non-empty K/V."""
     assert FA.tensor_core_route(dtype, D, Skv, ptrs) is want
 
 
-def test_head_dims_per_route():
-    """bf16 takes 16-256 on the tensor cores; the loop takes 16-128 (its
-    f32 tiles do not fit shared memory at 256); the kv tile narrows to 32
-    columns at 256."""
+@pytest.mark.parametrize("D,tc,loop,kv_tile", [
+    (8, 16, 8, 64), (16, 16, 16, 64), (64, 64, 64, 64), (112, 128, 128, 64),
+    (128, 128, 128, 64), (200, 256, 256, 32), (256, 256, 256, 32)],
+    ids=["D8", "D16", "D64", "D112", "D128", "D200", "D256"])
+def test_head_dims_per_route(D, tc, loop, kv_tile):
+    """Each route runs a head width at the smallest compiled width that
+    holds it: the tensor cores at 16 / 32 / 64 / 128 / 256, the loop also
+    at 8; the tensor cores' kv tile narrows to 32 columns past 128."""
     assert FA.HEAD_DIMS["tensor cores"] == (16, 32, 64, 128, 256)
-    assert FA.HEAD_DIMS["CUDA-core loop"] == (16, 32, 64, 128)
-    assert [FA.tc_kv_tile(d) for d in FA.HEAD_DIMS["tensor cores"]] == \
-        [64, 64, 64, 64, 32]
+    assert FA.HEAD_DIMS["CUDA-core loop"] == (8, 16, 32, 64, 128, 256)
+    assert FA.compiled_width("tensor cores", D) == tc
+    assert FA.compiled_width("CUDA-core loop", D) == loop
+    assert FA.tc_kv_tile(D) == kv_tile
 
 
 @pytest.mark.parametrize("dtype,D,ptrs,want", [
@@ -170,23 +181,38 @@ def test_head_dims_per_route():
     (torch.float32, 128, (0, 16), False),
     (torch.bfloat16, 128, (2, 16), False),
     (torch.float32, 64, (0, 16), False),
+    (torch.bfloat16, 8, (0, 16), True),
+    (torch.float32, 8, (0, 16), False),
+    (torch.bfloat16, 112, (0, 16), True),
+    (torch.float32, 112, (0, 16), False),
+    (torch.float32, 256, (0, 16), False),
+    (torch.bfloat16, 100, (0, 16), False),
 ], ids=["bf16-D256", "bf16-D128", "f32-D128", "bf16-D128-misaligned",
-        "f32-D64"])
+        "f32-D64", "bf16-D8", "f32-D8", "bf16-D112", "f32-D112", "f32-D256",
+        "bf16-D100"])
 def test_route_choice(dtype, D, ptrs, want):
     assert FA.route("flash_attention", dtype, D, 64, ptrs) is want
 
 
-@pytest.mark.parametrize("dtype,ptrs,says", [
-    (torch.float32, (0, 16), "f32 operands"),
-    (torch.bfloat16, (2, 16), "cannot take"),
-], ids=["f32", "bf16-misaligned"])
-def test_route_refuses_head_dim_256_on_the_loop(dtype, ptrs, says):
-    """head_dim 256 off the tensor cores raises, naming the route and
-    why; it is never sent to the plain version."""
+@pytest.mark.parametrize("dtype,D,ptrs,refused", [
+    (torch.float32, 256, (0, 16), False),
+    (torch.bfloat16, 256, (2, 16), False),
+    (torch.bfloat16, 264, (0, 16), True),
+    (torch.float32, 512, (0, 16), True),
+], ids=["f32", "bf16-misaligned", "bf16-D264", "f32-D512"])
+def test_route_refuses_head_dim_256_on_the_loop(dtype, D, ptrs, refused):
+    """head_dim 256 off the tensor cores (f32, or bf16 that TMA cannot
+    take) now runs on the CUDA-core loop, which has a 32-row D = 256
+    instance; only a width past 256 is refused, by either route, naming
+    the limit and the kernel; it is never sent to the plain version."""
+    if not refused:
+        assert FA.route("zo_dual_flash_attention", dtype, D, 64, ptrs) is \
+            False
+        return
     with pytest.raises(ValueError) as err:
-        FA.route("zo_dual_flash_attention", dtype, 256, 64, ptrs)
+        FA.route("zo_dual_flash_attention", dtype, D, 64, ptrs)
     msg = str(err.value)
-    assert says in msg and "CUDA-core loop" in msg and "256" in msg
+    assert str(D) in msg and "256" in msg and "CUDA-core loop" in msg
     assert "zo_dual_flash_attention" in msg
 
 
