@@ -53,7 +53,18 @@ Phases, one line each (any failure exits non-zero):
      fallback (K1 perturb trees, K6 scan), the server's RG-LRU blocks
      through K6 forward and backward; and its smoke config on the card
      against the CPU.
-Phases 9 and 10 run before phase 8's timings.  The line before the last
+ 11. the paper's first-order baselines: one round each of CSE-FSL, SFLV1,
+     SFLV2 and SplitLoRA (rank-8 adapters) on gpt2-small at phase 5's
+     size and of CSE-FSL and SFLV2 on ResNet-18 at phase 6's: losses,
+     wall, device busy and idle share, peak memory, uplink bytes, and no
+     K1-K5 launch; one client's local step alone, HERON against CSE-FSL
+     and SFLV2, on both models: device time and peak memory beside the
+     paper's Table I (split.client_costs); a HERON gpt2-small round at
+     h=2 with upload_every=2 and the int8 smashed uplink (the server steps
+     twice); every method's small round on the card against the CPU,
+     CSE-FSL on the recurrentgemma smoke config through K6 forward and
+     reverse; K2's f32 route at ResNet-18's im2col shape timed.
+Phases 9, 10 and 11 run before phase 8's timings.  The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
 """
@@ -708,22 +719,42 @@ def check_k5(dev):
 # ---------------------------------------------------------------------------
 
 def _make_round(api, params, rb, n_clients, h, mu, lr, server_lr,
-                server_eps=1e-8):
+                server_eps=1e-8, method="heron", fed_kw=None):
+    """HERON on the lean uplink (plain-SGD clients at ``lr``), or a
+    first-order ``method`` on the dense uplink with AdamW clients at
+    ``lr`` (``eps`` = ``server_eps``).  ``fed_kw``: more FedConfig
+    knobs."""
     from repro_torch.core import protocols as P
     from repro_torch.core import zo as Z
     from repro_torch.optim.optimizers import adamw, zo_sgd
     sopt = adamw(server_lr, eps=server_eps)
     state = {"client": params["client"], "server": params["server"],
              "opt_server": sopt.init(params["server"])}
-    rnd = P.make_fed_round(api, "heron", Z.ZOConfig(mu=mu, n_pairs=1),
-                           P.FedConfig(n_clients=n_clients, h=h),
-                           zo_sgd(lr), sopt, uplink="seed_replay",
-                           client_lr=lr)
+    fed = P.FedConfig(n_clients=n_clients, h=h, **(fed_kw or {}))
+    zo = Z.ZOConfig(mu=mu, n_pairs=1)
+    if method == "heron":
+        rnd = P.make_fed_round(api, "heron", zo, fed, zo_sgd(lr), sopt,
+                               uplink="seed_replay", client_lr=lr)
+    else:
+        rnd = P.make_fed_round(api, method, zo, fed,
+                               adamw(lr, eps=server_eps), sopt)
     return state, rb, rnd
 
 
+def _with_lora(params, rank, seed):
+    """Rank-``rank`` adapters on the client's wq wk wv wo up down gate,
+    drawn on the CPU (the same values on every device)."""
+    import torch
+    from repro_torch.models.lora import add_lora
+    if not rank:
+        return params
+    gen = torch.Generator().manual_seed(seed + 1)
+    return {**params, "client": add_lora(gen, params["client"], rank)}
+
+
 def _round_setup(cfg, dev, n_clients, h, batch, seq, mu, lr, server_lr,
-                 seed=0, draw_on_device=False, server_eps=1e-8):
+                 seed=0, draw_on_device=False, server_eps=1e-8,
+                 method="heron", fed_kw=None, lora_rank=0):
     import torch
     from repro_torch.core import protocols as P
     from repro_torch.models import transformer as T
@@ -732,14 +763,15 @@ def _round_setup(cfg, dev, n_clients, h, batch, seq, mu, lr, server_lr,
                                         (n_clients, h, batch, seq + 1)),
                            device=dev)
     rb = {"inputs": toks[..., :-1], "labels": toks[..., 1:]}
-    params = T.init_lm(cfg, seed=seed, device=dev,
-                       draw_on_device=draw_on_device)
+    params = _with_lora(T.init_lm(cfg, seed=seed, device=dev,
+                                  draw_on_device=draw_on_device),
+                        lora_rank, seed)
     return _make_round(P.lm_api(cfg), params, rb, n_clients, h, mu, lr,
-                       server_lr, server_eps)
+                       server_lr, server_eps, method, fed_kw)
 
 
 def _cnn_round_setup(cfg, dev, n_clients, h, batch, hw, mu, lr, server_lr,
-                     seed=0):
+                     seed=0, server_eps=1e-8, method="heron"):
     """Images and labels from a numpy seed (no dataset is downloaded)."""
     import torch
     from repro_torch.core import protocols as P
@@ -752,7 +784,8 @@ def _cnn_round_setup(cfg, dev, n_clients, h, batch, hw, mu, lr, server_lr,
               0, cfg.classes, (n_clients, h, batch)), device=dev)}
     return _make_round(P.cnn_api(cfg), CNN.init_cnn(cfg, seed=seed,
                                                     device=dev),
-                       rb, n_clients, h, mu, lr, server_lr)
+                       rb, n_clients, h, mu, lr, server_lr, server_eps,
+                       method)
 
 
 def launch_counts():
@@ -806,8 +839,7 @@ def drive_round(phase, desc, setup, expect, round_seed=20261016):
     moved = any(not torch.equal(a, b) for a, b in zip(
         tree_leaves(state["client"]), tree_leaves(new_state["client"])))
     if not moved:
-        fail(f"{desc}: the seed-replay aggregate left every client leaf "
-             "unchanged")
+        fail(f"{desc}: the round left every client leaf unchanged")
     check_counts(desc, counts, expect)
     log(phase, f"{desc}: client_loss {cl} server_loss {sl} uplink_bytes "
         f"{m['uplink_bytes']} uplink_bytes_dense {m['uplink_bytes_dense']} "
@@ -852,14 +884,14 @@ def run_cnn_round(dev):
          "rg_lru_scan": 0})
 
 
-def profile_round(phase, rnd, state, rb, round_seed, wall_s):
-    """Device time of one more round by kernel (torch.profiler), and the
-    card's idle share of the unprofiled round's wall time."""
+def device_rows(fn):
+    """``[(us, count, kernel name)]``: the device time of one call of
+    ``fn`` by kernel (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        rnd(state, rb, round_seed)
+        fn()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -868,6 +900,13 @@ def profile_round(phase, rnd, state, rb, round_seed, wall_s):
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
         rows.append((us, ev.count, ev.key))
+    return rows
+
+
+def profile_round(phase, rnd, state, rb, round_seed, wall_s):
+    """Device time of one more round by kernel (torch.profiler), and the
+    card's idle share of the unprofiled round's wall time."""
+    rows = device_rows(lambda: rnd(state, rb, round_seed))
     busy_ms = sum(r[0] for r in rows) / 1e3
     if busy_ms <= 0:
         log(phase, "profile: the profiler saw no device time (not measured)")
@@ -1182,6 +1221,321 @@ def check_rg_small_round():
                           smoke_config(), d, n_clients=2, h=2, batch=2,
                           seq=16, mu=1e-2, lr=1e-3, server_lr=1e-4, seed=3,
                           server_eps=1e-6))
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the first-order baselines
+# ---------------------------------------------------------------------------
+
+# what a first-order round launches: none of the ZO kernels, and K6 only
+# in RG-LRU blocks
+NO_ZO_KERNELS = {k: 0 for k in (
+    "zo_noise", "zo_dual_matmul", "zo_dual_matmul_tc",
+    "zo_dual_flash_attention", "zo_dual_flash_attention_tc", "zo_matmul",
+    "zo_matmul_tc", "flash_attention", "flash_attention_tc")}
+FO_ROUND_METHODS = ("cse_fsl", "sflv1", "sflv2", "splitlora")
+
+
+def run_fo_rounds(dev, card):
+    """One round of each first-order baseline at phase 5's and phase 6's
+    sizes (gpt2-small: N=2, h=1, 4 x 256 tokens, AdamW clients; SplitLoRA
+    with rank-8 adapters on the client's projections; ResNet-18: N=5, 64
+    images), through drive_round: no K1-K5 launch, no K6."""
+    from repro_torch.configs.gpt2 import gpt2_small
+    from repro_torch.configs.resnet18_cifar import full_config
+    expect = dict(NO_ZO_KERNELS, rg_lru_scan=0)
+    for method in FO_ROUND_METHODS:
+        drive_round(11, f"gpt2-small {method} round (N=2 h=1, 4x256 tokens "
+                    f"per client, dense uplink"
+                    f"{', rank-8 LoRA' if method == 'splitlora' else ''}) "
+                    f"on {card}",
+                    _round_setup(gpt2_small(), dev, n_clients=2, h=1,
+                                 batch=4, seq=256, mu=1e-3, lr=1e-4,
+                                 server_lr=2e-4, method=method,
+                                 lora_rank=8 if method == "splitlora"
+                                 else 0),
+                    expect)
+    for method in ("cse_fsl", "sflv2"):
+        drive_round(11, f"resnet18 {method} round (N=5 h=1, 64 images "
+                    f"32x32x3 per client, dense uplink) on {card}",
+                    _cnn_round_setup(full_config(), dev, n_clients=5, h=1,
+                                     batch=64, hw=32, mu=1e-3, lr=2e-3,
+                                     server_lr=2e-3, method=method),
+                    expect)
+
+
+# profiled client steps after the warm-up and the memory step; the
+# device time is their median
+STEP_REPS = 5
+
+
+def step_device_time(fn):
+    """Device busy time of ``STEP_REPS`` profiled calls of ``fn``:
+    ``(median ms, min ms, max ms, kernels per call, the kernels whose
+    launch count differed between calls as {name: [count per call]},
+    the median call's rows)``."""
+    reps = [device_rows(fn) for _ in range(STEP_REPS)]
+    busy = [sum(r[0] for r in rows) / 1e3 for rows in reps]
+    by_name = [{k: n for _, n, k in rows} for rows in reps]
+    varied = {k[:56]: [d.get(k, 0) for d in by_name]
+              for k in sorted(set().union(*by_name))
+              if len({d.get(k, 0) for d in by_name}) > 1}
+    mid = sorted(range(STEP_REPS), key=busy.__getitem__)[STEP_REPS // 2]
+    return (busy[mid], min(busy), max(busy),
+            [sum(r[1] for r in rows) for rows in reps], varied, reps[mid])
+
+
+def client_step_costs(desc, api, params, batch, fwd, mu, lr, card):
+    """One client's local step alone, HERON against the first-order
+    clients: HERON's dual-probe step (K1-K3 or K1-K2, plain SGD on the
+    lean uplink), CSE-FSL's (autograd through client and aux head, AdamW)
+    and SFLV2's (autograd through client and server, both AdamW; its
+    transient holds the server's activations and gradients too).
+
+    Peak: ``reset_peak_memory_stats``, then ``max_memory_allocated`` less
+    what was allocated before the step (params, optimizer states, batch):
+    the step's transient.  The client's peak is its resident state (its
+    params, its optimizer's state) plus that transient.  Beside each the
+    paper's Table I value (``split.client_costs``, with the forward
+    FLOPs ``f_c`` / ``f_a`` counted by ``FlopCounterMode`` and the
+    smashed bytes from ``fwd``).  Device time: the step's kernels'
+    summed time under torch.profiler, the median of ``STEP_REPS`` steps
+    with its spread and the kernels whose launch count varied (CUDA
+    events around a run of steps would time the host: an FO step
+    enqueues thousands of elementwise launches, more than the launch
+    queue holds).  Ratios are printed, not gated."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.core import protocols as P
+    from repro_torch.core import split as S
+    from repro_torch.core import zo as Z
+    from repro_torch.optim.optimizers import adamw, zo_sgd
+    from repro_torch.tree import tree_leaves
+    cp, sp = params["client"], params["server"]
+    state_bytes = lambda tree: S.param_bytes(     # noqa: E731
+        [t for t in tree_leaves(tree) if torch.is_tensor(t)])
+    zo = Z.ZOConfig(mu=mu, n_pairs=1)
+    sgd, adam = zo_sgd(lr), adamw(lr)
+    heron = P.make_local_update(api, "heron", zo, sgd, uplink="seed_replay",
+                                client_lr=lr)
+    cse = P.make_local_update(api, "cse_fsl", zo, adam)
+    locked = P.make_locked_step(api, adam, adam)
+    oc_h, oc_a, os_ = sgd.init(cp), adam.init(cp), adam.init(sp)
+    steps = {"heron": (lambda: heron(cp, oc_h, batch, 1234), oc_h),
+             "cse_fsl": (lambda: cse(cp, oc_a, batch, 0), oc_a),
+             "sflv2": (lambda: locked(cp, oc_a, sp, os_, batch), oc_a)}
+
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        smashed = fwd["client"](cp, batch)
+    f_c = fc.get_total_flops()
+    with torch.no_grad(), FlopCounterMode(display=False) as fa:
+        fwd["aux"](cp, smashed, batch)
+    f_a = fa.get_total_flops()
+    n_aux = sum(t.numel() for t in tree_leaves(cp["aux"]))
+    n_client = sum(t.numel() for t in tree_leaves(cp)) - n_aux
+    bpp = tree_leaves(cp)[0].element_size()
+    costs_kw = dict(p_batch_bytes=batch["inputs"].numel()
+                    * batch["inputs"].element_size(),
+                    q_smashed_bytes=smashed.numel() * smashed.element_size(),
+                    client_params=n_client, aux_params=n_aux, f_c=f_c,
+                    f_a=f_a, n_pairs=1, bytes_per_param=bpp)
+    del smashed
+    resident_params = state_bytes(cp)
+    out = {}
+    for name, (fn, opt_state) in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        transient = torch.cuda.max_memory_allocated() - base
+        del res
+        busy_ms, lo, hi, n_kernels, varied, rows = step_device_time(fn)
+        resident = resident_params + state_bytes(opt_state)
+        table = S.client_costs(name, **costs_kw)
+        out[name] = (resident + transient, transient, busy_ms)
+        log(11, f"{desc} client step {name}: device busy median {busy_ms} "
+            f"ms of {STEP_REPS} steps (min {lo}, max {hi}), kernels per "
+            f"step {n_kernels}, launch counts that varied {varied}")
+        if name == "heron":
+            log(11, f"{desc} client step heron kernels (median step): "
+                + "; ".join(f"{k[:56]} x{n} {us:.1f} us"
+                            for us, n, k in sorted(rows, reverse=True)))
+        log(11, f"{desc} client step {name}: wall {wall_ms} ms; step "
+            f"transient {transient} B, client resident {resident} B "
+            f"(params {resident_params} + optimizer "
+            f"{resident - resident_params}), client peak "
+            f"{resident + transient} B; Table I peak_mem_bytes "
+            f"{table['peak_mem_bytes']} flops {table['flops']} comm_bytes "
+            f"{table['comm_bytes']} on {card}")
+    t_h = S.client_costs("heron", **costs_kw)
+    for fo in ("cse_fsl", "sflv2"):
+        t_f = S.client_costs(fo, **costs_kw)
+        log(11, f"{desc} HERON / {fo}: client peak "
+            f"{out['heron'][0] / out[fo][0]:.4f} (Table I "
+            f"{t_h['peak_mem_bytes'] / t_f['peak_mem_bytes']:.4f}), step "
+            f"transient {out['heron'][1] / out[fo][1]:.4f}, median device "
+            f"busy "
+            f"{out['heron'][2] / out[fo][2]:.4f} (Table I flops "
+            f"{t_h['flops'] / t_f['flops']:.4f}); f_c {f_c} f_a {f_a} "
+            f"client params {n_client} aux params {n_aux}")
+    return out
+
+
+def run_client_steps(dev, card):
+    import torch
+    from repro_torch.configs.gpt2 import gpt2_small
+    from repro_torch.configs.resnet18_cifar import full_config
+    from repro_torch.core import protocols as P
+    from repro_torch.models import cnn as CNN
+    from repro_torch.models import transformer as T
+    cfg = gpt2_small()
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 257)), device=dev)
+    client_step_costs(
+        "gpt2-small (4x256 tokens)", P.lm_api(cfg),
+        T.init_lm(cfg, seed=0, device=dev),
+        {"inputs": toks[:, :-1], "labels": toks[:, 1:]},
+        {"client": lambda cp, b: T.client_forward(cp, cfg, b["inputs"]),
+         "aux": lambda cp, s, b: T.aux_forward(cp, cfg, s)},
+        mu=1e-3, lr=1e-4, card=card)
+    ccfg = full_config()
+    client_step_costs(
+        "resnet18 (64 images 32x32x3)", P.cnn_api(ccfg),
+        CNN.init_cnn(ccfg, seed=0, device=dev),
+        {"inputs": torch.as_tensor(rng.standard_normal(
+            (64, 32, 32, 3), dtype=np.float32), device=dev),
+         "labels": torch.as_tensor(rng.integers(0, ccfg.classes, (64,)),
+                                   device=dev)},
+        {"client": lambda cp, b: CNN.client_forward(cp, b["inputs"], ccfg),
+         "aux": lambda cp, s, b: CNN.aux_logits(cp, s, ccfg)},
+        mu=1e-3, lr=2e-3, card=card)
+
+
+def run_knob_round(dev, card):
+    """HERON on gpt2-small at h=2 with a smashed upload every second step
+    and the int8 uplink: the server steps N * ceil(h / k) = 2 times.
+    Launches: K2 24 and K3 4 per client step; K1 12 per client step (the
+    embedding's noise rows, ten theta + mu*U trees, the direction tree)
+    and one replay direction tree per (client, step)."""
+    from repro_torch.configs.gpt2 import gpt2_small
+    n, h, k = 2, 2, 2
+    setup = _round_setup(gpt2_small(), dev, n_clients=n, h=h, batch=4,
+                         seq=256, mu=1e-3, lr=1e-4, server_lr=2e-4,
+                         fed_kw=dict(upload_every=k, quantize_uplink=True))
+    drive_round(11, f"gpt2-small HERON round (N={n} h={h} upload_every={k} "
+                f"quantize_uplink, seed_replay) on {card}", setup,
+                {"zo_dual_matmul": 24 * n * h, "zo_dual_matmul_tc": 24 * n * h,
+                 "zo_dual_flash_attention": 4 * n * h,
+                 "zo_dual_flash_attention_tc": 4 * n * h,
+                 "zo_noise": 12 * n * h + n * h, "zo_matmul": 0,
+                 "flash_attention": 0, "rg_lru_scan": 0})
+    state, rb, rnd = setup
+    new, _ = rnd(state, rb, 20261016)
+    steps = int(new["opt_server"]["step"])
+    want = n * -(-h // k)
+    if steps != want:
+        fail(f"knob round: the server stepped {steps} times, expected "
+             f"N * ceil(h / k) = {want}")
+    log(11, f"knob round: the server stepped {steps} times = N * ceil(h / "
+        f"k) = {want}")
+
+
+def check_fo_small_rounds():
+    """Every method's small round on the card against the CPU (phase 5's
+    check_small_round).  FO rounds: AdamW eps 1e-6 on both sides, as the
+    recurrentgemma check (a gradient entry that is rounding noise moves
+    a param by O(lr) at eps 1e-8).  The recurrentgemma CSE-FSL round runs
+    the RG-LRU scan's forward and reverse on K6 (counted)."""
+    from repro_torch.configs.gpt2 import gpt2_tiny
+    from repro_torch.configs.recurrentgemma_9b import smoke_config as rgs
+    from repro_torch.configs.resnet18_cifar import smoke_config
+    from repro_torch.models import transformer as T
+    lm = dict(n_clients=2, h=2, batch=2, seq=32, mu=1e-2, lr=1e-4,
+              server_lr=1e-4, seed=3, server_eps=1e-6)
+    for method in ("cse_fsl", "fsl_sage", "sflv1", "sflv2", "splitlora"):
+        check_small_round(11, f"gpt2-tiny {method} round (N=2 h=2)",
+                          lambda d, m=method: _round_setup(
+                              gpt2_tiny(), d, method=m,
+                              lora_rank=4 if m == "splitlora" else 0, **lm))
+    for method in ("cse_fsl", "sflv1"):
+        check_small_round(11, f"cnn smoke_config {method} round (N=2 h=2, "
+                          "4 images 8x8)", lambda d, m=method:
+                          _cnn_round_setup(smoke_config(), d, n_clients=2,
+                                           h=2, batch=4, hw=8, mu=1e-2,
+                                           lr=1e-4, server_lr=1e-4, seed=3,
+                                           server_eps=1e-6, method=m))
+    check_small_round(11, "gpt2-tiny HERON round (N=2 h=2 upload_every=2 "
+                      "quantize_uplink)", lambda d: _round_setup(
+                          gpt2_tiny(), d, n_clients=2, h=2, batch=2, seq=32,
+                          mu=1e-2, lr=1e-3, server_lr=1e-4, seed=3,
+                          fed_kw=dict(upload_every=2, quantize_uplink=True)))
+    cfg = rgs()
+    reset_counts()
+    check_small_round(11, "recurrentgemma smoke_config cse_fsl round (N=2 "
+                      "h=2, 2x16 tokens)", lambda d: _round_setup(
+                          cfg, d, n_clients=2, h=2, batch=2, seq=16,
+                          mu=1e-2, lr=1e-4, server_lr=1e-4, seed=3,
+                          server_eps=1e-6, method="cse_fsl"))
+    counts = launch_counts()
+    # per (client, step): the client and aux RG-LRU blocks forward and
+    # backward; per server step: its RG-LRU blocks forward and backward
+    n_rg = sum(s.mixer == "rg_lru" for s in T.client_specs(cfg)
+               + T.aux_specs(cfg) + T.server_specs(cfg))
+    want = 2 * 2 * n_rg
+    check_counts("recurrentgemma cse_fsl round on the card", counts,
+                 dict(NO_ZO_KERNELS, rg_lru_scan=2 * want,
+                      rg_lru_scan_reverse=want))
+    log(11, f"recurrentgemma cse_fsl round: K6 {want} forward and {want} "
+        f"reverse launches (the FO client's and the server's backward "
+        f"through the scan), no K1-K5")
+
+
+def time_k2_f32(dev, cnn_k2_launches):
+    """K2 on its f32 route at ResNet-18's block-conv im2col shape (per
+    half 65536 rows x 576 -> 64), as phase 8 times K4's f32 row: beside
+    the plain version, two f32 torch.matmul on materialised W and W + mu*U,
+    and the bound; held to the plain version under check_k2's f32
+    tolerance."""
+    import torch
+    from repro_torch.kernels import noise as N
+    from repro_torch.kernels import zo_matmul as ZM
+    M, K, Nn = 64 * 1024, 576, 64
+    xa, xb, w = k2_inputs(dev, torch.float32, M, K, Nn)
+    expect_route("K2 f32", lambda: ZM.zo_dual_matmul(xa, xb, w, 3, 0.0,
+                                                      1e-3),
+                 "zo_dual_matmul_tc", 0)
+    ya, yb = ZM.zo_dual_matmul(xa, xb, w, 3, 0.0, 1e-3)
+    ra, rb = k2_plain(xa, xb, w, 3, 0.0, 1e-3, False, True, 0)
+    err = max(max_abs(ya, ra), max_abs(yb, rb))
+    tol = 1e-4 * float(torch.maximum(ra.abs().max(), rb.abs().max()))
+    if not err <= tol:
+        fail(f"K2 f32 {M} x {K}x{Nn}: max |d| {err} > {tol}")
+    ms = time_ms(lambda: ZM.zo_dual_matmul(xa, xb, w, 3, 0.0, 1e-3))
+    pl = time_ms(lambda: k2_plain(xa, xb, w, 3, 0.0, 1e-3, False, True, 0))
+    wb = w + 1e-3 * N.uniform_noise(3, w.shape, device=dev)
+    lib = time_ms(lambda: (torch.matmul(xa, w), torch.matmul(xb, wb)))
+    b, by = bound_ms(4 * (2 * M * K + K * Nn + 2 * M * Nn),
+                     2 * 2 * M * K * Nn, "float32")
+    log(11, f"K2 f32 resnet block0 576x64 M={M} per half: kernel_ms {ms} "
+        f"(CUDA-core loop) plain_ms {pl} library_ms {lib} (two f32 "
+        f"torch.matmul on materialised W, W+mu*U) bound_ms {b} ({by}) "
+        f"max_abs_err {err} launches {cnn_k2_launches} / ResNet round")
+
+
+def run_fo_phase(dev, card, cnn_k2_launches):
+    import torch
+    run_fo_rounds(dev, card)
+    torch.cuda.empty_cache()
+    run_client_steps(dev, card)
+    torch.cuda.empty_cache()
+    run_knob_round(dev, card)
+    check_fo_small_rounds()
+    time_k2_f32(dev, cnn_k2_launches)
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1796,13 +2150,14 @@ def main():
     k1_round = check_k1(dev, card)
     errs = (0.0, check_k2(dev), check_k3(dev), check_k4(dev), check_k5(dev))
     counts = run_round(dev, k1_round)
-    run_cnn_round(dev)
+    counts_cnn = run_cnn_round(dev)
     check_small_rounds()
     counts_sp = check_single_probe(dev)
     errs += (check_k6(dev),)
     counts_rg = run_rg_round(dev, card)
     torch.cuda.empty_cache()
     check_rg_small_round()
+    run_fo_phase(dev, card, counts_cnn["zo_dual_matmul"])
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs)
     compiler_report()
     check_hgmma()

@@ -1,5 +1,11 @@
-"""Fed-Server aggregation: masked FedAvg and seed-replay reconstruction
-of the kernel noise stream, mirroring :mod:`repro.core.aggregate`.
+"""Fed-Server aggregation: FedAvg, partial participation and straggler
+masks, masked FedAvg and seed-replay reconstruction of the kernel noise
+stream, mirroring :mod:`repro.core.aggregate`.
+
+The masks draw from a ``torch.Generator``; the reference draws them
+from JAX's threefry stream, which the port does not reproduce yet, so
+a seed gives the same count and semantics but not the same clients.
+Parity tests pass JAX's mask in.
 
 Seed replay rebuilds the cohort's client update from the lean uplink
 alone: per client an int32 seed and the (h, n_pairs) coefficients.  The
@@ -15,6 +21,38 @@ import torch
 
 from repro_torch.kernels import ops as O
 from repro_torch.tree import tree_map
+
+
+def fedavg(stacked_params):
+    """Mean over the leading client axis (f32 sums, cast back)."""
+    return tree_map(lambda p: torch.mean(p.to(torch.float32), dim=0)
+                    .to(p.dtype), stacked_params)
+
+
+def participation_mask(gen: torch.Generator, n_clients: int,
+                       fraction: float):
+    """Exactly ``max(1, round(fraction * N))`` participants, uniformly
+    at random: an (N,) f32 mask on ``gen``'s device."""
+    k = max(1, int(round(fraction * n_clients)))
+    perm = torch.randperm(n_clients, generator=gen, device=gen.device)
+    mask = torch.zeros((n_clients,), dtype=torch.float32, device=gen.device)
+    mask[perm[:k]] = 1.0
+    return mask
+
+
+def straggler_mask(gen: torch.Generator, n_clients: int, fraction: float,
+                   straggler_prob: float = 0.0):
+    """The participation mask with each participant dropped with
+    probability ``straggler_prob``; if every participant would drop, the
+    participation mask itself (the round never loses its whole
+    cohort)."""
+    base = participation_mask(gen, n_clients, fraction)
+    if straggler_prob <= 0:
+        return base
+    drop = torch.rand((n_clients,), generator=gen,
+                      device=gen.device) < straggler_prob
+    survived = base * (1.0 - drop.to(torch.float32))
+    return survived if float(torch.sum(survived)) > 0 else base
 
 
 def fedavg_masked(stacked_params, mask):

@@ -1,18 +1,34 @@
-"""The HERON-SFL federated round, mirroring the ``"heron"`` method of
-:mod:`repro.core.protocols` on the kernel noise stream.
+"""SFL federated rounds: HERON-SFL and the paper's first-order baselines
+(SFLV1/V2, CSE-FSL, FSL-SAGE, SplitLoRA), mirroring ``make_fed_round``
+of :mod:`repro.core.protocols`.
 
-One round: each of N clients takes h local steps of the forward-only ZO
-estimator (the fused dual-probe forward: kernels K1-K3 on the card, K2
-through im2col for the CNN's convs); the server takes sequential
-first-order AdamW steps on the clients' smashed data
-(``torch.autograd`` over plain PyTorch ops); the Fed-Server
-aggregates either the clients' full params (``uplink="dense"``) or
-rebuilds them from ``(seed, coeffs)`` alone (``uplink="seed_replay"``).
-Clients run in a Python loop where the JAX package uses ``vmap``.
+* ``"heron"``: each of N clients takes h local steps of the
+  forward-only ZO estimator (the fused dual-probe forward: kernels K1-K3
+  on the card, K2 through im2col for the CNN's convs), under
+  ``torch.no_grad()``.
+* ``"cse_fsl"`` / ``"fsl_sage"``: each client takes h first-order steps
+  on its aux-head loss (``torch.autograd`` over the plain ops) with
+  ``client_opt``.  In the federated round the two are the same method:
+  FSL-SAGE's gradient alignment lives only in the reference's
+  datacenter step.
+* For those three the server takes sequential first-order steps on the
+  clients' smashed data of every ``upload_every``-th local step
+  (int8-quantized on the way up with ``quantize_uplink``), client after
+  client.
+* ``"sflv1"`` / ``"sflv2"`` / ``"splitlora"``: the training lock; each
+  step differentiates the joint loss through client and server at once.
+  SFLV2 and SplitLoRA run the clients in order against one server (for
+  SplitLoRA the caller adds adapters with :func:`repro_torch.models.lora
+  .add_lora`); SFLV1 gives each client a replica of the round's server
+  and averages the replicas after.
 
-The participation mask is an input: the JAX package draws it from
-``jax.random``; with full participation and no stragglers it is all
-ones, which is the default here.
+The Fed-Server then averages the clients' full params over the
+participation mask (``uplink="dense"``), or, for HERON only, rebuilds
+them from ``(seed, coeffs)`` alone (``uplink="seed_replay"``).  Clients
+run in a Python loop where the JAX package uses ``vmap``.
+
+``FedConfig.sequential_server`` is not ported: no reference code reads
+it.
 """
 from __future__ import annotations
 
@@ -24,7 +40,8 @@ import torch
 
 from repro_torch.core import aggregate as AG
 from repro_torch.core import zo as Z
-from repro_torch.core.split import param_bytes
+from repro_torch.core.split import (dequantize_smashed, param_bytes,
+                                    quantize_smashed)
 from repro_torch.kernels import ops as O
 from repro_torch.models import cnn as CNN
 from repro_torch.models import transformer as T
@@ -32,12 +49,18 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.tree import tree_leaves, tree_map
 
+METHODS = ("heron", "cse_fsl", "fsl_sage", "sflv1", "sflv2", "splitlora")
+LOCKED_METHODS = ("sflv1", "sflv2", "splitlora")
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     """Adapter between the model and the round."""
+    client_loss: Callable   # (client_params, batch) -> (loss, smashed)
+    aux_loss: Callable      # (client_params, smashed, batch) -> loss
     # (server_params, client_const, smashed, batch) -> loss
     server_loss: Callable
+    joint_loss: Callable    # (client_params, server_params, batch) -> loss
     # (client_params, batch, seeds_tree, mu) -> (l_clean, l_pert, smashed):
     # both ZO losses of one pair from a single dual-batch forward
     client_dual_loss: Callable
@@ -46,9 +69,24 @@ class ModelAPI:
 
 
 def lm_api(cfg: ModelConfig) -> ModelAPI:
+    def aux_loss(cp, smashed, batch):
+        logits = T.aux_forward(cp, cfg, smashed, batch.get("positions"))
+        lbl = batch.get("aux_labels", batch["labels"])
+        return T.lm_loss(logits, lbl, cfg.vocab)
+
+    def client_loss(cp, batch):
+        s = T.client_forward(cp, cfg, batch["inputs"],
+                             batch.get("positions"))
+        return aux_loss(cp, s, batch), s
+
     def server_loss(sp, cp_const, smashed, batch):
         logits = T.server_forward({"client": cp_const, "server": sp}, cfg,
                                   smashed, positions=batch.get("positions"))
+        return T.lm_loss(logits, batch["labels"], cfg.vocab)
+
+    def joint_loss(cp, sp, batch):
+        logits = T.full_forward({"client": cp, "server": sp}, cfg,
+                                batch["inputs"], batch.get("positions"))
         return T.lm_loss(logits, batch["labels"], cfg.vocab)
 
     def client_dual_loss(cp, batch, seeds, mu):
@@ -64,13 +102,25 @@ def lm_api(cfg: ModelConfig) -> ModelAPI:
         return l0, lp, s2[:B]
 
     seed_pred = O.attn_kv_seed_pred if cfg.attn_probe == "scores" else None
-    return ModelAPI(server_loss, client_dual_loss, seed_pred)
+    return ModelAPI(client_loss, aux_loss, server_loss, joint_loss,
+                    client_dual_loss, seed_pred)
 
 
 def cnn_api(cfg: CNN.CNNConfig) -> ModelAPI:
+    def aux_loss(cp, smashed, batch):
+        return CNN.xent(CNN.aux_logits(cp, smashed, cfg), batch["labels"])
+
+    def client_loss(cp, batch):
+        s = CNN.client_forward(cp, batch["inputs"], cfg)
+        return aux_loss(cp, s, batch), s
+
     def server_loss(sp, cp_const, smashed, batch):
         return CNN.xent(CNN.server_logits(sp, smashed, cfg),
                         batch["labels"])
+
+    def joint_loss(cp, sp, batch):
+        s = CNN.client_forward(cp, batch["inputs"], cfg)
+        return CNN.xent(CNN.server_logits(sp, s, cfg), batch["labels"])
 
     def client_dual_loss(cp, batch, seeds, mu):
         pz = O.Perturb(seeds=seeds, mu=mu, dual=True)
@@ -81,13 +131,18 @@ def cnn_api(cfg: CNN.CNNConfig) -> ModelAPI:
         lp = CNN.xent(logits2[B:], batch["labels"])
         return l0, lp, s2[:B]
 
-    return ModelAPI(server_loss, client_dual_loss)
+    return ModelAPI(client_loss, aux_loss, server_loss, joint_loss,
+                    client_dual_loss)
 
 
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
     n_clients: int = 5
     h: int = 4                    # local steps per round
+    upload_every: int = 1         # k: smashed upload period
+    participation: float = 1.0
+    straggler_prob: float = 0.0
+    quantize_uplink: bool = False  # int8 smashed-data upload (pq/2)
 
 
 UPLINKS = ("dense", "seed_replay")
@@ -99,19 +154,125 @@ def seed_replay_uplink_bytes(n_clients: int, h: int, n_pairs: int) -> int:
     return n_clients * (h * n_pairs * 4 + 8)
 
 
-def _value_and_grad(loss_fn, params):
-    """``loss_fn(params)`` and its gradient tree (autograd over the plain
-    ops; the params are not modified)."""
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+def _with_leaves(tree, leaves):
     it = iter(leaves)
-    loss = loss_fn(tree_map(lambda _: next(it), params))
-    grads = torch.autograd.grad(loss, leaves)
-    it = iter(grads)
-    return loss.detach(), tree_map(lambda _: next(it), params)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _value_and_grad(loss_fn, *trees, has_aux: bool = False):
+    """``loss_fn(*trees)`` and its gradient with respect to every leaf of
+    every tree, from one backward pass (autograd over the plain ops; the
+    trees are not modified).  A leaf the loss does not read gets a zero
+    gradient, as in JAX.  With ``has_aux`` the function returns ``(loss,
+    aux)`` and ``aux`` comes back detached.  Returns ``(loss, grads)``,
+    ``grads`` a tuple of trees, one per tree."""
+    leaves = [[p.detach().requires_grad_(True) for p in tree_leaves(t)]
+              for t in trees]
+    flat = [p for ls in leaves for p in ls]
+    with torch.enable_grad():
+        out = loss_fn(*(_with_leaves(t, ls) for t, ls in zip(trees, leaves)))
+        loss = out[0] if has_aux else out
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = iter(torch.zeros_like(p) if g is None else g
+                 for p, g in zip(flat, grads))
+    gtrees = tuple(tree_map(lambda _: next(grads), t) for t in trees)
+    if has_aux:
+        return (loss.detach(), out[1].detach()), gtrees
+    return loss.detach(), gtrees
 
 
 def _slice_batch(batch, i, m):
     return {k: v[i, m] for k, v in batch.items()}
+
+
+def make_local_update(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
+                      client_opt: Optimizer, uplink: str = "dense",
+                      client_lr: float | None = None):
+    """One client's local step of an aux-head method (``heron``,
+    ``cse_fsl``, ``fsl_sage``): ``local_update(cp, oc, batch, seed) ->
+    (cp, oc, smashed, loss, coeffs)``.
+
+    HERON estimates the gradient from forward passes alone, under
+    ``torch.no_grad()``, and steps with plain SGD at ``client_lr`` on the
+    lean uplink or with ``client_opt``; ``coeffs`` are its (n_pairs,)
+    projected-gradient coefficients.  The first-order clients take
+    autograd of ``client_loss`` and step with ``client_opt``; their
+    ``coeffs`` are zeros and ``seed`` is unused.  ``smashed`` is the
+    forward's cut activation before the step, detached."""
+    if method == "heron":
+        def local_update(cp, oc, batch, seed):
+            with torch.no_grad():
+                g, info = Z.zo_gradient_kernel(
+                    lambda cpx, seeds, mu: api.client_dual_loss(
+                        cpx, batch, seeds, mu),
+                    cp, seed, zo_cfg, seed_pred=api.seed_pred)
+                if uplink == "seed_replay":
+                    cp = Z.add_scaled(cp, g, -client_lr)
+                else:
+                    cp, oc = client_opt.update(g, oc, cp)
+            return cp, oc, info["aux"], info["loss"], info["coeffs"]
+
+        return local_update
+
+    def local_update(cp, oc, batch, seed):
+        (loss, smashed), (g,) = _value_and_grad(
+            lambda p: api.client_loss(p, batch), cp, has_aux=True)
+        with torch.no_grad():
+            cp, oc = client_opt.update(g, oc, cp)
+        coeffs = torch.zeros((zo_cfg.n_pairs,), dtype=torch.float32,
+                             device=loss.device)
+        return cp, oc, smashed, loss, coeffs
+
+    return local_update
+
+
+def make_locked_step(api: ModelAPI, client_opt: Optimizer,
+                     server_opt: Optimizer):
+    """One step of the training lock (SFLV1/V2, SplitLoRA):
+    ``step(cp, oc, sp, os_, batch) -> (cp, oc, sp, os_, loss)``.  One
+    backward pass of ``joint_loss`` gives the client's and the server's
+    gradients (the server's cut-layer gradient reaches the client), then
+    both optimizers step."""
+    def step(cp, oc, sp, os_, batch):
+        loss, (g_c, g_s) = _value_and_grad(
+            lambda c, s: api.joint_loss(c, s, batch), cp, sp)
+        with torch.no_grad():
+            cp, oc = client_opt.update(g_c, oc, cp)
+            sp, os_ = server_opt.update(g_s, os_, sp)
+        return cp, oc, sp, os_, loss
+
+    return step
+
+
+def _make_server_updates(api: ModelAPI, fed: FedConfig,
+                         server_opt: Optimizer):
+    """Sequential SFLV2-style server FO updates: for every upload step
+    ``m % upload_every == 0``, one step per client in client order.
+    ``apply(sp, os_, cp_const, round_batch, smashed) -> (sp, os_,
+    losses)``, ``smashed[i][m]`` client i's detached cut activations of
+    step m."""
+    upload_ms = [m for m in range(fed.h) if m % fed.upload_every == 0]
+
+    def apply(sp, os_, cp_const, round_batch, smashed):
+        s_losses = []
+        for m in upload_ms:
+            for i in range(fed.n_clients):
+                sm = smashed[i][m]
+                if fed.quantize_uplink:
+                    sm = dequantize_smashed(*quantize_smashed(sm), sm.dtype)
+                bt = _slice_batch(round_batch, i, m)
+                sl, (g,) = _value_and_grad(
+                    lambda p: api.server_loss(p, cp_const, sm, bt), sp)
+                with torch.no_grad():
+                    sp, os_ = server_opt.update(g, os_, sp)
+                s_losses.append(sl)
+        return sp, os_, s_losses
+
+    return apply
+
+
+def _stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
 def make_fed_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
@@ -124,86 +285,115 @@ def make_fed_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
     ``state = {"client", "server", "opt_server"}``; ``round_batch`` holds
     tensors with leading (N, h) dims; ``base_seed`` is the round's int32
     seed (client i's seed is ``fold_seed(base_seed, i)``); ``mask`` the
-    (N,) participation mask, all ones by default.  ``uplink="seed_replay"``
-    is the paper's lean uplink: clients step with plain SGD at
-    ``client_lr`` and the Fed-Server replays their directions from
-    (seed, coeffs); it matches ``"dense"`` exactly at h == 1.
+    (N,) participation mask.  Without one, the round draws
+    ``aggregate.straggler_mask`` from a CPU ``torch.Generator`` seeded
+    with ``fold_seed(base_seed, 777)`` when ``participation < 1`` or
+    ``straggler_prob > 0``, and takes all ones otherwise.  The reference
+    draws its mask from JAX's threefry stream, which the port does not
+    reproduce, so a parity test passes JAX's mask in.
+    ``uplink="seed_replay"`` is the paper's lean uplink (HERON only):
+    clients step with plain SGD at ``client_lr`` and the Fed-Server
+    replays their directions from (seed, coeffs); it matches ``"dense"``
+    exactly at h == 1.
     """
-    if method != "heron":
-        raise NotImplementedError(f"method {method!r}: only the HERON round "
-                                  "is ported")
+    if method not in METHODS:
+        raise ValueError(f"method {method!r} not in {METHODS}")
     if uplink not in UPLINKS:
         raise ValueError(uplink)
-    if uplink == "seed_replay" and client_lr is None:
-        raise ValueError("seed_replay uplink needs client_lr: the "
-                         "Fed-Server replays plain-SGD local steps")
+    if uplink == "seed_replay":
+        if method != "heron":
+            raise ValueError("seed_replay uplink requires the forward-only"
+                             f" ZO client (method='heron'), got {method!r}")
+        if client_lr is None:
+            raise ValueError("seed_replay uplink needs client_lr: the "
+                             "Fed-Server replays plain-SGD local steps")
+    N, h = fed.n_clients, fed.h
 
-    def local_update(cp, oc, batch, seed):
-        def dloss(cpx, seeds, mu):
-            return api.client_dual_loss(cpx, batch, seeds, mu)
+    def round_mask(base_seed, device):
+        if fed.participation < 1 or fed.straggler_prob > 0:
+            gen = torch.Generator().manual_seed(
+                O.fold_seed(base_seed, 777) & 0xFFFFFFFF)
+            return AG.straggler_mask(gen, N, fed.participation,
+                                     fed.straggler_prob).to(device)
+        return torch.ones((N,), dtype=torch.float32, device=device)
 
-        g, info = Z.zo_gradient_kernel(dloss, cp, seed, zo_cfg,
-                                       seed_pred=api.seed_pred)
-        if uplink == "seed_replay":
-            cp = Z.add_scaled(cp, g, -client_lr)
-        else:
-            cp, oc = client_opt.update(g, oc, cp)
-        return cp, oc, info["aux"], info["loss"], info["coeffs"]
+    def dense_metrics(state, losses, s_losses, mask):
+        dense_bytes = float(N * param_bytes(state["client"]))
+        return {"client_loss": torch.mean(torch.stack(losses)),
+                "server_loss": torch.mean(torch.stack(s_losses)),
+                "participants": torch.sum(mask),
+                "uplink_bytes": dense_bytes,
+                "uplink_bytes_dense": dense_bytes}
+
+    if method in LOCKED_METHODS:
+        step = make_locked_step(api, client_opt, server_opt)
+
+        def locked_round(state, round_batch, base_seed, mask=None):
+            cps, sps, losses = [], [], []
+            sp, os_ = state["server"], state["opt_server"]
+            for i in range(N):
+                if method == "sflv1":     # a replica of the round's server
+                    sp, os_ = state["server"], state["opt_server"]
+                cp, oc = state["client"], client_opt.init(state["client"])
+                for m in range(h):
+                    cp, oc, sp, os_, loss = step(
+                        cp, oc, sp, os_, _slice_batch(round_batch, i, m))
+                    losses.append(loss)
+                cps.append(cp)
+                if method == "sflv1":
+                    sps.append(sp)
+            if method == "sflv1":
+                # the replicas' mean; the reference returns the round's
+                # server optimizer state unchanged, and so does the port
+                sp, os_ = AG.fedavg(_stack(sps)), state["opt_server"]
+            if mask is None:
+                mask = round_mask(base_seed, losses[0].device)
+            with torch.no_grad():
+                new_client = AG.fedavg_masked(_stack(cps), mask)
+            return ({"client": new_client, "server": sp, "opt_server": os_},
+                    dense_metrics(state, losses, losses, mask))
+
+        return locked_round
+
+    local_update = make_local_update(api, method, zo_cfg, client_opt, uplink,
+                                     client_lr)
+    server_updates = _make_server_updates(api, fed, server_opt)
 
     def round_fn(state, round_batch, base_seed, mask=None):
-        N, h = fed.n_clients, fed.h
         client_seeds = O.fold_seed(base_seed, np.arange(N))
         cps, smashed, losses, coeffs = [], [], [], []
-        with torch.no_grad():
-            for i in range(N):
-                cp, oc = state["client"], client_opt.init(state["client"])
-                sm_i, co_i = [], []
-                for m in range(h):
-                    cp, oc, s, loss, co = local_update(
-                        cp, oc, _slice_batch(round_batch, i, m),
-                        O.fold_seed(client_seeds[i], m))
-                    sm_i.append(s)
-                    co_i.append(co)
-                    losses.append(loss)
-                if uplink == "dense":      # the lean uplink sends no params
-                    cps.append(cp)
-                smashed.append(sm_i)
-                coeffs.append(torch.stack(co_i))
+        for i in range(N):
+            cp, oc = state["client"], client_opt.init(state["client"])
+            sm_i, co_i = [], []
+            for m in range(h):
+                cp, oc, s, loss, co = local_update(
+                    cp, oc, _slice_batch(round_batch, i, m),
+                    O.fold_seed(client_seeds[i], m))
+                sm_i.append(s)
+                co_i.append(co)
+                losses.append(loss)
+            if uplink == "dense":          # the lean uplink sends no params
+                cps.append(cp)
+            smashed.append(sm_i)
+            coeffs.append(torch.stack(co_i))
 
-        # sequential SFLV2-style server updates: local step, then client
-        # (every step's smashed data is uploaded)
         cp_const = tree_map(lambda p: p.detach(), state["client"])
-        sp, os_ = state["server"], state["opt_server"]
-        s_losses = []
-        for m in range(h):
-            for i in range(N):
-                bt = _slice_batch(round_batch, i, m)
-                sm = smashed[i][m].detach()
-                sl, g = _value_and_grad(
-                    lambda p: api.server_loss(p, cp_const, sm, bt), sp)
-                with torch.no_grad():
-                    sp, os_ = server_opt.update(g, os_, sp)
-                s_losses.append(sl)
+        sp, os_, s_losses = server_updates(
+            state["server"], state["opt_server"], cp_const, round_batch,
+            smashed)
 
-        dev = losses[0].device
         if mask is None:
-            mask = torch.ones((N,), dtype=torch.float32, device=dev)
-        dense_bytes = N * param_bytes(state["client"])
+            mask = round_mask(base_seed, losses[0].device)
+        metrics = dense_metrics(state, losses, s_losses, mask)
         with torch.no_grad():
             if uplink == "seed_replay":
                 new_client = AG.seed_replay_aggregate_kernel(
                     state["client"], client_seeds, torch.stack(coeffs),
                     client_lr, mask, seed_pred=api.seed_pred)
-                lean_bytes = seed_replay_uplink_bytes(N, h, zo_cfg.n_pairs)
+                metrics["uplink_bytes"] = float(seed_replay_uplink_bytes(
+                    N, h, zo_cfg.n_pairs))
             else:
-                stacked = tree_map(lambda *xs: torch.stack(xs), *cps)
-                new_client = AG.fedavg_masked(stacked, mask)
-                lean_bytes = dense_bytes
-        metrics = {"client_loss": torch.mean(torch.stack(losses)),
-                   "server_loss": torch.mean(torch.stack(s_losses)),
-                   "participants": torch.sum(mask),
-                   "uplink_bytes": float(lean_bytes),
-                   "uplink_bytes_dense": float(dense_bytes)}
+                new_client = AG.fedavg_masked(_stack(cps), mask)
         return ({"client": new_client, "server": sp, "opt_server": os_},
                 metrics)
 

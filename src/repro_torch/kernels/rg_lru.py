@@ -6,7 +6,8 @@ For CUDA tensors :func:`rg_lru_scan` runs :class:`RGLRUScan`, whose
 forward is K6 and whose backward is K6 in reverse mode, so the server's
 first-order step differentiates the recurrence through the kernel.  For
 CPU tensors it runs the plain sequential version, which autograd
-differentiates.  ``LAUNCHES`` counts K6 launches, forward and reverse.
+differentiates.  ``LAUNCHES["rg_lru_scan"]`` counts K6 launches, forward
+and reverse; ``["rg_lru_scan_reverse"]`` the reverse ones among them.
 K6 takes any (B, S, W); the kernel chooses its loads (TMA where W % 4
 == 0 and the pointers are 16-byte aligned, cp.async otherwise).
 """
@@ -17,7 +18,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as R
 
-LAUNCHES = {"rg_lru_scan": 0}
+LAUNCHES = {"rg_lru_scan": 0, "rg_lru_scan_reverse": 0}
 
 
 def _check(what, *ts):
@@ -43,6 +44,7 @@ def _launch(a, x, hs, out, da, reverse: bool):
         int(reverse), build.stream(dev))
     build.check(err, "rg_lru_scan")
     LAUNCHES["rg_lru_scan"] += 1
+    LAUNCHES["rg_lru_scan_reverse"] += int(reverse)
 
 
 def rg_lru_scan_reverse(a, g, h):

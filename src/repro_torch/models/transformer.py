@@ -312,6 +312,13 @@ def server_forward(params, cfg: ModelConfig, smashed, positions=None):
     return L.softcap(logits, cfg.final_softcap)
 
 
+def full_forward(params, cfg: ModelConfig, inputs, positions=None):
+    """Whole-model forward (client blocks, then server blocks; no aux
+    head) -> logits."""
+    smashed = client_forward(params["client"], cfg, inputs, positions)
+    return server_forward(params, cfg, smashed, positions)
+
+
 def lm_loss(logits, labels, vocab: int):
     """Mean next-token cross entropy; labels == -100 are masked; the
     padded vocab tail is excluded from the softmax."""

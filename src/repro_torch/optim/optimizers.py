@@ -1,6 +1,7 @@
-"""Optimizers on parameter trees (SGD, AdamW, ZO-SGD), formula for
-formula as :mod:`repro.optim.optimizers`: f32 moments, bias correction
-``b1t = 1 - b1**step``, and ``eps`` added outside the square root.  Not
+"""Optimizers on parameter trees (SGD, AdamW, Adafactor, ZO-SGD),
+formula for formula as :mod:`repro.optim.optimizers`: f32 moments, bias
+correction ``b1t = 1 - b1**step``, and ``eps`` added outside the square
+root.  Not
 ``torch.optim``: its AdamW differs in where eps and the bias correction
 enter, and the parity tests hold the port to the reference's numbers.
 
@@ -14,7 +15,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +87,80 @@ def adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
     return Optimizer(init, update)
 
 
+def adafactor(lr, decay=0.8, eps=1e-30, clip_threshold=1.0,
+              weight_decay=0.0):
+    """Factored second moments: O(rows+cols) state for a leaf of two or
+    more dims (row and column means of ``g**2 + eps`` over the last two
+    axes), a full second moment otherwise; the update is clipped on its
+    RMS.  ``beta = 1 - (step + 1)**-decay`` in f32, as the reference."""
+    def _factored(shape):
+        return len(shape) >= 2
+
+    def init(params):
+        def st(p):
+            if _factored(p.shape):
+                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32,
+                                          device=p.device),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                          dtype=torch.float32,
+                                          device=p.device)}
+            return {"v": _zeros_f32(p)}
+
+        return {"step": 0, "v": tree_map(st, params)}
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = lr(step) if callable(lr) else lr
+        beta = 1.0 - torch.tensor(step + 1.0, dtype=torch.float32) ** (-decay)
+
+        def upd(p, g, v):
+            g = g.to(torch.float32)
+            g2 = torch.square(g) + eps
+            if _factored(p.shape):
+                vr = beta * v["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
+                vc = beta * v["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
+                rms_r = vr / torch.clamp(
+                    torch.mean(vr, dim=-1, keepdim=True), min=eps)
+                u = g * torch.rsqrt(rms_r[..., None] + eps) \
+                    * torch.rsqrt(vc[..., None, :] + eps) \
+                    * torch.sqrt(torch.clamp(
+                        torch.mean(vc, dim=-1)[..., None, None], min=eps))
+                nv = {"vr": vr, "vc": vc}
+            else:
+                nv = {"v": beta * v["v"] + (1 - beta) * g2}
+                u = g * torch.rsqrt(nv["v"] + eps)
+            rms_u = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
+            if weight_decay:
+                u = u + weight_decay * p.to(torch.float32)
+            return (p.to(torch.float32) - lr_t * u).to(p.dtype), nv
+
+        out = tree_map(upd, params, grads, state["v"])
+        pick = lambda i: tree_map(lambda p, o: o[i], params, out)  # noqa
+        return pick(0), {"step": step, "v": pick(1)}
+
+    return Optimizer(init, update)
+
+
 def zo_sgd(lr):
     """Plain SGD for ZO gradient estimates (the paper's client
     optimizer)."""
     return sgd(lr, momentum=0.0)
+
+
+def make_optimizer(name: str, lr, **kw) -> Optimizer:
+    return {"sgd": sgd, "sgdm": lambda l, **k: sgd(l, momentum=0.9, **k),
+            "adamw": adamw, "adam": adamw, "adafactor": adafactor,
+            "zo_sgd": zo_sgd}[name](lr, **kw)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """``(grads * min(1, max_norm / |grads|), |grads|)``: the global L2
+    norm in f32; the scaled leaves are f32 or wider, as the reference's
+    type promotion makes them."""
+    leaves = tree_leaves(grads)
+    nrm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                         for g in leaves) + 1e-30)
+    scale = torch.clamp(max_norm / nrm, max=1.0)
+    return tree_map(lambda g: g.to(torch.promote_types(
+        g.dtype, torch.float32)) * scale, grads), nrm

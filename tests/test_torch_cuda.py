@@ -378,3 +378,65 @@ def test_cuda_flash_attention_tensor_core_route():
         FA.zo_dual_flash_attention(q.to(torch.bfloat16), q.to(torch.bfloat16),
                                    k.to(torch.bfloat16), v.to(torch.bfloat16))
     assert FA.LAUNCHES == before
+
+
+def _fo_small_round(method, dev, kind):
+    """A small first-order round (N=2, h=2, AdamW at eps 1e-6) on
+    ``dev``: gpt2-tiny (2 x 16 tokens) or the small CNN (4 images 8x8),
+    params from a seed on the CPU."""
+    from repro_torch.configs.gpt2 import gpt2_tiny
+    from repro_torch.core import protocols as P
+    from repro_torch.core import zo as Z
+    from repro_torch.models import cnn as CNN
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adamw
+    rng = np.random.default_rng(3)
+    if kind == "lm":
+        cfg = gpt2_tiny()
+        params = T.init_lm(cfg, seed=0, device=dev)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 2, 2, 17)),
+                               device=dev)
+        rb = {"inputs": toks[..., :-1], "labels": toks[..., 1:]}
+        api = P.lm_api(cfg)
+    else:
+        cfg = CNN.CNNConfig(widths=(8, 16), blocks_per_stage=1, classes=4)
+        params = CNN.init_cnn(cfg, seed=0, device=dev)
+        rb = {"inputs": torch.as_tensor(rng.standard_normal(
+                  (2, 2, 4, 8, 8, 3), dtype=np.float32), device=dev),
+              "labels": torch.as_tensor(rng.integers(0, 4, (2, 2, 4)),
+                                        device=dev)}
+        api = P.cnn_api(cfg)
+    opt = adamw(1e-4, eps=1e-6)
+    state = {"client": params["client"], "server": params["server"],
+             "opt_server": opt.init(params["server"])}
+    rnd = P.make_fed_round(api, method, Z.ZOConfig(mu=1e-2),
+                           P.FedConfig(n_clients=2, h=2), opt, opt)
+    return rnd(state, rb, 5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["sflv2", "cse_fsl"])
+def test_cuda_fo_round_matches_cpu(method, monkeypatch):
+    """A first-order round on the card (cuBLAS / cuDNN f32, TF32 off)
+    against the same round on the CPU: losses rtol 1e-4, params |d| <=
+    1e-5 + 1e-4 |p| (chip_smoke.py's check_small_round); no ZO kernel
+    launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.tree import tree_leaves
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    for kind in ("lm", "cnn"):
+        before = {**ZM.LAUNCHES, **FA.LAUNCHES}
+        (gc, mc), (pc, mp) = (_fo_small_round(method, d, kind)
+                              for d in (torch.device("cuda"),
+                                        torch.device("cpu")))
+        assert {**ZM.LAUNCHES, **FA.LAUNCHES} == before
+        for k in ("client_loss", "server_loss"):
+            assert abs(float(mc[k]) - float(mp[k])) <= 1e-4 * abs(
+                float(mp[k])), (kind, k)
+        for part in ("client", "server"):
+            for a, b in zip(tree_leaves(gc[part]), tree_leaves(pc[part])):
+                d = (a.cpu().float() - b.float()).abs()
+                assert bool((d <= 1e-5 + 1e-4 * b.float().abs()).all()), (
+                    kind, part, float(d.max()))

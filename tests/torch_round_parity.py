@@ -1,0 +1,163 @@
+"""Shared helpers of the round parity tests (``tests/test_torch_fo_*.py``,
+``tests/test_torch_round_knobs.py``): one federated round of the JAX
+package and of the port from the same params (through the bridge), the
+same batches from a numpy seed and the same round key, and the
+comparison of the resulting states and metrics.  Not a test module."""
+import jax
+import numpy as np
+import torch
+
+from repro.configs.gpt2 import gpt2_tiny as jax_gpt2_tiny
+from repro.configs.recurrentgemma_9b import smoke_config as jax_rg_smoke
+from repro.core import aggregate as JAG
+from repro.core import protocols as JP
+from repro.core import zo as JZ
+from repro.distributed.sharding import AxisRules
+from repro.models import cnn as JCNN
+from repro.models import transformer as JT
+from repro.optim import optimizers as JOPT
+from repro_torch.bridge import from_jax
+from repro_torch.configs.gpt2 import gpt2_tiny
+from repro_torch.configs.recurrentgemma_9b import smoke_config as rg_smoke
+from repro_torch.core import protocols as P
+from repro_torch.core import zo as Z
+from repro_torch.models import cnn as CNN
+from repro_torch.optim import optimizers as OPT
+
+jax.config.update("jax_platform_name", "cpu")
+
+RULES = AxisRules(mesh=None)
+# tests/test_torch_round.py's tolerance for the params after a round
+PARAM_TOL = dict(rtol=2e-5, atol=1e-6)
+# the small CNN of benchmarks/run.py:_fed_accuracy
+CNN_KW = dict(widths=(8, 16), blocks_per_stage=1, classes=4,
+              client_blocks=1)
+
+
+def lm_setup(jcfg=None, cfg=None):
+    """``(jax_api, port_api, numpy params)`` of gpt2-tiny (or the given
+    pair of configs)."""
+    jcfg, cfg = jcfg or jax_gpt2_tiny(), cfg or gpt2_tiny()
+    p = JT.init_lm(jax.random.PRNGKey(0), jcfg)
+    return (JP.lm_api(jcfg, RULES), P.lm_api(cfg),
+            jax.tree.map(np.asarray, p))
+
+
+def cnn_setup():
+    jcfg = JCNN.CNNConfig(**CNN_KW)
+    p = JCNN.init_cnn(jax.random.PRNGKey(0), jcfg)
+    return (JP.cnn_api(jcfg), P.cnn_api(CNN.CNNConfig(**CNN_KW)),
+            jax.tree.map(np.asarray, p))
+
+
+def rg_setup():
+    return lm_setup(jax_rg_smoke(), rg_smoke())
+
+
+def round_batch(kind, n, h, vocab=None, seed=3):
+    """(N, h, ...) batches: 2 x 16 tokens (LM) or 4 images of 8x8x3."""
+    rng = np.random.default_rng(seed)
+    if kind == "cnn":
+        return {"inputs": rng.standard_normal((n, h, 4, 8, 8, 3)
+                                              ).astype(np.float32),
+                "labels": rng.integers(0, CNN_KW["classes"], (n, h, 4))}
+    toks = rng.integers(0, vocab, (n, h, 2, 17))
+    return {"inputs": toks[..., :-1], "labels": toks[..., 1:]}
+
+
+def jax_round(japi, method, params, rb, fed, copt, sopt, key, zo, **kw):
+    state = {"client": params["client"], "server": params["server"],
+             "opt_server": sopt.init(params["server"])}
+    rnd = jax.jit(JP.make_fed_round(japi, method, zo, fed, copt, sopt,
+                                    **kw))
+    new, m = rnd(state, rb, key)
+    return jax.tree.map(np.asarray, new), m
+
+
+def port_round(api, method, params, rb, fed, copt, sopt, key, zo,
+               mask=None, **kw):
+    tp = from_jax(params, device="cpu")
+    state = {"client": tp["client"], "server": tp["server"],
+             "opt_server": sopt.init(tp["server"])}
+    rnd = P.make_fed_round(api, method, zo, fed, copt, sopt, **kw)
+    return rnd(state, {k: torch.as_tensor(v) for k, v in rb.items()},
+               int(JZ.seed_from_key(key)),
+               mask=None if mask is None else torch.tensor(mask))
+
+
+def leaves(tree):
+    """Leaves in JAX's order (sorted dict keys) as numpy arrays."""
+    return jax.tree.leaves(jax.tree.map(
+        lambda t: t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t),
+        tree))
+
+
+def assert_state_close(new, ref, params, parts=("client", "server",
+                                                "opt_server")):
+    """Every leaf of each part at ``PARAM_TOL``, and the round moved the
+    client."""
+    for part in parts:
+        got, want = leaves(new[part]), jax.tree.leaves(ref[part])
+        assert len(got) == len(want), part
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, **PARAM_TOL)
+    assert any(not np.array_equal(a, b) for a, b in zip(
+        leaves(new["client"]), jax.tree.leaves(params["client"])))
+
+
+def assert_metrics_close(m, jm):
+    for k in ("client_loss", "server_loss"):
+        np.testing.assert_allclose(float(m[k]), float(jm[k]),
+                                   rtol=PARAM_TOL["rtol"])
+    for k in ("participants", "uplink_bytes", "uplink_bytes_dense"):
+        assert float(m[k]) == float(jm[k]), k
+
+
+# ---------------------------------------------------------------------------
+# first-order rounds
+# ---------------------------------------------------------------------------
+
+# Exact first-order maths on both sides, so no 1/mu amplification; what
+# remains is AdamW's first step, m/(sqrt(v)+eps) ~ g/|g|, which turns
+# rounding in a near-zero gradient into an O(lr) change.  Small rates
+# and eps=1e-6 on both sides (as the recurrentgemma round test) keep
+# that under PARAM_TOL.
+FO_LR, FO_SERVER_LR, FO_EPS, FO_MU, FO_N = 1e-4, 1e-4, 1e-6, 1e-2, 3
+# PRNGKey(9) draws JAX's participation mask [1, 0, 1] at participation
+# 2/3 (N=3); at participation 1 every key gives all ones
+FO_KEY = jax.random.PRNGKey(9)
+# (h, participation, the mask JAX draws): together the two cases cover
+# h in {1, 2} and both masks for every method and model
+FO_CASES = [(1, 1.0, [1.0, 1.0, 1.0]), (2, 2 / 3, [1.0, 0.0, 1.0])]
+FO_CASE_IDS = ["h1-ones", "h2-mask101"]
+
+
+def fo_round_pair(setup, method, rb, fed_kw, params=None, mask=None):
+    """The first-order round of each package (AdamW client and server at
+    the rates above) on ``rb``; the port gets ``mask``.  Checks the
+    states and the metrics."""
+    japi, api, p0 = setup
+    params = p0 if params is None else params
+    ref, jm = jax_round(japi, method, params, rb, JP.FedConfig(**fed_kw),
+                        JOPT.adamw(FO_LR, eps=FO_EPS),
+                        JOPT.adamw(FO_SERVER_LR, eps=FO_EPS), FO_KEY,
+                        JZ.ZOConfig(mu=FO_MU))
+    new, m = port_round(api, method, params, rb, P.FedConfig(**fed_kw),
+                        OPT.adamw(FO_LR, eps=FO_EPS),
+                        OPT.adamw(FO_SERVER_LR, eps=FO_EPS), FO_KEY,
+                        Z.ZOConfig(mu=FO_MU), mask=mask)
+    assert_state_close(new, ref, params)
+    assert_metrics_close(m, jm)
+
+
+def fo_round_case(kind, setup, method, case, params=None):
+    """:func:`fo_round_pair` on one of ``FO_CASES``, JAX's mask checked
+    and passed to the port."""
+    h, part, want_mask = case
+    jmask = np.asarray(JAG.straggler_mask(jax.random.fold_in(FO_KEY, 777),
+                                          FO_N, part, 0.0))
+    np.testing.assert_array_equal(jmask, want_mask)
+    rb = round_batch(kind, FO_N, h, vocab=jax_gpt2_tiny().vocab)
+    fo_round_pair(setup, method, rb,
+                  dict(n_clients=FO_N, h=h, participation=part),
+                  params=params, mask=jmask)
