@@ -8,14 +8,15 @@ Phases, one line each (any failure exits non-zero):
      versions; build the CUDA kernels from src/repro_torch/kernels/csrc
      with nvcc;
   2. K1 zo_noise vs its plain version, bit for bit (torch.equal): every
-     K1 call of a gpt2-small round (recorded, then run again on fresh
-     inputs: the theta + mu*U trees, the direction trees, the noise rows),
-     and the field, accumulate and perturb modes over the gpt2-small and
-     recurrentgemma-9b client trees (the plain version in row windows);
+     K1 call of a gpt2-small round (recorded, then run again: the theta +
+     mu*U trees and the direction trees on fresh inputs, the noise rows on
+     the round's token ids), and the field, accumulate and perturb modes
+     over the gpt2-small and recurrentgemma-9b client trees (the plain
+     version in row windows);
   3. K2 zo_dual_matmul and K4 zo_matmul vs plain at gpt2-small's client
-     shapes (bf16, the tensor-core route, also held to the route's split
-     arithmetic ref.zo_matmul_split_ref) and ResNet-18's (f32, the
-     CUDA-core loop); K4 == K2's streams bit for bit; the route counters;
+     shapes, K2 also at qwen2-1.5b's (bf16, the tensor-core route, also
+     held to the route's split arithmetic ref.zo_matmul_split_ref), and
+     at ResNet-18's (f32, the CUDA-core loop); K4 == K2's streams bit for bit; the route counters;
   4. K3 zo_dual_flash_attention and K5 flash_attention vs plain, both
      probe modes, plus GQA, window, soft-cap and ragged lengths, at
      head_dim 8, 64, 112, 128 and 256, bf16 on the tensor-core route and
@@ -64,12 +65,26 @@ Phases, one line each (any failure exits non-zero):
      twice); every method's small round on the card against the CPU,
      CSE-FSL on the recurrentgemma smoke config through K6 forward and
      reverse; K2's f32 route at ResNet-18's im2col shape timed.
-Phases 9, 10 and 11 run before phase 8's timings.  The line before the last
+ 12. the threefry stream (forward_impl="xla", the reference's default):
+     keys, fold_in, split, bits, uniforms, permutation and Bernoulli
+     masks against JAX's golden table bit for bit, normals within 4
+     ulps, and card vs CPU; HERON rounds on it at full width, gpt2-small
+     (gaussian) and ResNet-18 (sphere), with no K1-K6 launch; the time,
+     peak and byte bound of one direction draw over each client tree;
+     the sphere probe on gpt2-small's bf16 client; gpt2-tiny threefry
+     rounds (both scales, mask drawn) and each dense smoke config's
+     kernel round on the card against the CPU; one HERON round on
+     qwen2-1.5b at full width and depth on the kernel stream (28 K2, 4
+     K3 on the tensor cores, 30 K1) with its draw time, every K1 and K2
+     launch of that round recorded and run again against the plain
+     versions, and K1's three modes over its client tree.
+Phases 9-12 run before phase 8's timings.  The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -97,6 +112,9 @@ K1_SASS_PER_ELEMENT = {"integer": 7, "imad": 2, "conversion": 1, "fp32": 4}
 PIPE_RATES = {"integer": 64, "imad": 64, "conversion": 16, "fp32": 128,
               "issue": 128}
 CARD = {}              # SM count and top SM clock, read in main()
+# the rounds' PRNG key, jax.random.PRNGKey(20261016)'s two words: on the
+# kernel stream its base seed (the words xor-ed) is 20261016
+ROUND_KEY = (0, 20261016)
 REPS = 30
 # substrings of the port's CUDA kernels' names (csrc/*.cu)
 OUR_KERNELS = ("zo_noise", "zo_dual_matmul_kernel", "zo_matmul_kernel",
@@ -224,11 +242,12 @@ def check_k1_tree(what, mode, segments, outs, ins=None, scale=None,
 
 
 def record_k1_calls(fn):
-    """Run ``fn`` with every K1 tree call recorded: ``[(mode, segments,
-    out dtypes, in dtypes, mu)]``, and the number of noise-rows calls."""
+    """Run ``fn`` with every K1 call recorded: ``([(mode, segments, out
+    dtypes, in dtypes, mu)], [(seed, ids, n_cols)])``, the tree calls and
+    the noise-rows calls (their token ids copied)."""
     from repro_torch.kernels import ops as O
     from repro_torch.kernels import zo_matmul as ZM
-    calls, rows = [], [0]
+    calls, rows = [], []
     tree, gather = ZM.zo_noise_tree, O.zo_noise_rows
 
     def rec_tree(mode, segments, outs, ins=None, scale=None, mu=0.0):
@@ -238,7 +257,7 @@ def record_k1_calls(fn):
         return tree(mode, segments, outs, ins, scale, mu)
 
     def rec_rows(seed, ids, n_cols):
-        rows[0] += 1
+        rows.append((seed, ids.clone(), n_cols))
         return gather(seed, ids, n_cols)
 
     ZM.zo_noise_tree, O.zo_noise_rows = rec_tree, rec_rows
@@ -246,7 +265,27 @@ def record_k1_calls(fn):
         fn()
     finally:
         ZM.zo_noise_tree, O.zo_noise_rows = tree, gather
-    return calls, rows[0]
+    return calls, rows
+
+
+def check_k1_rows_recorded(what, rows):
+    """Each recorded noise-rows call again on its own token ids, against
+    the plain gathered U, bit for bit.  Returns the launches."""
+    import torch
+    from repro_torch.kernels import noise as N
+    from repro_torch.kernels import zo_matmul as ZM
+    n0 = ZM.LAUNCHES["zo_noise"]
+    for k, (seed, ids, n_cols) in enumerate(rows):
+        got = ZM.zo_noise_rows(seed, ids, n_cols)
+        cols = torch.arange(n_cols, device=ids.device)
+        ref = N.uniform_noise_at(seed, ids[..., None], cols)
+        if not torch.equal(got, ref):
+            fail(f"K1 {what} rows call {k} {tuple(ids.shape)} x {n_cols}: "
+                 f"max |d| {max_abs(got, ref)}")
+    if ZM.LAUNCHES["zo_noise"] - n0 != len(rows):
+        fail(f"K1 {what} rows: {ZM.LAUNCHES['zo_noise'] - n0} launches for "
+             f"{len(rows)} calls")
+    return len(rows)
 
 
 def k1_inputs(dev, mode, segments, dtypes, in_dtypes, seed):
@@ -321,8 +360,9 @@ def check_k1(dev, card):
     setup = _round_setup(gpt2_small(), dev, n_clients=2, h=1, batch=4,
                          seq=256, mu=1e-3, lr=1e-4, server_lr=2e-4)
     state, rb, rnd = setup
-    calls, n_rows = record_k1_calls(lambda: rnd(state, rb, 20261016))
+    calls, rows = record_k1_calls(lambda: rnd(state, rb, ROUND_KEY))
     n_tree = check_k1_recorded("gpt2-small round", calls, dev)
+    n_rows = check_k1_rows_recorded("gpt2-small round", rows)
     modes = {m: sum(1 for c in calls if c[0] == m)
              for m in ("field", "accumulate", "perturb")}
     n_leaves, n_el = check_k1_model_tree("gpt2-small client tree",
@@ -341,8 +381,9 @@ def check_k1(dev, card):
     if not torch.equal(got_r, ref_r):
         fail(f"K1 rows differ from plain: max |d| = {max_abs(got_r, ref_r)}")
     log(2, f"K1 zo_noise == plain bit for bit: the gpt2-small round's "
-        f"{len(calls)} tree calls ({modes}; {n_tree} launches) and {n_rows} "
-        f"rows calls on fresh inputs; field, accumulate and perturb over "
+        f"{len(calls)} tree calls ({modes}; {n_tree} launches) on fresh "
+        f"inputs and {n_rows} rows calls on their token ids; field, "
+        f"accumulate and perturb over "
         f"the gpt2-small client tree ({n_leaves} leaves, {n_el} entries, one "
         f"launch each); a field at offsets (1536, 3); rows (4, 256) ids <= "
         f"50431 x 768")
@@ -370,6 +411,9 @@ def k2_inputs(dev, dtype, M, K, Nn, seed=0):
 
 
 K2_SHAPES = ((768, 768), (768, 3072), (3072, 768))
+# qwen2-1.5b's client projections at d_model 1536 (phase 12): q and o,
+# the two-head k and v, gate and up, down
+QWEN_K2_SHAPES = ((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536))
 K2_FLAGS = ((False, True, 0.0, 1e-3), (True, True, 1e-3, -1e-3))
 
 
@@ -402,6 +446,44 @@ def split_ok(got, x, w, u, mu, perturb):
     return ok, float(d.max())
 
 
+def check_k2_launch(what, xa, xb, w, seed, ma, mb, pa, pb, off, u, worst,
+                    key):
+    """One K2 launch against the plain version on the same inputs, with
+    :func:`check_k2`'s tolerance; in bf16 also on the tensor-core route
+    (the counter says so) and within its split arithmetic.  ``u`` is
+    U(seed) at ``off``; ``worst[key]`` keeps the largest |d|."""
+    import torch
+    from repro_torch.kernels import zo_matmul as ZM
+    K, Nn = w.shape
+    tc0 = ZM.LAUNCHES["zo_dual_matmul_tc"]
+    ya, yb = ZM.zo_dual_matmul(xa, xb, w, seed, ma, mb, row_offset=off,
+                               perturb_a=pa, perturb_b=pb)
+    want_tc = int(w.dtype == torch.bfloat16)
+    if ZM.LAUNCHES["zo_dual_matmul_tc"] - tc0 != want_tc:
+        fail(f"K2 {what} {w.dtype} {K}x{Nn}: expected {want_tc} "
+             f"tensor-core launch, counters {ZM.LAUNCHES}")
+    ra, rb = k2_plain(xa, xb, w, seed, ma, mb, pa, pb, off)
+    if w.dtype == torch.bfloat16:
+        for got, x, m, p in ((ya, xa, ma, pa), (yb, xb, mb, pb)):
+            ok, dmax = split_ok(got, x, w, u, m, p)
+            if not ok:
+                fail(f"K2 {what} bf16 {K}x{Nn} flags {pa},{pb} mu {ma},"
+                     f"{mb}: off the split arithmetic, max |d| {dmax}")
+            worst["bf16 vs split"] = max(worst.get("bf16 vs split", 0.0),
+                                         dmax)
+    for got, ref in ((ya, ra), (yb, rb)):
+        d = (got.float() - ref.float()).abs()
+        r = ref.float().abs()
+        if w.dtype == torch.float32:
+            ok = bool((d <= 1e-4 * r.max()).all())
+        else:
+            ok = bool((d <= 2 ** -7 * r + 1e-4 * r.max()).all())
+        if not ok:
+            fail(f"K2 {what} {w.dtype} {K}x{Nn} flags {pa},{pb} mu {ma},"
+                 f"{mb}: max |d| {float(d.max())}")
+        worst[key] = max(worst.get(key, 0.0), float(d.max()))
+
+
 def check_k2(dev):
     """Tolerance: f32 sums in another order differ by ~sqrt(K) f32 ulps,
     so |d| <= 1e-4 * max|ref|.  In bf16 the kernel and the plain version
@@ -411,59 +493,69 @@ def check_k2(dev):
     offset or stream flag moves the outputs by ~mu*sqrt(K)*|x|, far
     above both.  bf16 launches take the tensor-core route (the counter
     says so) and are also held to the route's split arithmetic
-    (:func:`split_ok`); f32 launches take the CUDA-core loop."""
+    (:func:`split_ok`); f32 launches take the CUDA-core loop.  Shapes:
+    gpt2-small's client projections and qwen2-1.5b's."""
     import torch
     from repro_torch.kernels import noise as N
-    from repro_torch.kernels import zo_matmul as ZM
     worst = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for K, Nn in K2_SHAPES:
+        for K, Nn in K2_SHAPES + QWEN_K2_SHAPES:
             xa, xb, w = k2_inputs(dev, dtype, 1024, K, Nn)
             off = 2 * K
             u = N.uniform_noise(-99, w.shape, off, device=dev)
             for pa, pb, mu_a, mu_b in K2_FLAGS:
                 # mu 1e-3 on the main path; 0.5 makes a wrong U visible
                 for scale in (1.0, 500.0):
-                    ma, mb = mu_a * scale, mu_b * scale
-                    tc0 = ZM.LAUNCHES["zo_dual_matmul_tc"]
-                    ya, yb = ZM.zo_dual_matmul(xa, xb, w, -99, ma, mb,
-                                               row_offset=off, perturb_a=pa,
-                                               perturb_b=pb)
-                    want_tc = int(dtype == torch.bfloat16)
-                    if ZM.LAUNCHES["zo_dual_matmul_tc"] - tc0 != want_tc:
-                        fail(f"K2 {dtype} {K}x{Nn}: expected "
-                             f"{want_tc} tensor-core launch, counters "
-                             f"{ZM.LAUNCHES}")
-                    ra, rb = k2_plain(xa, xb, w, -99, ma, mb, pa, pb, off)
-                    if dtype == torch.bfloat16:
-                        for got, x, m, p in ((ya, xa, ma, pa),
-                                             (yb, xb, mb, pb)):
-                            ok, dmax = split_ok(got, x, w, u, m, p)
-                            if not ok:
-                                fail(f"K2 bf16 {K}x{Nn} flags {pa},{pb} mu "
-                                     f"{ma},{mb}: off the split arithmetic,"
-                                     f" max |d| {dmax}")
-                            worst["bf16 vs split"] = max(
-                                worst.get("bf16 vs split", 0.0), dmax)
-                    for got, ref in ((ya, ra), (yb, rb)):
-                        d = (got.float() - ref.float()).abs()
-                        r = ref.float().abs()
-                        if dtype == torch.float32:
-                            ok = bool((d <= 1e-4 * r.max()).all())
-                        else:
-                            ok = bool((d <= 2 ** -7 * r + 1e-4 * r.max())
-                                      .all())
-                        if not ok:
-                            fail(f"K2 {dtype} {K}x{Nn} flags {pa},{pb} mu "
-                                 f"{ma},{mb}: max |d| {float(d.max())}")
-                        key = (f"{str(dtype).split('.')[-1]} mu "
-                               f"{'1e-3' if scale == 1.0 else '0.5'}")
-                        worst[key] = max(worst.get(key, 0.0),
-                                         float(d.max()))
+                    key = (f"{str(dtype).split('.')[-1]} mu "
+                           f"{'1e-3' if scale == 1.0 else '0.5'}")
+                    check_k2_launch("grid", xa, xb, w, -99, mu_a * scale,
+                                    mu_b * scale, pa, pb, off, u, worst,
+                                    key)
+            del xa, xb, w, u
     log(3, f"K2 zo_dual_matmul == plain within tolerance at M=1024, K x N "
-        f"in {K2_SHAPES}, flags (F,T),(T,T), bf16 on the tensor-core route "
-        f"and within tolerance of its split arithmetic: max |d| {worst}")
+        f"in {K2_SHAPES + QWEN_K2_SHAPES}, flags (F,T),(T,T), bf16 on the "
+        f"tensor-core route and within tolerance of its split arithmetic: "
+        f"max |d| {worst}")
     return worst["bfloat16 mu 1e-3"]      # the main path's type and mu
+
+
+def record_k2_calls(fn):
+    """Run ``fn`` with every K2 launch recorded: ``[(M, K, N, dtype,
+    seed, mu_a, mu_b, perturb_a, perturb_b, row_offset)]``."""
+    from repro_torch.kernels import noise as N
+    from repro_torch.kernels import ops as O
+    calls, dual = [], O.zo_dual_matmul
+
+    def rec(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0, perturb_a=False,
+            perturb_b=True):
+        calls.append((xa.shape[0], w.shape[0], w.shape[1], w.dtype,
+                      int(N._u32(seed)), float(mu_a), float(mu_b),
+                      perturb_a, perturb_b, int(N._u32(row_offset))))
+        return dual(xa, xb, w, seed, mu_a, mu_b, row_offset=row_offset,
+                    perturb_a=perturb_a, perturb_b=perturb_b)
+
+    O.zo_dual_matmul = rec
+    try:
+        fn()
+    finally:
+        O.zo_dual_matmul = dual
+    return calls
+
+
+def check_k2_recorded(what, calls, dev):
+    """Each recorded K2 launch of a round again on fresh seeded inputs of
+    its shape and type, with its seed, mus, stream flags and row offset,
+    against the plain version (:func:`check_k2_launch`).  Returns the
+    largest |d| by type."""
+    from repro_torch.kernels import noise as N
+    worst = {}
+    for k, (M, K, Nn, dt, seed, ma, mb, pa, pb, off) in enumerate(calls):
+        xa, xb, w = k2_inputs(dev, dt, M, K, Nn, seed=k)
+        u = N.uniform_noise(seed, w.shape, off, device=dev)
+        check_k2_launch(f"{what} call {k}", xa, xb, w, seed, ma, mb, pa, pb,
+                        off, u, worst, str(dt).split(".")[-1])
+        del xa, xb, w, u
+    return worst
 
 
 def k4_cases():
@@ -719,11 +811,12 @@ def check_k5(dev):
 # ---------------------------------------------------------------------------
 
 def _make_round(api, params, rb, n_clients, h, mu, lr, server_lr,
-                server_eps=1e-8, method="heron", fed_kw=None):
+                server_eps=1e-8, method="heron", fed_kw=None, scale="sphere"):
     """HERON on the lean uplink (plain-SGD clients at ``lr``), or a
     first-order ``method`` on the dense uplink with AdamW clients at
     ``lr`` (``eps`` = ``server_eps``).  ``fed_kw``: more FedConfig
-    knobs."""
+    knobs; ``scale``: the threefry direction's (unused by the kernel
+    stream and the first-order methods)."""
     from repro_torch.core import protocols as P
     from repro_torch.core import zo as Z
     from repro_torch.optim.optimizers import adamw, zo_sgd
@@ -731,7 +824,7 @@ def _make_round(api, params, rb, n_clients, h, mu, lr, server_lr,
     state = {"client": params["client"], "server": params["server"],
              "opt_server": sopt.init(params["server"])}
     fed = P.FedConfig(n_clients=n_clients, h=h, **(fed_kw or {}))
-    zo = Z.ZOConfig(mu=mu, n_pairs=1)
+    zo = Z.ZOConfig(mu=mu, n_pairs=1, scale=scale)
     if method == "heron":
         rnd = P.make_fed_round(api, "heron", zo, fed, zo_sgd(lr), sopt,
                                uplink="seed_replay", client_lr=lr)
@@ -754,10 +847,14 @@ def _with_lora(params, rank, seed):
 
 def _round_setup(cfg, dev, n_clients, h, batch, seq, mu, lr, server_lr,
                  seed=0, draw_on_device=False, server_eps=1e-8,
-                 method="heron", fed_kw=None, lora_rank=0):
+                 method="heron", fed_kw=None, lora_rank=0,
+                 forward_impl="kernel", scale="sphere"):
+    """``forward_impl="kernel"``: HERON on the fused dual-probe kernels;
+    ``"xla"``: on the threefry stream at ``scale``."""
     import torch
     from repro_torch.core import protocols as P
     from repro_torch.models import transformer as T
+    cfg = cfg.replace(forward_impl=forward_impl)
     rng = np.random.default_rng(seed)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab,
                                         (n_clients, h, batch, seq + 1)),
@@ -767,15 +864,17 @@ def _round_setup(cfg, dev, n_clients, h, batch, seq, mu, lr, server_lr,
                                   draw_on_device=draw_on_device),
                         lora_rank, seed)
     return _make_round(P.lm_api(cfg), params, rb, n_clients, h, mu, lr,
-                       server_lr, server_eps, method, fed_kw)
+                       server_lr, server_eps, method, fed_kw, scale)
 
 
 def _cnn_round_setup(cfg, dev, n_clients, h, batch, hw, mu, lr, server_lr,
-                     seed=0, server_eps=1e-8, method="heron"):
+                     seed=0, server_eps=1e-8, method="heron",
+                     forward_impl="kernel", scale="sphere", fed_kw=None):
     """Images and labels from a numpy seed (no dataset is downloaded)."""
     import torch
     from repro_torch.core import protocols as P
     from repro_torch.models import cnn as CNN
+    cfg = dataclasses.replace(cfg, forward_impl=forward_impl)
     rng = np.random.default_rng(seed)
     rb = {"inputs": torch.as_tensor(rng.standard_normal(
               (n_clients, h, batch, hw, hw, 3), dtype=np.float32),
@@ -785,7 +884,7 @@ def _cnn_round_setup(cfg, dev, n_clients, h, batch, hw, mu, lr, server_lr,
     return _make_round(P.cnn_api(cfg), CNN.init_cnn(cfg, seed=seed,
                                                     device=dev),
                        rb, n_clients, h, mu, lr, server_lr, server_eps,
-                       method)
+                       method, fed_kw, scale)
 
 
 def launch_counts():
@@ -812,19 +911,20 @@ def check_counts(what, counts, expect):
                  "(None: more than zero)")
 
 
-def drive_round(phase, desc, setup, expect, round_seed=20261016):
+def drive_round(phase, desc, setup, expect, round_key=None):
     """A warm-up round, then one timed round from the same state: finite
     losses and params, moved client params, the kernels' launch counts
     against ``expect``; then one more round under the profiler."""
     import torch
     from repro_torch.tree import tree_leaves
     state, rb, rnd = setup
-    rnd(state, rb, round_seed)               # warm-up round
+    round_key = ROUND_KEY if round_key is None else round_key
+    rnd(state, rb, round_key)                # warm-up round
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    new_state, m = rnd(state, rb, round_seed)
+    new_state, m = rnd(state, rb, round_key)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -845,7 +945,7 @@ def drive_round(phase, desc, setup, expect, round_seed=20261016):
         f"{m['uplink_bytes']} uplink_bytes_dense {m['uplink_bytes_dense']} "
         f"wall_s {wall} max_memory_allocated {peak} launches {counts}")
     del new_state               # the profiled round needs its memory
-    profile_round(phase, rnd, state, rb, round_seed, wall)
+    profile_round(phase, rnd, state, rb, round_key, wall)
     return counts
 
 
@@ -903,10 +1003,10 @@ def device_rows(fn):
     return rows
 
 
-def profile_round(phase, rnd, state, rb, round_seed, wall_s):
+def profile_round(phase, rnd, state, rb, round_key, wall_s):
     """Device time of one more round by kernel (torch.profiler), and the
     card's idle share of the unprofiled round's wall time."""
-    rows = device_rows(lambda: rnd(state, rb, round_seed))
+    rows = device_rows(lambda: rnd(state, rb, round_key))
     busy_ms = sum(r[0] for r in rows) / 1e3
     if busy_ms <= 0:
         log(phase, "profile: the profiler saw no device time (not measured)")
@@ -934,7 +1034,7 @@ def check_small_round(phase, desc, setup_fn):
     out = []
     for d in (torch.device("cuda", 0), torch.device("cpu")):
         state, rb, rnd = setup_fn(d)
-        out.append(rnd(state, rb, 77))
+        out.append(rnd(state, rb, (0, 77)))
     (gc, mc), (pc, mp) = out
     for k in ("client_loss", "server_loss"):
         a, b = float(mc[k]), float(mp[k])
@@ -1063,7 +1163,8 @@ def check_single_probe(dev):
             return T.lm_loss(T.aux_forward(cp, cfg, s, perturb=pz),
                              batch["labels"], cfg.vocab)
 
-        lm_dual = lambda: P.lm_api(cfg).client_dual_loss(  # noqa: E731
+        lm_dual = lambda: P.lm_api(  # noqa: E731
+            cfg.replace(forward_impl="kernel")).client_dual_loss(
             cp, batch, seeds, mu)
         counts = single_probe(
             "gpt2-small single-probe client+aux loss (4x256 tokens)",
@@ -1091,7 +1192,9 @@ def check_single_probe(dev):
 
         single_probe(
             "resnet18 single-probe client forward+aux loss (64 images)",
-            lambda: P.cnn_api(cfg).client_dual_loss(cp, batch, seeds, mu),
+            lambda: P.cnn_api(dataclasses.replace(
+                cfg, forward_impl="kernel")).client_dual_loss(
+                    cp, batch, seeds, mu),
             cnn_single, {"zo_matmul": 4, "zo_matmul_tc": 0,
                          "flash_attention": 0, "flash_attention_tc": 0,
                          "zo_dual_matmul": 0}, 1e-5)
@@ -1396,7 +1499,8 @@ def run_client_steps(dev, card):
     rng = np.random.default_rng(0)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 257)), device=dev)
     client_step_costs(
-        "gpt2-small (4x256 tokens)", P.lm_api(cfg),
+        "gpt2-small (4x256 tokens)",
+        P.lm_api(cfg.replace(forward_impl="kernel")),
         T.init_lm(cfg, seed=0, device=dev),
         {"inputs": toks[:, :-1], "labels": toks[:, 1:]},
         {"client": lambda cp, b: T.client_forward(cp, cfg, b["inputs"]),
@@ -1404,7 +1508,8 @@ def run_client_steps(dev, card):
         mu=1e-3, lr=1e-4, card=card)
     ccfg = full_config()
     client_step_costs(
-        "resnet18 (64 images 32x32x3)", P.cnn_api(ccfg),
+        "resnet18 (64 images 32x32x3)",
+        P.cnn_api(dataclasses.replace(ccfg, forward_impl="kernel")),
         CNN.init_cnn(ccfg, seed=0, device=dev),
         {"inputs": torch.as_tensor(rng.standard_normal(
             (64, 32, 32, 3), dtype=np.float32), device=dev),
@@ -1434,7 +1539,7 @@ def run_knob_round(dev, card):
                  "zo_noise": 12 * n * h + n * h, "zo_matmul": 0,
                  "flash_attention": 0, "rg_lru_scan": 0})
     state, rb, rnd = setup
-    new, _ = rnd(state, rb, 20261016)
+    new, _ = rnd(state, rb, ROUND_KEY)
     steps = int(new["opt_server"]["step"])
     want = n * -(-h // k)
     if steps != want:
@@ -1535,6 +1640,296 @@ def run_fo_phase(dev, card, cnn_k2_launches):
     run_knob_round(dev, card)
     check_fo_small_rounds()
     time_k2_f32(dev, cnn_k2_launches)
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the threefry stream and the dense family
+# ---------------------------------------------------------------------------
+
+# jax.random (jax 0.9.0, jax_threefry_partitionable=True as the JAX
+# package sets it) for PRNGKey(20261016) and k = fold_in(key, 777); f32
+# values as their bit patterns.  tests/test_torch_prng.py holds the
+# installed jax to this table.
+THREEFRY_GOLDEN = {
+    "seed": 20261016,
+    "key": [0, 20261016],
+    "fold_in_777": [3745423994, 608282859],
+    "split_3": [[2024068154, 665741589], [2438922811, 59935751],
+                [3969958351, 1598922753]],
+    "bits_8": [1594539311, 2462944828, 3018678734, 617175692, 3871579886,
+               2754361830, 4201628848, 1649930832],
+    "bits_70001_last_4": [3261116903, 4161677597, 632392253, 3907967548],
+    "uniform_8": [1052644728, 1058196878, 1060367712, 1041442152,
+                  1063699358, 1059335224, 1064988612, 1053077476],
+    "uniform_m3.3_7.1_8": [1057989333, 1076526295, 1082150448, 3219594284,
+                           1086481587, 1079485994, 1088157617, 1060239622],
+    "normal_16": [3198694493, 1044224801, 1057511357, 3213372510,
+                  1067783388, 1052331922, 1073822447, 3197555760,
+                  3193348693, 1058025142, 1068030987, 1071047626,
+                  3192151183, 3214404717, 1070904231, 1060520876],
+    "permutation_10": [6, 2, 9, 5, 7, 3, 0, 8, 4, 1],
+    "bernoulli_0.3_16": [0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0],
+}
+NORMAL_ULPS = 4         # the port's normals against JAX's (XLA's ErfInv)
+
+
+def f32_bits(t):
+    return t.detach().cpu().float().numpy().view(np.uint32).tolist()
+
+
+def ulps(a, b):
+    """Distance in f32 ulps of two f32 arrays (ordered integer views)."""
+    def ordered(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return np.abs(ordered(a) - ordered(b))
+
+
+def check_threefry(dev):
+    """The port's threefry against the golden table: keys, fold_in,
+    split and the permutation (CPU tensors, as the port keeps keys and
+    masks) bit for bit; bits, uniforms and Bernoulli draws on the card
+    bit for bit; normals on the card within NORMAL_ULPS of JAX's and of
+    the CPU's over 4 Mi entries, bits and uniforms there bit for bit."""
+    import torch
+    from repro_torch.core import prng as R
+    g = THREEFRY_GOLDEN
+
+    def same(what, got, want):
+        if list(got) != list(want):
+            fail(f"threefry {what}: {list(got)} != JAX's {list(want)}")
+
+    key = R.PRNGKey(g["seed"])
+    k = R.fold_in(key, 777)
+    same("PRNGKey", key.tolist(), g["key"])
+    same("fold_in", k.tolist(), g["fold_in_777"])
+    same("split", R.split(k, 3).tolist(), g["split_3"])
+    same("permutation", R.permutation(k, 10).tolist(), g["permutation_10"])
+    same("bits on the card", R.random_bits(k, (8,), dev).cpu().tolist(),
+         g["bits_8"])
+    same("bits (70001,) on the card, last 4",
+         R.random_bits(k, (70001,), dev)[-4:].cpu().tolist(),
+         g["bits_70001_last_4"])
+    same("uniform on the card", f32_bits(R.uniform(k, (8,), device=dev)),
+         g["uniform_8"])
+    same("uniform(-3.3, 7.1) on the card",
+         f32_bits(R.uniform(k, (8,), -3.3, 7.1, device=dev)),
+         g["uniform_m3.3_7.1_8"])
+    same("bernoulli on the card",
+         R.bernoulli(k, 0.3, (16,), dev).int().cpu().tolist(),
+         g["bernoulli_0.3_16"])
+    nz = R.normal(k, (16,), dev)
+    d_gold = ulps(np.array(g["normal_16"], np.uint32).view(np.float32),
+                  nz.cpu().numpy())
+    if d_gold.max() > NORMAL_ULPS:
+        fail(f"threefry normal on the card: {d_gold.tolist()} ulps from "
+             "JAX's")
+    shape = (1024, 4096)
+    for what, fn in (("bits", lambda d: R.random_bits(k, shape, d)),
+                     ("uniform", lambda d: R.uniform(k, shape, device=d))):
+        if not torch.equal(fn(dev).cpu(), fn("cpu")):
+            fail(f"threefry {what} {shape}: card != CPU")
+    d_cpu = ulps(R.normal(k, shape, dev).cpu().numpy(),
+                 R.normal(k, shape).numpy())
+    if d_cpu.max() > NORMAL_ULPS:
+        fail(f"threefry normal {shape}: card vs CPU {d_cpu.max()} ulps")
+    log(12, f"threefry == JAX's golden table: PRNGKey, fold_in, split, "
+        f"permutation bit for bit; bits, uniform (also -3.3..7.1), "
+        f"bernoulli on the card bit for bit; normal on the card "
+        f"{d_gold.tolist()} ulps from JAX's; card vs CPU over {shape}: bits "
+        f"and uniform bit for bit, normal max {int(d_cpu.max())} ulps, "
+        f"{float((d_cpu == 0).mean())} of entries equal")
+
+
+def time_draws(desc, tree, card):
+    """One threefry direction draw over ``tree`` (every leaf, JAX's
+    leaf order) in each scale: device time (CUDA events, median of 3),
+    the draw's peak memory above what was allocated before it, and the
+    bound, 4 B written per entry (the f32 direction) over the card's
+    memory rate; the draw's integer and f64 operations are no bound."""
+    import torch
+    from repro_torch.core import prng as R
+    from repro_torch.core import zo as Z
+    n = Z.tree_size(tree)
+    key = R.fold_in(ROUND_KEY, 5)
+    for scale in ("gaussian", "sphere"):
+        zo = Z.ZOConfig(scale=scale)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        Z.direction_like(key, tree, zo)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = time_ms(lambda: Z.direction_like(key, tree, zo), reps=3)
+        b, _ = bound_ms(4 * n, 0, "float32")
+        log(12, f"threefry direction draw ({scale}) over the {desc} ({n} "
+            f"entries): {ms} ms, peak {peak} B above the params, bound "
+            f"{b} ms (4 B written per entry; {ms / b:.1f}x) on {card}; "
+            f"library none")
+
+
+# the qwen2-1.5b round's K2 and K1 launches (see run_qwen_round)
+QWEN_K2, QWEN_K1 = 28, 30
+
+
+def run_qwen_round(dev, card):
+    """qwen2-1.5b at full width and depth (28 layers, d_model 1536, GQA
+    12:2 at head_dim 128, d_ff 8960, vocab 151936 tied, bf16, cut 2) on
+    the kernel stream: N=2, h=1, 4 x 256 tokens per client, seed_replay.
+    Launches: K2 28 = per client the two client blocks' q k v o gate up
+    down (the aux head has no block: aux_layers=0), all on the tensor
+    cores; K3 4 = two blocks x two clients; K1 30 = per client 14 (the
+    embedding's noise rows; twelve theta + mu*U trees: the two blocks'
+    two norms and three qkv biases, the aux norm, the tied table; the
+    direction tree) and the replay's two direction trees.  The weights
+    come from the card's generator (seeded)."""
+    import torch
+    from repro_torch.configs.qwen2_1_5b import full_config
+    from repro_torch.core.split import param_bytes
+    from repro_torch.tree import tree_leaves
+    setup = _round_setup(full_config(), dev, n_clients=2, h=1, batch=4,
+                         seq=256, mu=1e-3, lr=1e-4, server_lr=2e-4,
+                         draw_on_device=True)
+    state, rb, rnd = setup
+    n_c = sum(t.numel() for t in tree_leaves(state["client"]))
+    n_s = sum(t.numel() for t in tree_leaves(state["server"]))
+    log(12, f"qwen2-1.5b at full width and depth (28 layers, d_model 1536, "
+        f"12 heads, 2 KV heads, head_dim 128, d_ff 8960, vocab 151936 tied, "
+        f"bf16, cut 2): client {n_c} params ({param_bytes(state['client'])} "
+        f"B), server {n_s} params")
+    # every K1 and K2 launch of one round, recorded and run again against
+    # the plain versions (as phase 2 does for gpt2-small's K1)
+    k2_calls = []
+    k1_calls, k1_rows = record_k1_calls(lambda: k2_calls.extend(
+        record_k2_calls(lambda: rnd(state, rb, ROUND_KEY))))
+    n_k1 = (check_k1_recorded("qwen2-1.5b round", k1_calls, dev)
+            + check_k1_rows_recorded("qwen2-1.5b round", k1_rows))
+    k2_worst = check_k2_recorded("qwen2-1.5b round", k2_calls, dev)
+    k2_shapes = sorted({(M, K, Nn) for M, K, Nn, *_ in k2_calls})
+    if n_k1 != QWEN_K1 or len(k2_calls) != QWEN_K2:
+        fail(f"qwen2-1.5b round recorded {n_k1} K1 launches and "
+             f"{len(k2_calls)} K2, expected {QWEN_K1} and {QWEN_K2}")
+    n_leaves, n_el = check_k1_model_tree("qwen2-1.5b client tree",
+                                         state["client"], dev)
+    torch.cuda.empty_cache()
+    log(12, f"qwen2-1.5b round's kernels == plain: K1's {len(k1_calls)} "
+        f"tree calls ({n_k1 - len(k1_rows)} launches) on fresh inputs and "
+        f"{len(k1_rows)} rows calls on their token ids, bit for bit; K2's "
+        f"{len(k2_calls)} launches (M, K, N in {k2_shapes}) on fresh inputs "
+        f"with their seeds, mus and offsets, within check_k2's tolerance "
+        f"(max |d| {k2_worst}); K1's three modes over the client tree "
+        f"({n_leaves} leaves, {n_el} entries) bit for bit")
+    drive_round(
+        12, f"qwen2-1.5b round (N=2 h=1 n_pairs=1, 4x256 tokens per client, "
+        f"seed_replay) on {card}", setup,
+        {"zo_dual_matmul": QWEN_K2, "zo_dual_matmul_tc": QWEN_K2,
+         "zo_dual_flash_attention": 4, "zo_dual_flash_attention_tc": 4,
+         "zo_noise": QWEN_K1, "zo_matmul": 0, "flash_attention": 0,
+         "rg_lru_scan": 0})
+    time_draws("qwen2-1.5b client tree", state["client"], card)
+    del state, rb, rnd, setup
+
+
+def sphere_in_bf16(dev, card):
+    """Eq. 2's sphere direction on gpt2-small's bf16 client: u has norm
+    1 over d ~ 6.7e7 entries, so mu * u ~ 1e-3 / 8190 per entry, below
+    half the bf16 spacing of almost every weight: theta + mu*u rounds
+    back to theta but where theta is 0 (the biases).  Counts the entries
+    the probe moves and the coefficients of 4 pairs (printed, not
+    gated: a property of the reference's arithmetic, which the port
+    shares)."""
+    import torch
+    from repro_torch.configs.gpt2 import gpt2_small
+    from repro_torch.core import prng as R
+    from repro_torch.core import protocols as P
+    from repro_torch.core import zo as Z
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cfg = gpt2_small()
+    cp = T.init_lm(cfg, seed=0, device=dev)["client"]
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 257)), device=dev)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    zo = Z.ZOConfig(mu=1e-3, n_pairs=4, scale="sphere")
+    key = R.fold_in(ROUND_KEY, 9)
+    u = Z.unit_sphere_like(key, cp)
+    moved = sum(int((a != b).sum()) for a, b in zip(
+        tree_leaves(Z.add_scaled(cp, u, zo.mu)), tree_leaves(cp)))
+    del u
+    api = P.lm_api(cfg)
+    with torch.no_grad():
+        _, info = Z.zo_gradient(lambda q: api.client_loss(q, batch), cp,
+                                key, zo)
+    loss = float(info["loss"])
+    log(12, f"sphere in bf16 (gpt2-small client, d {Z.tree_size(cp)}, mu "
+        f"{zo.mu}): theta + mu*u differs from theta in {moved} entries; "
+        f"coefficients of 4 pairs {info['coeffs'].tolist()} (loss {loss}, "
+        f"one f32 ulp of it {float(np.spacing(np.float32(loss)))}) on "
+        f"{card}")
+    del cp
+
+
+def run_threefry_rounds(dev, card):
+    """The reference's default path (forward_impl="xla") at full width:
+    gpt2-small at phase 5's size with gaussian directions (bf16: see
+    sphere_in_bf16) and ResNet-18 at phase 6's with the sphere (f32).
+    The client's probes are plain forwards and the replay draws with
+    threefry: no K1-K6 launch."""
+    from repro_torch.configs.gpt2 import gpt2_small
+    from repro_torch.configs.resnet18_cifar import full_config
+    expect = dict(NO_ZO_KERNELS, rg_lru_scan=0)
+    setup = _round_setup(gpt2_small(), dev, n_clients=2, h=1, batch=4,
+                         seq=256, mu=1e-3, lr=1e-4, server_lr=2e-4,
+                         forward_impl="xla", scale="gaussian")
+    drive_round(12, f"gpt2-small threefry round (gaussian, N=2 h=1 "
+                f"n_pairs=1, 4x256 tokens per client, seed_replay) on {card}",
+                setup, expect)
+    time_draws("gpt2-small client tree", setup[0]["client"], card)
+    del setup
+    drive_round(12, f"resnet18 threefry round (sphere, N=5 h=1 n_pairs=1, "
+                f"64 images 32x32x3 per client, seed_replay) on {card}",
+                _cnn_round_setup(full_config(), dev, n_clients=5, h=1,
+                                 batch=64, hw=32, mu=1e-3, lr=2e-2,
+                                 server_lr=2e-3, forward_impl="xla",
+                                 scale="sphere"), expect)
+
+
+def check_threefry_small_rounds():
+    """Small rounds on the card against the CPU (check_small_round):
+    gpt2-tiny on the threefry stream in both scales with the mask drawn
+    from the round key (N=4, participation 0.5, straggler_prob 0.3; the
+    sphere at mu 1e-1 and lr 1e-4, see tests/torch_round_parity.py's
+    THREEFRY_RATES), and one kernel round on each dense smoke config."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.configs.gpt2 import gpt2_tiny
+    for scale, mu, lr in (("gaussian", 1e-2, 1e-3), ("sphere", 1e-1, 1e-4)):
+        check_small_round(
+            12, f"gpt2-tiny threefry {scale} round (N=4 h=1, participation "
+            f"0.5, straggler_prob 0.3, mask drawn)",
+            lambda d, s=scale, m=mu, r=lr: _round_setup(
+                gpt2_tiny(), d, n_clients=4, h=1, batch=2, seq=32, mu=m,
+                lr=r, server_lr=1e-4, seed=3, forward_impl="xla", scale=s,
+                fed_kw=dict(participation=0.5, straggler_prob=0.3)))
+    for name in ("qwen2-1.5b", "qwen2.5-32b", "command-r-35b",
+                 "gemma2-27b"):
+        check_small_round(
+            12, f"{name} smoke_config kernel round (N=2 h=1, 2x16 tokens)",
+            lambda d, a=name: _round_setup(
+                REG.get_config(a, smoke=True), d, n_clients=2, h=1, batch=2,
+                seq=16, mu=1e-2, lr=1e-3, server_lr=1e-4, seed=3,
+                server_eps=1e-6))
+
+
+def run_threefry_phase(dev, card):
+    import torch
+    check_threefry(dev)
+    run_threefry_rounds(dev, card)
+    torch.cuda.empty_cache()
+    sphere_in_bf16(dev, card)
+    check_threefry_small_rounds()
+    torch.cuda.empty_cache()
+    run_qwen_round(dev, card)
     torch.cuda.empty_cache()
 
 
@@ -2158,6 +2553,7 @@ def main():
     torch.cuda.empty_cache()
     check_rg_small_round()
     run_fo_phase(dev, card, counts_cnn["zo_dual_matmul"])
+    run_threefry_phase(dev, card)
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs)
     compiler_report()
     check_hgmma()

@@ -1,24 +1,27 @@
 """Fed-Server aggregation: FedAvg, partial participation and straggler
-masks, masked FedAvg and seed-replay reconstruction of the kernel noise
-stream, mirroring :mod:`repro.core.aggregate`.
+masks, masked FedAvg and seed-replay reconstruction, mirroring
+:mod:`repro.core.aggregate`.
 
-The masks draw from a ``torch.Generator``; the reference draws them
-from JAX's threefry stream, which the port does not reproduce yet, so
-a seed gives the same count and semantics but not the same clients.
-Parity tests pass JAX's mask in.
+The masks draw from JAX's threefry stream (:mod:`repro_torch.core.prng`):
+a key gives the reference's clients bit for bit.
 
 Seed replay rebuilds the cohort's client update from the lean uplink
-alone: per client an int32 seed and the (h, n_pairs) coefficients.  The
-(client, step, pair) stream is flattened in the JAX package's order,
-each entry regenerates one direction tree and adds it into one f32
-accumulator in the same pass (kernel K1's accumulate mode on the card),
-applied to the global params once.
+alone: per client a key (threefry stream) or an int32 seed (kernel
+stream) and the (h, n_pairs) coefficients.  The (client, step, pair)
+stream is flattened in the JAX package's order and walked once: each
+entry regenerates one direction tree and adds it into one f32
+accumulator (kernel K1's accumulate mode on the kernel stream), applied
+to the global params once.  The JAX package's ``shard`` / ``mesh`` /
+``chunk`` options split or bound its vmapped scan; an eager walk holds
+one direction at a time and has nothing for them to do.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import prng as R
+from repro_torch.core import zo as Z
 from repro_torch.kernels import ops as O
 from repro_torch.tree import tree_map
 
@@ -29,28 +32,26 @@ def fedavg(stacked_params):
                     .to(p.dtype), stacked_params)
 
 
-def participation_mask(gen: torch.Generator, n_clients: int,
-                       fraction: float):
-    """Exactly ``max(1, round(fraction * N))`` participants, uniformly
-    at random: an (N,) f32 mask on ``gen``'s device."""
+def participation_mask(key, n_clients: int, fraction: float):
+    """Exactly ``max(1, round(fraction * N))`` participants: the first of
+    ``jax.random.permutation(key, N)``.  An (N,) f32 CPU mask."""
     k = max(1, int(round(fraction * n_clients)))
-    perm = torch.randperm(n_clients, generator=gen, device=gen.device)
-    mask = torch.zeros((n_clients,), dtype=torch.float32, device=gen.device)
+    perm = R.permutation(key, n_clients)
+    mask = torch.zeros((n_clients,), dtype=torch.float32)
     mask[perm[:k]] = 1.0
     return mask
 
 
-def straggler_mask(gen: torch.Generator, n_clients: int, fraction: float,
+def straggler_mask(key, n_clients: int, fraction: float,
                    straggler_prob: float = 0.0):
-    """The participation mask with each participant dropped with
-    probability ``straggler_prob``; if every participant would drop, the
-    participation mask itself (the round never loses its whole
-    cohort)."""
-    base = participation_mask(gen, n_clients, fraction)
+    """The participation mask with each participant dropped where
+    ``bernoulli(fold_in(key, 1), straggler_prob)``; if every participant
+    would drop, the participation mask itself (the round never loses its
+    whole cohort)."""
+    base = participation_mask(key, n_clients, fraction)
     if straggler_prob <= 0:
         return base
-    drop = torch.rand((n_clients,), generator=gen,
-                      device=gen.device) < straggler_prob
+    drop = R.bernoulli(R.fold_in(key, 1), straggler_prob, (n_clients,))
     survived = base * (1.0 - drop.to(torch.float32))
     return survived if float(torch.sum(survived)) > 0 else base
 
@@ -67,50 +68,82 @@ def fedavg_masked(stacked_params, mask):
     return tree_map(avg, stacked_params)
 
 
-def replay_token_stream(client_seeds, client_coeffs, lr: float, weights,
-                        tot):
-    """Flatten a cohort's lean uplinks into ``(seeds, scales)``.
+def replay_token_stream(client_keys, client_coeffs, lr: float, weights,
+                        tot, kernel: bool = False):
+    """Flatten a cohort's lean uplinks into ``(tokens, scales)``.
 
-    ``client_seeds``: (N,) int32 seeds; ``client_coeffs``: (N, h,
-    n_pairs); ``weights``: (N,) f32 per-client multipliers (the
-    participation mask); ``tot``: the normalizer.  Entry (i, m, p) has
-    seed ``fold_seed(fold_seed(client_seeds[i], m), p)`` and scale
-    ``-lr * coeff * weights[i] / tot``.
+    ``client_keys``: (N, 2) keys (threefry stream) or (N,) int32 seeds
+    (``kernel=True``); ``client_coeffs``: (N, h, n_pairs); ``weights``:
+    (N,) f32 per-client multipliers (the participation mask); ``tot``:
+    the normalizer.  Entry (i, m, p) has the token ``fold_in(fold_in(
+    client_keys[i], m), p)`` (``fold_seed`` twice on the kernel stream)
+    and the scale ``-lr * coeff * weights[i] / tot``.
     """
     n, h, n_pairs = client_coeffs.shape
     flat = np.arange(n * h * n_pairs)
     i_idx = flat // (h * n_pairs)
     m_idx = (flat // n_pairs) % h
     p_idx = flat % n_pairs
-    seeds = O.fold_seed(O.fold_seed(
-        np.asarray(client_seeds, np.int64)[i_idx], m_idx), p_idx)
+    if kernel:
+        tokens = [int(s) for s in np.atleast_1d(O.fold_seed(O.fold_seed(
+            np.asarray(client_keys, np.int64)[i_idx], m_idx), p_idx))]
+    else:
+        ck = torch.stack([R.as_key(k) for k in client_keys])
+        tokens = R.fold_in_many(R.fold_in_many(
+            ck[torch.as_tensor(i_idx)], m_idx), p_idx)
     i_t = torch.as_tensor(i_idx, device=client_coeffs.device)
     scales = (-lr * client_coeffs.reshape(-1) * weights[i_t] / tot
               ).to(torch.float32)
-    return [int(s) for s in np.atleast_1d(seeds)], scales
+    return tokens, scales
+
+
+def _replay_walk(global_params, tokens, scales, add_direction):
+    """One pass over the token stream into one f32 accumulator, applied
+    to ``global_params`` at the end.  ``add_direction(acc, token,
+    scale)`` adds ``scale * u(token)`` into ``acc`` in place."""
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                         device=p.device), global_params)
+    for t, s in zip(tokens, scales):
+        add_direction(acc, t, s)
+    return tree_map(lambda p, a: (p.to(torch.float32) + a).to(p.dtype),
+                    global_params, acc)
+
+
+def _weights(client_coeffs, mask):
+    if mask is None:
+        mask = torch.ones((client_coeffs.shape[0],), dtype=torch.float32,
+                          device=client_coeffs.device)
+    mask = mask.to(client_coeffs.device)
+    return mask, torch.clamp(torch.sum(mask), min=1.0)
+
+
+def seed_replay_aggregate(global_params, client_keys, client_coeffs,
+                          lr: float, zo: Z.ZOConfig, mask=None):
+    """Reconstruct the FedAvg'd client update from threefry (key, coeff)
+    uplinks: entry (i, m, p) regenerates ``direction_like(fold_in(
+    fold_in(client_keys[i], m), p))``, the direction client i's step m
+    drew for pair p, and adds ``scale * u`` into the accumulator.
+    Server memory: the accumulator and one direction."""
+    mask, tot = _weights(client_coeffs, mask)
+    keys, scales = replay_token_stream(client_keys, client_coeffs, lr,
+                                       mask, tot)
+
+    def add_direction(acc, kp, s):
+        Z.accumulate(acc, Z.direction_like(kp, global_params, zo), s)
+
+    return _replay_walk(global_params, keys, scales, add_direction)
 
 
 def seed_replay_aggregate_kernel(global_params, client_seeds, client_coeffs,
                                  lr: float, mask=None, seed_pred=None):
-    """Reconstruct the FedAvg'd client update from (seed, coeff) uplinks.
-
-    One walk over the flattened stream, each entry one K1 launch that
-    adds ``s * U`` into one f32 accumulator: server memory is the
-    accumulator, whatever the cohort's size, and no direction is
-    materialised.  (The JAX package's ``chunk=`` bounds the memory of its
-    vmapped direction batches; an eager walk has none to bound.)
-    """
-    n = client_coeffs.shape[0]
-    if mask is None:
-        mask = torch.ones((n,), dtype=torch.float32,
-                          device=client_coeffs.device)
-    tot = torch.clamp(torch.sum(mask), min=1.0)
+    """The same walk on the kernel stream: each entry one K1 launch that
+    adds ``s * U`` into the accumulator, no direction materialised."""
+    mask, tot = _weights(client_coeffs, mask)
     seeds, scales = replay_token_stream(client_seeds, client_coeffs, lr,
-                                        mask, tot)
-    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device), global_params)
-    for sp, s in zip(seeds, scales):
+                                        mask, tot, kernel=True)
+
+    def add_direction(acc, sp, s):
         O.accumulate_direction_tree(
             acc, O.leaf_seed_tree(global_params, sp, seed_pred), s)
-    return tree_map(lambda p, a: (p.to(torch.float32) + a).to(p.dtype),
-                    global_params, acc)
+
+    return _replay_walk(global_params, seeds, scales, add_direction)

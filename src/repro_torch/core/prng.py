@@ -1,0 +1,217 @@
+"""JAX's threefry PRNG in plain PyTorch integer arithmetic: the subset of
+``jax.random`` that the threefry ZO estimator, its seed replay and the
+round's participation masks call, bit for bit.
+
+Only the partitionable layout (``jax_threefry_partitionable=True``, which
+the JAX package sets on import) is reproduced.  In it every draw is the
+Threefry-2x32 hash of the key and a 64-bit counter (its high and low
+words): ``split(key, n)[i]`` is ``fold_in(key, i)``, and the 32-bit
+``random_bits`` of a shape are the two output words of flat counter
+``i`` xor-ed.
+
+A key is a ``(2,)`` int64 tensor on the CPU holding the two uint32
+words (torch's uint32 lacks shifts on some backends); every add and
+shift is masked back to 32 bits.  Draws land on the device asked for,
+in windows of ``WINDOW`` entries so the int64 temporaries stay bounded.
+
+``normal`` needs XLA's f32 ``ErfInv``: the polynomial of M. Giles
+(XLA's ``ErfInv32``), whose Horner steps XLA:CPU contracts into fused
+multiply-adds.  PyTorch has no FMA op, so each step runs in f64 (the
+product of two f32 is exact there) and rounds to f32 once: normals
+agree with JAX's within a few f32 ulps, most of them exactly.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+M32 = 0xFFFFFFFF
+WINDOW = 1 << 24            # entries drawn at once (int64 temporaries)
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+# XLA's ErfInv32 coefficients (Giles), for w < 5 and for w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+_F32 = np.float32
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to f32, as a Python float (f64) that holds it
+    exactly."""
+    return float(_F32(v))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 (20 rounds) of counters ``(x0, x1)`` under key
+    ``(k0, k1)``.  Keys are ints or int64 tensors, counters int64
+    tensors; all hold uint32 values.  Returns the two output words.
+    The counters are consumed (updated in place)."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = x0.add_(ks[0]).bitwise_and_(M32)
+    x1 = x1.add_(ks[1]).bitwise_and_(M32)
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0.add_(x1).bitwise_and_(M32)
+            hi = x1 << r
+            x1.bitwise_right_shift_(32 - r).bitwise_or_(hi)
+            x1.bitwise_and_(M32).bitwise_xor_(x0)
+            del hi
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(M32)
+        x1.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(M32)
+    return x0, x1
+
+
+def as_key(key) -> torch.Tensor:
+    """A key as a ``(2,)`` int64 CPU tensor: from this module, from the
+    JAX package's raw uint32 key data (as numpy), or any two words."""
+    if isinstance(key, torch.Tensor):
+        return (key.detach().to("cpu", torch.int64) & M32).reshape(2)
+    return torch.tensor([int(w) & M32 for w in np.asarray(key).reshape(-1)],
+                        dtype=torch.int64).reshape(2)
+
+
+def _words(key):
+    k = as_key(key)
+    return int(k[0]), int(k[1])
+
+
+def PRNGKey(seed: int) -> torch.Tensor:    # noqa: N802 (jax's name)
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed: the words are the
+    seed's high 32 bits (0) and its low 32 bits."""
+    seed = int(seed)
+    if not -2 ** 31 <= seed < 2 ** 32:
+        raise ValueError(f"seed {seed} does not fit in 32 bits")
+    return torch.tensor([0, seed & M32], dtype=torch.int64)
+
+
+def fold_in_many(key, data) -> torch.Tensor:
+    """``fold_in(key, d)`` for every ``d`` of ``data``: an ``(n, 2)`` key
+    stack (CPU).  ``key`` is one key or an ``(n, 2)`` stack, one per
+    entry of ``data``."""
+    data = torch.as_tensor(np.asarray(data, np.int64).reshape(-1)) & M32
+    if isinstance(key, torch.Tensor) and key.dim() == 2:
+        k = key.to("cpu", torch.int64) & M32
+        k0, k1 = k[:, 0], k[:, 1]
+    else:
+        k0, k1 = _words(key)
+    o0, o1 = threefry2x32(k0, k1, torch.zeros_like(data), data.clone())
+    return torch.stack([o0, o1], dim=-1)
+
+
+def fold_in(key, data: int) -> torch.Tensor:
+    """``jax.random.fold_in``: the hash of counter ``(0, data)``."""
+    return fold_in_many(key, [data])[0]
+
+
+def split(key, n: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, n)`` (partitionable layout): ``(n, 2)``,
+    row ``i`` equal to ``fold_in(key, i)``."""
+    return fold_in_many(key, np.arange(n))
+
+
+def _bits_window(k0, k1, start: int, n: int, device) -> torch.Tensor:
+    """32-bit random bits of flat counters ``start .. start + n``."""
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    hi = idx >> 32
+    o0, o1 = threefry2x32(k0, k1, hi, idx.bitwise_and_(M32))
+    return o0.bitwise_xor_(o1)
+
+
+def _draw(key, shape, device, dtype, fn) -> torch.Tensor:
+    """``fn(bits)`` over the flat counters of ``shape``, a window at a
+    time, into one ``dtype`` tensor on ``device``."""
+    k0, k1 = _words(key)
+    n = math.prod(shape)
+    out = torch.empty((n,), dtype=dtype, device=device)
+    for s in range(0, n, WINDOW):
+        m = min(WINDOW, n - s)
+        out[s:s + m] = fn(_bits_window(k0, k1, s, m, device))
+    return out.reshape(tuple(shape))
+
+
+def random_bits(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)``: uint32 values in int64."""
+    return _draw(key, shape, device, torch.int64, lambda bits: bits)
+
+
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """f32 in [0, 1) from the top 23 bits: ``bits >> 9 | 1.0``, minus 1."""
+    fb = (bits >> 9).bitwise_or_(0x3F800000).to(torch.int32)
+    return fb.view(torch.float32) - 1.0
+
+
+def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once, as XLA:CPU's contracted multiply
+    and add (f64 holds the product of two f32 exactly)."""
+    return (a.double() * b + c).float()
+
+
+def _uniform_window(bits, minval: float, maxval: float):
+    """``max(lo, floats * (hi - lo) + lo)``, the affine step fused."""
+    lo = _f32(minval)
+    u = _fma32(_unit_floats(bits), _f32(_f32(maxval) - lo), lo)
+    return torch.clamp_min_(u, lo)
+
+
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    return _draw(key, shape, device, torch.float32,
+                 lambda bits: _uniform_window(bits, minval, maxval))
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``ErfInv`` (Giles' polynomial, FMA Horner steps)."""
+    w = -torch.log1p((x * -x).double()).float()
+    lt = w < 5.0
+    # f32 sqrt correctly rounded through f64 (torch's vectorised f32 sqrt
+    # on the CPU is not, and it is not the same on every element)
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    def coef(i):
+        return torch.where(lt, torch.tensor(_f32(_ERFINV_LT5[i]),
+                                            dtype=torch.float64,
+                                            device=x.device),
+                           torch.tensor(_f32(_ERFINV_GE5[i]),
+                                        dtype=torch.float64, device=x.device))
+
+    p = coef(0).float()
+    w = w.double()
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma32(p, w, coef(i))
+    out = p * x
+    return torch.where(x.abs() == 1.0, x * math.inf, out)
+
+
+_NORMAL_LO = _f32(np.nextafter(_F32(-1.0), _F32(0.0)))
+_SQRT2 = _f32(math.sqrt(2.0))
+
+
+def normal(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: ``sqrt(2) *
+    erf_inv(uniform(key, shape, nextafter(-1, 0), 1))``."""
+    return _draw(key, shape, device, torch.float32, lambda bits: erf_inv(
+        _uniform_window(bits, _NORMAL_LO, 1.0)).mul_(_SQRT2))
+
+
+def permutation(key, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``jax.random._shuffle`` of
+    ``arange(n)``, ``ceil(3 ln n / ln(2^32 - 1))`` rounds of a split and
+    a stable sort on 32-bit random keys."""
+    x = torch.arange(n, dtype=torch.int64)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(M32)))
+    for _ in range(rounds):
+        key, sub = split(key, 2)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
+
+
+def bernoulli(key, p: float, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` in f32."""
+    return uniform(key, shape, device=device) < _f32(p)

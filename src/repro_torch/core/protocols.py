@@ -3,9 +3,12 @@
 of :mod:`repro.core.protocols`.
 
 * ``"heron"``: each of N clients takes h local steps of the
-  forward-only ZO estimator (the fused dual-probe forward: kernels K1-K3
-  on the card, K2 through im2col for the CNN's convs), under
-  ``torch.no_grad()``.
+  forward-only ZO estimator, under ``torch.no_grad()``.  With the
+  config's ``forward_impl="kernel"`` it is the fused dual-probe forward
+  on the kernel noise stream (kernels K1-K3 on the card, K2 through
+  im2col for the CNN's convs); with the reference's default ``"xla"`` it
+  is the paper's Eq. (2) on JAX's threefry stream: plain forwards, no
+  kernel.
 * ``"cse_fsl"`` / ``"fsl_sage"``: each client takes h first-order steps
   on its aux-head loss (``torch.autograd`` over the plain ops) with
   ``client_opt``.  In the federated round the two are the same method:
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import aggregate as AG
+from repro_torch.core import prng as R
 from repro_torch.core import zo as Z
 from repro_torch.core.split import (dequantize_smashed, param_bytes,
                                     quantize_smashed)
@@ -61,11 +65,31 @@ class ModelAPI:
     # (server_params, client_const, smashed, batch) -> loss
     server_loss: Callable
     joint_loss: Callable    # (client_params, server_params, batch) -> loss
-    # (client_params, batch, seeds_tree, mu) -> (l_clean, l_pert, smashed):
-    # both ZO losses of one pair from a single dual-batch forward
-    client_dual_loss: Callable
+    # forward_impl="kernel" only: (client_params, batch, seeds_tree, mu)
+    # -> (l_clean, l_pert, smashed), both ZO losses of one pair from a
+    # single dual-batch forward; None on the threefry path
+    client_dual_loss: Callable | None = None
     # leaf-seed predicate the estimator AND the server replay share
     seed_pred: Callable | None = None
+
+
+FORWARD_IMPLS = ("xla", "kernel")
+
+
+def kernel_forward(cfg) -> bool:
+    """Whether a config's ``forward_impl`` takes the kernel path (the
+    fused dual probe) or the threefry path (``"xla"``, the reference's
+    default).  The reference's ``"kernel_interpret"`` runs its Pallas
+    kernels in interpret mode; the port has no such mode."""
+    fi = getattr(cfg, "forward_impl", "xla")
+    if fi == "kernel_interpret":
+        raise ValueError("forward_impl='kernel_interpret' is the JAX "
+                         "package's Pallas interpret mode; the port's "
+                         "kernel path is forward_impl='kernel' (plain "
+                         "versions on CPU tensors)")
+    if fi not in FORWARD_IMPLS:
+        raise ValueError(f"forward_impl {fi!r} not in {FORWARD_IMPLS}")
+    return fi == "kernel"
 
 
 def lm_api(cfg: ModelConfig) -> ModelAPI:
@@ -101,6 +125,8 @@ def lm_api(cfg: ModelConfig) -> ModelAPI:
         lp = T.lm_loss(logits2[B:], lbl, cfg.vocab)
         return l0, lp, s2[:B]
 
+    if not kernel_forward(cfg):
+        return ModelAPI(client_loss, aux_loss, server_loss, joint_loss)
     seed_pred = O.attn_kv_seed_pred if cfg.attn_probe == "scores" else None
     return ModelAPI(client_loss, aux_loss, server_loss, joint_loss,
                     client_dual_loss, seed_pred)
@@ -132,7 +158,7 @@ def cnn_api(cfg: CNN.CNNConfig) -> ModelAPI:
         return l0, lp, s2[:B]
 
     return ModelAPI(client_loss, aux_loss, server_loss, joint_loss,
-                    client_dual_loss)
+                    client_dual_loss if kernel_forward(cfg) else None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,8 +175,8 @@ UPLINKS = ("dense", "seed_replay")
 
 
 def seed_replay_uplink_bytes(n_clients: int, h: int, n_pairs: int) -> int:
-    """Bytes on the wire for the lean uplink: per client one 64-bit seed
-    word plus h·n_pairs fp32 projected-gradient coefficients."""
+    """Bytes on the wire for the lean uplink: per client one 64-bit key
+    plus h·n_pairs fp32 projected-gradient coefficients."""
     return n_clients * (h * n_pairs * 4 + 8)
 
 
@@ -193,19 +219,27 @@ def make_local_update(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
     (cp, oc, smashed, loss, coeffs)``.
 
     HERON estimates the gradient from forward passes alone, under
-    ``torch.no_grad()``, and steps with plain SGD at ``client_lr`` on the
+    ``torch.no_grad()``: on the kernel stream (``seed`` an int32, where
+    the API has a ``client_dual_loss``) or on the threefry stream
+    (``seed`` a key).  It steps with plain SGD at ``client_lr`` on the
     lean uplink or with ``client_opt``; ``coeffs`` are its (n_pairs,)
     projected-gradient coefficients.  The first-order clients take
     autograd of ``client_loss`` and step with ``client_opt``; their
     ``coeffs`` are zeros and ``seed`` is unused.  ``smashed`` is the
     forward's cut activation before the step, detached."""
     if method == "heron":
+        def estimate(cp, batch, seed):
+            if api.client_dual_loss is None:
+                return Z.zo_gradient(lambda cpx: api.client_loss(cpx, batch),
+                                     cp, seed, zo_cfg)
+            return Z.zo_gradient_kernel(
+                lambda cpx, seeds, mu: api.client_dual_loss(
+                    cpx, batch, seeds, mu),
+                cp, seed, zo_cfg, seed_pred=api.seed_pred)
+
         def local_update(cp, oc, batch, seed):
             with torch.no_grad():
-                g, info = Z.zo_gradient_kernel(
-                    lambda cpx, seeds, mu: api.client_dual_loss(
-                        cpx, batch, seeds, mu),
-                    cp, seed, zo_cfg, seed_pred=api.seed_pred)
+                g, info = estimate(cp, batch, seed)
                 if uplink == "seed_replay":
                     cp = Z.add_scaled(cp, g, -client_lr)
                 else:
@@ -279,21 +313,21 @@ def make_fed_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
                    fed: FedConfig, client_opt: Optimizer,
                    server_opt: Optimizer, uplink: str = "dense",
                    client_lr: float | None = None):
-    """Returns ``round(state, round_batch, base_seed, mask=None) ->
+    """Returns ``round(state, round_batch, key, mask=None) ->
     (state, metrics)``.
 
     ``state = {"client", "server", "opt_server"}``; ``round_batch`` holds
-    tensors with leading (N, h) dims; ``base_seed`` is the round's int32
-    seed (client i's seed is ``fold_seed(base_seed, i)``); ``mask`` the
-    (N,) participation mask.  Without one, the round draws
-    ``aggregate.straggler_mask`` from a CPU ``torch.Generator`` seeded
-    with ``fold_seed(base_seed, 777)`` when ``participation < 1`` or
-    ``straggler_prob > 0``, and takes all ones otherwise.  The reference
-    draws its mask from JAX's threefry stream, which the port does not
-    reproduce, so a parity test passes JAX's mask in.
+    tensors with leading (N, h) dims; ``key`` is the round's PRNG key,
+    the reference's two uint32 words (:func:`repro_torch.core.prng.
+    as_key` takes a JAX key's data as it is).  HERON's clients draw on
+    the kernel stream (client i's seed ``fold_seed(seed_from_key(key),
+    i)``, step m's ``fold_seed(., m)``) or on the threefry stream (client
+    i's key ``fold_in(key, i)``, step m's ``fold_in(., m)``).  The
+    (N,) participation mask is ``aggregate.straggler_mask(fold_in(key,
+    777), ...)``, as the reference draws it; ``mask=`` overrides it.
     ``uplink="seed_replay"`` is the paper's lean uplink (HERON only):
     clients step with plain SGD at ``client_lr`` and the Fed-Server
-    replays their directions from (seed, coeffs); it matches ``"dense"``
+    replays their directions from (key, coeffs); it matches ``"dense"``
     exactly at h == 1.
     """
     if method not in METHODS:
@@ -309,13 +343,11 @@ def make_fed_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
                              "Fed-Server replays plain-SGD local steps")
     N, h = fed.n_clients, fed.h
 
-    def round_mask(base_seed, device):
-        if fed.participation < 1 or fed.straggler_prob > 0:
-            gen = torch.Generator().manual_seed(
-                O.fold_seed(base_seed, 777) & 0xFFFFFFFF)
-            return AG.straggler_mask(gen, N, fed.participation,
-                                     fed.straggler_prob).to(device)
-        return torch.ones((N,), dtype=torch.float32, device=device)
+    def round_mask(key, mask, device):
+        if mask is None:
+            mask = AG.straggler_mask(R.fold_in(key, 777), N,
+                                     fed.participation, fed.straggler_prob)
+        return torch.as_tensor(mask, dtype=torch.float32).to(device)
 
     def dense_metrics(state, losses, s_losses, mask):
         dense_bytes = float(N * param_bytes(state["client"]))
@@ -328,7 +360,7 @@ def make_fed_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
     if method in LOCKED_METHODS:
         step = make_locked_step(api, client_opt, server_opt)
 
-        def locked_round(state, round_batch, base_seed, mask=None):
+        def locked_round(state, round_batch, key, mask=None):
             cps, sps, losses = [], [], []
             sp, os_ = state["server"], state["opt_server"]
             for i in range(N):
@@ -346,8 +378,7 @@ def make_fed_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
                 # the replicas' mean; the reference returns the round's
                 # server optimizer state unchanged, and so does the port
                 sp, os_ = AG.fedavg(_stack(sps)), state["opt_server"]
-            if mask is None:
-                mask = round_mask(base_seed, losses[0].device)
+            mask = round_mask(key, mask, losses[0].device)
             with torch.no_grad():
                 new_client = AG.fedavg_masked(_stack(cps), mask)
             return ({"client": new_client, "server": sp, "opt_server": os_},
@@ -359,16 +390,23 @@ def make_fed_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
                                      client_lr)
     server_updates = _make_server_updates(api, fed, server_opt)
 
-    def round_fn(state, round_batch, base_seed, mask=None):
-        client_seeds = O.fold_seed(base_seed, np.arange(N))
+    kernel_client = api.client_dual_loss is not None and method == "heron"
+
+    def round_fn(state, round_batch, key, mask=None):
+        key = R.as_key(key)
+        if kernel_client:
+            client_keys = O.fold_seed(Z.seed_from_key(key), np.arange(N))
+        else:
+            client_keys = Z.fold_in_range(key, N)
         cps, smashed, losses, coeffs = [], [], [], []
         for i in range(N):
             cp, oc = state["client"], client_opt.init(state["client"])
             sm_i, co_i = [], []
             for m in range(h):
+                step_key = (O.fold_seed(client_keys[i], m) if kernel_client
+                            else R.fold_in(client_keys[i], m))
                 cp, oc, s, loss, co = local_update(
-                    cp, oc, _slice_batch(round_batch, i, m),
-                    O.fold_seed(client_seeds[i], m))
+                    cp, oc, _slice_batch(round_batch, i, m), step_key)
                 sm_i.append(s)
                 co_i.append(co)
                 losses.append(loss)
@@ -382,14 +420,18 @@ def make_fed_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
             state["server"], state["opt_server"], cp_const, round_batch,
             smashed)
 
-        if mask is None:
-            mask = round_mask(base_seed, losses[0].device)
+        mask = round_mask(key, mask, losses[0].device)
         metrics = dense_metrics(state, losses, s_losses, mask)
         with torch.no_grad():
             if uplink == "seed_replay":
-                new_client = AG.seed_replay_aggregate_kernel(
-                    state["client"], client_seeds, torch.stack(coeffs),
-                    client_lr, mask, seed_pred=api.seed_pred)
+                if kernel_client:
+                    new_client = AG.seed_replay_aggregate_kernel(
+                        state["client"], client_keys, torch.stack(coeffs),
+                        client_lr, mask, seed_pred=api.seed_pred)
+                else:
+                    new_client = AG.seed_replay_aggregate(
+                        state["client"], client_keys, torch.stack(coeffs),
+                        client_lr, zo_cfg, mask)
                 metrics["uplink_bytes"] = float(seed_replay_uplink_bytes(
                     N, h, zo_cfg.n_pairs))
             else:

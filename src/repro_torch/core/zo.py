@@ -1,31 +1,45 @@
-"""The kernel-stream two-point ZO estimator, mirroring the kernel half of
-:mod:`repro.core.zo`.
+"""The two-point zeroth-order (ZO) estimators of :mod:`repro.core.zo`.
 
-Each parameter leaf gets an int32 hash seed (``base + path_hash``, see
+**The threefry stream** (the reference's default path,
+``forward_impl="xla"``) is the paper's Eq. (2)::
+
+    g_hat = (d / mu) * [l(theta + mu*u) - l(theta)] * u,  u ~ Unif(S^{d-1})
+
+``u`` is drawn leaf by leaf from JAX's threefry stream
+(:mod:`repro_torch.core.prng`, bit for bit up to the normals' few ulps),
+so a client update travels as ``(key, coeffs)`` and the Fed-Server
+regenerates it.  ``ZOConfig.scale`` picks the unit sphere with the
+``d`` factor (``"sphere"``) or plain standard normals (``"gaussian"``).
+The clean and the perturbed loss are two plain forwards: no kernel.
+
+**The kernel stream** (``forward_impl="kernel"``): each parameter leaf
+gets an int32 hash seed (``base + path_hash``, see
 :func:`repro_torch.kernels.ops.leaf_seed_tree`) and the model's forward
 generates the perturbation inside the matmul and attention kernels.
 Both losses of a pair come out of ONE fused dual-probe pass.  The noise
 is unit-variance uniform, iid per entry (the gaussian-type contract):
-``coeff = (l_pert - l_clean) / mu / n_pairs``.
-
-The base seed is an int32 the caller passes in; deriving it from a JAX
-PRNG key (``repro.core.zo.seed_from_key``) stays on the JAX side.
+``coeff = (l_pert - l_clean) / mu / n_pairs``.  A round's int32 base
+seed comes from its key through :func:`seed_from_key`.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
 
+from repro_torch.core import prng as R
 from repro_torch.kernels import ops as O
-from repro_torch.tree import tree_map
+from repro_torch.tree import (tree_leaves, tree_leaves_with_path, tree_map,
+                              tree_map_with_path)
 
 
 @dataclasses.dataclass(frozen=True)
 class ZOConfig:
     mu: float = 1e-3
     n_pairs: int = 1            # number of two-point perturbation pairs
+    scale: str = "sphere"       # sphere (Eq. 2, with d factor) | gaussian
 
 
 def add_scaled(params, direction, scale):
@@ -37,6 +51,126 @@ def add_scaled(params, direction, scale):
 
 def _zeros_f32(p):
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+# ---------------------------------------------------------------------------
+# the threefry stream
+# ---------------------------------------------------------------------------
+
+def tree_size(tree) -> int:
+    return int(sum(leaf.numel() for leaf in tree_leaves(tree)))
+
+
+def _jax_leaves(tree):
+    """``[(path, leaf)]`` in JAX's flatten order (dict keys sorted)."""
+    return tree_leaves_with_path(tree, sort_keys=True)
+
+
+def normal_like(key, tree):
+    """Per-leaf f32 standard normals: leaf ``i`` of JAX's flatten order
+    gets key ``i`` of ``split(key, n_leaves)``.  The result has
+    ``tree``'s structure, each leaf on its leaf's device."""
+    paths = [p for p, _ in _jax_leaves(tree)]
+    keys = dict(zip(paths, R.split(key, max(len(paths), 1))))
+    return tree_map_with_path(
+        lambda path, leaf: R.normal(keys[path], leaf.shape, leaf.device),
+        tree)
+
+
+def global_norm(tree):
+    """``sqrt(sum of squares + 1e-30)`` in f32, summed leaf by leaf in
+    JAX's flatten order."""
+    tot = None
+    for _, leaf in _jax_leaves(tree):
+        s = torch.sum(torch.square(leaf.to(torch.float32)))
+        tot = s if tot is None else tot + s
+    return torch.sqrt(tot + 1e-30)
+
+
+def unit_sphere_like(key, tree):
+    """u ~ Unif(S^{d-1}) over the flattened tree (||u||_2 = 1)."""
+    z = normal_like(key, tree)
+    nrm = global_norm(z)
+    return tree_map(lambda leaf: leaf.div_(nrm), z)
+
+
+def fold_in_range(key, n: int):
+    """``(n, 2)`` keys ``fold_in(key, i)`` for ``i < n``."""
+    return R.fold_in_many(key, np.arange(n))
+
+
+def direction_like(key, tree, zo: ZOConfig):
+    """The pair direction u for one folded key, per the configured
+    scale."""
+    if zo.scale == "sphere":
+        return unit_sphere_like(key, tree)
+    return normal_like(key, tree)
+
+
+def accumulate(g, u, coeff):
+    """``g + coeff * u`` leaf by leaf, in place into the f32 tree ``g``
+    (the gradient or the replay accumulator)."""
+    return tree_map(lambda gl, ul: gl.add_(coeff * ul), g, u)
+
+
+def zo_gradient(loss_fn: Callable, params, key, zo: ZOConfig):
+    """Two-point ZO gradient of ``loss_fn`` at ``params`` on the
+    threefry stream.
+
+    ``loss_fn(params) -> (loss, aux)``.  Pair ``p`` takes direction
+    ``direction_like(fold_in(key, p))``; its coefficient is
+    ``dim_factor * (l_pert - l_clean) / mu / n_pairs`` with
+    ``dim_factor = d`` for the sphere and 1 for gaussian.  Returns
+    ``(grad_tree, info)``: the f32 gradient and the clean loss, its aux
+    and the ``(n_pairs,)`` coefficients.  Cost: ``1 + n_pairs`` forward
+    passes."""
+    d = tree_size(params)
+    l0, aux0 = loss_fn(params)
+    dim_factor = float(d) if zo.scale == "sphere" else 1.0
+    g = tree_map(_zeros_f32, params)
+    coeffs = []
+    for kp in fold_in_range(key, zo.n_pairs):
+        u = direction_like(kp, params, zo)
+        lp, _ = loss_fn(add_scaled(params, u, zo.mu))
+        coeff = dim_factor * (lp - l0) / zo.mu / zo.n_pairs
+        accumulate(g, u, coeff)
+        coeffs.append(coeff)
+        del u
+    coeffs = (torch.stack(coeffs) if coeffs else
+              torch.zeros((0,), dtype=torch.float32, device=l0.device))
+    return g, {"loss": l0, "aux": aux0, "coeffs": coeffs}
+
+
+def zo_projected_coeffs(loss_fn: Callable, params, key, zo: ZOConfig):
+    """The lean uplink alone: ``(coeffs, loss)``."""
+    _, info = zo_gradient(loss_fn, params, key, zo)
+    return info["coeffs"], info["loss"]
+
+
+def replay_gradient(params, key, coeffs, zo: ZOConfig):
+    """Regenerate the threefry ZO gradient from ``(key, coeffs)``:
+    ``sum_p coeff_p u_p``, the accumulation of :func:`zo_gradient` minus
+    the forward passes."""
+    g = tree_map(_zeros_f32, params)
+    for kp, coeff in zip(fold_in_range(key, coeffs.shape[0]), coeffs):
+        accumulate(g, direction_like(kp, params, zo), coeff)
+    return g
+
+
+def replay_update(params, key, coeffs, lr, zo: ZOConfig):
+    """theta - lr * sum_p coeff_p u_p, rebuilt from ``(key, coeffs)``."""
+    return add_scaled(params, replay_gradient(params, key, coeffs, zo), -lr)
+
+
+# ---------------------------------------------------------------------------
+# the kernel stream
+# ---------------------------------------------------------------------------
+
+def seed_from_key(key) -> int:
+    """The int32 base seed of a key: its two words xor-ed."""
+    k0, k1 = (int(w) for w in R.as_key(key))
+    x = k0 ^ k1
+    return x - (1 << 32) if x >= 1 << 31 else x
 
 
 def pair_seeds(base_seed, n_pairs: int):

@@ -38,6 +38,9 @@ class CNNConfig:
     client_blocks: int = 1       # residual blocks on the client
     groups: int = 8
     param_dtype: str = "float32"
+    forward_impl: str = "xla"    # xla | kernel: the threefry probe, or the
+                                 # ZO perturbed client forward through the
+                                 # dual-probe matmul kernel (im2col convs)
 
     def torch_param_dtype(self) -> torch.dtype:
         return DTYPES[self.param_dtype]

@@ -53,6 +53,11 @@ class ModelConfig:
     attn_impl: str = "blocked"     # naive | blocked
     q_chunk: int = 1024
     kv_chunk: int = 1024
+    forward_impl: str = "xla"      # xla | kernel: the client's ZO probe on
+                                   # JAX's threefry stream (plain
+                                   # forwards, the reference's default) or
+                                   # on the hash stream inside the fused
+                                   # dual-probe kernels
     attn_probe: str = "weights"    # weights | scores: where the dual probe
                                    # perturbs attention (q/k/v/o weights,
                                    # or the pre-softmax scores with k/v

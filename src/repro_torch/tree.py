@@ -25,19 +25,39 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
-def tree_leaves_with_path(tree, path: str = ""):
-    """``[(path, leaf), ...]`` in traversal order, ``None`` skipped."""
+def tree_map_with_path(fn: Callable, tree, path: str = ""):
+    """``fn(path, leaf)`` over the leaves of ``tree``; ``None`` stays
+    ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, _join(path, k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, _join(path, i))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _join(path: str, k) -> str:
+    return f"{path}/{k}" if path else str(k)
+
+
+def tree_leaves_with_path(tree, path: str = "", sort_keys: bool = False):
+    """``[(path, leaf), ...]`` in traversal order, ``None`` skipped.
+    ``sort_keys`` walks dicts in sorted key order: JAX's flatten order,
+    which the threefry stream gives its per-leaf keys in."""
     if tree is None:
         return []
     if isinstance(tree, dict):
-        items = tree.items()
+        items = sorted(tree.items()) if sort_keys else tree.items()
     elif isinstance(tree, (list, tuple)):
         items = enumerate(tree)
     else:
         return [(path, tree)]
     out = []
     for k, v in items:
-        out += tree_leaves_with_path(v, f"{path}/{k}" if path else str(k))
+        out += tree_leaves_with_path(v, _join(path, k), sort_keys)
     return out
 
 

@@ -41,7 +41,8 @@ KEY = jax.random.PRNGKey(9)
 def _cfgs(client_blocks):
     jcfg = dataclasses.replace(jax_smoke_config(),
                                client_blocks=client_blocks)
-    cfg = dataclasses.replace(smoke_config(), client_blocks=client_blocks)
+    cfg = dataclasses.replace(smoke_config(), client_blocks=client_blocks,
+                              forward_impl="kernel")
     return jcfg, cfg
 
 
@@ -172,7 +173,7 @@ def test_round_params_match_jax(setup, h):
                            P.FedConfig(n_clients=N, h=h), OPT.zo_sgd(LR),
                            sopt, uplink="seed_replay", client_lr=LR)
     new, m = rnd(state, {k: torch.as_tensor(v) for k, v in rb.items()},
-                 int(JZ.seed_from_key(KEY)))
+                 np.asarray(KEY))
 
     for part in ("client", "server"):
         got = _sorted_leaves(new[part])

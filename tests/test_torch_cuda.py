@@ -411,7 +411,7 @@ def _fo_small_round(method, dev, kind):
              "opt_server": opt.init(params["server"])}
     rnd = P.make_fed_round(api, method, Z.ZOConfig(mu=1e-2),
                            P.FedConfig(n_clients=2, h=2), opt, opt)
-    return rnd(state, rb, 5)
+    return rnd(state, rb, (0, 5))
 
 
 @pytest.mark.gpu
@@ -440,3 +440,71 @@ def test_cuda_fo_round_matches_cpu(method, monkeypatch):
                 d = (a.cpu().float() - b.float()).abs()
                 assert bool((d <= 1e-5 + 1e-4 * b.float().abs()).all()), (
                     kind, part, float(d.max()))
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _threefry_round(dev, scale):
+    """A small HERON round on the threefry stream (gpt2-tiny, N=4, h=1,
+    participation 0.5 with stragglers: the mask drawn from the key)."""
+    from repro_torch.configs.gpt2 import gpt2_tiny
+    from repro_torch.core import protocols as P
+    from repro_torch.core import zo as Z
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adamw, zo_sgd
+    cfg = gpt2_tiny()
+    params = T.init_lm(cfg, seed=0, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (4, 1, 2, 17)), device=dev)
+    rb = {"inputs": toks[..., :-1], "labels": toks[..., 1:]}
+    mu, lr = (1e-2, 1e-3) if scale == "gaussian" else (1e-1, 1e-4)
+    sopt = adamw(1e-4)
+    state = {"client": params["client"], "server": params["server"],
+             "opt_server": sopt.init(params["server"])}
+    rnd = P.make_fed_round(
+        P.lm_api(cfg), "heron", Z.ZOConfig(mu=mu, scale=scale),
+        P.FedConfig(n_clients=4, h=1, participation=0.5,
+                    straggler_prob=0.3), zo_sgd(lr), sopt,
+        uplink="seed_replay", client_lr=lr)
+    return rnd(state, rb, (0, 77))
+
+
+@pytest.mark.gpu
+def test_cuda_threefry_matches_golden_and_cpu():
+    """The card's threefry against chip_smoke.py's golden table (JAX's
+    draws): bits, uniforms and Bernoulli bit for bit, normals within 4
+    ulps; and a small threefry round on the card against the CPU
+    (losses rtol 1e-4, params |d| <= 1e-5 + 1e-4 |p|), with no K1-K5
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.core import prng as PR
+    from repro_torch.tree import tree_leaves
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    cs.check_threefry(dev)
+    g = cs.THREEFRY_GOLDEN
+    k = PR.fold_in(PR.PRNGKey(g["seed"]), 777)
+    assert PR.random_bits(k, (8,), dev).cpu().tolist() == g["bits_8"]
+    for scale in ("gaussian", "sphere"):
+        before = {**ZM.LAUNCHES, **FA.LAUNCHES}
+        (gc, mc), (pc, mp) = (_threefry_round(d, scale) for d in (
+            dev, torch.device("cpu")))
+        assert {**ZM.LAUNCHES, **FA.LAUNCHES} == before
+        assert float(mc["participants"]) == float(mp["participants"])
+        for key in ("client_loss", "server_loss"):
+            assert abs(float(mc[key]) - float(mp[key])) <= 1e-4 * abs(
+                float(mp[key])), (scale, key)
+        for part in ("client", "server"):
+            for a, b in zip(tree_leaves(gc[part]), tree_leaves(pc[part])):
+                d = (a.cpu().float() - b.float()).abs()
+                assert bool((d <= 1e-5 + 1e-4 * b.float().abs()).all()), (
+                    scale, part, float(d.max()))

@@ -88,18 +88,19 @@ def _small_round(api, params, method, rb):
              "opt_server": sopt.init(params["server"])}
     rnd = P.make_fed_round(api, method, Z.ZOConfig(mu=MU),
                            P.FedConfig(n_clients=N, h=1), copt, sopt)
-    rnd(state, {k: torch.as_tensor(v) for k, v in rb.items()}, 7)
+    rnd(state, {k: torch.as_tensor(v) for k, v in rb.items()}, (0, 7))
 
 
 @pytest.mark.parametrize("method", ("heron",) + FO_METHODS)
 def test_fo_round_reaches_no_zo_kernel(calls, method):
     """A first-order round calls none of K1-K5 (K6 runs in the RG-LRU
     blocks only); the HERON round, the control, calls K1-K3."""
-    cfg = dataclasses.replace(gpt2_tiny(), attn_probe="weights")
+    cfg = dataclasses.replace(gpt2_tiny(), attn_probe="weights",
+                              forward_impl="kernel")
     params = T.init_lm(cfg, seed=0, device="cpu")
     _small_round(P.lm_api(cfg), params, method,
                  RP.round_batch("lm", N, 1, vocab=cfg.vocab))
-    ccfg = CNN.CNNConfig(**RP.CNN_KW)
+    ccfg = CNN.CNNConfig(**RP.CNN_KW, forward_impl="kernel")
     _small_round(P.cnn_api(ccfg), CNN.init_cnn(ccfg, seed=0, device="cpu"),
                  method, RP.round_batch("cnn", N, 1))
     if method == "heron":

@@ -91,7 +91,8 @@ def test_client_dual_loss_matches_jax(params, probe, mu, impl):
     interpret mode ("kernel_interpret")."""
     jcfg = dataclasses.replace(jax_gpt2_tiny(), forward_impl=impl,
                                attn_probe=probe)
-    cfg = dataclasses.replace(gpt2_tiny(), attn_probe=probe)
+    cfg = dataclasses.replace(gpt2_tiny(), attn_probe=probe,
+                              forward_impl="kernel")
     japi, api = JP.lm_api(jcfg, RULES), P.lm_api(cfg)
     assert (api.seed_pred is None) == (japi.seed_pred is None)
     inputs, labels = _tokens()

@@ -206,7 +206,8 @@ def test_client_dual_loss_matches_jax(params, mu):
     two RG-LRU client blocks run the whole-block fallback (clean params
     on the first half, theta + mu*U on the second)."""
     jcfg = dataclasses.replace(jax_smoke_config(), forward_impl="kernel")
-    japi, api = JP.lm_api(jcfg, RULES), P.lm_api(smoke_config())
+    japi = JP.lm_api(jcfg, RULES)
+    api = P.lm_api(dataclasses.replace(smoke_config(), forward_impl="kernel"))
     inputs, labels = _tokens()
     cp = params["client"]
     l0r, lpr, sr = jax.jit(japi.client_dual_loss)(
@@ -229,7 +230,7 @@ def test_single_probe_matches_jax_and_dual_l_pert(params, mu):
     alone; its loss is also the l_pert of the port's dual pass."""
     jcfg = dataclasses.replace(jax_smoke_config(),
                                forward_impl="kernel_interpret")
-    cfg = smoke_config()
+    cfg = dataclasses.replace(smoke_config(), forward_impl="kernel")
     cp = params["client"]
     inputs, labels = _tokens(seed=4)
     jpz = JO.Perturb(seeds=JO.leaf_seed_tree(cp, jnp.int32(77)), mu=mu,
@@ -278,12 +279,13 @@ def _port_round(params, rb, h):
     tp = from_jax(params, device="cpu")
     state = {"client": tp["client"], "server": tp["server"],
              "opt_server": sopt.init(tp["server"])}
-    rnd = P.make_fed_round(P.lm_api(smoke_config()), "heron",
+    kcfg = dataclasses.replace(smoke_config(), forward_impl="kernel")
+    rnd = P.make_fed_round(P.lm_api(kcfg), "heron",
                            Z.ZOConfig(mu=MU, n_pairs=1),
                            P.FedConfig(n_clients=N, h=h), OPT.zo_sgd(LR),
                            sopt, uplink="seed_replay", client_lr=LR)
     rb_t = {k: torch.as_tensor(v) for k, v in rb.items()}
-    return rnd(state, rb_t, int(JZ.seed_from_key(KEY)))
+    return rnd(state, rb_t, np.asarray(KEY))
 
 
 def _assert_tree_close(ours, ref, **tol):

@@ -70,7 +70,8 @@ def _jax_round(params, rb, h, uplink="seed_replay", probe="weights"):
 
 
 def _port_round(params, rb, h, uplink="seed_replay", probe="weights"):
-    cfg = dataclasses.replace(gpt2_tiny(), attn_probe=probe)
+    cfg = dataclasses.replace(gpt2_tiny(), forward_impl="kernel",
+                              attn_probe=probe)
     sopt = OPT.adamw(SERVER_LR)
     tp = from_jax(params, device="cpu")
     state = {"client": tp["client"], "server": tp["server"],
@@ -80,7 +81,7 @@ def _port_round(params, rb, h, uplink="seed_replay", probe="weights"):
                            P.FedConfig(n_clients=N, h=h), OPT.zo_sgd(LR),
                            sopt, uplink=uplink, client_lr=LR)
     rb_t = {k: torch.as_tensor(v) for k, v in rb.items()}
-    return rnd(state, rb_t, int(JZ.seed_from_key(KEY)))
+    return rnd(state, rb_t, np.asarray(KEY))
 
 
 def _assert_tree_close(ours, ref, **tol):
@@ -158,7 +159,8 @@ def test_replay_directions_bit_equal_and_coeffs_agree(params):
     tcp = from_jax(cp, device="cpu")
     rb = _round_batch(1)
     jcfg = dataclasses.replace(jax_gpt2_tiny(), forward_impl="kernel")
-    japi, api = JP.lm_api(jcfg, RULES), P.lm_api(gpt2_tiny())
+    japi = JP.lm_api(jcfg, RULES)
+    api = P.lm_api(dataclasses.replace(gpt2_tiny(), forward_impl="kernel"))
     for mu in (1e-3, 1e-2):
         zo, jzo = Z.ZOConfig(mu=mu), JZ.ZOConfig(mu=mu)
         seed = O.fold_seed(client_seeds[0], 0)

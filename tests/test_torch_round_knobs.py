@@ -22,6 +22,7 @@ from repro.models import cnn as JCNN
 from repro.optim import optimizers as JOPT
 from repro_torch.configs.gpt2 import gpt2_tiny
 from repro_torch.core import aggregate as AG
+from repro_torch.core import prng as R
 from repro_torch.core import protocols as P
 from repro_torch.core import split as S
 from repro_torch.core import zo as Z
@@ -48,9 +49,11 @@ KNOBS = {"upload_every2": dict(h=2, upload_every=2),
 def _heron_setup(kind):
     if kind == "lm":
         jcfg = dataclasses.replace(jax_gpt2_tiny(), forward_impl="kernel")
-        return RP.lm_setup(jcfg, gpt2_tiny())
+        return RP.lm_setup(jcfg, dataclasses.replace(gpt2_tiny(),
+                                                     forward_impl="kernel"))
     jcfg = JCNN.CNNConfig(**RP.CNN_KW, forward_impl="kernel")
-    japi, api, params = RP.cnn_setup()
+    _, _, params = RP.cnn_setup()
+    api = P.cnn_api(CNN.CNNConfig(**RP.CNN_KW, forward_impl="kernel"))
     return JP.cnn_api(jcfg), api, params
 
 
@@ -75,7 +78,7 @@ def test_upload_every_and_quantize_change_the_server_step():
     """The knobs reach the server: fewer server steps with k=2 (its AdamW
     step count), another server after the int8 uplink; the clients' ZO
     trajectory is the same."""
-    cfg = gpt2_tiny()
+    cfg = dataclasses.replace(gpt2_tiny(), forward_impl="kernel")
     params = T.init_lm(cfg, seed=0, device="cpu")
     rb = {k: torch.as_tensor(v) for k, v in RP.round_batch(
         "lm", N, 2, vocab=cfg.vocab).items()}
@@ -89,7 +92,7 @@ def test_upload_every_and_quantize_change_the_server_step():
                                P.FedConfig(n_clients=N, h=2, **kw),
                                OPT.zo_sgd(LR), sopt, uplink="seed_replay",
                                client_lr=LR)
-        out[name] = rnd(state, rb, 11)
+        out[name] = rnd(state, rb, R.PRNGKey(11))
     assert out["base"][0]["opt_server"]["step"] == N * 2
     assert out["k2"][0]["opt_server"]["step"] == N * 1
     assert out["q"][0]["opt_server"]["step"] == N * 2
@@ -161,15 +164,14 @@ def test_methods_match_jax():
                                         (3, 2 / 3), (4, 0.01), (7, 0.1)])
 def test_participation_mask_count(n, fraction):
     for seed in range(5):
-        m = AG.participation_mask(torch.Generator().manual_seed(seed), n,
-                                  fraction)
+        m = AG.participation_mask(R.PRNGKey(seed), n, fraction)
         assert m.shape == (n,) and m.dtype == torch.float32
         assert set(m.tolist()) <= {0.0, 1.0}
         assert int(m.sum()) == max(1, int(round(fraction * n)))
 
 
 def test_straggler_mask_drops_and_falls_back():
-    gen = lambda s: torch.Generator().manual_seed(s)   # noqa: E731
+    gen = R.PRNGKey
     # every participant drops: the participation mask itself
     for s in range(5):
         base = AG.participation_mask(gen(s), 6, 0.5)
@@ -202,11 +204,11 @@ def test_fedavg_matches_jax():
 
 @pytest.mark.parametrize("method", ["heron", "cse_fsl", "sflv2"])
 def test_round_mask_default_and_drawn(method):
-    """All ones at participation 1 (no draw); at participation < 1 or a
-    straggler probability the round draws the mask from the round seed:
+    """All ones at participation 1 (every client); at participation < 1 or a
+    straggler probability the round draws the mask from the round key:
     the right count, the same mask for the same seed, and only the
     participants' params reach the average."""
-    cfg = CNN.CNNConfig(**RP.CNN_KW)
+    cfg = CNN.CNNConfig(**RP.CNN_KW, forward_impl="kernel")
     params = CNN.init_cnn(cfg, seed=0, device="cpu")
     rb = {k: torch.as_tensor(v)
           for k, v in RP.round_batch("cnn", 4, 1).items()}
@@ -219,7 +221,7 @@ def test_round_mask_default_and_drawn(method):
         rnd = P.make_fed_round(P.cnn_api(cfg), method, Z.ZOConfig(mu=MU),
                                P.FedConfig(n_clients=4, h=1, **kw), copt,
                                sopt)
-        return rnd(state, rb, seed)
+        return rnd(state, rb, R.PRNGKey(seed))
 
     assert float(run(5)[1]["participants"]) == 4.0
     a, b = run(5, participation=0.5), run(5, participation=0.5)
@@ -227,9 +229,7 @@ def test_round_mask_default_and_drawn(method):
     for x, y in zip(RP.leaves(a[0]["client"]), RP.leaves(b[0]["client"])):
         np.testing.assert_array_equal(x, y)
     # the drawn mask, passed in, gives the same round
-    gen = torch.Generator().manual_seed(
-        P.O.fold_seed(5, 777) & 0xFFFFFFFF)
-    mask = AG.straggler_mask(gen, 4, 0.5, 0.0)
+    mask = AG.straggler_mask(R.fold_in(R.PRNGKey(5), 777), 4, 0.5, 0.0)
     c = P.make_fed_round(
         P.cnn_api(cfg), method, Z.ZOConfig(mu=MU),
         P.FedConfig(n_clients=4, h=1),
@@ -237,7 +237,7 @@ def test_round_mask_default_and_drawn(method):
         OPT.adamw(SERVER_LR))(
             {"client": params["client"], "server": params["server"],
              "opt_server": OPT.adamw(SERVER_LR).init(params["server"])},
-            rb, 5, mask=mask)
+            rb, R.PRNGKey(5), mask=mask)
     for x, y in zip(RP.leaves(a[0]["client"]), RP.leaves(c[0]["client"])):
         np.testing.assert_array_equal(x, y)
     s = run(5, straggler_prob=0.9)

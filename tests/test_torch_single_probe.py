@@ -116,7 +116,8 @@ def test_lm_single_probe_matches_jax(probe, mu):
     jcfg = dataclasses.replace(jax_gpt2_tiny(),
                                forward_impl="kernel_interpret",
                                attn_probe=probe)
-    cfg = dataclasses.replace(gpt2_tiny(), attn_probe=probe)
+    cfg = dataclasses.replace(gpt2_tiny(), attn_probe=probe,
+                              forward_impl="kernel")
     params = jax.tree.map(np.asarray,
                           JT.init_lm(jax.random.PRNGKey(0), jcfg))
     cp = params["client"]
@@ -149,7 +150,8 @@ def test_cnn_single_probe_matches_jax(client_blocks, mu):
     (K4 over im2col patches; client_blocks=2 adds the stride-2 proj)."""
     jcfg = dataclasses.replace(jax_smoke_config(),
                                client_blocks=client_blocks)
-    cfg = dataclasses.replace(smoke_config(), client_blocks=client_blocks)
+    cfg = dataclasses.replace(smoke_config(), client_blocks=client_blocks,
+                              forward_impl="kernel")
     params = jax.tree.map(np.asarray,
                           JCNN.init_cnn(jax.random.PRNGKey(0), jcfg))
     cp = params["client"]

@@ -3,8 +3,12 @@
 package and of the port from the same params (through the bridge), the
 same batches from a numpy seed and the same round key, and the
 comparison of the resulting states and metrics.  Not a test module."""
+import dataclasses
+
 import jax
+import ml_dtypes
 import numpy as np
+import pytest
 import torch
 
 from repro.configs.gpt2 import gpt2_tiny as jax_gpt2_tiny
@@ -27,6 +31,17 @@ from repro_torch.optim import optimizers as OPT
 jax.config.update("jax_platform_name", "cpu")
 
 RULES = AxisRules(mesh=None)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread while a module runs (import this fixture into a
+    test module to use it): the threefry path is many small torch ops,
+    and xdist runs several workers side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 # tests/test_torch_round.py's tolerance for the params after a round
 PARAM_TOL = dict(rtol=2e-5, atol=1e-6)
 # the small CNN of benchmarks/run.py:_fed_accuracy
@@ -81,7 +96,7 @@ def port_round(api, method, params, rb, fed, copt, sopt, key, zo,
              "opt_server": sopt.init(tp["server"])}
     rnd = P.make_fed_round(api, method, zo, fed, copt, sopt, **kw)
     return rnd(state, {k: torch.as_tensor(v) for k, v in rb.items()},
-               int(JZ.seed_from_key(key)),
+               np.asarray(key),
                mask=None if mask is None else torch.tensor(mask))
 
 
@@ -161,3 +176,83 @@ def fo_round_case(kind, setup, method, case, params=None):
     fo_round_pair(setup, method, rb,
                   dict(n_clients=FO_N, h=h, participation=part),
                   params=params, mask=jmask)
+
+
+# ---------------------------------------------------------------------------
+# HERON rounds on the threefry stream
+# ---------------------------------------------------------------------------
+
+# A coefficient is ``dim_factor (l_pert - l_clean) / mu``, and the two
+# packages' losses differ by a few f32 ulps (other summation orders), so
+# each client entry moves by about ``lr dim_factor |u| ulps / mu``:
+# ``lr ulps / mu`` for gaussian directions (|u| ~ 1), and ``lr sqrt(d)
+# ulps / mu`` on the sphere (|u| ~ 1 / sqrt(d); d ~ 1e5 on gpt2-tiny's
+# client).  Gaussian rounds run mu 1e-2 and client lr 1e-3, as the kernel
+# round's test; the sphere's sqrt(d) ~ 340 needs mu 1e-1 and client lr
+# 1e-4 to stay under PARAM_TOL (the conditioning argument of
+# tests/test_distributed.py's mu 1e-2).  scale -> (mu, client lr).
+THREEFRY_RATES = {"gaussian": (1e-2, 1e-3), "sphere": (1e-1, 1e-4)}
+THREEFRY_N, THREEFRY_SERVER_LR = 3, 1e-4
+
+
+def threefry_case_ids(cases):
+    return [f"h{h}-{scale}-{up}-p{part:.2f}-s{strag}"
+            for h, scale, up, part, strag in cases]
+
+
+def threefry_round_case(kind, case, key):
+    """One HERON round of each package on the threefry stream (the
+    configs' default ``forward_impl="xla"``), ``case = (h, scale,
+    uplink, participation, straggler_prob)``: the port draws its own
+    mask from ``key``.  Checks the states and the metrics."""
+    h, scale, uplink, part, strag = case
+    japi, api, params = lm_setup() if kind == "lm" else cnn_setup()
+    assert api.client_dual_loss is None and japi.client_dual_loss is None
+    mu, lr = THREEFRY_RATES[scale]
+    fed = dict(n_clients=THREEFRY_N, h=h, participation=part,
+               straggler_prob=strag)
+    rb = round_batch(kind, THREEFRY_N, h, vocab=jax_gpt2_tiny().vocab)
+    kw = dict(uplink=uplink,
+              client_lr=lr if uplink == "seed_replay" else None)
+    ref, jm = jax_round(japi, "heron", params, rb, JP.FedConfig(**fed),
+                        JOPT.zo_sgd(lr), JOPT.adamw(THREEFRY_SERVER_LR), key,
+                        JZ.ZOConfig(mu=mu, scale=scale), **kw)
+    new, m = port_round(api, "heron", params, rb, P.FedConfig(**fed),
+                        OPT.zo_sgd(lr), OPT.adamw(THREEFRY_SERVER_LR), key,
+                        Z.ZOConfig(mu=mu, scale=scale), **kw)
+    assert_state_close(new, ref, params)
+    assert_metrics_close(m, jm)
+    if part < 1:
+        assert float(m["participants"]) < THREEFRY_N
+
+
+# ---------------------------------------------------------------------------
+# bf16 copies of gpt2-tiny (tests/test_torch_threefry_bf16*.py)
+# ---------------------------------------------------------------------------
+
+BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+# The two packages' bf16 forwards of gpt2-tiny round their activations
+# in other places (and XLA fuses some roundings away); their losses stay
+# within 1/20 of one bf16 step (2^-8) of each other.
+BF16_LOSS_RTOL = 2e-4
+
+
+def bf16_lm_setup():
+    """:func:`lm_setup` of gpt2-tiny with bf16 params and compute."""
+    return lm_setup(dataclasses.replace(jax_gpt2_tiny(), **BF16),
+                    dataclasses.replace(gpt2_tiny(), **BF16))
+
+
+def f32_leaves(tree):
+    """Leaves of a port or a JAX tree in JAX's order (sorted dict keys)
+    as f32 numpy (bf16 leaves widened exactly)."""
+    return jax.tree.leaves(jax.tree.map(
+        lambda t: t.float().numpy() if isinstance(t, torch.Tensor)
+        else np.asarray(t).astype(np.float32), tree))
+
+
+def bf16_step(a, b):
+    """One bf16 step at max(|a|, |b|), entrywise (f32 arrays)."""
+    m = np.maximum(np.abs(a), np.abs(b)).astype(ml_dtypes.bfloat16)
+    up = np.nextafter(m, np.array(np.inf, ml_dtypes.bfloat16))
+    return up.astype(np.float32) - m.astype(np.float32)
