@@ -14,9 +14,12 @@ Phases, one line each (any failure exits non-zero):
      over the gpt2-small and recurrentgemma-9b client trees (the plain
      version in row windows);
   3. K2 zo_dual_matmul and K4 zo_matmul vs plain at gpt2-small's client
-     shapes, K2 also at qwen2-1.5b's (bf16, the tensor-core route, also
-     held to the route's split arithmetic ref.zo_matmul_split_ref), and
-     at ResNet-18's (f32, the CUDA-core loop); K4 == K2's streams bit for bit; the route counters;
+     shapes, K2 also at qwen2-1.5b's, in bf16 and f32 (the tensor-core
+     routes, also held to their arithmetic: ref.zo_matmul_split_ref for
+     bf16, ref.zo_matmul_tf32x3_ref for f32), and K4 at ResNet-18's (f32:
+     block 0's 576x64 convs on the tensor cores, the 27x64 stem and the
+     64x10 aux fc on the CUDA-core loop); K4 == K2's streams bit for bit;
+     the route counters;
   4. K3 zo_dual_flash_attention and K5 flash_attention vs plain, both
      probe modes, plus GQA, window, soft-cap and ragged lengths, at
      head_dim 8, 64, 112, 128 and 256, bf16 on the tensor-core route and
@@ -29,7 +32,8 @@ Phases, one line each (any failure exits non-zero):
      tensor-core route, K1 as phase 2 recorded); and a small round on the
      card held against the same round on the CPU;
   6. the same for ResNet-18 on 32x32x3 images (N=5 clients, 64 images
-     each), and its small config on the card against the CPU;
+     each; 10 of the 20 K2 launches, block 0's convs, on the tensor
+     cores), and its small config on the card against the CPU;
   7. the single-probe forwards (Perturb(dual=False): K4 and K5) of
      gpt2-small and ResNet-18, each held against the perturbed half of
      the dual forward on the same seeds; the gpt2-small dual losses
@@ -39,7 +43,8 @@ Phases, one line each (any failure exits non-zero):
      client tree in each mode beside the composition it replaced (a K1
      launch per leaf and the tensor code); K2 / K4 bf16 on both routes
      (tensor cores and the CUDA-core loop) and the host cost of a launch
-     on each; K3 (both modes) and K5 bf16 on both routes at head_dim 64
+     on each; K4 f32 at ResNet-18's block conv on both routes; K3 (both
+     modes) and K5 bf16 on both routes at head_dim 64
      (gpt2-small), 128 and 256; the fused dual probe (K2, K3) against two
      single-probe passes (2 x K4, 2 x K5); K6 forward and reverse at the
      RG-LRU round's shapes; each kernel's registers, shared memory and
@@ -64,7 +69,8 @@ Phases, one line each (any failure exits non-zero):
      h=2 with upload_every=2 and the int8 smashed uplink (the server steps
      twice); every method's small round on the card against the CPU,
      CSE-FSL on the recurrentgemma smoke config through K6 forward and
-     reverse; K2's f32 route at ResNet-18's im2col shape timed.
+     reverse; K2 f32 at ResNet-18's im2col shape timed on the tensor
+     cores (3xTF32) and on the CUDA-core loop.
  12. the threefry stream (forward_impl="xla", the reference's default):
      keys, fold_in, split, bits, uniforms, permutation and Bernoulli
      masks against JAX's golden table bit for bit, normals within 4
@@ -99,7 +105,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # f32 off tensor cores
+# f32 off the tensor cores; "tf32" for the 3xTF32 route, whose callers
+# count its three tensor-core products (3 x 2MKN)
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 # K1's instructions per element of the field, by class, read from the
 # SASS of csrc/zo_noise.cu (phase 8 prints each kernel's opcode
 # histogram): the hash's LOP3 and SHF (integer), its two IMAD, one I2F
@@ -118,7 +126,9 @@ ROUND_KEY = (0, 20261016)
 REPS = 30
 # substrings of the port's CUDA kernels' names (csrc/*.cu)
 OUR_KERNELS = ("zo_noise", "zo_dual_matmul_kernel", "zo_matmul_kernel",
-               "zo_wgmma_kernel", "fa_kernel", "fa_wgmma_kernel",
+               "zo_wgmma_kernel", "zo_tf32_kernel", "zo_tf32_pt_kernel",
+               "fa_kernel",
+               "fa_wgmma_kernel",
                "rg_lru_scan_kernel")
 
 
@@ -446,31 +456,55 @@ def split_ok(got, x, w, u, mu, perturb):
     return ok, float(d.max())
 
 
+def tf32_ok(got, x, w, u, mu, perturb):
+    """The f32 tensor-core route against its own arithmetic
+    (ref.zo_matmul_tf32x3_ref, f32 sums): within ref.tf32x3_slack, one f32
+    ulp of the sum of |products| for each of the three wgmmas of every k8
+    step, for the tensor cores' other accumulation order.  Returns (ok,
+    max |d|)."""
+    from repro_torch.kernels import ref as R
+    emu = R.zo_matmul_tf32x3_ref(x, w, u, mu, perturb=perturb)
+    d = (got - emu).abs()
+    ok = bool((d <= R.tf32x3_slack(x, w, u, mu, perturb=perturb)).all())
+    return ok, float(d.max())
+
+
+def route_check(what, got, x, w, u, mu, perturb, worst):
+    """A tensor-core launch against its route's arithmetic: split_ok in
+    bf16, tf32_ok in f32; ``worst`` keeps the largest |d| of each."""
+    import torch
+    bf16 = w.dtype == torch.bfloat16
+    ok, dmax = (split_ok if bf16 else tf32_ok)(got, x, w, u, mu, perturb)
+    name = "split" if bf16 else "tf32x3"
+    if not ok:
+        fail(f"{what} perturb {perturb} mu {mu}: off the {name} arithmetic, "
+             f"max |d| {dmax}")
+    key = f"{'bf16' if bf16 else 'f32'} vs {name}"
+    worst[key] = max(worst.get(key, 0.0), dmax)
+
+
 def check_k2_launch(what, xa, xb, w, seed, ma, mb, pa, pb, off, u, worst,
                     key):
     """One K2 launch against the plain version on the same inputs, with
-    :func:`check_k2`'s tolerance; in bf16 also on the tensor-core route
-    (the counter says so) and within its split arithmetic.  ``u`` is
-    U(seed) at ``off``; ``worst[key]`` keeps the largest |d|."""
+    :func:`check_k2`'s tolerance; where K and N are multiples of 8 (the
+    inputs are fresh, so aligned) also on the tensor-core route (the
+    counter says so) and within its arithmetic (:func:`route_check`).
+    ``u`` is U(seed) at ``off``; ``worst[key]`` keeps the largest |d|."""
     import torch
     from repro_torch.kernels import zo_matmul as ZM
     K, Nn = w.shape
     tc0 = ZM.LAUNCHES["zo_dual_matmul_tc"]
     ya, yb = ZM.zo_dual_matmul(xa, xb, w, seed, ma, mb, row_offset=off,
                                perturb_a=pa, perturb_b=pb)
-    want_tc = int(w.dtype == torch.bfloat16)
+    want_tc = int(K % 8 == 0 and Nn % 8 == 0)
     if ZM.LAUNCHES["zo_dual_matmul_tc"] - tc0 != want_tc:
         fail(f"K2 {what} {w.dtype} {K}x{Nn}: expected {want_tc} "
              f"tensor-core launch, counters {ZM.LAUNCHES}")
     ra, rb = k2_plain(xa, xb, w, seed, ma, mb, pa, pb, off)
-    if w.dtype == torch.bfloat16:
+    if want_tc:
         for got, x, m, p in ((ya, xa, ma, pa), (yb, xb, mb, pb)):
-            ok, dmax = split_ok(got, x, w, u, m, p)
-            if not ok:
-                fail(f"K2 {what} bf16 {K}x{Nn} flags {pa},{pb} mu {ma},"
-                     f"{mb}: off the split arithmetic, max |d| {dmax}")
-            worst["bf16 vs split"] = max(worst.get("bf16 vs split", 0.0),
-                                         dmax)
+            route_check(f"K2 {what} {w.dtype} {K}x{Nn} flags {pa},{pb}",
+                        got, x, w, u, m, p, worst)
     for got, ref in ((ya, ra), (yb, rb)):
         d = (got.float() - ref.float()).abs()
         r = ref.float().abs()
@@ -491,10 +525,10 @@ def check_k2(dev):
     rounding boundary they differ by one bf16 step, 2^-7 relative, so
     |d| <= 2^-7 |ref| + 1e-4 max|ref| elementwise.  A wrong noise, row
     offset or stream flag moves the outputs by ~mu*sqrt(K)*|x|, far
-    above both.  bf16 launches take the tensor-core route (the counter
-    says so) and are also held to the route's split arithmetic
-    (:func:`split_ok`); f32 launches take the CUDA-core loop.  Shapes:
-    gpt2-small's client projections and qwen2-1.5b's."""
+    above both.  Every launch here takes the tensor-core route (the
+    counter says so) and is also held to the route's arithmetic: bf16 to
+    its split (:func:`split_ok`), f32 to 3xTF32 (:func:`tf32_ok`).
+    Shapes: gpt2-small's client projections and qwen2-1.5b's."""
     import torch
     from repro_torch.kernels import noise as N
     worst = {}
@@ -513,9 +547,9 @@ def check_k2(dev):
                                     key)
             del xa, xb, w, u
     log(3, f"K2 zo_dual_matmul == plain within tolerance at M=1024, K x N "
-        f"in {K2_SHAPES + QWEN_K2_SHAPES}, flags (F,T),(T,T), bf16 on the "
-        f"tensor-core route and within tolerance of its split arithmetic: "
-        f"max |d| {worst}")
+        f"in {K2_SHAPES + QWEN_K2_SHAPES}, flags (F,T),(T,T), bf16 and f32 "
+        f"on the tensor-core route and within tolerance of its split / "
+        f"3xTF32 arithmetic: max |d| {worst}")
     return worst["bfloat16 mu 1e-3"]      # the main path's type and mu
 
 
@@ -584,7 +618,9 @@ def check_k4(dev):
     """K4 against its plain version with K2's tolerance (see check_k2),
     perturbed and clean, at a nonzero row offset; and bit for bit against
     the matching stream of K2 (clean a, perturbed b), which runs the same
-    tile loop in the same order."""
+    route in the same order.  Shapes with K and N multiples of 8 take the
+    tensor cores and are held to the route's arithmetic too; ResNet-18's
+    stem (K = 27) and aux fc (N = 10) take the CUDA-core loop."""
     import torch
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import zo_matmul as ZM
@@ -599,22 +635,17 @@ def check_k4(dev):
             clean = ZM.zo_matmul(xa, w, -99, mu, row_offset=off,
                                  perturb=False)
             pert = ZM.zo_matmul(xb, w, -99, mu, row_offset=off)
-            want_tc = 2 * int(dtype == torch.bfloat16)
-            if ZM.LAUNCHES["zo_matmul_tc"] - tc0 != want_tc:
-                fail(f"K4 {name}: expected {want_tc} tensor-core launches, "
-                     f"counters {ZM.LAUNCHES}")
+            tc = K % 8 == 0 and Nn % 8 == 0
+            if ZM.LAUNCHES["zo_matmul_tc"] - tc0 != 2 * int(tc):
+                fail(f"K4 {name}: expected {2 * int(tc)} tensor-core "
+                     f"launches, counters {ZM.LAUNCHES}")
             if not (torch.equal(clean, ya) and torch.equal(pert, yb)):
                 fail(f"K4 {name} mu {mu} differs from K2's streams: max |d| "
                      f"{max_abs(clean, ya)}, {max_abs(pert, yb)}")
-            if dtype == torch.bfloat16:
+            if tc:
                 u = N.uniform_noise(-99, w.shape, off, device=dev)
                 for got, x, p in ((clean, xa, False), (pert, xb, True)):
-                    ok, dmax = split_ok(got, x, w, u, mu, p)
-                    if not ok:
-                        fail(f"K4 {name} mu {mu} perturb {p}: off the split "
-                             f"arithmetic, max |d| {dmax}")
-                    worst["bf16 vs split"] = max(
-                        worst.get("bf16 vs split", 0.0), dmax)
+                    route_check(f"K4 {name}", got, x, w, u, mu, p, worst)
             for got, ref in ((clean, k4_plain(xa, w, -99, mu, False, off)),
                              (pert, k4_plain(xb, w, -99, mu, True, off))):
                 d = (got.float() - ref.float()).abs()
@@ -630,8 +661,9 @@ def check_k4(dev):
         del xa, xb, w
     log(3, f"K4 zo_matmul == plain within tolerance (perturbed and clean, "
         f"row_offset 2K) and == K2's a / b streams bit for bit at "
-        f"{[c[0] + ' M=' + str(c[2]) for c in k4_cases()]} (bf16 on the "
-        f"tensor-core route, f32 on the CUDA-core loop): max |d| {worst}")
+        f"{[c[0] + ' M=' + str(c[2]) for c in k4_cases()]} (K, N multiples "
+        f"of 8 on the tensor-core route, the stem and aux fc on the "
+        f"CUDA-core loop): max |d| {worst}")
     return worst["bfloat16 mu 1e-3"]
 
 
@@ -968,7 +1000,9 @@ def run_round(dev, k1_launches):
 
 def run_cnn_round(dev):
     """ResNet-18 at full width: per client the stem conv, block0's c1 and
-    c2 (im2col) and the aux fc go through K2, 4 x 5 = 20 launches; K1 30:
+    c2 (im2col) and the aux fc go through K2, 4 x 5 = 20 launches, of
+    which block0's 10 (576 x 64) take the tensor cores and the stem (K =
+    27) and aux fc (N = 10) the CUDA-core loop; K1 30:
     per client four theta + mu*U trees (the GroupNorm leaves, the aux fc's
     bias) and the direction tree, and the replay's five direction
     trees."""
@@ -978,7 +1012,7 @@ def run_cnn_round(dev):
         "client, seed_replay)",
         _cnn_round_setup(full_config(), dev, n_clients=5, h=1, batch=64,
                          hw=32, mu=1e-3, lr=2e-2, server_lr=2e-3),
-        {"zo_dual_matmul": 20, "zo_dual_matmul_tc": 0,
+        {"zo_dual_matmul": 20, "zo_dual_matmul_tc": 10,
          "zo_dual_flash_attention": 0, "zo_dual_flash_attention_tc": 0,
          "zo_noise": 30, "zo_matmul": 0, "flash_attention": 0,
          "rg_lru_scan": 0})
@@ -1195,7 +1229,7 @@ def check_single_probe(dev):
             lambda: P.cnn_api(dataclasses.replace(
                 cfg, forward_impl="kernel")).client_dual_loss(
                     cp, batch, seeds, mu),
-            cnn_single, {"zo_matmul": 4, "zo_matmul_tc": 0,
+            cnn_single, {"zo_matmul": 4, "zo_matmul_tc": 2,
                          "flash_attention": 0, "flash_attention_tc": 0,
                          "zo_dual_matmul": 0}, 1e-5)
     return counts
@@ -1600,35 +1634,52 @@ def check_fo_small_rounds():
 
 
 def time_k2_f32(dev, cnn_k2_launches):
-    """K2 on its f32 route at ResNet-18's block-conv im2col shape (per
-    half 65536 rows x 576 -> 64), as phase 8 times K4's f32 row: beside
-    the plain version, two f32 torch.matmul on materialised W and W + mu*U,
-    and the bound; held to the plain version under check_k2's f32
-    tolerance."""
+    """K2 f32 at ResNet-18's block-conv im2col shape (per half 65536 rows
+    x 576 -> 64), as phase 8 times K4's f32 row: on the tensor cores
+    (3xTF32) and on the CUDA-core loop (x one element into a buffer, so
+    the wrapper takes the loop), beside the plain version, two f32
+    torch.matmul on materialised W and W + mu*U, and the bound (bytes, or
+    the three tf32 products at the TF32 rate); held to the plain version
+    under check_k2's f32 tolerance and to the route's arithmetic.
+    ``cnn_k2_launches``: the ResNet round's K2 counts (all and on the
+    tensor cores)."""
     import torch
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import zo_matmul as ZM
     M, K, Nn = 64 * 1024, 576, 64
     xa, xb, w = k2_inputs(dev, torch.float32, M, K, Nn)
-    expect_route("K2 f32", lambda: ZM.zo_dual_matmul(xa, xb, w, 3, 0.0,
-                                                      1e-3),
-                 "zo_dual_matmul_tc", 0)
-    ya, yb = ZM.zo_dual_matmul(xa, xb, w, 3, 0.0, 1e-3)
+    xm = misaligned(xa)
+    tc = lambda: ZM.zo_dual_matmul(xa, xb, w, 3, 0.0, 1e-3)  # noqa: E731
+    loop = lambda: ZM.zo_dual_matmul(xm, xb, w, 3, 0.0, 1e-3)  # noqa: E731
+    expect_route("K2 f32", tc, "zo_dual_matmul_tc", 1)
+    expect_route("K2 f32", loop, "zo_dual_matmul_tc", 0)
+    ya, yb = tc()
     ra, rb = k2_plain(xa, xb, w, 3, 0.0, 1e-3, False, True, 0)
     err = max(max_abs(ya, ra), max_abs(yb, rb))
-    tol = 1e-4 * float(torch.maximum(ra.abs().max(), rb.abs().max()))
-    if not err <= tol:
-        fail(f"K2 f32 {M} x {K}x{Nn}: max |d| {err} > {tol}")
-    ms = time_ms(lambda: ZM.zo_dual_matmul(xa, xb, w, 3, 0.0, 1e-3))
+    rmax = float(torch.maximum(ra.abs().max(), rb.abs().max()))
+    if not err <= 1e-4 * rmax:
+        fail(f"K2 f32 {M} x {K}x{Nn}: max |d| {err} > {1e-4 * rmax}")
+    u = N.uniform_noise(3, w.shape, device=dev)
+    worst = {}
+    for got, x, m, p in ((ya, xa, 0.0, False), (yb, xb, 1e-3, True)):
+        route_check(f"K2 f32 {M} x {K}x{Nn}", got, x, w, u, m, p, worst)
+    # both against the f64 product of the same f32 operands
+    ex = xb.double() @ (w + 1e-3 * u).double()
+    exact = {k: float((v.double() - ex).abs().max() / ex.abs().max())
+             for k, v in (("kernel", yb), ("plain", rb))}
+    del ex
+    ms, loop_ms = time_ms(tc), time_ms(loop)
     pl = time_ms(lambda: k2_plain(xa, xb, w, 3, 0.0, 1e-3, False, True, 0))
-    wb = w + 1e-3 * N.uniform_noise(3, w.shape, device=dev)
+    wb = w + 1e-3 * u
     lib = time_ms(lambda: (torch.matmul(xa, w), torch.matmul(xb, wb)))
     b, by = bound_ms(4 * (2 * M * K + K * Nn + 2 * M * Nn),
-                     2 * 2 * M * K * Nn, "float32")
+                     3 * 2 * 2 * M * K * Nn, "tf32")
     log(11, f"K2 f32 resnet block0 576x64 M={M} per half: kernel_ms {ms} "
-        f"(CUDA-core loop) plain_ms {pl} library_ms {lib} (two f32 "
-        f"torch.matmul on materialised W, W+mu*U) bound_ms {b} ({by}) "
-        f"max_abs_err {err} launches {cnn_k2_launches} / ResNet round")
+        f"(tensor cores, 3xTF32) loop_ms {loop_ms} (CUDA-core loop) "
+        f"plain_ms {pl} library_ms {lib} (two f32 torch.matmul on "
+        f"materialised W, W+mu*U) bound_ms {b} ({by}) max_abs_err {err} "
+        f"(max|ref| {rmax}; {worst}; max |d| / max|y| from the f64 product "
+        f"{exact}) launches {cnn_k2_launches} / ResNet round")
 
 
 def run_fo_phase(dev, card, cnn_k2_launches):
@@ -1995,14 +2046,15 @@ def compiler_report():
     the compiler's report in ``_build/<library>.log`` (``-Xptxas=-v``)."""
     import re
     from repro_torch.kernels import build
-    rows, serialized = [], set()
+    rows, serialized = [], {}
     for lib in build.SIGNATURES:
         cur = None
         for line in (build.BUILD_DIR / f"{lib}.log").read_text(
                 errors="replace").splitlines():
-            m = re.search(r"C7512.*serialized.*function '([^']+)'", line)
+            m = re.search(r"(C75\d\d).*serialized.*function '([^']+)'",
+                          line)
             if m:
-                serialized.add(m.group(1))
+                serialized[m.group(2)] = m.group(1)
                 continue
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
@@ -2022,9 +2074,11 @@ def compiler_report():
     for r in rows:
         dyn = (" (+ the dynamic ring of zo_wgmma_matmul.cuh)"
                if "zo_wgmma" in r["fn"] else
+               " (+ the dynamic ring of zo_tf32_matmul.cuh)"
+               if "zo_tf32_kernel" in r["fn"] else
                " (+ the dynamic Q tiles and ring of flash_wgmma.cuh)"
                if "fa_wgmma" in r["fn"] else "")
-        ser = ("; ptxas serializes its wgmmas (C7512)"
+        ser = (f"; ptxas serializes its wgmmas ({serialized[r['fn']]})"
                if r["fn"] in serialized else "")
         log(8, f"{r['lib']}: {names[r['fn']]}: {r.get('regs')} registers, "
             f"{r.get('smem')} bytes static shared memory{dyn}, "
@@ -2033,18 +2087,20 @@ def compiler_report():
 
 
 def check_hgmma():
-    """The tensor-core kernels of K2, K4, K3 and K5 hold HGMMA (wgmma)
-    instructions in their SASS (cuobjdump -sass of the built library)."""
+    """The tensor-core kernels of K2, K4 (bf16 and f32), K3 and K5 hold
+    HGMMA (wgmma) instructions in their SASS (cuobjdump -sass of the
+    built library)."""
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log(8, "HGMMA: cuobjdump not found (not checked)")
         return
-    for lib, tag in (("zo_dual_matmul", "zo_wgmma"),
-                     ("zo_matmul", "zo_wgmma"),
-                     ("zo_dual_flash_attention", "fa_wgmma"),
-                     ("flash_attention", "fa_wgmma")):
+    for lib, tags in (("zo_dual_matmul", ("zo_wgmma_kernel",
+                                          "zo_tf32_kernel")),
+                      ("zo_matmul", ("zo_wgmma_kernel", "zo_tf32_kernel")),
+                      ("zo_dual_flash_attention", ("fa_wgmma",)),
+                      ("flash_attention", ("fa_wgmma",))):
         sass = subprocess.run([tool, "-sass", str(build._lib_path(lib))],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -2056,10 +2112,12 @@ def check_hgmma():
             elif fn is not None and "HGMMA" in line:
                 per_fn[fn] += 1
         names = _demangle(list(per_fn))
-        tc = {names[f]: n for f, n in per_fn.items() if tag in f}
+        tc = {names[f]: n for f, n in per_fn.items()
+              if any(t in f for t in tags)}
         if not tc or min(tc.values()) == 0:
             fail(f"{lib}: no HGMMA in the tensor-core kernels' SASS: {tc}")
-        loop = sum(n for f, n in per_fn.items() if tag not in f)
+        loop = sum(n for f, n in per_fn.items()
+                   if not any(t in f for t in tags))
         log(8, f"{lib} SASS: HGMMA instructions per tensor-core kernel "
             f"{tc}; in the CUDA-core loop's kernels {loop}")
 
@@ -2441,30 +2499,30 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs):
     k3_row, k5_row = time_attention(dev, counts, counts_sp, errs)
     rows.append(k3_row)
 
-    # K4: gpt2-small's three client shapes in bf16 (the tensor-core route,
-    # and the CUDA-core loop beside it; 768x3072 is the main path's row)
-    # and ResNet-18's block conv over im2col patches in f32
+    # K4: gpt2-small's three client shapes in bf16 (768x3072 is the main
+    # path's row) and ResNet-18's block conv over im2col patches in f32
+    # (3xTF32), each on the tensor-core route and on the CUDA-core loop
     k4 = []
     for name, dtype, M, K, Nn in k4_cases()[:3] + [k4_cases()[4]]:
         _, x, w = k2_inputs(dev, dtype, M, K, Nn)
+        xm = misaligned(x)
+        expect_route("K4", lambda: ZM.zo_matmul(x, w, 3, 1e-3),
+                     "zo_matmul_tc", 1)
+        expect_route("K4", lambda: ZM.zo_matmul(xm, w, 3, 1e-3),
+                     "zo_matmul_tc", 0)
         ms = time_ms(lambda: ZM.zo_matmul(x, w, 3, 1e-3))
-        loop = ""
-        if dtype == torch.bfloat16:
-            xm = misaligned(x)
-            expect_route("K4", lambda: ZM.zo_matmul(x, w, 3, 1e-3),
-                         "zo_matmul_tc", 1)
-            expect_route("K4", lambda: ZM.zo_matmul(xm, w, 3, 1e-3),
-                         "zo_matmul_tc", 0)
-            loop = (f" (tensor cores) loop_ms "
-                    f"{time_ms(lambda: ZM.zo_matmul(xm, w, 3, 1e-3))} "
-                    f"(CUDA-core loop)")
+        loop = (f" (tensor cores) loop_ms "
+                f"{time_ms(lambda: ZM.zo_matmul(xm, w, 3, 1e-3))} "
+                f"(CUDA-core loop)")
         pl = time_ms(lambda: k4_plain(x, w, 3, 1e-3, True, 0))
         wp = (w.float() + 1e-3 * N.uniform_noise(3, w.shape, device=dev)
               ).to(dtype)
         lib = time_ms(lambda: torch.matmul(x, wp))
         dn = str(dtype).split(".")[-1]
+        f32 = dtype == torch.float32        # three tf32 products
         b, by = bound_ms(x.element_size() * (M * K + K * Nn + M * Nn),
-                         2 * M * K * Nn, dn)
+                         (3 if f32 else 1) * 2 * M * K * Nn,
+                         "tf32" if f32 else dn)
         log(8, f"K4 {dn} {name} M={M}: kernel_ms {ms}{loop} plain_ms {pl} "
             f"library_ms {lib} (one {dn} torch.matmul on materialised "
             f"W+mu*U) bound_ms {b} ({by})")
@@ -2552,7 +2610,8 @@ def main():
     counts_rg = run_rg_round(dev, card)
     torch.cuda.empty_cache()
     check_rg_small_round()
-    run_fo_phase(dev, card, counts_cnn["zo_dual_matmul"])
+    run_fo_phase(dev, card, {k: counts_cnn[k] for k in (
+        "zo_dual_matmul", "zo_dual_matmul_tc")})
     run_threefry_phase(dev, card)
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs)
     compiler_report()

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core routes of the
-// ZO matmul kernels (zo_wgmma_matmul.cuh), the flash-attention kernels
-// (flash_wgmma.cuh) and the RG-LRU scan's ring (rg_lru_scan.cu):
-// mbarriers, TMA and cp.async loads, wgmma synchronisation, shared
-// memory descriptors with 128-byte swizzle, bf16 packing, and the host's
-// cuTensorMapEncodeTiled fetched from the driver through the runtime (no
-// -lcuda).
+// ZO matmul kernels (zo_wgmma_matmul.cuh for bf16, zo_tf32_matmul.cuh for
+// f32), the flash-attention kernels (flash_wgmma.cuh) and the RG-LRU
+// scan's ring (rg_lru_scan.cu): mbarriers, TMA and cp.async loads, wgmma
+// synchronisation, shared memory descriptors with 128-byte swizzle, bf16
+// packing, and the host's cuTensorMapEncodeTiled fetched from the driver
+// through the runtime (no -lcuda) with a 2-D encoder.
 #pragma once
 
 #include <cstdint>
@@ -174,6 +174,24 @@ inline EncodeTiledFn encode_tiled() {
       fn = reinterpret_cast<EncodeTiledFn>(p);
   }
   return fn;
+}
+
+// A row-major (rows, cols) matrix of `dtype` (elem_bytes each) cut into
+// box_rows x box_cols tiles; out-of-range elements load as zeros.
+inline bool encode_2d(CUtensorMap* map, const void* ptr,
+                      CUtensorMapDataType dtype, int elem_bytes, int rows,
+                      int cols, int box_rows, int box_cols,
+                      CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

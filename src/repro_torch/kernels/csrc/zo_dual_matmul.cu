@@ -8,23 +8,29 @@
 // so one read of W and one noise tile per k step serve both losses of the
 // pair; perturb_a / perturb_b are template parameters, as the TPU kernel's
 // static flags:
-//   * zo_dual_matmul_tc: bf16 operands on the tensor cores
-//     (zo_wgmma_matmul.cuh: TMA ring, wgmma with the perturbed W fragment
-//     split into two bf16 terms in registers);
-//   * zo_dual_matmul: the CUDA-core tile loop (zo_tile_matmul.cuh), for f32
-//     and for bf16 shapes the tensor-core route does not take (K or N not
-//     a multiple of 8, a pointer not 16-byte aligned).
-// K4 (zo_matmul.cu) runs the same two routes with one stream, so it matches
+//   * zo_dual_matmul_tc: the tensor cores, where K and N are multiples of 8
+//     and the pointers 16-byte aligned: bf16 operands through
+//     zo_wgmma_matmul.cuh (TMA ring, wgmma with the perturbed W fragment
+//     split into two bf16 terms in registers), f32 through
+//     zo_tf32_matmul.cuh (3xTF32: W + mu*U hashed and split into two tf32
+//     terms once per launch into `scratch`, 4 x K x N floats; x split in
+//     registers; wgmma on a TMA ring);
+//   * zo_dual_matmul: the CUDA-core tile loop (zo_tile_matmul.cuh), for the
+//     shapes the tensor-core route does not take (K or N not a multiple of
+//     8, a pointer not 16-byte aligned: a 3x3x3 stem conv, a 10-way head).
+// K4 (zo_matmul.cu) runs the same routes with one stream, so it matches
 // either stream bit for bit on the same route.
 //
 // Bound on the H100: at gpt2-small's client shapes (M = 1024 rows per
-// stream, K x N up to 768 x 3072) the work is ~9.7 GFLOP for ~20 MB, so
-// the bf16 tensor-core rate bounds it (~10 us).  The tensor-core route runs
-// 3 wgmmas per k16 step for a clean + perturbed pair (the perturbed stream's
-// hi and lo terms), so its own floor is 1.5x that bound, plus the hash of
-// each W element once per 128 rows.  The CUDA-core loop runs f32 FMAs (67
-// TFLOP/s peak) and sits far above the bound; it stays as the f32 route.
+// stream, K x N up to 768 x 3072, bf16) the work is ~9.7 GFLOP for ~20 MB,
+// so the bf16 tensor-core rate bounds it (~10 us); the route runs 3 wgmmas
+// per k16 step for a clean + perturbed pair (the perturbed stream's hi and
+// lo terms), plus the hash of each W element once per 128 rows.  At
+// ResNet-18's block convs (f32, M = 65536 rows per stream, 576 x 64) the
+// 336 MB of patches, W and outputs bound it (~100 us); the three tf32
+// terms take ~59 us at 495 TFLOP/s.
 #include "zo_tile_matmul.cuh"
+#include "zo_tf32_matmul.cuh"
 #include "zo_wgmma_matmul.cuh"
 
 namespace {
@@ -82,13 +88,20 @@ extern "C" int zo_dual_matmul(const void* xa, const void* xb, const void* w,
 
 extern "C" int zo_dual_matmul_tc(const void* xa, const void* xb,
                                  const void* w, void* ya, void* yb, int M,
-                                 int K, int N, int perturb_a, int perturb_b,
-                                 unsigned int seed, float mu_a, float mu_b,
-                                 unsigned int row_offset, void* stream) {
+                                 int K, int N, int dtype, int perturb_a,
+                                 int perturb_b, unsigned int seed, float mu_a,
+                                 float mu_b, unsigned int row_offset,
+                                 void* scratch, void* stream) {
   const void* const x[2] = {xa, xb};
   void* const y[2] = {ya, yb};
   const float mu[2] = {mu_a, mu_b};
   const unsigned mask = (perturb_a ? 1u : 0u) | (perturb_b ? 2u : 0u);
-  return zo_wgmma::launch<2>(x, w, y, mu, mask, M, K, N, seed, row_offset,
-                             (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == REPRO_DTYPE_BF16)
+    return zo_wgmma::launch<2>(x, w, y, mu, mask, M, K, N, seed, row_offset,
+                               s);
+  if (dtype == REPRO_DTYPE_F32)
+    return zo_tf32::launch<2>(x, w, y, mu, mask, M, K, N, seed, row_offset,
+                              scratch, s);
+  return (int)cudaErrorInvalidValue;
 }

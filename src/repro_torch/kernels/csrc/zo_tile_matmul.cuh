@@ -1,7 +1,7 @@
 // The CUDA-core tile loop of the ZO matmul kernels, shared by K2
 // (zo_dual_matmul.cu, two streams) and K4 (zo_matmul.cu, one stream): the
-// route for f32 operands and for the bf16 shapes the tensor-core route
-// (zo_wgmma_matmul.cuh) does not take.
+// route for the f32 and bf16 shapes the tensor-core routes
+// (zo_tf32_matmul.cuh, zo_wgmma_matmul.cuh) do not take.
 //   y_s = x_s @ (W + mu_s*U)   for each stream s of the launch,
 // with U the counter-hash field of hash.cuh on W's global coordinates
 // (rows shifted by row_offset for a leaf stacked along a scan axis).

@@ -2,8 +2,8 @@
 // by K2 (zo_dual_matmul.cu, two streams) and K4 (zo_matmul.cu, one stream):
 //   y_s = x_s @ (W + mu_s*U)   for each stream s of the launch,
 // with U the counter-hash field of hash.cuh on W's global coordinates
-// (rows shifted by row_offset).  f32 operands stay on the CUDA-core loop of
-// zo_tile_matmul.cuh.
+// (rows shifted by row_offset).  f32 operands take the 3xTF32 route of
+// zo_tf32_matmul.cuh.
 //
 // Form.  The block computes y^T = p^T x^T with wgmma (sm_90a): the
 // perturbed W fragment is A, held in registers, and an x tile is B, read by
@@ -58,7 +58,8 @@
 //
 // Route.  The wrappers (kernels/zo_matmul.py) send a bf16 launch here when
 // K and N are multiples of 8 (TMA's 16-byte row strides) and every base
-// pointer is 16-byte aligned; anything else takes the CUDA-core loop.  The
+// pointer is 16-byte aligned (f32 under the same rule goes to
+// zo_tf32_matmul.cuh); anything else takes the CUDA-core loop.  The
 // tensor maps are encoded on the host at each launch, with
 // cuTensorMapEncodeTiled fetched from the driver through the runtime (no
 // -lcuda), and passed as __grid_constant__ kernel parameters.  The PTX
@@ -375,16 +376,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 // 128-byte swizzle; out-of-range elements load as zeros
 inline bool encode(CUtensorMap* map, const void* ptr, int rows, int cols,
                    int box_rows, int box_cols) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_2d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, rows, cols,
+                   box_rows, box_cols, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int NS, unsigned PMASK>

@@ -43,6 +43,55 @@ def zo_matmul_split_ref(x, w, u, mu, *, perturb=True, out_dtype=None):
     return y.to(out_dtype or x.dtype)
 
 
+def _tf32_rna(v):
+    """f32 -> tf32 (the upper 19 bits), round to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: add half of the 13 dropped bits'
+    range to the magnitude, then clear them.  f32 in, f32 out."""
+    b = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = (b + 0x1000) & 0xFFFFE000
+    return torch.where(b >= 1 << 31, b - (1 << 32), b).to(
+        torch.int32).view(torch.float32)
+
+
+def split_tf32(p):
+    """The two tf32 terms of an f32 tensor: ``hi = tf32_rna(p)`` and ``lo =
+    tf32_rna(p - hi)`` (``p - hi`` is exact in f32), both as f32 with the
+    low 13 bits zero; ``hi + lo`` is within 2^-21 of ``p``, relative."""
+    p = p.to(torch.float32)
+    hi = _tf32_rna(p)
+    return hi, _tf32_rna(p - hi)
+
+
+def zo_matmul_tf32x3_ref(x, w, u, mu, *, perturb=True):
+    """The arithmetic of K2 / K4's tensor-core route for f32 operands
+    (``csrc/zo_tf32_matmul.cuh``): ``p = w + mu*u`` in f32 (a multiply,
+    then an add; ``perturb=False`` gives ``p = w``), x and p split by
+    :func:`split_tf32`, ``y = x_hi@p_hi + x_hi@p_lo + x_lo@p_hi`` in
+    three f32 matmuls (every tf32 product is exact in f32).  Only tests
+    and ``chip_smoke.py`` use it; the output is f32."""
+    p = w.to(torch.float32)
+    if perturb:
+        p = p + float(mu) * u.to(torch.float32)
+    xh, xl = split_tf32(x)
+    ph, pl = split_tf32(p)
+    return xh @ ph + xh @ pl + xl @ ph
+
+
+def tf32x3_slack(x, w, u, mu, *, perturb=True):
+    """How far the tensor cores' sums may stray from
+    :func:`zo_matmul_tf32x3_ref`'s, elementwise: one f32 ulp (2^-23) of
+    the sum of |products| for each of the three wgmmas of every k8 step
+    (the tensor cores add in another order, and the emulation's own sums
+    round too)."""
+    p = w.to(torch.float32)
+    if perturb:
+        p = p + float(mu) * u.to(torch.float32)
+    xh, xl = split_tf32(x)
+    ph, pl = split_tf32(p)
+    mag = xh.abs() @ (ph.abs() + pl.abs()) + xl.abs() @ ph.abs()
+    return 3 * -(-x.shape[1] // 8) * 2 ** -23 * mag
+
+
 def zo_dual_matmul_ref(xa, xb, w, u, mu_a, mu_b, *, perturb_a=False,
                        perturb_b=True):
     """Dual probe with U materialized: one branch per (x, mu) pair."""

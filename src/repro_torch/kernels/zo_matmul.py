@@ -16,9 +16,10 @@ or ``dtype(p + mu*U)``.  :func:`plan_launches` lays the leaves out as the
 kernel's segment table, a pure function of their shapes.
 
 K2 and K4 have two routes on the card, chosen by
-:func:`tensor_core_route`: bf16 operands whose shapes and pointers suit
-TMA run on the tensor cores (``csrc/zo_wgmma_matmul.cuh``), everything
-else on the CUDA-core tile loop (``csrc/zo_tile_matmul.cuh``).
+:func:`tensor_core_route`: operands whose shapes and pointers suit TMA
+run on the tensor cores (bf16 in ``csrc/zo_wgmma_matmul.cuh``, f32 as
+3xTF32 in ``csrc/zo_tf32_matmul.cuh``), everything else on the CUDA-core
+tile loop (``csrc/zo_tile_matmul.cuh``).
 ``LAUNCHES["zo_dual_matmul"]`` / ``["zo_matmul"]`` count every launch;
 the ``_tc`` keys count those that took the tensor cores.
 """
@@ -225,12 +226,23 @@ def _check_matmul(what, w, *xs):
 
 def tensor_core_route(dtype, K: int, N: int, ptrs) -> bool:
     """Whether a K2 / K4 launch of (M, K) @ (K, N) runs on the tensor
-    cores: bf16 operands, K and N positive multiples of 8 (TMA's row
-    strides are multiples of 16 bytes) and every base pointer in ``ptrs``
-    16-byte aligned (TMA's base addresses).  Anything else takes the
-    CUDA-core loop.  A pure function of its arguments: it needs no card."""
-    return (dtype == torch.bfloat16 and K > 0 and N > 0 and K % 8 == 0
+    cores: bf16 or f32 operands, K and N positive multiples of 8 (TMA's
+    row strides are multiples of 16 bytes) and every base pointer in
+    ``ptrs`` 16-byte aligned (TMA's base addresses).  Anything else takes
+    the CUDA-core loop.  A pure function of its arguments: it needs no
+    card."""
+    return (dtype in build.DTYPE_CODES and K > 0 and N > 0 and K % 8 == 0
             and N % 8 == 0 and all(int(p) % 16 == 0 for p in ptrs))
+
+
+def _tf32_scratch(dtype, streams, K, N, dev):
+    """The f32 tensor-core route's scratch: each stream's W + mu*U split
+    into two tf32 terms, transposed (``2 * streams`` (N, K) f32 blocks);
+    None for bf16.  The wrapper holds it across the launch; once freed,
+    PyTorch's allocator hands it out only to work queued after it."""
+    if dtype != torch.float32:
+        return None
+    return torch.empty((2 * streams, N, K), dtype=torch.float32, device=dev)
 
 
 def zo_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
@@ -257,15 +269,17 @@ def zo_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
         lib = build.library("zo_dual_matmul")
         ptrs = (xa.data_ptr(), xb.data_ptr(), w.data_ptr(), ya.data_ptr(),
                 yb.data_ptr())
-        rest = (int(perturb_a), int(perturb_b), int(N._u32(seed)),
-                float(mu_a), float(mu_b), int(N._u32(row_offset)),
-                build.stream(dev))
+        args = (*ptrs, M, K, Nn, build.DTYPE_CODES[xa.dtype],
+                int(perturb_a), int(perturb_b), int(N._u32(seed)),
+                float(mu_a), float(mu_b), int(N._u32(row_offset)))
         tc = tensor_core_route(xa.dtype, K, Nn, ptrs)
         if tc:
-            err = lib.zo_dual_matmul_tc(*ptrs, M, K, Nn, *rest)
+            scratch = _tf32_scratch(xa.dtype, 2, K, Nn, dev)
+            err = lib.zo_dual_matmul_tc(
+                *args, None if scratch is None else scratch.data_ptr(),
+                build.stream(dev))
         else:
-            err = lib.zo_dual_matmul(*ptrs, M, K, Nn,
-                                     build.DTYPE_CODES[xa.dtype], *rest)
+            err = lib.zo_dual_matmul(*args, build.stream(dev))
         build.check(err, "zo_dual_matmul")
         LAUNCHES["zo_dual_matmul"] += 1
         LAUNCHES["zo_dual_matmul_tc"] += int(tc)
@@ -293,14 +307,16 @@ def zo_matmul(x, w, seed, mu, *, row_offset=0, perturb: bool = True):
     if y.numel():
         lib = build.library("zo_matmul")
         ptrs = (x.data_ptr(), w.data_ptr(), y.data_ptr())
-        rest = (int(perturb), int(N._u32(seed)), float(mu),
-                int(N._u32(row_offset)), build.stream(dev))
+        args = (*ptrs, M, K, Nn, build.DTYPE_CODES[x.dtype], int(perturb),
+                int(N._u32(seed)), float(mu), int(N._u32(row_offset)))
         tc = tensor_core_route(x.dtype, K, Nn, ptrs)
         if tc:
-            err = lib.zo_matmul_tc(*ptrs, M, K, Nn, *rest)
+            scratch = _tf32_scratch(x.dtype, 1, K, Nn, dev)
+            err = lib.zo_matmul_tc(
+                *args, None if scratch is None else scratch.data_ptr(),
+                build.stream(dev))
         else:
-            err = lib.zo_matmul(*ptrs, M, K, Nn, build.DTYPE_CODES[x.dtype],
-                                *rest)
+            err = lib.zo_matmul(*args, build.stream(dev))
         build.check(err, "zo_matmul")
         LAUNCHES["zo_matmul"] += 1
         LAUNCHES["zo_matmul_tc"] += int(tc)

@@ -1,6 +1,7 @@
 """Kernels K1-K6 on a CUDA card against their plain PyTorch versions,
 the single-probe kernels against the matching stream of the fused ones
-bit for bit, and the bf16 tensor-core routes of K2 / K4 and K3 / K5.
+bit for bit, the tensor-core routes of K2 / K4 (bf16, and f32 as 3xTF32)
+and the bf16 ones of K3 / K5.
 
 Imports neither JAX nor the JAX package, so it runs on the machine with
 the card (which has no JAX) with the repository's conftest skipped:
@@ -271,6 +272,57 @@ def test_cuda_zo_matmul_tensor_core_route():
                 if tc:
                     assert _split_ok(ya, xa, w, u, ma, pa)
                     assert _split_ok(yb, xb, w, u, mb, pb)
+
+
+@pytest.mark.gpu
+def test_cuda_zo_matmul_tf32_route():
+    """K2 and K4 on the f32 tensor-core route (3xTF32) at ragged shapes
+    (the M, K and N tails of the 128 x 32 x 64 tiles, M = 1, ResNet-18's
+    576 x 64): within check_k2's f32 tolerance of the plain version and
+    within ref.tf32x3_slack of the route's emulation; K4 equal to K2's
+    clean and perturbed streams bit for bit; the route counters show which
+    route each call took, including an f32 N = 70 call on the CUDA-core
+    loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    for M, K, Nn in ((1000, 776, 840), (1, 776, 840), (4099, 576, 64),
+                     (300, 64, 70)):
+        xa, xb, w = (torch.as_tensor(a, device=dev) for a in _arrays(
+            M + K, (M, K), (M, K), (K, Nn)))
+        w = w * K ** -0.5
+        u = N.uniform_noise(11, w.shape, 3 * K, device=dev)
+        tc = Nn % 8 == 0
+        for mu in (1e-3, 0.5):
+            for pa, pb, ma, mb in ((False, True, 0.0, mu),
+                                   (True, True, mu, -mu)):
+                before = dict(ZM.LAUNCHES)
+                ya, yb = ZM.zo_dual_matmul(xa, xb, w, 11, ma, mb,
+                                           row_offset=3 * K, perturb_a=pa,
+                                           perturb_b=pb)
+                ka = ZM.zo_matmul(xa, w, 11, ma, row_offset=3 * K,
+                                  perturb=pa)
+                kb = ZM.zo_matmul(xb, w, 11, mb, row_offset=3 * K,
+                                  perturb=pb)
+                assert ZM.LAUNCHES["zo_dual_matmul"] == \
+                    before["zo_dual_matmul"] + 1
+                assert ZM.LAUNCHES["zo_matmul"] == before["zo_matmul"] + 2
+                assert ZM.LAUNCHES["zo_dual_matmul_tc"] == \
+                    before["zo_dual_matmul_tc"] + int(tc)
+                assert ZM.LAUNCHES["zo_matmul_tc"] == \
+                    before["zo_matmul_tc"] + 2 * int(tc)
+                assert torch.equal(ka, ya) and torch.equal(kb, yb)
+                ra, rb = R.zo_dual_matmul_ref(xa, xb, w, u, ma, mb,
+                                              perturb_a=pa, perturb_b=pb)
+                for got, ref, x, m, p in ((ya, ra, xa, ma, pa),
+                                          (yb, rb, xb, mb, pb)):
+                    assert got.dtype == torch.float32
+                    d = (got - ref).abs()
+                    assert bool((d <= 1e-4 * ref.abs().max()).all())
+                    if tc:
+                        emu = R.zo_matmul_tf32x3_ref(x, w, u, m, perturb=p)
+                        assert bool(((got - emu).abs() <= R.tf32x3_slack(
+                            x, w, u, m, perturb=p)).all())
 
 
 def _k3_ok(got, ref):

@@ -1,6 +1,7 @@
 """The arithmetic of K2 / K4's tensor-core route for bf16 operands
 (``csrc/zo_wgmma_matmul.cuh``), emulated on the CPU by
-``ref.zo_matmul_split_ref``, and the route's predicate.
+``ref.zo_matmul_split_ref``, and the route's predicate (bf16 and f32;
+the f32 arithmetic is in ``tests/test_torch_zo_tf32.py``).
 
 The route feeds the tensor cores bf16 fragments, so the perturbed weight
 ``p = w + mu*u`` (f32) goes in as two bf16 terms, ``hi = bf16(p)`` and
@@ -123,15 +124,18 @@ def test_split_route_vs_pallas_bf16(pa, pb, mu_a, mu_b):
     (torch.bfloat16, 768, 3072, (0, 16, 4096), True),
     (torch.bfloat16, 776, 840, (256, 1024 + 16 * 3), True),
     (torch.bfloat16, 8, 8, (16,), True),
-    (torch.float32, 768, 768, (0, 16), False),
+    (torch.float32, 768, 768, (0, 16), True),
+    (torch.float32, 27, 64, (0, 16), False),
+    (torch.float32, 64, 10, (0, 16), False),
+    (torch.float32, 768, 768, (0, 4), False),
     (torch.bfloat16, 27, 64, (0, 16), False),
     (torch.bfloat16, 64, 70, (0, 16), False),
     (torch.bfloat16, 64, 10, (0, 16), False),
     (torch.bfloat16, 768, 768, (0, 8), False),
     (torch.bfloat16, 768, 768, (2, 16), False),
     (torch.bfloat16, 0, 768, (0, 16), False),
-], ids=["gpt2-up", "ragged-mult8", "tiny", "f32", "K27", "N70", "N10",
-        "ptr8", "ptr2", "K0"])
+], ids=["gpt2-up", "ragged-mult8", "tiny", "f32", "f32-K27", "f32-N10",
+        "f32-ptr4", "K27", "N70", "N10", "ptr8", "ptr2", "K0"])
 def test_tensor_core_route_predicate(dtype, K, Nn, ptrs, want):
     assert ZM.tensor_core_route(dtype, K, Nn, ptrs) is want
 
