@@ -84,7 +84,20 @@ Phases, one line each (any failure exits non-zero):
      K3 on the tensor cores, 30 K1) with its draw time, every K1 and K2
      launch of that round recorded and run again against the plain
      versions, and K1's three modes over its client tree.
-Phases 9-12 run before phase 8's timings.  The line before the last
+ 13. serving (core/decode.DecodeEngine): every arch's smoke config
+     (f32) greedy on the card == on the CPU == the eager per-token
+     make_serve_step loop on the card, K5 / K6 once per attention /
+     RG-LRU layer and admission, and one sampled run card == CPU;
+     qwen2-1.5b at full width and depth (bf16, 8 slots, 24 requests of
+     256 / 384 / 512 prompt tokens, 128 new) and recurrentgemma-9b at
+     full width and depth (38 layers, 4 slots, 8 requests, 64 new): K5
+     on the tensor cores once per attention layer and admission, K6 once
+     per RG-LRU layer and admission, none in decode segments; prefill and
+     decode tok/s, median ms per decode step beside its byte bound, peak
+     memory, one segment's device busy time and idle share, the sampler's
+     time, the eager loop's tok/s on the same queue, and one admission's
+     prefill logits against the plain K5 / K6.
+Phases 9-13 run before phase 8's timings.  The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
 """
@@ -680,7 +693,8 @@ def k3_cases():
     # qwen2-1.5b's heads (12 q, 2 kv, head_dim 128), recurrentgemma-9b's
     # (16 q, 1 kv, head_dim 256) with a window, the qwen2.5-32b smoke
     # config's (8 q, 2 kv, head_dim 8) with a soft-cap and kimi-k2's
-    # head_dim 112 (GQA 8:1) with a window
+    # head_dim 112 (GQA 8:1) with a window; phase 13's admissions (batch
+    # 1) on qwen2-1.5b and recurrentgemma-9b
     return [("gpt2-small", 4, 256, 12, 12, 64, dict()),
             ("gqa-window-cap-ragged", 2, 200, 8, 2, 64,
              dict(window=64, cap=30.0)),
@@ -691,7 +705,10 @@ def k3_cases():
             ("d8-qwen2.5-32b-smoke-heads-cap", 2, 130, 8, 2, 8,
              dict(cap=30.0)),
             ("d112-kimi-k2-heads-window", 1, 300, 16, 2, 112,
-             dict(window=128))]
+             dict(window=128)),
+            ("serving-qwen2-1.5b-prefill", 1, 512, 12, 2, 128, dict()),
+            ("serving-recurrentgemma-9b-prefill", 1, 384, 16, 1, 256,
+             dict(window=2048))]
 
 
 def k3_routes():
@@ -1242,8 +1259,9 @@ def check_single_probe(dev):
 # (B, S, W) of K6 on the recurrentgemma round: every launch gets one half
 # of a client's dual batch or one client's server batch, 2 x 512 tokens
 # at lru_width 4096 (the whole-block fallback runs the clean and the
-# perturbed half apart); (4, 512, 4096) is the stacked dual batch
-K6_SHAPES = ((2, 512, 4096), (4, 512, 4096))
+# perturbed half apart); (4, 512, 4096) is the stacked dual batch;
+# (1, 512, 4096) a serving admission's prefill (phase 13)
+K6_SHAPES = ((2, 512, 4096), (4, 512, 4096), (1, 512, 4096))
 K6_RAGGED = ((1, 77, 1000), (1, 509, 4099), (3, 130, 129))
 K6_GRAD_TOL = 1e-6
 
@@ -1985,6 +2003,346 @@ def run_threefry_phase(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: serving
+# ---------------------------------------------------------------------------
+
+# the sampled configuration of phase 13 (a) and the sampler timing of (b)
+SERVE_SAMPLED = dict(greedy=False, temperature=0.8, top_k=40, top_p=0.95)
+# bf16 tolerance of the last-position logits of an admission's prefill
+# through K5 (and K6) against the same prefill on the plain versions:
+# each K5 output is within one bf16 rounding step (2^-8 relative) of the
+# plain one, and a random-init model carries that through its layers;
+# 2^-4 of the logits' largest magnitude holds tens of such steps
+SERVE_LOGIT_TOL = 2 ** -4
+
+
+def serve_queue(vocab, n, prompt_len, seed=0):
+    """``n`` prompts of the serving driver's mixed lengths (1/2, 3/4 and
+    1 of ``prompt_len``, cycled) from a seed."""
+    from repro_torch.launch.serve import prompt_lengths
+    rng = np.random.default_rng(seed)
+    lengths = prompt_lengths(prompt_len)
+    return [rng.integers(0, vocab, size=lengths[i % len(lengths)])
+            for i in range(n)]
+
+
+def run_engine(eng, prompts, max_new):
+    rids = [eng.submit(p, max_new) for p in prompts]
+    out = eng.run()
+    return [out[r] for r in rids]
+
+
+def eager_serve(params, cfg, dev, prompts, max_new, capacity):
+    """The per-token loop the engine replaces: requests batched by equal
+    prompt length (the only batching scalar-pos caches allow), every
+    prompt token and every new token one ``make_serve_step`` call, the
+    greedy token read by the host each step.  Returns the token streams."""
+    import torch
+    from repro_torch.core import protocols as P
+    serve = P.make_serve_step(cfg)
+    groups = {}
+    for i, p in enumerate(prompts):
+        groups.setdefault(len(p), []).append(i)
+    out = {}
+    with torch.inference_mode():
+        for idx in groups.values():
+            batch = torch.as_tensor(np.stack([prompts[i] for i in idx]),
+                                    device=dev)
+            caches = P.init_serve_caches(cfg, len(idx), capacity, device=dev)
+            for t in range(batch.shape[1]):
+                logits, caches = serve(params, caches, batch[:, t:t + 1])
+            toks = []
+            for _ in range(max_new):
+                tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)
+                toks.append(tok.cpu())
+                logits, caches = serve(params, caches, tok[:, None])
+            gen = torch.stack(toks, dim=1).numpy()
+            for j, i in enumerate(idx):
+                out[i] = gen[j].tolist()
+    return [out[i] for i in range(len(prompts))]
+
+
+def n_mixers(cfg):
+    """(attention layers, RG-LRU layers) of a config: K5 and K6 launches
+    per admission on the card."""
+    specs = cfg.layer_specs()
+    n_rec = sum(s.mixer == "rg_lru" for s in specs)
+    return len(specs) - n_rec, n_rec
+
+
+def check_serve_smoke(dev):
+    """(a) Every arch of the port's registry on its smoke config (f32):
+    the engine's greedy streams on the card == the same engine on the CPU
+    == the eager per-token loop on the card (2 slots, capacity 24,
+    segments of 4, prompts of 5 and 9 tokens, 6 new); K5 and K6 launch
+    once per attention / RG-LRU layer and admission (f32: the CUDA-core
+    loop); one sampled run (temperature 0.8, top-k 40, top-p 0.95) card
+    == CPU."""
+    import torch
+    from repro_torch.configs import registry as REG
+    from repro_torch.core import decode as D
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cpu = torch.device("cpu")
+    for arch in REG.ARCH_IDS:
+        cfg = REG.get_config(arch, smoke=True)
+        pc = T.init_lm(cfg, seed=0, device="cpu")
+        pg = tree_map(lambda t: t.to(dev), pc)
+        prompts = [np.random.default_rng(0).integers(0, cfg.vocab, size=n)
+                   for n in (5, 9)]
+        n_attn, n_rec = n_mixers(cfg)
+        reset_counts()
+        card_out = run_engine(D.DecodeEngine(
+            pg, cfg, slots=2, capacity=24, segment_len=4, device=dev),
+            prompts, 6)
+        counts = launch_counts()
+        check_counts(f"{arch} smoke engine", counts, {
+            "flash_attention": 2 * n_attn, "flash_attention_tc": 0,
+            "rg_lru_scan": 2 * n_rec, "zo_noise": 0, "zo_dual_matmul": 0,
+            "zo_matmul": 0, "zo_dual_flash_attention": 0})
+        cpu_out = run_engine(D.DecodeEngine(
+            pc, cfg, slots=2, capacity=24, segment_len=4, device=cpu),
+            prompts, 6)
+        eager = eager_serve(pg, cfg, dev, prompts, 6, 24)
+        if not card_out == cpu_out == eager:
+            fail(f"{arch} smoke engine: card {card_out} cpu {cpu_out} "
+                 f"eager on the card {eager}")
+        log(13, f"{arch} smoke engine (2 slots, prompts 5 and 9, 6 new): "
+            f"greedy streams card == cpu == eager loop on the card "
+            f"{card_out}; K5 {counts['flash_attention']} K6 "
+            f"{counts['rg_lru_scan']} launches (2 admissions)")
+    cfg = REG.get_config("qwen2-1.5b", smoke=True)
+    pc = T.init_lm(cfg, seed=0, device="cpu")
+    pg = tree_map(lambda t: t.to(dev), pc)
+    prompts = [np.random.default_rng(1).integers(0, cfg.vocab, size=n)
+               for n in (5, 9, 7)]
+    sampled = [run_engine(D.DecodeEngine(
+        params, cfg, slots=2, capacity=24, segment_len=4, seed=3,
+        sampler=D.SamplerConfig(**SERVE_SAMPLED), device=d), prompts, 7)
+        for params, d in ((pg, dev), (pc, cpu))]
+    if sampled[0] != sampled[1]:
+        fail(f"qwen2-1.5b smoke sampled engine: card {sampled[0]} cpu "
+             f"{sampled[1]}")
+    log(13, f"qwen2-1.5b smoke engine sampled ({SERVE_SAMPLED}, 3 requests, "
+        f"7 new): card == cpu {sampled[0]}")
+
+
+def timed_engine(eng):
+    """Wrap the engine's admission and segment (synchronised host clock)
+    and record each call's K5 / K6 launches.  Returns the records."""
+    import torch
+    rec = {"admit": [], "segment": []}
+
+    def wrap(name, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            before = launch_counts()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            rec[name].append((time.perf_counter() - t0, {
+                k: after[k] - before[k] for k in after}))
+            return out
+        return call
+
+    eng._admit_one = wrap("admit", eng._admit_one)
+    eng._decode_segment = wrap("segment", eng._decode_segment)
+    return rec
+
+
+def prefill_vs_plain(cfg, params, prompt, dev):
+    """The last position's logits of one admission's prefill through K5
+    (and K6) against the same prefill with ``ops.flash_attention`` and
+    ``ops.rg_lru_scan`` swapped for their plain versions (inside this
+    script only; no K5 / K6 launch).  Returns (max |d|, max |logits|,
+    first token agrees, top-2 gap of the plain logits)."""
+    import torch
+    from repro_torch.core import protocols as P
+    from repro_torch.kernels import ops as O
+    from repro_torch.kernels import ref as R
+    from repro_torch.models import transformer as T
+
+    def last_logits():
+        tmp = P.init_serve_caches(cfg, 1, len(prompt), per_slot=True,
+                                  device=dev)
+        x = P.decoder_hidden(params, cfg, tmp,
+                             torch.as_tensor(prompt, device=dev)[None])
+        return T.lm_head(params, cfg, x[:, -1:])[0, -1, :cfg.vocab]
+
+    with torch.inference_mode():
+        got = last_logits()
+        saved = O.flash_attention, O.rg_lru_scan
+        O.flash_attention, O.rg_lru_scan = (R.flash_attention_ref,
+                                            R.rg_lru_scan_ref)
+        reset_counts()
+        try:
+            ref = last_logits()
+        finally:
+            O.flash_attention, O.rg_lru_scan = saved
+        if launch_counts()["flash_attention"] or \
+                launch_counts()["rg_lru_scan"]:
+            fail("the plain prefill launched K5 or K6")
+    d = max_abs(got, ref)
+    top2 = torch.topk(ref, 2).values
+    return (d, float(ref.abs().max()), int(got.argmax()) == int(ref.argmax()),
+            float(top2[0] - top2[1]))
+
+
+def run_serve(dev, card, desc, cfg, slots, prompt_len, max_new, n_req,
+              segment):
+    """The engine at full width on a mixed queue (greedy), its launch
+    counts held per admission (K5 on the tensor cores once per attention
+    layer, K6 once per RG-LRU layer) and per segment (none); then one
+    segment profiled, the sampler timed, the eager per-token loop on the
+    same queue, and one admission's prefill against the plain kernels.
+    A decode step's byte bound: every weight read once (bf16), over the
+    card's memory rate.  Returns the run's launch counts."""
+    import torch
+    from repro_torch.core import decode as D
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    params = T.init_lm(cfg, seed=0, device=dev, draw_on_device=True)
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    step_bound_ms, _ = bound_ms(sum(t.numel() * t.element_size()
+                                    for t in leaves), 0, "bfloat16")
+    n_attn, n_rec = n_mixers(cfg)
+    prompts = serve_queue(cfg.vocab, n_req, prompt_len)
+    capacity = prompt_len + max_new
+    eng = D.DecodeEngine(params, cfg, slots=slots, capacity=capacity,
+                         segment_len=segment, device=dev)
+    run_engine(eng, prompts[:slots], 2)            # warm-up
+    eng = D.DecodeEngine(params, cfg, slots=slots, capacity=capacity,
+                         segment_len=segment, device=dev)
+    rec = timed_engine(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    streams = run_engine(eng, prompts, max_new)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_adm = len(rec["admit"])
+    check_counts(desc, counts, {
+        "flash_attention": n_attn * n_adm,
+        "flash_attention_tc": n_attn * n_adm, "rg_lru_scan": n_rec * n_adm,
+        "zo_noise": 0, "zo_dual_matmul": 0, "zo_matmul": 0,
+        "zo_dual_flash_attention": 0})
+    for s, c in rec["admit"]:
+        if (c["flash_attention_tc"], c["rg_lru_scan"]) != (n_attn, n_rec):
+            fail(f"{desc}: an admission launched {c}")
+    for s, c in rec["segment"]:
+        if any(c.values()):
+            fail(f"{desc}: a decode segment launched {c}")
+    total = sum(len(t) for t in streams)
+    if total != n_req * max_new or n_adm != n_req:
+        fail(f"{desc}: {total} tokens from {n_adm} admissions")
+    if not all(0 <= t < cfg.vocab for s in streams for t in s):
+        fail(f"{desc}: a token outside the vocab")
+    adm_s = sum(s for s, _ in rec["admit"])
+    seg_s = [s for s, _ in rec["segment"]]
+    step_ms = statistics.median(1e3 * s / segment for s in seg_s)
+    decoded = total - n_adm                # the first tokens: admissions
+    log(13, f"{desc} ({n_params} params, {n_attn} attention + {n_rec} "
+        f"RG-LRU layers; {slots} slots, capacity {capacity}, segments of "
+        f"{segment}; {n_req} requests, prompts {sorted(set(map(len, prompts)))}"
+        f", {max_new} new each) on {card}: {total} tokens in wall_s {wall} "
+        f"= sustained {total / wall} tok/s; {eng.segments} segments, "
+        f"{eng.prefill_tokens} prefill tokens; prefill {n_adm} admissions "
+        f"{adm_s} s = {eng.prefill_tokens / adm_s} prompt tok/s; decode "
+        f"{sum(seg_s)} s = {decoded / sum(seg_s)} tok/s; median ms per "
+        f"decode step {step_ms} vs byte bound {step_bound_ms} ms "
+        f"({step_ms / step_bound_ms:.1f}x); max_memory_allocated {peak}; "
+        f"launches {counts} (per admission K5 {n_attn} on the tensor "
+        f"cores, K6 {n_rec}; per segment none)")
+    del eng._admit_one, eng._decode_segment
+    # one segment: its wall unprofiled, then its device time profiled
+    with torch.inference_mode():
+        for p in prompts[:slots]:
+            eng.submit(p, max_new)
+        eng._admit()
+        (_, wall_seg) = _timed(eng._decode_segment)
+        rows = device_rows(eng._decode_segment)
+    busy = sum(r[0] for r in rows) / 1e3
+    rows.sort(reverse=True)
+    top = "; ".join(f"{k[:40]} x{n} {us / 1e3:.3f} ms"
+                    for us, n, k in rows[:6])
+    log(13, f"{desc}: one segment of {segment} steps, {slots} live slots: "
+        f"wall {1e3 * wall_seg} ms, device busy {busy} ms (idle share "
+        f"{1 - busy / (1e3 * wall_seg)}; profiled segment), "
+        f"{sum(r[1] for r in rows) / segment:.0f} kernels a step; top "
+        f"kernels: {top}")
+    del eng
+    # the sampler on a step's logits, beside greedy argmax
+    logits = torch.randn((slots, cfg.vocab), device=dev)
+    keys = torch.randint(0, 2 ** 32, (slots, 2), device=dev)
+    s_cfg = D.SamplerConfig(**SERVE_SAMPLED)
+    t_s = time_ms(lambda: D.sample_logits(logits, keys, s_cfg), reps=10)
+    t_g = time_ms(lambda: D.sample_logits(logits, keys, D.SamplerConfig()),
+                  reps=10)
+    log(13, f"{desc}: sampler on ({slots}, {cfg.vocab}) f32 logits: "
+        f"{SERVE_SAMPLED} {t_s} ms (the threefry draw of all rows in one "
+        f"pass) vs greedy argmax {t_g} ms (CUDA events)")
+    # the eager per-token loop on the same queue
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = eager_serve(params, cfg, dev, prompts, max_new, capacity)
+    wall_e = time.perf_counter() - t0
+    same = sum(a == b for a, b in zip(eager, streams))
+    first = sum(a[:8] == b[:8] for a, b in zip(eager, streams))
+    log(13, f"{desc}: eager per-token loop on the same queue (batched by "
+        f"prompt length, prompts fed token by token, a host read per "
+        f"token): {total} tokens in {wall_e} s = {total / wall_e} tok/s; "
+        f"engine / eager {wall_e / wall:.2f}x; greedy streams equal in "
+        f"{same} of {n_req} requests, the first 8 tokens in {first} (bf16: "
+        f"K5 prefill vs token-by-token decode attention; not gated)")
+    # one admission's prefill against the plain kernels
+    d, mx, agree, gap = prefill_vs_plain(cfg, params, prompts[-1], dev)
+    if not d <= SERVE_LOGIT_TOL * mx:
+        fail(f"{desc}: prefill logits through the kernels vs plain: max "
+             f"|d| {d} > {SERVE_LOGIT_TOL} x max |logits| {mx}")
+    if gap > 2 * d and not agree:
+        fail(f"{desc}: the first token differs from plain's though the "
+             f"top-2 gap {gap} > 2 max |d| {d}")
+    log(13, f"{desc}: one {len(prompts[-1])}-token prefill's last logits "
+        f"through K5{' / K6' if n_rec else ''} vs their plain versions: max "
+        f"|d| {d} <= {SERVE_LOGIT_TOL} x max |logits| {mx}; first token "
+        f"{'agrees' if agree else 'differs'} (plain top-2 gap {gap})")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_serve_phase(dev, card):
+    """Phase 13.  (b) qwen2-1.5b at full width and depth (bf16): per
+    decode step the whole model's bf16 weights, 3.09 GB, are read at
+    least once: 0.92 ms at 3.35 TB/s.  (c) recurrentgemma-9b at full
+    width and depth, 38 layers (serving keeps no optimizer state, so
+    phase 10's cut does not apply): 18.7 GB, 5.6 ms.  Returns the K5 and
+    K6 launches of (b) and (c)."""
+    import torch
+    from repro_torch.configs import qwen2_1_5b, recurrentgemma_9b
+    check_serve_smoke(dev)
+    torch.cuda.empty_cache()
+    counts = {}
+    for desc, cfg, kw in (
+            ("qwen2-1.5b engine (28 layers, bf16, greedy)",
+             qwen2_1_5b.full_config(),
+             dict(slots=8, prompt_len=512, max_new=128, n_req=24,
+                  segment=16)),
+            ("recurrentgemma-9b engine (38 layers, bf16, greedy)",
+             recurrentgemma_9b.full_config(),
+             dict(slots=4, prompt_len=512, max_new=64, n_req=8,
+                  segment=16))):
+        c = run_serve(dev, card, desc, cfg, **kw)
+        for k in ("flash_attention", "rg_lru_scan"):
+            counts[k] = counts.get(k, 0) + c[k]
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 8: times
 # ---------------------------------------------------------------------------
 
@@ -2124,11 +2482,15 @@ def check_hgmma():
 
 # (name, B, S, H, Kv, D, kwargs) of phase 8's attention times: the main
 # path's shape, qwen2-1.5b's heads and recurrentgemma-9b's heads (its
-# 2048-wide local window cut to 512 so the window bites at S = 1024)
+# 2048-wide local window cut to 512 so the window bites at S = 1024), and
+# phase 13's admissions of a 512-token prompt on each
 TIME_ATTN = [("gpt2-small", 4, 256, 12, 12, 64, {}),
              ("qwen2-1.5b heads", 2, 512, 12, 2, 128, {}),
              ("recurrentgemma-9b heads window 512", 1, 1024, 16, 1, 256,
-              dict(window=512))]
+              dict(window=512)),
+             ("qwen2-1.5b serving prefill", 1, 512, 12, 2, 128, {}),
+             ("recurrentgemma-9b serving prefill window 2048", 1, 512, 16,
+              1, 256, dict(window=2048))]
 
 
 def attn_pairs(S, window=0):
@@ -2413,10 +2775,12 @@ def k1_sass():
             f"{top}")
 
 
-def time_kernels(dev, counts, counts_sp, counts_rg, errs):
+def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve):
     """``counts``: launches of the gpt2-small round (K1-K3);
     ``counts_sp``: of the gpt2-small single-probe forward (K4, K5);
-    ``counts_rg``: of the recurrentgemma round (K6)."""
+    ``counts_rg``: of the recurrentgemma round (K6); ``counts_serve``: of
+    phase 13's two full-width engine runs (K5, K6), added to K5's and
+    K6's."""
     import torch
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import ops as O
@@ -2497,6 +2861,7 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs):
 
     # K3 and K5 (phase 8's attention rows, the main path's first)
     k3_row, k5_row = time_attention(dev, counts, counts_sp, errs)
+    k5_row["launches"] += counts_serve["flash_attention"]
     rows.append(k3_row)
 
     # K4: gpt2-small's three client shapes in bf16 (768x3072 is the main
@@ -2562,7 +2927,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs):
     rows.append({"name": "rg_lru_scan", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/rg_lru_scan.cu",
                  "replaces": "src/repro/kernels/rg_lru.py:50",
-                 "launches": counts_rg["rg_lru_scan"], "max_abs_err": errs[5],
+                 "launches": counts_rg["rg_lru_scan"]
+                 + counts_serve["rg_lru_scan"], "max_abs_err": errs[5],
                  "ms": ms, "plain_ms": pl, "bound_ms": bd, "bound_by": by,
                  "library_ms": None})
 
@@ -2613,7 +2979,9 @@ def main():
     run_fo_phase(dev, card, {k: counts_cnn[k] for k in (
         "zo_dual_matmul", "zo_dual_matmul_tc")})
     run_threefry_phase(dev, card)
-    rows = time_kernels(dev, counts, counts_sp, counts_rg, errs)
+    counts_serve = run_serve_phase(dev, card)
+    rows = time_kernels(dev, counts, counts_sp, counts_rg, errs,
+                        counts_serve)
     compiler_report()
     check_hgmma()
     k1_sass()

@@ -1,6 +1,6 @@
 """JAX's threefry PRNG in plain PyTorch integer arithmetic: the subset of
-``jax.random`` that the threefry ZO estimator, its seed replay and the
-round's participation masks call, bit for bit.
+``jax.random`` that the threefry ZO estimator, its seed replay, the
+round's participation masks and the decode sampler call, bit for bit.
 
 Only the partitionable layout (``jax_threefry_partitionable=True``, which
 the JAX package sets on import) is reproduced.  In it every draw is the
@@ -92,11 +92,16 @@ def PRNGKey(seed: int) -> torch.Tensor:    # noqa: N802 (jax's name)
 
 def fold_in_many(key, data) -> torch.Tensor:
     """``fold_in(key, d)`` for every ``d`` of ``data``: an ``(n, 2)`` key
-    stack (CPU).  ``key`` is one key or an ``(n, 2)`` stack, one per
-    entry of ``data``."""
-    data = torch.as_tensor(np.asarray(data, np.int64).reshape(-1)) & M32
+    stack.  ``key`` is one key or an ``(n, 2)`` stack, one per entry of
+    ``data``.  A tensor ``data`` keeps its device (the decode loop's
+    per-slot keys never visit the host); other data is hashed on the
+    CPU."""
+    if isinstance(data, torch.Tensor):
+        data = data.reshape(-1).to(torch.int64) & M32
+    else:
+        data = torch.as_tensor(np.asarray(data, np.int64).reshape(-1)) & M32
     if isinstance(key, torch.Tensor) and key.dim() == 2:
-        k = key.to("cpu", torch.int64) & M32
+        k = key.to(data.device, torch.int64) & M32
         k0, k1 = k[:, 0], k[:, 1]
     else:
         k0, k1 = _words(key)
@@ -164,6 +169,49 @@ def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
     return _draw(key, shape, device, torch.float32,
                  lambda bits: _uniform_window(bits, minval, maxval))
+
+
+def uniform_rows(keys, n: int, minval: float = 0.0, maxval: float = 1.0,
+                 device="cpu") -> torch.Tensor:
+    """``jax.vmap(lambda k: jax.random.uniform(k, (n,), float32, minval,
+    maxval))(keys)``: a ``(B, n)`` block, row ``b`` drawn under
+    ``keys[b]``, in one pass (not one draw per row)."""
+    k = keys.to(device, torch.int64) & M32
+    B = k.shape[0]
+    x0 = torch.zeros((B, n), dtype=torch.int64, device=device)
+    x1 = torch.arange(n, dtype=torch.int64, device=device).repeat(B, 1)
+    o0, o1 = threefry2x32(k[:, :1], k[:, 1:], x0, x1)
+    return _uniform_window(o0.bitwise_xor_(o1), minval, maxval)
+
+
+_TINY = _f32(np.finfo(np.float32).tiny)
+
+
+def _gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    return -torch.log(-torch.log(u))
+
+
+def gumbel(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in jax's default "low"
+    mode: ``-log(-log(uniform(key, shape, tiny, 1)))``.  The uniforms
+    are JAX's bit for bit; the two logs are torch's, each within 1 f32
+    ulp of XLA's (``tests/test_torch_sampler.py``)."""
+    return _gumbel_from_uniform(uniform(key, shape, _TINY, 1.0, device))
+
+
+def categorical(key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis: the
+    argmax of ``logits`` plus Gumbel noise of their shape."""
+    return torch.argmax(gumbel(key, logits.shape, logits.device) + logits,
+                        dim=-1)
+
+
+def categorical_rows(keys, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.vmap(jax.random.categorical)(keys, logits)`` for (B, V)
+    logits and (B, 2) keys, the Gumbel noise of all rows drawn at once
+    (:func:`uniform_rows`)."""
+    u = uniform_rows(keys, logits.shape[-1], _TINY, 1.0, logits.device)
+    return torch.argmax(_gumbel_from_uniform(u) + logits, dim=-1)
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,10 @@ run in a Python loop where the JAX package uses ``vmap``.
 
 ``FedConfig.sequential_server`` is not ported: no reference code reads
 it.
+
+The serving steps (``make_cached_prefill_step``, ``make_serve_step``,
+``init_serve_caches``) are the decoder-only half of the reference's;
+:mod:`repro_torch.core.decode` drives them.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from repro_torch.core import prng as R
 from repro_torch.core import zo as Z
 from repro_torch.core.split import (dequantize_smashed, param_bytes,
                                     quantize_smashed)
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as O
 from repro_torch.models import cnn as CNN
 from repro_torch.models import transformer as T
@@ -159,6 +164,89 @@ def cnn_api(cfg: CNN.CNNConfig) -> ModelAPI:
 
     return ModelAPI(client_loss, aux_loss, server_loss, joint_loss,
                     client_dual_loss if kernel_forward(cfg) else None)
+
+
+# ===========================================================================
+# serving (decoder-only)
+# ===========================================================================
+
+def _decoder_only(cfg, what: str):
+    if getattr(cfg, "enc_dec", False):
+        raise NotImplementedError(
+            f"{what} is decoder-only; enc-dec serving comes with the "
+            "enc-dec model, ROADMAP queue 1 item 6")
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """``prefill(params, batch) -> logits``: the whole model's forward."""
+    _decoder_only(cfg, "the prefill step")
+
+    def prefill(params, batch):
+        return T.full_forward(params, cfg, batch["inputs"],
+                              batch.get("positions"))
+
+    return prefill
+
+
+def decoder_hidden(params, cfg: ModelConfig, caches, tokens, *,
+                   decode: bool = False, live=None):
+    """Client then server blocks over ``tokens`` with the serving caches
+    (written in place): a block prefill of fresh caches, or with
+    ``decode`` one token per slot (cache writes only for ``live`` slots
+    when given).  Returns the hidden states before the head."""
+    x = T.embed_inputs(params["client"], cfg, tokens)
+    x, _ = T.apply_stack(params["client"]["layers"], x, cfg,
+                         T.client_specs(cfg), caches=caches["client"],
+                         decode=decode, live=live)
+    x, _ = T.apply_stack(params["server"]["layers"], x, cfg,
+                         T.server_specs(cfg), caches=caches["server"],
+                         decode=decode, live=live)
+    return x
+
+
+def make_cached_prefill_step(cfg: ModelConfig):
+    """Block prefill for serving: one forward over the whole prompt that
+    writes the KV / recurrent caches, so decode continues at ``pos =
+    prompt_len``.  Returns ``prefill(params, caches, tokens) -> (logits,
+    caches)``; the caches must be fresh (``init_serve_caches``, pos 0)
+    and are written in place.  On the card the attention layers run K5
+    and the RG-LRU layers K6."""
+    _decoder_only(cfg, "the cached block prefill")
+
+    def prefill(params, caches, tokens):
+        x = decoder_hidden(params, cfg, caches, tokens)
+        return T.lm_head(params, cfg, x), caches
+
+    return prefill
+
+
+def init_serve_caches(cfg: ModelConfig, batch: int, seq: int,
+                      per_slot: bool = False, device="cuda"):
+    """Zeroed caches of the client and server stacks, ``seq`` tokens per
+    row.  ``per_slot=True`` lays them out for the decode engine
+    (:mod:`repro_torch.core.decode`): every KV cache carries a per-slot
+    ``pos`` vector instead of one scalar, so slots at different sequence
+    positions share one batch and finished slots can be recycled."""
+    _decoder_only(cfg, "serving")
+    dev = resolve_device(device)
+    return {part: T.init_stack_cache(cfg, specs(cfg), batch, seq, per_slot,
+                                     dev)
+            for part, specs in (("client", T.client_specs),
+                                ("server", T.server_specs))}
+
+
+def make_serve_step(cfg: ModelConfig):
+    """One decode step: ``serve(params, caches, token, live=None) ->
+    (logits, caches)`` for ``token`` (B, 1), the caches written in place
+    (only the ``live`` slots' when given)."""
+    _decoder_only(cfg, "the serve step")
+
+    def serve(params, caches, token, live=None):
+        x = decoder_hidden(params, cfg, caches, token, decode=True,
+                           live=live)
+        return T.lm_head(params, cfg, x), caches
+
+    return serve
 
 
 @dataclasses.dataclass(frozen=True)

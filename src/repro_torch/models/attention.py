@@ -1,5 +1,6 @@
 """GQA attention of the dense family, mirroring :mod:`repro.models.
-attention` (training paths only; decode and KV caches are not ported).
+attention`: the training paths, the serving prefill into a KV cache and
+the one-token decode against it.
 
 The server's first-order step differentiates plain PyTorch attention
 (:func:`naive_attention` / :func:`blocked_attention`, einsum, softmax,
@@ -8,6 +9,17 @@ probe runs both estimator streams through ONE fused pass,
 :func:`repro_torch.kernels.ops.zo_dual_flash_attention` (kernel K3 on the
 card); the single probe runs its one stream through
 :func:`repro_torch.kernels.ops.flash_attention` (kernel K5).
+
+Serving takes no gradient, so a block prefill into a cache runs K5 on the
+card too (the JAX package keeps it on ``blocked_attention`` only because
+Pallas calls have no JVP rule); on the CPU it takes the config's plain
+attention.  The decode step attends one query per slot over the whole
+cache in plain PyTorch, as the JAX package does outside any kernel.
+KV caches are ``{"k", "v": (B, size, Kv, D), "pos"}`` tensors that the
+prefill and decode write in place; ``pos`` is a scalar, or a ``(B,)``
+vector in the slot-paged layout where every slot decodes at its own
+position.  A local layer's cache is a ring of ``min(seq, window)``
+entries: absolute position ``p`` lives at slot ``p % size``.
 """
 from __future__ import annotations
 
@@ -129,12 +141,72 @@ def _dual_probe_attention(q, k, v, cfg: ModelConfig, *, window: int,
     return torch.cat([oa, ob], dim=0)
 
 
+def decode_attention(q, k_cache, v_cache, valid_len, *, window=0, cap=None,
+                     scale=None):
+    """q: (B, 1, H, D); caches: (B, S, K, D); valid_len: a scalar or (B,)
+    int tensor: cache entries ``< valid_len`` (and within ``window`` of
+    it) are attended, in f32."""
+    B, _, H, D = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    G = H // K
+    scale = scale if scale is not None else D ** -0.5
+    qr = q.reshape(B, K, G, D).to(torch.float32)
+    s = torch.einsum("bkgd,bskd->bkgs", qr,
+                     k_cache.to(torch.float32)) * scale
+    s = L.softcap(s, cap)
+    pos = torch.arange(S, device=q.device)
+    vl = torch.as_tensor(valid_len, device=q.device).reshape(-1, 1)
+    m = pos[None] < vl                                   # (B or 1, S)
+    if window > 0:
+        m = m & (pos[None] >= vl - window)
+    s = torch.where(m[:, None, None, :], s, _neg_inf_like(s))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _decode_write(cache, k, v, window: int, live):
+    """Write one token's k/v, (B, 1, K, D), at each slot's position
+    (``pos % size`` on a ring), in place.  Per-slot positions past the
+    capacity and slots whose ``live`` is False keep their rows (the JAX
+    package's scatter with ``mode="drop"`` and its frozen finished
+    slots); a scalar position past the capacity writes the last row, as
+    ``dynamic_update_slice`` clamps."""
+    pos = cache["pos"]
+    size = cache["k"].shape[1]
+    B = k.shape[0]
+    slot = (pos % size if window > 0 else pos).expand(B)
+    keep = None
+    if pos.dim() == 1:
+        keep = slot >= size
+        if live is not None:
+            keep = keep | ~live
+    slot = slot.clamp(max=size - 1).long()
+    b_ix = torch.arange(B, device=k.device)
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        new = new[:, 0].to(c.dtype)
+        if keep is not None:
+            new = torch.where(keep[:, None, None], c[b_ix, slot], new)
+        c[b_ix, slot] = new
+    pos.add_(1 if live is None else live.to(pos.dtype))
+
+
 def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
-                    local: bool = False, perturb=None):
-    """Self-attention for training: q/k/v projections, RoPE, attention,
-    output projection.  ``perturb`` (the ZO probe) fuses weight noise into
-    the projections; the dual probe runs the fused dual attention and the
-    single probe the single-stream flash kernel."""
+                    local: bool = False, cache=None, decode: bool = False,
+                    live=None, perturb=None):
+    """Self-attention: q/k/v projections, RoPE, attention, output
+    projection.  Returns ``(out, cache)``.
+
+    ``perturb`` (the training-time ZO probe) fuses weight noise into the
+    projections; the dual probe runs the fused dual attention and the
+    single probe the single-stream flash kernel.  ``cache`` without
+    ``decode`` is a block prefill of a fresh cache (pos 0): the prompt's
+    k/v are written so decode continues at ``pos = S``.  ``decode``
+    takes one token per slot at the cache's positions, writes its k/v
+    (only for ``live`` slots, when given) and attends the cache."""
+    if perturb is not None and (cache is not None or decode):
+        raise ValueError("the ZO perturbed forward is a training-time path")
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     cdt = cfg.torch_compute_dtype()
@@ -154,6 +226,8 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
                      cfg.n_kv_heads, hd)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        if decode:              # each slot (or the batch) at its position
+            positions = cache["pos"].reshape(-1, 1) + positions
     kv_positions = positions
     if score_probe and positions.shape[0] == B:
         kv_positions = positions[: B // 2]      # k/v carry the clean half
@@ -162,13 +236,23 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
         k = L.apply_rope(k, kv_positions, cfg.rope_theta)
     elif cfg.rope_kind != "none":
         raise NotImplementedError(f"rope_kind={cfg.rope_kind!r}")
-    if perturb is not None and perturb.dual:
+    if decode:
+        if S != 1:
+            raise ValueError(f"decode takes one token per slot, got {S}")
+        valid = cache["pos"] + 1         # a ring holds the last size
+        if window > 0:
+            valid = torch.clamp(valid, max=cache["k"].shape[1])
+        _decode_write(cache, k, v, window, live)
+        o = decode_attention(q, cache["k"], cache["v"], valid,
+                             cap=cfg.attn_softcap, scale=cfg.attn_scale)
+    elif perturb is not None and perturb.dual:
         o = _dual_probe_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), cfg, window=window,
                                   perturb=perturb, score_probe=score_probe)
-    elif perturb is not None:
-        # the single probe's one stream through the flash kernel; the
-        # unperturbed forward stays on the differentiable plain versions
+    elif perturb is not None or (cache is not None and x.is_cuda):
+        # the single probe's one stream, and the serving prefill on the
+        # card, through the flash kernel; the unperturbed forward stays on
+        # the differentiable plain versions
         o = O.flash_attention(q.contiguous(), k.contiguous(),
                               v.contiguous(), causal=True, window=window,
                               cap=cfg.attn_softcap or 0.0,
@@ -180,5 +264,39 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
         o = blocked_attention(q, k, v, causal=True, window=window,
                               cap=cfg.attn_softcap, scale=cfg.attn_scale,
                               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    if cache is not None and not decode:
+        _prefill_cache(cache, k, v)
     o = o.reshape(B, S, cfg.n_heads * hd)
-    return L.dense(params["wo"], o, cdt, psub(perturb, "wo"))
+    out = L.dense(params["wo"], o, cdt, psub(perturb, "wo"))
+    return out, cache
+
+
+def _prefill_cache(cache, k, v):
+    """Write a whole prompt's k/v into a fresh (possibly ring) KV cache,
+    in place.  Entry at absolute position ``p`` lands at slot ``p %
+    size``, the invariant the decode path's ring addressing continues
+    from: for ``S >= size`` only the last ``size`` entries are kept,
+    rolled by ``S % size``; for ``S < size`` it is a prefix write."""
+    size = cache["k"].shape[1]
+    S = k.shape[1]
+    for name, new in (("k", k), ("v", v)):
+        if S >= size:
+            cache[name].copy_(torch.roll(new[:, -size:], S % size, dims=1))
+        else:
+            cache[name][:, :S] = new
+    cache["pos"].add_(S)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, seq: int, *, local: bool,
+                  per_slot: bool = False, device="cpu"):
+    """``per_slot=True`` makes ``pos`` a (batch,) vector: the slot-paged
+    layout the decode engine uses so requests of different lengths share
+    one batch (see :mod:`repro_torch.core.decode`)."""
+    size = min(seq, cfg.window) if local and cfg.window > 0 else seq
+    hd = cfg.resolved_head_dim
+    dt = cfg.torch_compute_dtype()
+    shape = (batch, size, cfg.n_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "pos": torch.zeros((batch,) if per_slot else (),
+                               dtype=torch.int32, device=device)}

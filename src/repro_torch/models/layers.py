@@ -240,17 +240,24 @@ def init_conv1d(gen, dim: int, dtype, width: int = 4):
             "b": init_param(gen, (dim,), dtype, "zeros")}
 
 
-def causal_conv1d(params, x):
+def causal_conv1d(params, x, state=None):
     """x: (B, S, C) depthwise causal conv over the sequence, in x's
-    dtype.  The training form only: the streaming ``state`` of the JAX
-    version is decode, which is not ported."""
+    dtype.  With ``state``, the (B, width-1, C) trailing context of the
+    tokens before x, it runs in streaming mode and returns ``(out,
+    new_state)``."""
     w = params["w"].to(x.dtype)                       # (width, C)
     width = w.shape[0]
-    ctx = F.pad(x, (0, 0, width - 1, 0))
+    if state is not None:
+        ctx = torch.cat([state.to(x.dtype), x], dim=1)
+    else:
+        ctx = F.pad(x, (0, 0, width - 1, 0))
     out = torch.zeros_like(x)
     for i in range(width):
         out = out + ctx[:, i:i + x.shape[1], :] * w[i]
-    return out + params["b"].to(x.dtype)
+    out = out + params["b"].to(x.dtype)
+    if state is not None:
+        return out, (ctx[:, -(width - 1):, :] if width > 1 else state)
+    return out
 
 
 def softcap(x, cap):

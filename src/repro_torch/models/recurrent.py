@@ -1,6 +1,6 @@
 """The RG-LRU mixer of RecurrentGemma, mirroring the RG-LRU half of
-:mod:`repro.models.recurrent` (training path only; the decode state is
-serving, which is not ported).
+:mod:`repro.models.recurrent`: the sequence path (training and the
+serving prefill) and the one-token decode step against a carried state.
 
 The JAX package runs the linear recurrence h_t = a_t*h_{t-1} + b_t with
 ``jax.lax.associative_scan`` (log depth, TPU-friendly) and lets
@@ -49,15 +49,50 @@ def _rg_lru_coeffs(params, xc):
     return a, b
 
 
-def rg_lru_block(params, x, cfg: ModelConfig):
-    """(B, S, d_model) -> (B, S, d_model): input and gate projections, the
-    causal conv, the gated recurrence (K6 on the card), the output
-    projection."""
+def rg_lru_block(params, x, cfg: ModelConfig, state=None,
+                 decode: bool = False, live=None):
+    """(B, S, d_model) -> ``(out, state)``: input and gate
+    projections, the causal conv, the gated recurrence, the output
+    projection.  ``state = {"h": (B, W), "conv": (B, cw-1, W)}``.
+
+    The sequence path scans with K6 on the card; given a fresh ``state``
+    (a block prefill) it writes the state it ends in there: ``h`` in the
+    compute dtype, ``conv`` the last ``cw-1`` rows of the zero-padded
+    input.  ``decode`` takes one token against ``state``: ``h = a*h + b``
+    in f32, no scan.  Both write ``state``'s tensors in place and return
+    it (None without a state); decode writes only the rows where ``live``
+    is set (all rows when it is None)."""
     cdt = cfg.torch_compute_dtype()
     xb = L.dense(params["in_x"], x, cdt)
     gateb = L.dense(params["in_gate"], x, cdt)
-    xc = L.causal_conv1d(params["conv"], xb)
-    a, b = _rg_lru_coeffs(params, xc)
-    y = O.rg_lru_scan(a, b)
+    if decode:
+        xc, conv = L.causal_conv1d(params["conv"], xb, state["conv"])
+        a, b = _rg_lru_coeffs(params, xc)
+        h = a[:, 0] * state["h"].to(torch.float32) + b[:, 0]
+        for name, new in (("h", h), ("conv", conv)):
+            new = new.to(state[name].dtype)
+            if live is not None:
+                m = live.reshape((-1,) + (1,) * (new.dim() - 1))
+                new = torch.where(m, new, state[name])
+            state[name].copy_(new)
+        y = h[:, None, :]
+    else:
+        xc = L.causal_conv1d(params["conv"], xb)
+        a, b = _rg_lru_coeffs(params, xc)
+        y = O.rg_lru_scan(a, b)
+        if state is not None:
+            # a block prefill into a fresh state
+            cw = cfg.conv_width
+            state["h"].copy_(y[:, -1])
+            state["conv"].copy_(F.pad(xb, (0, 0, cw - 1, 0))[:,
+                                                            xb.shape[1]:])
     y = y.to(cdt) * F.gelu(gateb, approximate="tanh")
-    return L.dense(params["out"], y, cdt)
+    return L.dense(params["out"], y, cdt), state
+
+
+def init_rg_lru_state(cfg: ModelConfig, batch: int, device="cpu"):
+    w = cfg.lru_width or cfg.d_model
+    cdt = cfg.torch_compute_dtype()
+    return {"h": torch.zeros((batch, w), dtype=cdt, device=device),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=cdt,
+                                device=device)}

@@ -1,6 +1,7 @@
 """The transformer stack with its SFL split, mirroring
-:mod:`repro.models.transformer` (training paths of the dense family and
-of the RG-LRU hybrid, RecurrentGemma).
+:mod:`repro.models.transformer` (the dense family and the RG-LRU hybrid,
+RecurrentGemma): the training paths, and the serving prefill and decode
+step over per-block caches (``init_stack_cache``).
 
 Layer stacks keep the JAX package's pattern compression: a segment is a
 tuple (one entry per position of the repeating unit) of block-param
@@ -76,23 +77,31 @@ def _block_fallback(params, x, spec: LayerSpec, cfg: ModelConfig, perturb):
     if not perturb.dual:
         return apply_block(pp, x, spec, cfg)
     half = x.shape[0] // 2
-    return torch.cat([apply_block(params, x[:half], spec, cfg),
-                      apply_block(pp, x[half:], spec, cfg)], dim=0)
+    return torch.cat([apply_block(params, x[:half], spec, cfg)[0],
+                      apply_block(pp, x[half:], spec, cfg)[0]], dim=0), None
 
 
 def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
-                positions=None, perturb=None):
+                positions=None, cache=None, decode=False, live=None,
+                perturb=None):
+    """Returns ``(x, cache)``: the block's cache (``{"attn": ...}`` or
+    ``{"rec": ...}``, written in place by a prefill or a decode step) or
+    None without one."""
     if perturb is not None and not O.any_seed(perturb.seeds):
         perturb = None
     if perturb is not None and spec.mixer not in ATTN_MIXERS:
         return _block_fallback(params, x, spec, cfg, perturb)
     h = _norm(cfg, params["norm1"], x, O.psub(perturb, "norm1"))
     if spec.mixer in ATTN_MIXERS:
-        o = A.attention_layer(params["attn"], h, cfg, positions=positions,
-                              local=(spec.mixer == "local_attn"),
-                              perturb=O.psub(perturb, "attn"))
+        o, _ = A.attention_layer(
+            params["attn"], h, cfg, positions=positions,
+            local=(spec.mixer == "local_attn"),
+            cache=None if cache is None else cache["attn"], decode=decode,
+            live=live, perturb=O.psub(perturb, "attn"))
     else:
-        o = REC.rg_lru_block(params["rec"], h, cfg)
+        o, _ = REC.rg_lru_block(params["rec"], h, cfg,
+                                None if cache is None else cache["rec"],
+                                decode=decode, live=live)
     if cfg.post_norm:
         o = _norm(cfg, params["postnorm1"], o, O.psub(perturb, "postnorm1"))
     x = x + o
@@ -101,7 +110,16 @@ def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
               O.psub(perturb, "mlp"))
     if cfg.post_norm:
         o = _norm(cfg, params["postnorm2"], o, O.psub(perturb, "postnorm2"))
-    return x + o
+    return x + o, cache
+
+
+def init_block_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
+                     seq: int, per_slot: bool = False, device="cpu"):
+    if spec.mixer in ATTN_MIXERS:
+        return {"attn": A.init_kv_cache(cfg, batch, seq,
+                                        local=(spec.mixer == "local_attn"),
+                                        per_slot=per_slot, device=device)}
+    return {"rec": REC.init_rg_lru_state(cfg, batch, device)}
 
 
 # ---------------------------------------------------------------------------
@@ -141,24 +159,44 @@ def init_stack(gen, cfg: ModelConfig, specs: Sequence[LayerSpec]):
     return out
 
 
+def init_stack_cache(cfg: ModelConfig, specs: Sequence[LayerSpec],
+                     batch: int, seq: int, per_slot: bool = False,
+                     device="cpu"):
+    """Per segment, a tuple (per unit position) of block caches whose
+    leaves carry a leading ``reps`` axis, as the segment's params do."""
+    out = []
+    for unit, reps in build_segments(specs):
+        one = tuple(init_block_cache(spec, cfg, batch, seq, per_slot, device)
+                    for spec in unit)
+        out.append(tree_map(
+            lambda t: t[None].repeat((reps,) + (1,) * t.dim()), one))
+    return out
+
+
 def apply_stack(stack_params, x, cfg: ModelConfig,
-                specs: Sequence[LayerSpec], *, positions=None,
-                perturb=None):
-    """``perturb.seeds`` (if given) is a list mirroring ``stack_params``:
-    one seed per stacked leaf; rep r runs with ``Perturb.rep = r``."""
+                specs: Sequence[LayerSpec], *, positions=None, caches=None,
+                decode=False, live=None, perturb=None):
+    """Returns ``(x, caches)``; the caches (``init_stack_cache``'s
+    layout) are written in place, rep r through its views ``c[r]``.
+    ``perturb.seeds`` (if given) is a list mirroring ``stack_params``: one
+    seed per stacked leaf; rep r runs with ``Perturb.rep = r``."""
     for si, (unit, reps) in enumerate(build_segments(specs)):
         seg_params = stack_params[si]
         seg_seeds = perturb.seeds[si] if perturb is not None else None
         for r in range(reps):
             params_rep = tree_map(lambda p: p[r], seg_params)
+            cache_rep = (None if caches is None
+                         else tree_map(lambda c: c[r], caches[si]))
             for j, spec in enumerate(unit):
                 pj = None
                 if seg_seeds is not None and O.any_seed(seg_seeds[j]):
                     pj = dataclasses.replace(perturb, seeds=seg_seeds[j],
                                              rep=r)
-                x = apply_block(params_rep[j], x, spec, cfg,
-                                positions=positions, perturb=pj)
-    return x
+                x, _ = apply_block(
+                    params_rep[j], x, spec, cfg, positions=positions,
+                    cache=None if cache_rep is None else cache_rep[j],
+                    decode=decode, live=live, perturb=pj)
+    return x, caches
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +303,7 @@ def client_forward(client_params, cfg: ModelConfig, inputs, positions=None,
             positions = torch.cat([positions, positions], dim=0)
     return apply_stack(client_params["layers"], x, cfg, client_specs(cfg),
                        positions=positions,
-                       perturb=O.psub(perturb, "layers"))
+                       perturb=O.psub(perturb, "layers"))[0]
 
 
 def aux_forward(client_params, cfg: ModelConfig, smashed, positions=None,
@@ -280,8 +318,8 @@ def aux_forward(client_params, cfg: ModelConfig, smashed, positions=None,
     pa = O.psub(perturb, "aux")
     x = smashed
     if "layers" in aux:
-        x = apply_stack(aux["layers"], x, cfg, aux_specs(cfg),
-                        positions=positions, perturb=O.psub(pa, "layers"))
+        x, _ = apply_stack(aux["layers"], x, cfg, aux_specs(cfg),
+                           positions=positions, perturb=O.psub(pa, "layers"))
     x = _norm(cfg, aux["norm"], x, O.psub(pa, "norm"))
     pe = O.psub(perturb, "embed")
     st = None if pe is None else pe.seeds.get("table")
@@ -299,17 +337,23 @@ def aux_forward(client_params, cfg: ModelConfig, smashed, positions=None,
     return L.softcap(logits, cfg.final_softcap)
 
 
-def server_forward(params, cfg: ModelConfig, smashed, positions=None):
-    """Server blocks on smashed data -> logits."""
+def lm_head(params, cfg: ModelConfig, x):
+    """The final norm, the (tied or untied) unembedding in f32 and the
+    final soft-cap: hidden states -> logits."""
     server = params["server"]
-    x = apply_stack(server["layers"], smashed, cfg, server_specs(cfg),
-                    positions=positions)
     x = _norm(cfg, server["final_norm"], x)
     if cfg.tie_embeddings:
         logits = L.unembed(params["client"]["embed"], x, torch.float32)
     else:
         logits = x.to(torch.float32) @ server["unembed"].to(torch.float32)
     return L.softcap(logits, cfg.final_softcap)
+
+
+def server_forward(params, cfg: ModelConfig, smashed, positions=None):
+    """Server blocks on smashed data -> logits."""
+    x, _ = apply_stack(params["server"]["layers"], smashed, cfg,
+                       server_specs(cfg), positions=positions)
+    return lm_head(params, cfg, x)
 
 
 def full_forward(params, cfg: ModelConfig, inputs, positions=None):

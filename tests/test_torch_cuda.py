@@ -1,7 +1,7 @@
 """Kernels K1-K6 on a CUDA card against their plain PyTorch versions,
 the single-probe kernels against the matching stream of the fused ones
 bit for bit, the tensor-core routes of K2 / K4 (bf16, and f32 as 3xTF32)
-and the bf16 ones of K3 / K5.
+and the bf16 ones of K3 / K5, and the decode engine card against CPU.
 
 Imports neither JAX nor the JAX package, so it runs on the machine with
 the card (which has no JAX) with the repository's conftest skipped:
@@ -560,3 +560,58 @@ def test_cuda_threefry_matches_golden_and_cpu():
                 d = (a.cpu().float() - b.float()).abs()
                 assert bool((d <= 1e-5 + 1e-4 * b.float().abs()).all()), (
                     scale, part, float(d.max()))
+
+
+def _serve_smoke(arch, dev, params=None, dtype=None, sampler=None):
+    """The decode engine on ``arch``'s smoke config (2 slots, capacity
+    24, segments of 4, prompts of 5 and 9 tokens, 6 new): the token
+    streams and the K5 / K6 launches of the run."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.core import decode as D
+    from repro_torch.models import transformer as T
+    cfg = REG.get_config(arch, smoke=True)
+    if dtype is not None:
+        cfg = cfg.replace(param_dtype=dtype, compute_dtype=dtype)
+    if params is None:
+        params = T.init_lm(cfg, seed=0, device=dev)
+    prompts = [np.random.default_rng(0).integers(0, cfg.vocab, size=n)
+               for n in (5, 9)]
+    eng = D.DecodeEngine(params, cfg, slots=2, capacity=24, segment_len=4,
+                         sampler=D.SamplerConfig(**(sampler or {})),
+                         device=dev)
+    before = {**FA.LAUNCHES, **RG.LAUNCHES}
+    rids = [eng.submit(p, 6) for p in prompts]
+    out = eng.run()
+    after = {**FA.LAUNCHES, **RG.LAUNCHES}
+    return ([out[r] for r in rids], {k: after[k] - before[k] for k in after},
+            cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "recurrentgemma-9b"])
+def test_cuda_serve_engine_matches_cpu(arch):
+    """The decode engine on the card against the CPU (f32 smoke config):
+    the same greedy and sampled token streams, K5 once per attention
+    layer and K6 once per RG-LRU layer in each admission's prefill and
+    never in decode; on a bf16 copy of the config K5 runs on the tensor
+    cores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    sampled = dict(greedy=False, temperature=0.8, top_k=40, top_p=0.95)
+    for sampler in (None, sampled):
+        ref, _, cfg = _serve_smoke(arch, cpu, sampler=sampler)
+        pg = tree_map(lambda t: t.to(dev), T.init_lm(cfg, seed=0,
+                                                      device="cpu"))
+        got, launches, _ = _serve_smoke(arch, dev, pg, sampler=sampler)
+        assert got == ref, sampler
+        specs = cfg.layer_specs()
+        n_rec = sum(s.mixer == "rg_lru" for s in specs)
+        assert launches["flash_attention"] == 2 * (len(specs) - n_rec)
+        assert launches["rg_lru_scan"] == 2 * n_rec
+        assert launches["flash_attention_tc"] == 0     # f32: the loop
+    _, launches, cfg = _serve_smoke(arch, dev, dtype="bfloat16")
+    n_attn = sum(s.mixer != "rg_lru" for s in cfg.layer_specs())
+    assert launches["flash_attention_tc"] == 2 * n_attn

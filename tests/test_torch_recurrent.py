@@ -155,7 +155,7 @@ def test_conv1d_and_rg_lru_block_match_jax():
     conv = L.causal_conv1d(tp["conv"], torch.as_tensor(x))
     np.testing.assert_allclose(conv.numpy(), np.asarray(conv_ref), **TOL)
     out_ref, _ = JR.rg_lru_block(jp, jnp.asarray(x), jcfg, RULES)
-    out = REC.rg_lru_block(tp, torch.as_tensor(x), cfg)
+    out, _ = REC.rg_lru_block(tp, torch.as_tensor(x), cfg)
     np.testing.assert_allclose(out.numpy(), np.asarray(out_ref), **TOL)
     # the lru_lambda init inverts softplus(lam) = -8 log(u), u uniform in
     # [0.9, 0.999], as the JAX init does (other draws, the same band)

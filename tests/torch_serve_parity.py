@@ -1,0 +1,42 @@
+"""Shared helpers of the serving parity tests (``tests/test_torch_
+decode_cache.py``, ``tests/test_torch_serve.py``): the reference's config
+of a port arch and a tree comparison of the port's caches with the JAX
+package's.  Not a test module."""
+import numpy as np
+
+from repro.configs import gpt2 as JGPT2
+from repro.configs import registry as JREG
+from repro.distributed.sharding import AxisRules
+
+RULES = AxisRules(mesh=None)
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def jax_config(arch, smoke=True):
+    """The reference's config of a port arch (gpt2 sits outside the
+    reference's registry)."""
+    if arch == "gpt2":
+        return JGPT2.gpt2_tiny() if smoke else JGPT2.gpt2_small()
+    return JREG.get_config(arch, smoke)
+
+
+def assert_trees_close(got, ref, path="", tol=TOL):
+    """``got`` (the port's tree of tensors) against ``ref`` (the JAX
+    package's, as numpy): the same containers, keys, shapes, dtypes and
+    values within ``tol``."""
+    if isinstance(ref, dict):
+        assert isinstance(got, dict) and set(got) == set(ref), path
+        for k in ref:
+            assert_trees_close(got[k], ref[k], f"{path}/{k}", tol)
+    elif isinstance(ref, (list, tuple)):
+        assert type(got) is type(ref) and len(got) == len(ref), path
+        for i, (g, r) in enumerate(zip(got, ref)):
+            assert_trees_close(g, r, f"{path}/{i}", tol)
+    else:
+        ref = np.asarray(ref)
+        assert tuple(got.shape) == ref.shape, path
+        assert str(got.dtype).split(".")[-1] == ref.dtype.name, path
+        if tol is not None:
+            np.testing.assert_allclose(got.float().numpy(),
+                                       ref.astype(np.float32), err_msg=path,
+                                       **tol)
