@@ -97,7 +97,23 @@ Phases, one line each (any failure exits non-zero):
      memory, one segment's device busy time and idle share, the sampler's
      time, the eager loop's tok/s on the same queue, and one admission's
      prefill logits against the plain K5 / K6.
-Phases 9-13 run before phase 8's timings.  The line before the last
+ 14. the training driver: three HERON datacenter steps
+     (core/protocols.make_train_step, AdamW server) on qwen2-1.5b at
+     full width and depth, 4 x 256 tokens, every K1 and K2 launch of
+     the first recorded and run again against plain, the second's
+     launches (14 K2, 2 K3, 14 K1), wall, idle share and peak; from one
+     state the async round at buffer_k=0 == the sync seed-replay round
+     bit for bit, then buffer_k=1 with durations from the cut planner
+     (27 cuts counted on the meta device); gpt2-medium at full width
+     (24 layers, cut 6, aux 3 blocks): one step (54 K2, 9 K3), its train
+     state through the checkpoint and back bit for bit, a run_resilient
+     drill with one injected fault == the uninterrupted steps; the
+     launch driver (python -m repro_torch.launch.train, --smoke: the
+     bigram table is vocab x vocab) as four processes: 6 checkpointed
+     steps, 10 resuming from them, --fed and --fed-async --cutplan; and
+     gpt2-tiny's datacenter steps (every method) and async rounds on the
+     card against the CPU.
+Phases 9-14 run before phase 8's timings.  The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
 """
@@ -694,7 +710,8 @@ def k3_cases():
     # (16 q, 1 kv, head_dim 256) with a window, the qwen2.5-32b smoke
     # config's (8 q, 2 kv, head_dim 8) with a soft-cap and kimi-k2's
     # head_dim 112 (GQA 8:1) with a window; phase 13's admissions (batch
-    # 1) on qwen2-1.5b and recurrentgemma-9b
+    # 1) on qwen2-1.5b and recurrentgemma-9b; phase 14's train steps on
+    # gpt2-medium and qwen2-1.5b (4 x 256 tokens, causal, no window)
     return [("gpt2-small", 4, 256, 12, 12, 64, dict()),
             ("gqa-window-cap-ragged", 2, 200, 8, 2, 64,
              dict(window=64, cap=30.0)),
@@ -708,7 +725,9 @@ def k3_cases():
              dict(window=128)),
             ("serving-qwen2-1.5b-prefill", 1, 512, 12, 2, 128, dict()),
             ("serving-recurrentgemma-9b-prefill", 1, 384, 16, 1, 256,
-             dict(window=2048))]
+             dict(window=2048)),
+            ("train-gpt2-medium", 4, 256, 16, 16, 64, dict()),
+            ("train-qwen2-1.5b", 4, 256, 12, 2, 128, dict())]
 
 
 def k3_routes():
@@ -817,6 +836,63 @@ def check_k3(dev):
         f"256 again on a ragged S=100 (max |d| {d256}); head_dim 264 "
         f"refused, as it should be: max |d| {worst}")
     return worst["bf16 tensor cores gpt2-small weights"]   # the main path
+
+
+def record_k3_calls(fn):
+    """Run ``fn`` with every K3 call recorded: ``[(arguments, (oa,
+    ob))]``, the call's arguments by name and its outputs, the tensors
+    copied."""
+    import inspect
+    import torch
+    from repro_torch.kernels import ops as O
+    calls, dual = [], O.zo_dual_flash_attention
+    sig = inspect.signature(dual)
+
+    def rec(*args, **kw):
+        out = dual(*args, **kw)
+        bound = sig.bind(*args, **kw)
+        bound.apply_defaults()
+        calls.append(({k: v.clone() if torch.is_tensor(v) else v
+                       for k, v in bound.arguments.items()},
+                      tuple(o.clone() for o in out)))
+        return out
+
+    O.zo_dual_flash_attention = rec
+    try:
+        fn()
+    finally:
+        O.zo_dual_flash_attention = dual
+    return calls
+
+
+def check_k3_recorded(what, calls):
+    """Each recorded K3 call's outputs against the plain version on the
+    call's own inputs (its score noise drawn from its seed and row
+    offset), at check_k3's tolerance.  Returns the largest |d|."""
+    import torch
+    from repro_torch.kernels import noise as N
+    from repro_torch.kernels import ref as R
+    worst = 0.0
+    for k, (a, outs) in enumerate(calls):
+        H, Sq, Skv = a["qa"].shape[2], a["qa"].shape[1], a["k"].shape[1]
+        u = None
+        if a["perturb_a"] or a["perturb_b"]:
+            u = N.uniform_noise(a["seed"], (H * Sq, Skv), a["row_offset"],
+                                device=a["qa"].device).reshape(H, Sq, Skv)
+        refs = R.zo_dual_flash_attention_ref(
+            a["qa"], a["qb"], a["k"], a["v"], kb=a["kb"], vb=a["vb"], u=u,
+            mu_a=a["mu_a"], mu_b=a["mu_b"], perturb_a=a["perturb_a"],
+            perturb_b=a["perturb_b"], causal=a["causal"],
+            window=a["window"], cap=a["cap"], scale=a["scale"])
+        for got, ref in zip(outs, refs):
+            d = (got.float() - ref.float()).abs()
+            tol = (1e-4 if got.dtype == torch.float32
+                   else 2 ** -7 * ref.float().abs() + 1e-3)
+            if not bool((d <= tol).all()):
+                fail(f"K3 {what} call {k} {tuple(a['qa'].shape)}: max |d| "
+                     f"{float(d.max())}")
+            worst = max(worst, float(d.max()))
+    return worst
 
 
 def check_k5(dev):
@@ -1073,32 +1149,49 @@ def profile_round(phase, rnd, state, rb, round_key, wall_s):
     log(phase, f"profile: the port's kernels: {ours}")
 
 
+def compare_card_cpu(desc, metrics, params, keys):
+    """``metrics`` and ``params``: (the card's, the CPU's).  Tolerance:
+    the metrics named in ``keys`` rtol 1e-4; params |d| <= 1e-5 + 1e-4
+    |p| (f32, other summation orders, amplified by 1/mu in the
+    coefficient).  Returns the largest param |d|."""
+    from repro_torch.tree import tree_leaves
+    (mc, mp), (gc, gp) = metrics, params
+    for k in keys:
+        if k not in mp:
+            continue
+        a, b = float(mc[k]), float(mp[k])
+        if not abs(a - b) <= 1e-4 * abs(b):
+            fail(f"{desc} {k}: card {a} vs cpu {b}")
+    worst = 0.0
+    la, lb = tree_leaves(gc), tree_leaves(gp)
+    if len(la) != len(lb):
+        fail(f"{desc} params: {len(la)} leaves on the card, {len(lb)} on "
+             "the CPU")
+    for a, b in zip(la, lb):
+        a, b = a.cpu().float(), b.float()
+        d = (a - b).abs()
+        if not bool((d <= 1e-5 + 1e-4 * b.abs()).all()):
+            fail(f"{desc} params: max |d| {float(d.max())}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
 def check_small_round(phase, desc, setup_fn):
     """The same small round on the card and on the CPU: the card runs
-    the kernels, the CPU their plain versions.  Tolerance: losses rtol
-    1e-4; params |d| <= 1e-5 + 1e-4 |p| (f32, other summation orders,
-    amplified by 1/mu in the coefficient).  The server's lr is small
-    because its first AdamW step, ~g/|g|, turns rounding in a near-zero
-    gradient into an O(lr) change."""
+    the kernels, the CPU their plain versions, at compare_card_cpu's
+    tolerance (the losses).  The server's lr is small because its first
+    AdamW step, ~g/|g|, turns rounding in a near-zero gradient into an
+    O(lr) change."""
     import torch
-    from repro_torch.tree import tree_leaves
     out = []
     for d in (torch.device("cuda", 0), torch.device("cpu")):
         state, rb, rnd = setup_fn(d)
         out.append(rnd(state, rb, (0, 77)))
     (gc, mc), (pc, mp) = out
-    for k in ("client_loss", "server_loss"):
-        a, b = float(mc[k]), float(mp[k])
-        if not abs(a - b) <= 1e-4 * abs(b):
-            fail(f"{desc} {k}: card {a} vs cpu {b}")
-    worst = 0.0
-    for part in ("client", "server"):
-        for a, b in zip(tree_leaves(gc[part]), tree_leaves(pc[part])):
-            a, b = a.cpu().float(), b.float()
-            d = (a - b).abs()
-            if not bool((d <= 1e-5 + 1e-4 * b.abs()).all()):
-                fail(f"{desc} {part} params: max |d| {float(d.max())}")
-            worst = max(worst, float(d.max()))
+    worst = compare_card_cpu(
+        desc, (mc, mp), tuple({k: g[k] for k in ("client", "server")}
+                              for g in (gc, pc)),
+        ("client_loss", "server_loss"))
     log(phase, f"{desc} on the card == on the CPU: losses "
         f"{float(mc['client_loss'])} / {float(mc['server_loss'])}, max "
         f"param |d| {worst}")
@@ -2343,6 +2436,448 @@ def run_serve_phase(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the training driver
+# ---------------------------------------------------------------------------
+
+# one HERON datacenter step on qwen2-1.5b (one client, one pair): K2 the
+# two client blocks' q k v o gate up down (the aux head has no block),
+# K3 one per client block, K1 the embedding's noise rows, twelve theta +
+# mu*U trees (the two blocks' two norms and three qkv biases, the aux
+# norm, the tied table) and the direction tree: phase 12's per-client
+# counts, with no replay
+QWEN_STEP = {"zo_dual_matmul": 14, "zo_dual_matmul_tc": 14,
+             "zo_dual_flash_attention": 2, "zo_dual_flash_attention_tc": 2,
+             "zo_noise": 14, "zo_matmul": 0, "flash_attention": 0,
+             "rg_lru_scan": 0}
+# gpt2-medium: the six client blocks and the aux head's three, six
+# projections each (q k v o up down) and one attention each; K1 the
+# noise rows, twenty theta + mu*U trees (the nine blocks' two norms, the
+# aux norm, the tied table) and the direction tree
+MEDIUM_STEP = {"zo_dual_matmul": 54, "zo_dual_matmul_tc": 54,
+               "zo_dual_flash_attention": 9,
+               "zo_dual_flash_attention_tc": 9, "zo_noise": 22,
+               "zo_matmul": 0, "flash_attention": 0, "rg_lru_scan": 0}
+
+
+def _lm_batch(vocab, batch, seq, dev, seed=0):
+    import torch
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, vocab, (batch, seq + 1)),
+                           device=dev)
+    return {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _train_parts(cfg, params, lr, server_lr, mu, method="heron"):
+    """``(state, step)``: HERON's datacenter step (ZO-SGD client at
+    ``lr``, AdamW server) from ``PRNGKey(1)``, as the launch driver."""
+    from repro_torch.core import prng as R
+    from repro_torch.core import protocols as P
+    from repro_torch.core import zo as Z
+    from repro_torch.optim.optimizers import adamw, zo_sgd
+    copt = zo_sgd(lr) if method == "heron" else adamw(lr, eps=1e-6)
+    sopt = adamw(server_lr, eps=1e-6)
+    state = P.init_train_state(R.PRNGKey(1), params, copt, sopt)
+    return state, P.make_train_step(P.lm_api(cfg), method,
+                                    Z.ZOConfig(mu=mu), copt, sopt)
+
+
+def _state_finite(desc, state):
+    import torch
+    from repro_torch.tree import tree_leaves
+    for t in tree_leaves(state["params"]):
+        if not bool(torch.isfinite(t.float()).all()):
+            fail(f"{desc}: non-finite parameters")
+
+
+def _moved(a, b):
+    import torch
+    from repro_torch.tree import tree_leaves
+    return any(not torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                     tree_leaves(b)))
+
+
+def _tree_equal(a, b):
+    import torch
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        (torch.equal(x.cpu(), y.cpu()) if torch.is_tensor(x) else x == y)
+        for x, y in zip(la, lb))
+
+
+def timed_step(phase, desc, step, state, batch, expect, card):
+    """One more step from ``state``, its launches counted from 0 (against
+    ``expect``), its wall and peak memory; then one step under the
+    profiler for the device's busy time.  Returns the new state and
+    the timed step's launches."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    new, m = step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_counts(desc, counts, expect)
+    loss, closs = float(m["loss"]), float(m["client_loss"])
+    if not (np.isfinite(loss) and np.isfinite(closs)):
+        fail(f"{desc}: losses not finite: {loss} / {closs}")
+    _state_finite(desc, new)
+    if not _moved(state["params"]["client"], new["params"]["client"]):
+        fail(f"{desc}: the step left every client leaf unchanged")
+    del state
+    rows = device_rows(lambda: step(new, batch))
+    busy = sum(r[0] for r in rows) / 1e3
+    idle = (f"device busy {busy:.3f} ms, idle share "
+            f"{1 - busy / (1e3 * wall):.3f}" if busy > 0 else
+            "device busy not measured (the profiler saw no device time)")
+    log(phase, f"{desc} on {card}: loss {loss} client_loss {closs} "
+        f"zo_coeff_abs {float(m.get('zo_coeff_abs', float('nan')))}; "
+        f"wall {1e3 * wall:.3f} ms, {idle}, max_memory_allocated {peak}; "
+        f"launches per step {counts}")
+    return new, counts
+
+
+def recorded_step(desc, step, state, batch, expect, dev, card):
+    """One step with every K1, K2 and K3 launch recorded, each held
+    against its plain version (K1 bit for bit and K2 on fresh inputs of
+    the launch's shape, seed and flags; K3 on the call's own inputs), the
+    recorded launches against ``expect``.  Returns the new state."""
+    import torch
+    out, k2_calls, k3_calls = [], [], []
+
+    def run():
+        k3_calls.extend(record_k3_calls(lambda: out.append(
+            step(state, batch))))
+
+    k1_calls, k1_rows = record_k1_calls(lambda: k2_calls.extend(
+        record_k2_calls(run)))
+    new = out.pop()[0]
+    n_k1 = (check_k1_recorded(desc, k1_calls, dev)
+            + check_k1_rows_recorded(desc, k1_rows))
+    k2_worst = check_k2_recorded(desc, k2_calls, dev)
+    k3_worst = check_k3_recorded(desc, k3_calls)
+    got = (n_k1, len(k2_calls), len(k3_calls))
+    want = (expect["zo_noise"], expect["zo_dual_matmul"],
+            expect["zo_dual_flash_attention"])
+    if got != want:
+        fail(f"{desc} recorded {got} K1 / K2 / K3 launches, expected "
+             f"{want}")
+    shapes = sorted({tuple(a["qa"].shape) + (a["k"].shape[2],)
+                     for a, _ in k3_calls})
+    torch.cuda.empty_cache()
+    log(14, f"{desc}'s kernels == plain: K1's {len(k1_calls)} tree calls "
+        f"and {len(k1_rows)} rows calls ({n_k1} launches) bit for bit, "
+        f"K2's {len(k2_calls)} launches within check_k2's tolerance (max "
+        f"|d| {k2_worst}), K3's {len(k3_calls)} launches (B, S, H, D, Kv "
+        f"{shapes}) within check_k3's on their own inputs (max |d| "
+        f"{k3_worst}) on {card}")
+    return new
+
+
+def run_qwen_train_step(dev, card, cfg, params):
+    """14(a): three HERON datacenter steps on qwen2-1.5b at full width
+    and depth, 4 x 256 tokens, AdamW on the server: the first with every
+    K1, K2 and K3 launch recorded and held against plain, the second
+    timed with its launches, the third profiled.  Returns the timed
+    step's launches."""
+    batch = _lm_batch(cfg.vocab, 4, 256, dev)
+    state, step = _train_parts(cfg, params, lr=1e-4, server_lr=2e-4,
+                               mu=1e-3)
+    state = recorded_step("qwen2-1.5b step", step, state, batch, QWEN_STEP,
+                          dev, card)
+    state, counts = timed_step(
+        14, "qwen2-1.5b HERON datacenter step (28 layers, d_model 1536, "
+        "vocab 151936 tied, bf16, cut 2; 4x256 tokens, n_pairs 1, AdamW "
+        "server)", step, state, batch, QWEN_STEP, card)
+    del state
+    return counts
+
+
+def run_qwen_async(dev, card, cfg, params):
+    """14(b): from one state, N=2 h=1, 4 x 256 tokens a client: the sync
+    seed-replay round and the async round at buffer_k=0, alpha=0 bit for
+    bit (client and server params); then buffer_k=1, alpha=0.5 with the
+    durations of the port's cut planner over its PROFILES."""
+    import torch
+    from repro_torch.core import protocols as P
+    from repro_torch.core import zo as Z
+    from repro_torch.fed import cutplan as CP
+    from repro_torch.optim.optimizers import adamw, zo_sgd
+    from repro_torch.tree import tree_map
+    lr, zo = 1e-4, Z.ZOConfig(mu=1e-3)
+    api = P.lm_api(cfg)
+    sopt = adamw(2e-4)
+    fed = P.FedConfig(n_clients=2, h=1)
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 1, 4, 257)),
+                           device=dev)
+    rb = {"inputs": toks[..., :-1], "labels": toks[..., 1:]}
+    state = {"client": params["client"], "server": params["server"],
+             "opt_server": sopt.init(params["server"])}
+    sync = P.make_fed_round(api, "heron", zo, fed, zo_sgd(lr), sopt,
+                            uplink="seed_replay", client_lr=lr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, m_sync = sync(state, rb, ROUND_KEY)
+    torch.cuda.synchronize()
+    sync_wall = time.perf_counter() - t0
+    host = tree_map(lambda t: t.cpu(), {"client": new["client"],
+                                        "server": new["server"]})
+    del new
+    torch.cuda.empty_cache()
+
+    def run(buffer_k, alpha, durations):
+        rnd = P.make_async_round(api, "heron", zo, fed, zo_sgd(lr), sopt,
+                                 client_lr=lr, staleness_alpha=alpha,
+                                 buffer_k=buffer_k)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, m = rnd(state, rb, ROUND_KEY, durations=durations)
+        torch.cuda.synchronize()
+        return out, m, time.perf_counter() - t0, \
+            torch.cuda.max_memory_allocated()
+
+    new, m, wall, peak = run(0, 0.0, [2.0, 1.0])
+    for part in ("client", "server"):
+        if not _tree_equal(host[part], new[part]):
+            fail(f"qwen2-1.5b async round at buffer_k=0 differs from the "
+                 f"sync round in {part} params")
+    del new, host
+    torch.cuda.empty_cache()
+    log(14, f"qwen2-1.5b async round (N=2 h=1, buffer_k=0, alpha=0, "
+        f"durations [2, 1]) == sync seed-replay round bit for bit, client "
+        f"and server params; client_loss {float(m['client_loss'])} "
+        f"(sync {float(m_sync['client_loss'])}), flushes {m['flushes']}; "
+        f"wall {wall:.3f} s (the sync round {sync_wall:.3f} s), "
+        f"max_memory_allocated {peak} on {card}")
+    t0 = time.perf_counter()
+    costs = CP.candidate_costs(cfg, {k: v[0, 0] for k, v in rb.items()})
+    cost_s = time.perf_counter() - t0
+    profiles = [CP.PROFILES["phone"], CP.PROFILES["laptop"]]
+    plans = CP.plan_fleet(costs, profiles, fed.h, zo.n_pairs)
+    new, m, wall, peak = run(1, 0.5, [p.round_s for p in plans])
+    _state_finite("qwen2-1.5b buffered async round", {"params": {
+        "client": new["client"], "server": new["server"]}})
+    if m["flushes"] != 2.0:
+        fail(f"qwen2-1.5b async round at buffer_k=1: {m['flushes']} "
+             "flushes, expected 2")
+    del new
+    plan_txt = "; ".join(f"{p.name} cut {pl.cut} est {pl.round_s:.4g} s "
+                         f"feasible {pl.feasible}"
+                         for p, pl in zip(profiles, plans))
+    log(14, f"qwen2-1.5b cut planner: {len(costs)} cuts counted on the meta "
+        f"device in {cost_s:.1f} s host time (cut 1: {costs[0].flops:.4g} "
+        f"FLOPs, {costs[0].bytes:.4g} B; cut {costs[-1].cut}: "
+        f"{costs[-1].flops:.4g} FLOPs, {costs[-1].bytes:.4g} B); plans "
+        f"{plan_txt}; on {card}")
+    log(14, f"qwen2-1.5b async round (buffer_k=1, alpha=0.5, planned "
+        f"durations): flushes {m['flushes']}, mean_staleness "
+        f"{m['mean_staleness']}, time_to_first_update_s "
+        f"{m['time_to_first_update_s']:.4g}, updates_per_sim_s "
+        f"{m['updates_per_sim_s']:.4g}, client_loss "
+        f"{float(m['client_loss'])} server_loss {float(m['server_loss'])}; "
+        f"wall {wall:.3f} s, max_memory_allocated {peak} on {card}")
+
+
+def run_medium(dev, card, cfg):
+    """14(c): gpt2-medium at full width and depth (24 layers, d_model
+    1024, cut 6, aux 3 blocks, bf16): one HERON step with every K1, K2
+    and K3 launch recorded and held against plain, one with its launches;
+    its train state through the checkpoint and back bit for bit; a
+    run_resilient drill with one injected fault ending where the
+    uninterrupted steps end, bit for bit."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import checkpoint as CKPT
+    from repro_torch.distributed import fault as F
+    from repro_torch.models import transformer as T
+    params = T.init_lm(cfg, seed=0, device=dev, draw_on_device=True)
+    batches = [_lm_batch(cfg.vocab, 4, 256, dev, seed=s) for s in range(3)]
+    state0, step = _train_parts(cfg, params, lr=1e-4, server_lr=2e-4,
+                                mu=1e-3)
+    recorded_step("gpt2-medium step", step, state0, batches[0],
+                  MEDIUM_STEP, dev, card)               # also the warm-up
+    state1, counts = timed_step(
+        14, "gpt2-medium HERON datacenter step (24 layers, d_model 1024, "
+        "cut 6, aux 3 blocks, bf16; 4x256 tokens)", step, state0,
+        batches[0], MEDIUM_STEP, card)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = CKPT.save(d, 1, state1)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(path, "payload.npz"))
+        t0 = time.perf_counter()
+        back, at = CKPT.restore(d, state1)
+        t_restore = time.perf_counter() - t0
+        if at != 1 or not _tree_equal(back, state1):
+            fail("gpt2-medium train state: checkpoint round trip differs")
+        del back
+    log(14, f"gpt2-medium train state through the checkpoint and back bit "
+        f"for bit: payload {size} B, save {t_save:.2f} s, restore "
+        f"{t_restore:.2f} s (host wall) on {card}")
+    del state1
+    clean = state0
+    for b in batches:
+        clean, _ = step(clean, b)
+    with tempfile.TemporaryDirectory() as d:
+        faulty, _, tel = F.run_resilient(
+            step, state0, lambda s: batches[s], 3, d, ckpt_every=2,
+            injector=F.FaultInjector(fail_at=(2,)), sleep=lambda s: None)
+    if tel.restarts != 1 or tel.resumed_at != [2] or \
+            tel.from_checkpoint != 1 or not _tree_equal(faulty, clean):
+        fail(f"gpt2-medium run_resilient drill: {tel}, or its final state "
+             "differs from the uninterrupted run")
+    log(14, f"gpt2-medium run_resilient drill (3 steps, a checkpoint every "
+        f"2, a fault at step 2): {tel}; final state == uninterrupted run "
+        f"bit for bit on {card}")
+    return counts
+
+
+def run_cli(card):
+    """14(d): the launch driver as a user runs it, one process each, on
+    the smoke config (BigramLM's table is vocab x vocab): a checkpointed
+    run of 6 steps and one of 10 that resumes from it, a --fed round and
+    a --fed-async --cutplan round."""
+    import tempfile
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "qwen2-1.5b", "--smoke", "--device", "cuda", "--batch", "2",
+            "--seq", "16"]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    with tempfile.TemporaryDirectory() as d:
+        runs = [
+            ("steps 6", ["--ckpt-dir", d, "--ckpt-every", "4", "--steps",
+                         "6"], None),
+            ("steps 10 (resume)", ["--ckpt-dir", d, "--ckpt-every", "4",
+                                   "--steps", "10"],
+             "[train] restored checkpoint at step 6"),
+            ("--fed", ["--fed", "--clients", "4", "--local-steps", "2",
+                       "--uplink", "seed_replay", "--steps", "2"],
+             "[fed] round   1"),
+            ("--fed-async --cutplan", [
+                "--fed-async", "--clients", "4", "--local-steps", "2",
+                "--steps", "2", "--staleness", "0.5", "--buffer-k", "2",
+                "--cutplan"], "[cutplan] client 3")]
+        for desc, args, want in runs:
+            t0 = time.perf_counter()
+            out = subprocess.run(base + args, capture_output=True, text=True,
+                                 cwd=ROOT, env=env, timeout=600)
+            wall = time.perf_counter() - t0
+            if out.returncode != 0:
+                fail(f"launch.train {desc}: exit {out.returncode}: "
+                     f"{out.stderr[-2000:]}")
+            if want is not None and want not in out.stdout:
+                fail(f"launch.train {desc}: no {want!r} in its output: "
+                     f"{out.stdout[-2000:]}")
+            last = out.stdout.strip().splitlines()[-1]
+            log(14, f"launch.train {desc} on {card}: exit 0 in {wall:.1f} s; "
+                f"last line: {last}")
+
+
+# the ZO kernels a HERON step or round on the kernel stream launches
+ZO_KERNELS = {"zo_noise": None, "zo_dual_matmul": None,
+              "zo_dual_flash_attention": None}
+
+
+def check_train_small(dev, card):
+    """14(e): gpt2-tiny (f32) on the card against the CPU: two datacenter
+    steps of each method (HERON on the kernel stream) and the async round
+    at buffer_k 0 and 2 (N=4 h=1), at compare_card_cpu's tolerances.
+    The card's HERON steps and async rounds must have launched K1, K2
+    and K3, so the card did not take the plain path."""
+    import torch
+    from repro_torch.configs.gpt2 import gpt2_tiny
+    from repro_torch.core import protocols as P
+    from repro_torch.core import zo as Z
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adamw, zo_sgd
+    cfg = gpt2_tiny().replace(forward_impl="kernel")
+    keys = ("client_loss", "loss", "server_loss", "flushes",
+            "mean_staleness")
+
+    def on_both(desc, run, expect):
+        """``run(device)`` -> (metrics, params) on the card, its launches
+        counted from 0 (against ``expect``), then on the CPU."""
+        reset_counts()
+        card_out = run(dev)
+        counts = launch_counts()
+        if expect:
+            check_counts(f"{desc} on the card", counts, expect)
+        cpu_out = run(torch.device("cpu"))
+        return compare_card_cpu(desc, (card_out[0], cpu_out[0]),
+                                (card_out[1], cpu_out[1]), keys), counts
+
+    def steps(method):
+        def run(d):
+            params = T.init_lm(cfg, seed=3, device=d)
+            state, step = _train_parts(cfg, params, lr=1e-3, server_lr=1e-4,
+                                       mu=1e-2, method=method)
+            for s in range(2):
+                state, m = step(state, _lm_batch(cfg.vocab, 2, 32, d, s))
+            return m, state["params"]
+        return run
+
+    def async_round(buffer_k):
+        def run(d):
+            params = T.init_lm(cfg, seed=3, device=d)
+            sopt = adamw(1e-4)
+            rng = np.random.default_rng(3)
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                                (4, 1, 2, 33)), device=d)
+            rb = {"inputs": toks[..., :-1], "labels": toks[..., 1:]}
+            state = {"client": params["client"], "server": params["server"],
+                     "opt_server": sopt.init(params["server"])}
+            rnd = P.make_async_round(P.lm_api(cfg), "heron",
+                                     Z.ZOConfig(mu=1e-2), P.FedConfig(
+                                         n_clients=4, h=1), zo_sgd(1e-3),
+                                     sopt, client_lr=1e-3,
+                                     staleness_alpha=0.5, buffer_k=buffer_k)
+            new, m = rnd(state, rb, (0, 77), durations=[1.0, 3.0, 2.0, 4.0])
+            return m, {"client": new["client"], "server": new["server"]}
+        return run
+
+    worst, launched = {}, {}
+    for method in P.METHODS:
+        worst[method], counts = on_both(
+            f"gpt2-tiny {method} datacenter steps", steps(method),
+            ZO_KERNELS if method == "heron" else None)
+        launched[method] = {k: counts[k] for k in ZO_KERNELS}
+    for buffer_k in (0, 2):
+        name = f"async buffer_k={buffer_k}"
+        worst[name], counts = on_both(f"gpt2-tiny {name} round",
+                                      async_round(buffer_k), ZO_KERNELS)
+        launched[name] = {k: counts[k] for k in ZO_KERNELS}
+    log(14, f"gpt2-tiny datacenter steps (every method) and async rounds "
+        f"on the card ({card}) == on the CPU: max param |d| {worst}; the "
+        f"card's K1 / K2 / K3 launches {launched}")
+
+
+def run_train_phase(dev, card):
+    """Phase 14.  Returns the launches of its two timed full-width steps
+    (qwen2-1.5b and gpt2-medium) together."""
+    import torch
+    from repro_torch.configs.gpt2 import gpt2_medium
+    from repro_torch.configs.qwen2_1_5b import full_config
+    from repro_torch.models import transformer as T
+    cfg = full_config().replace(forward_impl="kernel")
+    params = T.init_lm(cfg, seed=0, device=dev, draw_on_device=True)
+    counts = run_qwen_train_step(dev, card, cfg, params)
+    torch.cuda.empty_cache()
+    run_qwen_async(dev, card, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    medium = run_medium(dev, card,
+                        gpt2_medium().replace(forward_impl="kernel"))
+    torch.cuda.empty_cache()
+    run_cli(card)
+    check_train_small(dev, card)
+    return {k: counts[k] + medium[k] for k in counts}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: times
 # ---------------------------------------------------------------------------
 
@@ -2775,12 +3310,14 @@ def k1_sass():
             f"{top}")
 
 
-def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve):
+def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
+                 counts_train):
     """``counts``: launches of the gpt2-small round (K1-K3);
     ``counts_sp``: of the gpt2-small single-probe forward (K4, K5);
     ``counts_rg``: of the recurrentgemma round (K6); ``counts_serve``: of
     phase 13's two full-width engine runs (K5, K6), added to K5's and
-    K6's."""
+    K6's; ``counts_train``: of phase 14's two full-width train steps
+    (K1-K3), added to K1's, K2's and K3's."""
     import torch
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import ops as O
@@ -2811,7 +3348,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve):
     rows.append({"name": "zo_noise", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/zo_noise.cu",
                  "replaces": "src/repro/kernels/zo_matmul.py:274",
-                 "launches": counts["zo_noise"], "max_abs_err": errs[0],
+                 "launches": counts["zo_noise"] + counts_train["zo_noise"],
+                 "max_abs_err": errs[0],
                  "ms": ms, "plain_ms": pl, "bound_ms": b,
                  "bound_by": by.split(" ")[0], "library_ms": None})
 
@@ -2855,13 +3393,15 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve):
     rows.append({"name": "zo_dual_matmul", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/zo_dual_matmul.cu",
                  "replaces": "src/repro/kernels/zo_matmul.py:227",
-                 "launches": counts["zo_dual_matmul"], "max_abs_err": errs[1],
+                 "launches": counts["zo_dual_matmul"]
+                 + counts_train["zo_dual_matmul"], "max_abs_err": errs[1],
                  "ms": ms, "plain_ms": pl, "bound_ms": b, "bound_by": by,
                  "library_ms": lib})
 
     # K3 and K5 (phase 8's attention rows, the main path's first)
     k3_row, k5_row = time_attention(dev, counts, counts_sp, errs)
     k5_row["launches"] += counts_serve["flash_attention"]
+    k3_row["launches"] += counts_train["zo_dual_flash_attention"]
     rows.append(k3_row)
 
     # K4: gpt2-small's three client shapes in bf16 (768x3072 is the main
@@ -2980,8 +3520,11 @@ def main():
         "zo_dual_matmul", "zo_dual_matmul_tc")})
     run_threefry_phase(dev, card)
     counts_serve = run_serve_phase(dev, card)
+    torch.cuda.empty_cache()
+    counts_train = run_train_phase(dev, card)
+    torch.cuda.empty_cache()
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs,
-                        counts_serve)
+                        counts_serve, counts_train)
     compiler_report()
     check_hgmma()
     k1_sass()

@@ -1,5 +1,5 @@
-"""The paper's LM split: GPT2-Small, and a CPU-sized GPT2-shaped config
-(same values as :mod:`repro.configs.gpt2`)."""
+"""The paper's LM splits: GPT2-Small and GPT2-Medium, and a CPU-sized
+GPT2-shaped config (same values as :mod:`repro.configs.gpt2`)."""
 from repro_torch.models.config import ModelConfig
 
 
@@ -10,6 +10,15 @@ def gpt2_small() -> ModelConfig:
         gated_mlp=False, activation="gelu", tie_embeddings=True,
         cut_layers=3, aux_layers=1,  # split after block 3,
         family="dense")              # aux = 1 block + unembed
+
+
+def gpt2_medium() -> ModelConfig:
+    return ModelConfig(
+        name="gpt2-medium", n_layers=24, d_model=1024, n_heads=16,
+        n_kv_heads=16, d_ff=4096, vocab=50257, norm="layernorm",
+        gated_mlp=False, activation="gelu", tie_embeddings=True,
+        cut_layers=6, aux_layers=3,  # split after block 6,
+        family="dense")              # aux = 3 blocks + unembed
 
 
 def gpt2_tiny() -> ModelConfig:

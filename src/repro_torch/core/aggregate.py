@@ -109,6 +109,23 @@ def _replay_walk(global_params, tokens, scales, add_direction):
                     global_params, acc)
 
 
+def replay_apply(global_params, tokens, scales, *, kernel: bool = False,
+                 zo: Z.ZOConfig | None = None, seed_pred=None):
+    """Apply a flattened ``(tokens, scales)`` stream to ``global_params``
+    in one walk: each token's direction (a K1 accumulate launch per token
+    on the kernel stream, ``direction_like`` under ``zo`` on the threefry
+    stream) times its scale into one f32 accumulator."""
+    if kernel:
+        def add_direction(acc, sp, s):
+            O.accumulate_direction_tree(
+                acc, O.leaf_seed_tree(global_params, sp, seed_pred), s)
+    else:
+        def add_direction(acc, kp, s):
+            Z.accumulate(acc, Z.direction_like(kp, global_params, zo), s)
+
+    return _replay_walk(global_params, tokens, scales, add_direction)
+
+
 def _weights(client_coeffs, mask):
     if mask is None:
         mask = torch.ones((client_coeffs.shape[0],), dtype=torch.float32,
@@ -127,11 +144,7 @@ def seed_replay_aggregate(global_params, client_keys, client_coeffs,
     mask, tot = _weights(client_coeffs, mask)
     keys, scales = replay_token_stream(client_keys, client_coeffs, lr,
                                        mask, tot)
-
-    def add_direction(acc, kp, s):
-        Z.accumulate(acc, Z.direction_like(kp, global_params, zo), s)
-
-    return _replay_walk(global_params, keys, scales, add_direction)
+    return replay_apply(global_params, keys, scales, zo=zo)
 
 
 def seed_replay_aggregate_kernel(global_params, client_seeds, client_coeffs,
@@ -141,9 +154,5 @@ def seed_replay_aggregate_kernel(global_params, client_seeds, client_coeffs,
     mask, tot = _weights(client_coeffs, mask)
     seeds, scales = replay_token_stream(client_seeds, client_coeffs, lr,
                                         mask, tot, kernel=True)
-
-    def add_direction(acc, sp, s):
-        O.accumulate_direction_tree(
-            acc, O.leaf_seed_tree(global_params, sp, seed_pred), s)
-
-    return _replay_walk(global_params, seeds, scales, add_direction)
+    return replay_apply(global_params, seeds, scales, kernel=True,
+                        seed_pred=seed_pred)

@@ -1,6 +1,7 @@
 """JAX's threefry PRNG in plain PyTorch integer arithmetic: the subset of
 ``jax.random`` that the threefry ZO estimator, its seed replay, the
-round's participation masks and the decode sampler call, bit for bit.
+round's participation masks, the decode sampler and the synthetic
+datasets call, bit for bit.
 
 Only the partitionable layout (``jax_threefry_partitionable=True``, which
 the JAX package sets on import) is reproduced.  In it every draw is the
@@ -199,11 +200,19 @@ def gumbel(key, shape, device="cpu") -> torch.Tensor:
     return _gumbel_from_uniform(uniform(key, shape, _TINY, 1.0, device))
 
 
-def categorical(key, logits: torch.Tensor) -> torch.Tensor:
-    """``jax.random.categorical(key, logits)`` over the last axis: the
-    argmax of ``logits`` plus Gumbel noise of their shape."""
-    return torch.argmax(gumbel(key, logits.shape, logits.device) + logits,
-                        dim=-1)
+def categorical(key, logits: torch.Tensor, shape=None) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, shape=shape)`` over the last
+    axis: the argmax of ``logits`` plus Gumbel noise.  ``shape`` (the
+    batch shape of the draws, ending in ``logits.shape[:-1]``) defaults
+    to ``logits.shape[:-1]``; its extra leading axes broadcast the
+    logits, so the noise has shape ``shape + logits.shape[-1:]``."""
+    batch = tuple(logits.shape[:-1])
+    shape = batch if shape is None else tuple(int(s) for s in shape)
+    if shape[len(shape) - len(batch):] != batch:
+        raise ValueError(f"shape {shape} does not end in the logits' batch "
+                         f"shape {batch}")
+    noise = gumbel(key, shape + tuple(logits.shape[-1:]), logits.device)
+    return torch.argmax(noise + logits, dim=-1)
 
 
 def categorical_rows(keys, logits: torch.Tensor) -> torch.Tensor:
@@ -212,6 +221,27 @@ def categorical_rows(keys, logits: torch.Tensor) -> torch.Tensor:
     (:func:`uniform_rows`)."""
     u = uniform_rows(keys, logits.shape[-1], _TINY, 1.0, logits.device)
     return torch.argmax(_gumbel_from_uniform(u) + logits, dim=-1)
+
+
+def randint(key, shape, minval: int, maxval: int,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32): two
+    32-bit draws ``hi``, ``lo`` under ``split(key)``'s two keys, reduced
+    as ``(hi % span * (2**32 % span) + lo % span) % span``, where
+    ``2**32 % span`` is ``(2**16 % span)**2 % span`` and every product
+    and sum wraps at 32 bits, as JAX's uint32 arithmetic does.  An int64
+    tensor of values in ``[minval, maxval)``."""
+    lo_v, hi_v = int(minval), int(maxval)
+    if not all(-2 ** 31 <= v < 2 ** 31 for v in (lo_v, hi_v)):
+        raise ValueError(f"randint bounds [{lo_v}, {hi_v}) outside int32")
+    span = hi_v - lo_v if hi_v > lo_v else 1    # maxval <= minval: minval
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & M32) % span
+    k1, k2 = split(key, 2)
+    hi = random_bits(k1, shape, device)
+    lo = random_bits(k2, shape, device)
+    off = (((hi % span) * mult) & M32) + lo % span
+    return (off & M32) % span + lo_v
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,9 @@
-"""SFL federated rounds: HERON-SFL and the paper's first-order baselines
-(SFLV1/V2, CSE-FSL, FSL-SAGE, SplitLoRA), mirroring ``make_fed_round``
-of :mod:`repro.core.protocols`.
+"""SFL protocols: HERON-SFL and the paper's first-order baselines
+(SFLV1/V2, CSE-FSL, FSL-SAGE, SplitLoRA), mirroring
+:mod:`repro.core.protocols`: the datacenter step (``init_train_state``,
+``make_train_step``, one device), the federated round
+(``make_fed_round``) and its buffered-async form (``make_async_round``).
+The notes below are the federated round's.
 
 * ``"heron"``: each of N clients takes h local steps of the
   forward-only ZO estimator, under ``torch.no_grad()``.  With the
@@ -12,8 +15,7 @@ of :mod:`repro.core.protocols`.
 * ``"cse_fsl"`` / ``"fsl_sage"``: each client takes h first-order steps
   on its aux-head loss (``torch.autograd`` over the plain ops) with
   ``client_opt``.  In the federated round the two are the same method:
-  FSL-SAGE's gradient alignment lives only in the reference's
-  datacenter step.
+  FSL-SAGE's gradient alignment lives only in the datacenter step.
 * For those three the server takes sequential first-order steps on the
   clients' smashed data of every ``upload_every``-th local step
   (int8-quantized on the way up with ``quantize_uplink``), client after
@@ -48,7 +50,8 @@ import torch
 from repro_torch.core import aggregate as AG
 from repro_torch.core import prng as R
 from repro_torch.core import zo as Z
-from repro_torch.core.split import (dequantize_smashed, param_bytes,
+from repro_torch.core.split import (combine, dequantize_smashed,
+                                    param_bytes, partition,
                                     quantize_smashed)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as O
@@ -164,6 +167,136 @@ def cnn_api(cfg: CNN.CNNConfig) -> ModelAPI:
 
     return ModelAPI(client_loss, aux_loss, server_loss, joint_loss,
                     client_dual_loss if kernel_forward(cfg) else None)
+
+
+# ===========================================================================
+# datacenter hybrid step
+# ===========================================================================
+
+def init_train_state(rng, params, client_opt: Optimizer,
+                     server_opt: Optimizer, tc_pred=None, ts_pred=None):
+    """The datacenter step's state: ``{"params", "opt_client",
+    "opt_server", "step", "rng"}``, the optimizers over the trainable
+    parts (``tc_pred`` / ``ts_pred`` on the leaf paths, all by default).
+    ``step`` is a Python int; ``rng`` the key's two words as a uint32
+    tensor, the dtype of JAX's raw key data, so a checkpoint holds the
+    state leaf for leaf as the reference's."""
+    tc, _ = partition(params["client"], tc_pred or (lambda p: True))
+    ts, _ = partition(params["server"], ts_pred or (lambda p: True))
+    return {"params": params,
+            "opt_client": client_opt.init(tc),
+            "opt_server": server_opt.init(ts),
+            "step": 0,
+            "rng": R.as_key(rng).to(torch.uint32)}
+
+
+def make_train_step(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
+                    client_opt: Optimizer, server_opt: Optimizer,
+                    tc_pred=None, ts_pred=None, align_weight: float = 1.0,
+                    client_shardings=None):
+    """Returns ``step(state, batch) -> (state, metrics)``: one hybrid
+    step on one device, as the reference's ``make_train_step`` with no
+    mesh.  The step's key is ``fold_in(rng, step)``.
+
+    * ``heron``: the forward-only ZO client on the kernel stream (base
+      seed ``seed_from_key(key)``, ``zo_gradient_kernel``) where the API
+      has a ``client_dual_loss``, else on the threefry stream
+      (``zo.zo_gradient`` under ``key``); metric ``zo_coeff_abs``.
+    * ``cse_fsl`` / ``fsl_sage``: a first-order client on its aux-head
+      loss; ``fsl_sage`` adds ``align_weight`` times the gradient of the
+      mean squared gap between the aux head's and the server's cut-layer
+      gradients (a double backward through the aux head).
+    * For those three the server takes one first-order step on the
+      client's detached smashed data.
+    * ``sflv1`` / ``sflv2`` / ``splitlora``: one backward of the joint
+      loss through client and server (the training lock).
+
+    Only the leaves ``tc_pred`` / ``ts_pred`` select train (all by
+    default); the others pass through unchanged.  ``client_shardings``
+    (the reference's mesh placement of the ZO draws) raises: the mesh
+    is ROADMAP queue 1 item 7.
+    """
+    if method not in METHODS:
+        raise ValueError(f"method {method!r} not in {METHODS}")
+    if client_shardings is not None:
+        raise NotImplementedError("client_shardings: the mesh mode of "
+                                  "make_train_step is ROADMAP queue 1 "
+                                  "item 7")
+    tc_pred = tc_pred or (lambda p: True)
+    ts_pred = ts_pred or (lambda p: True)
+
+    def client_grad(tc, fc, batch, key, metrics):
+        """``(g_c, client_loss, smashed)`` of the aux-head methods."""
+        def closs(tcx):
+            return api.client_loss(combine(tcx, fc), batch)
+
+        if method != "heron":
+            (c_loss, smashed), (g_c,) = _value_and_grad(closs, tc,
+                                                        has_aux=True)
+            return g_c, c_loss, smashed
+        with torch.no_grad():
+            if api.client_dual_loss is not None:
+                g_c, info = Z.zo_gradient_kernel(
+                    lambda tcx, seeds, mu: api.client_dual_loss(
+                        combine(tcx, fc), batch, seeds, mu),
+                    tc, Z.seed_from_key(key), zo_cfg,
+                    seed_pred=api.seed_pred)
+            else:
+                g_c, info = Z.zo_gradient(closs, tc, key, zo_cfg)
+        metrics["zo_coeff_abs"] = torch.mean(torch.abs(info["coeffs"]))
+        return g_c, info["loss"], info["aux"].detach()
+
+    def align_grad(tc, fc, ts, fs, cp_const, smashed, batch):
+        """The gradient of FSL-SAGE's alignment term at ``tc``."""
+        s = smashed.detach().requires_grad_(True)
+        with torch.enable_grad():
+            g_srv, = torch.autograd.grad(api.server_loss(
+                combine(ts, fs), cp_const, s, batch), s)
+        g_srv = g_srv.detach().to(torch.float32)
+
+        def align(tcx):
+            s2 = smashed.detach().requires_grad_(True)
+            g_aux, = torch.autograd.grad(
+                api.aux_loss(combine(tcx, fc), s2, batch), s2,
+                create_graph=True)
+            return torch.mean(torch.square(g_aux.to(torch.float32) - g_srv))
+
+        _, (g_align,) = _value_and_grad(align, tc)
+        return g_align
+
+    def step_fn(state, batch):
+        params = state["params"]
+        key = R.fold_in(state["rng"], state["step"])
+        tc, fc = partition(params["client"], tc_pred)
+        ts, fs = partition(params["server"], ts_pred)
+        metrics = {}
+        if method in LOCKED_METHODS:
+            loss, (g_c, g_s) = _value_and_grad(
+                lambda c, s: api.joint_loss(combine(c, fc), combine(s, fs),
+                                            batch), tc, ts)
+            metrics["loss"] = metrics["client_loss"] = loss
+        else:
+            g_c, c_loss, smashed = client_grad(tc, fc, batch, key, metrics)
+            cp_const = tree_map(lambda p: p.detach(), params["client"])
+            s_loss, (g_s,) = _value_and_grad(
+                lambda s: api.server_loss(combine(s, fs), cp_const,
+                                          smashed, batch), ts)
+            if method == "fsl_sage":
+                g_align = align_grad(tc, fc, ts, fs, cp_const, smashed,
+                                     batch)
+                g_c = tree_map(lambda a, b: a + align_weight * b, g_c,
+                               g_align)
+            metrics["loss"] = s_loss
+            metrics["client_loss"] = c_loss
+        with torch.no_grad():
+            new_tc, oc = client_opt.update(g_c, state["opt_client"], tc)
+            new_ts, os_ = server_opt.update(g_s, state["opt_server"], ts)
+        return ({"params": {"client": combine(new_tc, fc),
+                            "server": combine(new_ts, fs)},
+                 "opt_client": oc, "opt_server": os_,
+                 "step": state["step"] + 1, "rng": state["rng"]}, metrics)
+
+    return step_fn
 
 
 # ===========================================================================
@@ -369,16 +502,18 @@ def make_locked_step(api: ModelAPI, client_opt: Optimizer,
 def _make_server_updates(api: ModelAPI, fed: FedConfig,
                          server_opt: Optimizer):
     """Sequential SFLV2-style server FO updates: for every upload step
-    ``m % upload_every == 0``, one step per client in client order.
-    ``apply(sp, os_, cp_const, round_batch, smashed) -> (sp, os_,
-    losses)``, ``smashed[i][m]`` client i's detached cut activations of
-    step m."""
+    ``m % upload_every == 0``, one step per client of ``cids`` in that
+    order (all N clients in client order by default; the async round
+    passes each flush's clients).  ``apply(sp, os_, cp_const,
+    round_batch, smashed, cids=None) -> (sp, os_, losses)``,
+    ``smashed[i][m]`` client i's detached cut activations of step m."""
     upload_ms = [m for m in range(fed.h) if m % fed.upload_every == 0]
 
-    def apply(sp, os_, cp_const, round_batch, smashed):
+    def apply(sp, os_, cp_const, round_batch, smashed, cids=None):
+        cids = range(fed.n_clients) if cids is None else cids
         s_losses = []
         for m in upload_ms:
-            for i in range(fed.n_clients):
+            for i in cids:
                 sm = smashed[i][m]
                 if fed.quantize_uplink:
                     sm = dequantize_smashed(*quantize_smashed(sm), sm.dtype)
@@ -395,6 +530,68 @@ def _make_server_updates(api: ModelAPI, fed: FedConfig,
 
 def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _round_mask(fed: FedConfig, key, mask, device):
+    """The round's (N,) participation mask: ``aggregate.straggler_mask(
+    fold_in(key, 777), ...)`` as the reference draws it, or ``mask``."""
+    if mask is None:
+        mask = AG.straggler_mask(R.fold_in(key, 777), fed.n_clients,
+                                 fed.participation, fed.straggler_prob)
+    return torch.as_tensor(mask, dtype=torch.float32).to(device)
+
+
+def _make_cohort_trajectory(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
+                            fed: FedConfig, client_opt: Optimizer,
+                            uplink: str, client_lr):
+    """The client side of a round, shared by :func:`make_fed_round` and
+    :func:`make_async_round` (the same key stream and step order is what
+    makes the async round at ``buffer_k=0`` the sync one bit for bit).
+    Returns ``(run, kernel_client)``: ``run(state_client, round_batch,
+    key) -> (client_keys, cps, smashed, losses, coeffs)``, client i's
+    base seed or key ``client_keys[i]`` (kernel stream: ``fold_seed(
+    seed_from_key(key), i)``; threefry: ``fold_in(key, i)``; step m folds
+    m on top), its final params ``cps[i]`` (dense uplink only), its
+    smashed data ``smashed[i][m]``, the losses in (client, step) order
+    and the (N, h, n_pairs) coefficients."""
+    local_update = make_local_update(api, method, zo_cfg, client_opt, uplink,
+                                     client_lr)
+    kernel_client = api.client_dual_loss is not None and method == "heron"
+
+    def run(state_client, round_batch, key):
+        N, h = fed.n_clients, fed.h
+        if kernel_client:
+            client_keys = O.fold_seed(Z.seed_from_key(key), np.arange(N))
+        else:
+            client_keys = Z.fold_in_range(key, N)
+        cps, smashed, losses, coeffs = [], [], [], []
+        for i in range(N):
+            cp, oc = state_client, client_opt.init(state_client)
+            sm_i, co_i = [], []
+            for m in range(h):
+                step_key = (O.fold_seed(client_keys[i], m) if kernel_client
+                            else R.fold_in(client_keys[i], m))
+                cp, oc, sm, loss, co = local_update(
+                    cp, oc, _slice_batch(round_batch, i, m), step_key)
+                sm_i.append(sm)
+                co_i.append(co)
+                losses.append(loss)
+            if uplink == "dense":          # the lean uplink sends no params
+                cps.append(cp)
+            smashed.append(sm_i)
+            coeffs.append(torch.stack(co_i))
+        return client_keys, cps, smashed, losses, torch.stack(coeffs)
+
+    return run, kernel_client
+
+
+def _dense_metrics(state, losses, s_losses, mask, n_clients):
+    dense_bytes = float(n_clients * param_bytes(state["client"]))
+    return {"client_loss": torch.mean(torch.stack(losses)),
+            "server_loss": torch.mean(torch.stack(s_losses)),
+            "participants": torch.sum(mask),
+            "uplink_bytes": dense_bytes,
+            "uplink_bytes_dense": dense_bytes}
 
 
 def make_fed_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
@@ -431,20 +628,6 @@ def make_fed_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
                              "Fed-Server replays plain-SGD local steps")
     N, h = fed.n_clients, fed.h
 
-    def round_mask(key, mask, device):
-        if mask is None:
-            mask = AG.straggler_mask(R.fold_in(key, 777), N,
-                                     fed.participation, fed.straggler_prob)
-        return torch.as_tensor(mask, dtype=torch.float32).to(device)
-
-    def dense_metrics(state, losses, s_losses, mask):
-        dense_bytes = float(N * param_bytes(state["client"]))
-        return {"client_loss": torch.mean(torch.stack(losses)),
-                "server_loss": torch.mean(torch.stack(s_losses)),
-                "participants": torch.sum(mask),
-                "uplink_bytes": dense_bytes,
-                "uplink_bytes_dense": dense_bytes}
-
     if method in LOCKED_METHODS:
         step = make_locked_step(api, client_opt, server_opt)
 
@@ -466,65 +649,143 @@ def make_fed_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
                 # the replicas' mean; the reference returns the round's
                 # server optimizer state unchanged, and so does the port
                 sp, os_ = AG.fedavg(_stack(sps)), state["opt_server"]
-            mask = round_mask(key, mask, losses[0].device)
+            mask = _round_mask(fed, R.as_key(key), mask, losses[0].device)
             with torch.no_grad():
                 new_client = AG.fedavg_masked(_stack(cps), mask)
             return ({"client": new_client, "server": sp, "opt_server": os_},
-                    dense_metrics(state, losses, losses, mask))
+                    _dense_metrics(state, losses, losses, mask, N))
 
         return locked_round
 
-    local_update = make_local_update(api, method, zo_cfg, client_opt, uplink,
-                                     client_lr)
+    run_cohort, kernel_client = _make_cohort_trajectory(
+        api, method, zo_cfg, fed, client_opt, uplink, client_lr)
     server_updates = _make_server_updates(api, fed, server_opt)
-
-    kernel_client = api.client_dual_loss is not None and method == "heron"
 
     def round_fn(state, round_batch, key, mask=None):
         key = R.as_key(key)
-        if kernel_client:
-            client_keys = O.fold_seed(Z.seed_from_key(key), np.arange(N))
-        else:
-            client_keys = Z.fold_in_range(key, N)
-        cps, smashed, losses, coeffs = [], [], [], []
-        for i in range(N):
-            cp, oc = state["client"], client_opt.init(state["client"])
-            sm_i, co_i = [], []
-            for m in range(h):
-                step_key = (O.fold_seed(client_keys[i], m) if kernel_client
-                            else R.fold_in(client_keys[i], m))
-                cp, oc, s, loss, co = local_update(
-                    cp, oc, _slice_batch(round_batch, i, m), step_key)
-                sm_i.append(s)
-                co_i.append(co)
-                losses.append(loss)
-            if uplink == "dense":          # the lean uplink sends no params
-                cps.append(cp)
-            smashed.append(sm_i)
-            coeffs.append(torch.stack(co_i))
-
+        client_keys, cps, smashed, losses, coeffs = run_cohort(
+            state["client"], round_batch, key)
         cp_const = tree_map(lambda p: p.detach(), state["client"])
         sp, os_, s_losses = server_updates(
             state["server"], state["opt_server"], cp_const, round_batch,
             smashed)
 
-        mask = round_mask(key, mask, losses[0].device)
-        metrics = dense_metrics(state, losses, s_losses, mask)
+        mask = _round_mask(fed, key, mask, losses[0].device)
+        metrics = _dense_metrics(state, losses, s_losses, mask, N)
         with torch.no_grad():
             if uplink == "seed_replay":
                 if kernel_client:
                     new_client = AG.seed_replay_aggregate_kernel(
-                        state["client"], client_keys, torch.stack(coeffs),
-                        client_lr, mask, seed_pred=api.seed_pred)
+                        state["client"], client_keys, coeffs, client_lr,
+                        mask, seed_pred=api.seed_pred)
                 else:
                     new_client = AG.seed_replay_aggregate(
-                        state["client"], client_keys, torch.stack(coeffs),
-                        client_lr, zo_cfg, mask)
+                        state["client"], client_keys, coeffs, client_lr,
+                        zo_cfg, mask)
                 metrics["uplink_bytes"] = float(seed_replay_uplink_bytes(
                     N, h, zo_cfg.n_pairs))
             else:
                 new_client = AG.fedavg_masked(_stack(cps), mask)
         return ({"client": new_client, "server": sp, "opt_server": os_},
+                metrics)
+
+    return round_fn
+
+
+def make_async_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
+                     fed: FedConfig, client_opt: Optimizer,
+                     server_opt: Optimizer, client_lr: float,
+                     staleness_alpha: float = 0.0, buffer_k: int = 0,
+                     replay_shard: str = "none", replay_mesh=None,
+                     replay_chunk: int | None = None):
+    """Buffered-async federated round (FedBuff-style) over the lean
+    seed-replay uplink, as the reference's ``make_async_round``.
+
+    The client side is the synchronous round's trajectory
+    (:func:`_make_cohort_trajectory`); the Fed-Server takes the arrivals
+    through :class:`repro_torch.fed.async_engine.AsyncReplayServer`:
+    arrival order is the stable sort of ``durations``, the buffer
+    snapshots a new global every ``buffer_k`` arrivals, and each entry
+    is weighted ``(1 + tau)**-alpha``, ``tau`` the snapshots since the
+    client pulled its base model.  After each snapshot the server takes
+    its first-order steps on the flushed clients' smashed data, in
+    client-id order.  ``buffer_k=0`` is one flush of the whole cohort:
+    with ``alpha=0`` the round equals ``make_fed_round(uplink=
+    "seed_replay")`` bit for bit, client and server params.
+
+    Returns ``round(state, round_batch, key, durations=None) -> (state,
+    metrics)``; ``durations`` is an (N,) array of per-client round times
+    (e.g. :func:`repro_torch.fed.cutplan.round_time_s`), driving the
+    arrival order and ``sim_makespan_s``, ``time_to_first_update_s`` and
+    ``updates_per_sim_s``.  The reference's ``replay_shard`` /
+    ``replay_mesh`` / ``replay_chunk`` raise: the sharded and chunked
+    replay is ROADMAP queue 1 item 7.
+    """
+    from repro_torch.fed.async_engine import AsyncReplayServer, \
+        StalenessConfig
+
+    if method != "heron":
+        raise ValueError("the async round rides the seed-replay uplink, "
+                         "which needs the forward-only ZO client "
+                         f"(method='heron'); got {method!r}")
+    if client_lr is None:
+        raise ValueError("async round needs client_lr: the Fed-Server "
+                         "replays plain-SGD local steps")
+    if replay_shard != "none" or replay_mesh is not None \
+            or replay_chunk is not None:
+        raise NotImplementedError(
+            "replay_shard / replay_mesh / replay_chunk: the sharded and "
+            "chunked replay is ROADMAP queue 1 item 7")
+    run_cohort, kernel_client = _make_cohort_trajectory(
+        api, method, zo_cfg, fed, client_opt, "seed_replay", client_lr)
+    server_updates = _make_server_updates(api, fed, server_opt)
+
+    def round_fn(state, round_batch, key, durations=None):
+        N, h = fed.n_clients, fed.h
+        key = R.as_key(key)
+        client_keys, _, smashed, losses, coeffs = run_cohort(
+            state["client"], round_batch, key)
+        mask = _round_mask(fed, key, None, losses[0].device)
+        durations = np.asarray(np.ones((N,)) if durations is None
+                               else durations, np.float64)
+        order = np.argsort(durations, kind="stable")
+        cp_const = tree_map(lambda p: p.detach(), state["client"])
+        sp, os_ = state["server"], state["opt_server"]
+        s_losses = []
+
+        def on_flush(cids, t):
+            nonlocal sp, os_
+            sp, os_, sls = server_updates(sp, os_, cp_const, round_batch,
+                                          smashed, cids)
+            s_losses.extend(sls)
+
+        srv = AsyncReplayServer(
+            state["client"], client_lr, zo_cfg, kernel=kernel_client,
+            staleness=StalenessConfig(alpha=staleness_alpha),
+            buffer_k=buffer_k, seed_pred=api.seed_pred, on_flush=on_flush)
+        mask_host = mask.cpu().numpy()
+        for cid in order:
+            cid = int(cid)
+            srv.submit(cid, client_keys[cid], coeffs[cid], base_version=0,
+                       mask=float(mask_host[cid]),
+                       t_done=float(durations[cid]))
+        srv.flush()
+
+        tel = srv.telemetry
+        makespan = float(durations.max()) if N else 0.0
+        last_t = tel.flush_times[-1] if tel.flush_times else makespan
+        metrics = _dense_metrics(state, losses, s_losses, mask, N)
+        metrics.update({
+            "uplink_bytes": float(seed_replay_uplink_bytes(
+                N, h, zo_cfg.n_pairs)),
+            "flushes": float(tel.flushes),
+            "mean_staleness": float(tel.mean_staleness),
+            "sim_makespan_s": makespan,
+            "time_to_first_update_s": float(
+                tel.flush_times[0]) if tel.flush_times else makespan,
+            "updates_per_sim_s": tel.flushes / max(last_t, 1e-9),
+        })
+        return ({"client": srv.params, "server": sp, "opt_server": os_},
                 metrics)
 
     return round_fn

@@ -1,0 +1,228 @@
+"""Training driver of the port, as :mod:`repro.launch.train`: the hybrid
+datacenter step (HERON or any baseline) with checkpoint/restart, or the
+federated rounds (``--fed``, ``--fed-async``), on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+        --smoke --steps 20 --batch 8 --seq 64 --ckpt-dir ckpt
+
+Federated simulation with the lean seed-replay uplink:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+        --smoke --fed --clients 4 --local-steps 2 --uplink seed_replay \\
+        --steps 5
+
+``--fed-async --staleness 0.5 --buffer-k 2 --cutplan`` runs the
+buffered-async round with per-client cuts planned from device
+profiles.  ``--device`` is the card by default (``cpu`` runs the
+kernels' plain versions).  The keys are the reference's: the params
+``init_lm(PRNGKey(0))`` (drawn on JAX's key stream, so a run starts
+from the reference's params), the train state's ``PRNGKey(1)``, the
+cut planner's batch ``PRNGKey(2)``, the round batches ``fold_in(
+PRNGKey(5), r)``, the step batches ``fold_in(PRNGKey(7), step)`` and
+the round keys ``fold_in(PRNGKey(9), r)``.
+
+The data is ``BigramLM``, whose table is ``vocab x vocab``: at a full
+config's vocab (151,936 for qwen2-1.5b) that is 185 GB, so the driver
+runs such archs with ``--smoke``.  ``--model-parallel > 1``,
+``--replay-shard clients`` and ``--replay-chunk`` are the mesh's,
+ROADMAP queue 1 item 7, and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+from repro_torch.checkpoint import checkpoint as CKPT
+from repro_torch.configs.registry import ARCH_IDS, get_config
+from repro_torch.core import prng as R
+from repro_torch.core import protocols as P
+from repro_torch.core import zo as Z
+from repro_torch.data.pipeline import place_batch, round_batches
+from repro_torch.data.synthetic import BigramLM
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.optim.optimizers import make_optimizer
+from repro_torch.optim.schedules import warmup_cosine
+
+
+def build_batch(cfg, ds, key, batch, seq):
+    """A text batch of ``ds``; the enc-dec and the vision / audio
+    frontend inputs come with those models (ROADMAP queue 1 item 6)."""
+    if getattr(cfg, "enc_dec", False) or getattr(cfg, "frontend", None):
+        raise NotImplementedError("enc-dec and vision / audio frontend "
+                                  "batches: ROADMAP queue 1 item 6")
+    return ds.batch(key, batch)
+
+
+def _mesh_flags(args):
+    if args.model_parallel > 1:
+        raise NotImplementedError("--model-parallel > 1: the mesh is "
+                                  "ROADMAP queue 1 item 7")
+    if args.replay_shard != "none" or args.replay_chunk is not None:
+        raise NotImplementedError("--replay-shard / --replay-chunk: the "
+                                  "sharded and chunked replay is ROADMAP "
+                                  "queue 1 item 7")
+
+
+def run_fed(args, cfg, api, dev):
+    """N-client federated rounds (``make_fed_round`` or, with
+    ``--fed-async``, ``make_async_round``); prints each round's losses
+    and uplink bytes."""
+    copt = make_optimizer("zo_sgd" if args.method == "heron" else "adamw",
+                          args.lr_client)
+    sopt = make_optimizer("adamw", args.lr_server)
+    fed = P.FedConfig(n_clients=args.clients, h=args.local_steps,
+                      participation=args.participation)
+    zo_cfg = Z.ZOConfig(mu=args.zo_mu, n_pairs=args.zo_pairs)
+    ds = BigramLM(vocab=cfg.vocab, seq_len=args.seq, seed=0)
+    durations = None
+    if args.fed_async:
+        if args.method != "heron":
+            raise SystemExit("--fed-async rides the seed-replay uplink "
+                             "and requires --method heron")
+        round_fn = P.make_async_round(
+            api, args.method, zo_cfg, fed, copt, sopt,
+            client_lr=args.lr_client, staleness_alpha=args.staleness,
+            buffer_k=args.buffer_k)
+        if args.cutplan:
+            from repro_torch.fed import cutplan as CP
+            costs = CP.candidate_costs(cfg, ds.batch(R.PRNGKey(2),
+                                                     args.batch))
+            tiers = list(CP.PROFILES.values())
+            profiles = [tiers[i % len(tiers)] for i in range(args.clients)]
+            plans = CP.plan_fleet(costs, profiles, fed.h, zo_cfg.n_pairs)
+            durations = [p.round_s for p in plans]
+            for i, (prof, plan) in enumerate(zip(profiles, plans)):
+                print(f"[cutplan] client {i}: {prof.name:8s} "
+                      f"cut={plan.cut} est_round={plan.round_s:.3g}s "
+                      f"feasible={plan.feasible}")
+    else:
+        round_fn = P.make_fed_round(
+            api, args.method, zo_cfg, fed, copt, sopt, uplink=args.uplink,
+            client_lr=args.lr_client)
+    params = T.init_lm(cfg, device=dev, key=R.PRNGKey(0))
+    state = {"client": params["client"], "server": params["server"],
+             "opt_server": sopt.init(params["server"])}
+    t0 = time.time()
+    for r in range(args.steps):
+        rb = place_batch(round_batches(
+            ds, R.fold_in(R.PRNGKey(5), r), args.clients, args.local_steps,
+            args.batch), dev)
+        key_r = R.fold_in(R.PRNGKey(9), r)
+        if args.fed_async:
+            state, m = round_fn(state, rb, key_r, durations=durations)
+            extra = (f"flushes={int(m['flushes'])} "
+                     f"staleness={m['mean_staleness']:.2f} "
+                     f"upd/s={m['updates_per_sim_s']:.3g} ")
+        else:
+            state, m = round_fn(state, rb, key_r)
+            extra = ""
+        print(f"[fed] round {r:3d} "
+              f"client_loss={float(m['client_loss']):.4f} "
+              f"server_loss={float(m['server_loss']):.4f} "
+              f"uplink={'seed_replay' if args.fed_async else args.uplink} "
+              f"bytes/round={float(m['uplink_bytes']):.3g} "
+              f"(dense={float(m['uplink_bytes_dense']):.3g}) {extra}"
+              f"({time.time()-t0:.1f}s)", flush=True)
+    return 0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-1.5b", choices=list(ARCH_IDS))
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--method", default="heron", choices=list(P.METHODS))
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr-client", type=float, default=1e-3)
+    ap.add_argument("--lr-server", type=float, default=1e-3)
+    ap.add_argument("--zo-mu", type=float, default=1e-3)
+    ap.add_argument("--zo-pairs", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--fed", action="store_true",
+                    help="paper-faithful N-client federated simulation "
+                         "(--steps counts rounds)")
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--local-steps", type=int, default=2)
+    ap.add_argument("--participation", type=float, default=1.0)
+    ap.add_argument("--uplink", default="dense", choices=list(P.UPLINKS),
+                    help="client->Fed-Server weight channel "
+                         "(seed_replay = lean (seed, coeff) uplink)")
+    ap.add_argument("--replay-shard", default="none",
+                    choices=["none", "clients"],
+                    help="the sharded replay (ROADMAP queue 1 item 7)")
+    ap.add_argument("--replay-chunk", type=int, default=None,
+                    help="the chunked replay (ROADMAP queue 1 item 7)")
+    ap.add_argument("--fed-async", action="store_true",
+                    help="buffered-async round engine: seed-replay "
+                         "arrivals are applied as they land, weighted by "
+                         "staleness (implies --fed, requires heron)")
+    ap.add_argument("--staleness", type=float, default=0.0,
+                    help="staleness-decay exponent alpha in "
+                         "w(tau) = (1+tau)^-alpha (0 = no decay)")
+    ap.add_argument("--buffer-k", type=int, default=0,
+                    help="snapshot a new global every K async arrivals "
+                         "(0 = one flush per full cohort)")
+    ap.add_argument("--cutplan", action="store_true",
+                    help="pick per-client cut layers from device "
+                         "profiles (counted FLOPs and bytes + roofline) "
+                         "and use the estimated round times as async "
+                         "arrival order")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (cpu runs the kernels' plain "
+                         "versions)")
+    args = ap.parse_args(argv)
+
+    _mesh_flags(args)
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    api = P.lm_api(cfg)
+    if args.fed or args.fed_async:
+        return run_fed(args, cfg, api, dev)
+    if args.uplink != "dense":
+        raise SystemExit("--uplink seed_replay requires --fed (the lean "
+                         "uplink is a federated-round mechanism)")
+    c_name = "zo_sgd" if args.method == "heron" else "adamw"
+    copt = make_optimizer(
+        c_name, warmup_cosine(args.lr_client, 5, args.steps))
+    # every ported arch's server optimizer is AdamW (the reference's
+    # Adafactor is kimi-k2's, ROADMAP queue 1 item 6)
+    sopt = make_optimizer("adamw",
+                          warmup_cosine(args.lr_server, 5, args.steps))
+
+    params = T.init_lm(cfg, device=dev, key=R.PRNGKey(0))
+    state = P.init_train_state(R.PRNGKey(1), params, copt, sopt)
+    start = 0
+    if args.ckpt_dir and CKPT.latest_step(args.ckpt_dir) is not None:
+        state, start = CKPT.restore(args.ckpt_dir, state)
+        print(f"[train] restored checkpoint at step {start}")
+    step_fn = P.make_train_step(
+        api, args.method, Z.ZOConfig(mu=args.zo_mu, n_pairs=args.zo_pairs),
+        copt, sopt)
+
+    ds = BigramLM(vocab=cfg.vocab, seq_len=args.seq, seed=0)
+    key = R.PRNGKey(7)
+    t0 = time.time()
+    for step in range(start, args.steps):
+        batch = place_batch(build_batch(cfg, ds, R.fold_in(key, step),
+                                        args.batch, args.seq), dev)
+        state, metrics = step_fn(state, batch)
+        if step % 5 == 0 or step == args.steps - 1:
+            m = {k: float(v) for k, v in metrics.items()}
+            print(f"[train] step {step:4d} loss={m.get('loss', 0):.4f} "
+                  f"client_loss={m.get('client_loss', 0):.4f} "
+                  f"({time.time()-t0:.1f}s)", flush=True)
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            CKPT.save(args.ckpt_dir, step + 1, state)
+    if args.ckpt_dir:
+        CKPT.save(args.ckpt_dir, args.steps, state)
+        print(f"[train] final checkpoint at {args.ckpt_dir}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

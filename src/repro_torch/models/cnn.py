@@ -185,9 +185,10 @@ def _stage_plan(cfg: CNNConfig):
 def init_cnn(cfg: CNNConfig, seed: int = 0, device="cuda"):
     """``{"client": ..., "server": ...}`` from a seeded random init, with
     the JAX package's tree paths and shapes.  The draws come from a CPU
-    generator and then move to ``device``."""
+    generator and then move to ``device``; on the ``meta`` device the
+    leaves have shapes and dtypes alone."""
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator().manual_seed(seed)
     dt = cfg.torch_param_dtype()
     plan = _stage_plan(cfg)
     stem = {"conv": _conv_init(gen, 3, 3, 3, cfg.widths[0], dt),

@@ -2,10 +2,13 @@
 embeddings, RoPE, MLP, the depthwise causal conv1d of the RG-LRU block.  Plain functions on nested dicts
 of tensors, mirroring :mod:`repro.models.layers`.
 
-Init functions draw from an explicit ``torch.Generator``.  The draws
-cannot reproduce the JAX package's
-``jax.random`` init; parity tests load the JAX params through
-:func:`repro_torch.bridge.from_jax` instead.
+Init functions draw from an explicit ``torch.Generator``; given None
+they make shape-only tensors on the ``meta`` device, and given
+:data:`RULES` each leaf's :class:`InitRule`.  The generator's draws are
+not the JAX package's; :func:`repro_torch.models.transformer.init_lm`
+with a ``key`` draws the rules on JAX's key stream
+(:func:`jax_init_leaf`), and parity tests load the JAX params through
+:func:`repro_torch.bridge.from_jax`.
 """
 from __future__ import annotations
 
@@ -14,32 +17,83 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng as R
 from repro_torch.kernels import ops as O
 
 
-def init_param(gen: torch.Generator, shape, dtype, init="normal",
-               scale=None):
-    """One leaf, drawn on ``gen``'s device."""
-    shape = tuple(int(s) for s in shape)
-    dev = gen.device
+class InitRule:
+    """A leaf's init rule as an init function states it: what
+    :func:`init_param` returns given :data:`RULES` in place of a
+    generator, so one tree of rules is drawn on another stream
+    (:func:`jax_init_leaf`).  ``reps`` > 0: a stacked leaf
+    (:func:`stack_leaves`), ``reps`` draws of ``shape``."""
+
+    def __init__(self, shape, dtype, init, scale, reps=0):
+        self.shape, self.dtype, self.init = shape, dtype, init
+        self.scale, self.reps = scale, reps
+
+
+RULES = object()       # init_param's "generator" that returns InitRules
+
+
+def _draw(shape, dtype, init, scale, device, uniform, normal):
+    """One leaf under its init rule; ``uniform(lo, hi)`` and ``normal()``
+    draw f32 of ``shape`` on the stream at hand."""
     if init == "zeros":
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        return torch.zeros(shape, dtype=dtype, device=device)
     if init == "ones":
-        return torch.ones(shape, dtype=dtype, device=dev)
+        return torch.ones(shape, dtype=dtype, device=device)
     if init == "lru_lambda":
         # RG-LRU Lambda: a uniform in a stable band, parametrized via
         # softplus^{-1}(-log(a)/c) with c=8
-        u = 0.9 + (0.999 - 0.9) * torch.rand(
-            shape, generator=gen, dtype=torch.float32, device=dev)
-        a = -torch.log(u) * 8.0
+        a = -torch.log(uniform(0.9, 0.999)) * 8.0
         return torch.log(torch.expm1(a)).to(dtype)
     if init != "normal":
         raise ValueError(init)
     if scale is None:
         fan_in = shape[0] if len(shape) > 1 else max(shape[-1], 1)
         scale = 1.0 / math.sqrt(max(fan_in, 1))
-    z = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-    return (scale * z).to(dtype)
+    return (scale * normal()).to(dtype)
+
+
+def init_param(gen: torch.Generator, shape, dtype, init="normal",
+               scale=None):
+    """One leaf, drawn on ``gen``'s device (``gen=None``: an empty
+    tensor on the ``meta`` device, its shape and dtype alone;
+    ``gen=RULES``: its :class:`InitRule`)."""
+    shape = tuple(int(s) for s in shape)
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    if gen is RULES:
+        return InitRule(shape, dtype, init, scale)
+    dev = gen.device
+    return _draw(shape, dtype, init, scale, dev,
+                 lambda lo, hi: lo + (hi - lo) * torch.rand(
+                     shape, generator=gen, dtype=torch.float32, device=dev),
+                 lambda: torch.randn(shape, generator=gen,
+                                     dtype=torch.float32, device=dev))
+
+
+def stack_leaves(xs):
+    """The reps of a stacked leaf: tensors stacked, rules counted."""
+    if isinstance(xs[0], InitRule):
+        return InitRule(xs[0].shape, xs[0].dtype, xs[0].init, xs[0].scale,
+                        len(xs))
+    return torch.stack(xs)
+
+
+def jax_init_leaf(key, path: str, rule: InitRule, device="cpu"):
+    """The JAX package's ``ParamBuilder.param`` draw of one leaf (one rep
+    of a stacked one) under its rule: under ``fold_in(key,
+    path_hash(path))`` (its ``_path_seed`` is the same FNV-1a hash, of the
+    '.'-joined init path), in f32, cast to the rule's dtype.  The normals
+    are within a few f32 ulps of JAX's (:func:`repro_torch.core.prng.
+    normal`), the uniforms bit for bit."""
+    shape = rule.shape
+    k = lambda: R.fold_in(key, O.path_hash(path))  # noqa: E731
+    return _draw(shape, rule.dtype, rule.init, rule.scale, device,
+                 lambda lo, hi: R.uniform(k(), shape, lo, hi, device=device),
+                 lambda: R.normal(k(), shape, device=device))
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as REC
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_map, tree_map_with_path
 
 ATTN_MIXERS = ("global_attn", "local_attn")
 
@@ -155,7 +155,7 @@ def init_stack(gen, cfg: ModelConfig, specs: Sequence[LayerSpec]):
     for unit, reps in build_segments(specs):
         per_rep = [tuple(init_block(gen, spec, cfg) for spec in unit)
                    for _ in range(reps)]
-        out.append(tree_map(lambda *xs: torch.stack(xs), *per_rep))
+        out.append(tree_map(lambda *xs: L.stack_leaves(xs), *per_rep))
     return out
 
 
@@ -217,7 +217,7 @@ def aux_specs(cfg: ModelConfig):
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda",
-            draw_on_device: bool = False):
+            draw_on_device: bool = False, key=None):
     """``{"client": ..., "server": ...}`` from a seeded random init.
 
     client = embedding + first ``cut_layers`` blocks + aux head
@@ -227,9 +227,24 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda",
     ``device``, so one seed gives the same params on every device.
     ``draw_on_device=True`` draws on ``device``'s own generator instead:
     other values for the same seed, but billions of params in seconds.
+    ``key`` (a PRNG key, :mod:`repro_torch.core.prng`) draws the JAX
+    package's init instead, ``repro.models.transformer.init_lm(key,
+    cfg)``, on ``device``: the port's tree, each leaf drawn as the JAX
+    package's ``ParamBuilder`` draws it at its init path
+    (:func:`repro_torch.models.layers.jax_init_leaf`).  On the ``meta``
+    device the leaves have shapes and dtypes alone.
     """
     dev = resolve_device(device)
-    gen = torch.Generator(dev if draw_on_device else "cpu").manual_seed(seed)
+    if key is not None:
+        return _init_lm_like_jax(cfg, key, dev)
+    gen = (None if dev.type == "meta" else
+           torch.Generator(dev if draw_on_device else "cpu").manual_seed(seed))
+    return tree_map(lambda t: t.to(dev), _lm_tree(cfg, gen))
+
+
+def _lm_tree(cfg: ModelConfig, gen):
+    """init_lm's tree, each leaf from ``gen`` (see
+    :func:`repro_torch.models.layers.init_param`)."""
     dt = cfg.torch_param_dtype()
     client: dict[str, Any] = {
         "embed": L.init_embedding(gen, cfg.vocab_padded, cfg.d_model, dt),
@@ -243,8 +258,42 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda",
     if not cfg.tie_embeddings:
         server["unembed"] = L.init_param(gen, (cfg.d_model, cfg.vocab_padded),
                                          dt, "normal", 0.02)
-    return tree_map(lambda t: t.to(dev), {"client": client,
-                                          "server": server})
+    return {"client": client, "server": server}
+
+
+def _jax_init_path(part: str, path: str, rep: int) -> str:
+    """The JAX package's init path of the port's leaf ``part/path`` (rep
+    ``rep`` of a stacked leaf): a stack's ``layers/<seg>/<pos>/...`` is
+    ``<stack>.seg<seg>.rep<rep>.pos<pos>....``, the client's stack
+    ``client``, the aux head's ``aux``, the server's ``server``."""
+    keys = path.split("/")
+    if keys[0] == "aux" and keys[1] == "layers":
+        stack, keys = "aux", keys[1:]
+    elif keys[0] == "layers":
+        stack = part
+    else:
+        return ".".join(keys)
+    seg, pos, rest = keys[1], keys[2], keys[3:]
+    return ".".join([stack, f"seg{seg}", f"rep{rep}", f"pos{pos}", *rest])
+
+
+def _init_lm_like_jax(cfg: ModelConfig, key, device="cuda"):
+    """``init_lm(cfg, key=key)``: the tree's init rules (the layers' init
+    functions given ``L.RULES``), each leaf drawn on ``device`` at its JAX
+    init path, a stacked leaf rep by rep."""
+    def leaf(part):
+        def draw(path, rule):
+            if not rule.reps:
+                return L.jax_init_leaf(key, _jax_init_path(part, path, 0),
+                                       rule, device)
+            return torch.stack([L.jax_init_leaf(
+                key, _jax_init_path(part, path, r), rule, device)
+                for r in range(rule.reps)])
+        return draw
+
+    rules = _lm_tree(cfg, L.RULES)
+    return {part: tree_map_with_path(leaf(part), rules[part])
+            for part in ("client", "server")}
 
 
 def init_aux(gen, cfg: ModelConfig):

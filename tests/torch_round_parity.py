@@ -23,6 +23,7 @@ from repro.optim import optimizers as JOPT
 from repro_torch.bridge import from_jax
 from repro_torch.configs.gpt2 import gpt2_tiny
 from repro_torch.configs.recurrentgemma_9b import smoke_config as rg_smoke
+from repro_torch.core import prng as R
 from repro_torch.core import protocols as P
 from repro_torch.core import zo as Z
 from repro_torch.models import cnn as CNN
@@ -256,3 +257,60 @@ def bf16_step(a, b):
     m = np.maximum(np.abs(a), np.abs(b)).astype(ml_dtypes.bfloat16)
     up = np.nextafter(m, np.array(np.inf, ml_dtypes.bfloat16))
     return up.astype(np.float32) - m.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# the datacenter step (tests/test_torch_train_step*.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_KEY = 1            # init_train_state's PRNGKey, as the launch driver
+TRAIN_STEPS = 2
+
+
+def step_batches(kind, vocab=None, n=TRAIN_STEPS, seed=4):
+    """``n`` single-client batches: 2 x 16 tokens (LM) or 4 images of
+    8x8x3, from a numpy seed."""
+    rb = round_batch(kind, 1, n, vocab=vocab, seed=seed)
+    return [{k: v[0, m] for k, v in rb.items()} for m in range(n)]
+
+
+def train_steps_pair(setup, method, zo_pair, copt_pair, sopt_pair,
+                     batches, params=None, tc_pred=None, ts_pred=None):
+    """``len(batches)`` datacenter steps of each package from the same
+    params and ``PRNGKey(TRAIN_KEY)``: ``((jax state, jax metrics),
+    (port state, port metrics))``, the JAX side jitted as the reference's
+    driver runs it.  Each ``*_pair`` is (JAX's, the port's)."""
+    japi, api, p0 = setup
+    params = p0 if params is None else params
+    jstate = JP.init_train_state(jax.random.PRNGKey(TRAIN_KEY), params,
+                                 copt_pair[0], sopt_pair[0], tc_pred,
+                                 ts_pred)
+    jstep = jax.jit(JP.make_train_step(japi, method, zo_pair[0],
+                                       copt_pair[0], sopt_pair[0], tc_pred,
+                                       ts_pred))
+    state = P.init_train_state(R.PRNGKey(TRAIN_KEY),
+                               from_jax(params, device="cpu"), copt_pair[1],
+                               sopt_pair[1], tc_pred, ts_pred)
+    step = P.make_train_step(api, method, zo_pair[1], copt_pair[1],
+                             sopt_pair[1], tc_pred, ts_pred)
+    for b in batches:
+        jstate, jm = jstep(jstate, b)
+        state, m = step(state, {k: torch.as_tensor(v) for k, v in b.items()})
+    return (jax.tree.map(np.asarray, jstate), jm), (state, m)
+
+
+def assert_train_state_close(state, jstate, params):
+    """Params and both optimizer states at ``PARAM_TOL``, the step count
+    and key equal, and the client moved."""
+    for part in ("params", "opt_client", "opt_server"):
+        got, want = leaves(state[part]), jax.tree.leaves(jstate[part])
+        assert len(got) == len(want), part
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(np.asarray(a, np.float64),
+                                       np.asarray(b, np.float64),
+                                       **PARAM_TOL)
+    assert state["step"] == int(jstate["step"])
+    np.testing.assert_array_equal(state["rng"].numpy(), jstate["rng"])
+    assert any(not np.array_equal(a, b) for a, b in zip(
+        leaves(state["params"]["client"]),
+        jax.tree.leaves(params["client"])))
