@@ -113,7 +113,18 @@ Phases, one line each (any failure exits non-zero):
      steps, 10 resuming from them, --fed and --fed-async --cutplan; and
      gpt2-tiny's datacenter steps (every method) and async rounds on the
      card against the CPU.
-Phases 9-14 run before phase 8's timings.  The line before the last
+ 15. the xLSTM and MoE families: one HERON round on xlstm-1.3b at full
+     width and depth (48 layers, mlstm_chunk 64) and one on
+     qwen3-moe-30b-a3b at full width cut to 4 layers (N=2, h=1, 4 x 256
+     tokens each, the lean uplink): every client block through the
+     whole-block fallback, 14 K1 launches and no K2-K6 a round, every K1
+     launch of a warm-up round recorded and run again against plain; the
+     xlstm-1.3b engine at full width and depth (4 slots, 8 requests, 64
+     new; no kernel launch) and the qwen3-moe engine at 4 layers (8
+     slots, 24 requests, 64 new; every K5 launch of its admissions held
+     against plain); the three smoke configs' kernel and threefry rounds
+     on the card against the CPU (their engines are phase 13's).
+Phases 9-15 run before phase 8's timings.  The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
 """
@@ -895,6 +906,53 @@ def check_k3_recorded(what, calls):
     return worst
 
 
+def record_k5_calls(fn):
+    """Run ``fn`` with every K5 call (``ops.flash_attention``, as the
+    attention layer calls it) recorded: ``[(arguments, out)]``, the
+    tensors copied."""
+    import inspect
+    import torch
+    from repro_torch.kernels import ops as O
+    calls, k5 = [], O.flash_attention
+    sig = inspect.signature(k5)
+
+    def rec(*args, **kw):
+        out = k5(*args, **kw)
+        bound = sig.bind(*args, **kw)
+        bound.apply_defaults()
+        calls.append(({k: v.clone() if torch.is_tensor(v) else v
+                       for k, v in bound.arguments.items()}, out.clone()))
+        return out
+
+    O.flash_attention = rec
+    try:
+        fn()
+    finally:
+        O.flash_attention = k5
+    return calls
+
+
+def check_k5_recorded(what, calls):
+    """Each recorded K5 call's output against the plain version on the
+    call's own inputs, at check_k5's tolerance.  Returns the largest
+    |d|."""
+    import torch
+    from repro_torch.kernels import ref as R
+    worst = 0.0
+    for k, (a, out) in enumerate(calls):
+        ref = R.flash_attention_ref(a["q"], a["k"], a["v"], causal=a["causal"],
+                                    window=a["window"], cap=a["cap"],
+                                    scale=a["scale"])
+        d = (out.float() - ref.float()).abs()
+        tol = (1e-4 if out.dtype == torch.float32
+               else 2 ** -7 * ref.float().abs() + 1e-3)
+        if not bool((d <= tol).all()):
+            fail(f"K5 {what} call {k} {tuple(a['q'].shape)}: max |d| "
+                 f"{float(d.max())}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
 def check_k5(dev):
     """K5 against its plain version over K3's cases with K3's tolerance
     (see check_k3); and bit for bit against each stream of K3 in the
@@ -1036,15 +1094,19 @@ def check_counts(what, counts, expect):
                  "(None: more than zero)")
 
 
-def drive_round(phase, desc, setup, expect, round_key=None):
-    """A warm-up round, then one timed round from the same state: finite
-    losses and params, moved client params, the kernels' launch counts
-    against ``expect``; then one more round under the profiler."""
+def drive_round(phase, desc, setup, expect, round_key=None, warmup=None):
+    """A warm-up round (``warmup()`` when given), then one timed round
+    from the same state: finite losses and params, moved client params,
+    the kernels' launch counts against ``expect``; then one more round
+    under the profiler."""
     import torch
     from repro_torch.tree import tree_leaves
     state, rb, rnd = setup
     round_key = ROUND_KEY if round_key is None else round_key
-    rnd(state, rb, round_key)                # warm-up round
+    if warmup is None:
+        rnd(state, rb, round_key)            # warm-up round
+    else:
+        warmup()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1113,21 +1175,22 @@ def run_cnn_round(dev):
 
 def device_rows(fn):
     """``[(us, count, kernel name)]``: the device time of one call of
-    ``fn`` by kernel (torch.profiler)."""
+    ``fn`` by kernel: torch.profiler's CUDA activity, each kernel's (and
+    copy's) duration summed by name from the raw events.  (The event
+    list's Python post-processing behind ``key_averages()`` took minutes
+    for a round of ~10^5 launches; it derives the same sums.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if not str(ev.device_type()).endswith("CUDA"):
             continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        rows.append((us, ev.count, ev.key))
-    return rows
+        us, n = by_name.get(ev.name(), (0.0, 0))
+        by_name[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    return [(us, n, k) for k, (us, n) in by_name.items()]
 
 
 def profile_round(phase, rnd, state, rb, round_key, wall_s):
@@ -2157,10 +2220,11 @@ def eager_serve(params, cfg, dev, prompts, max_new, capacity):
 
 def n_mixers(cfg):
     """(attention layers, RG-LRU layers) of a config: K5 and K6 launches
-    per admission on the card."""
+    per admission on the card (mLSTM / sLSTM layers launch neither)."""
     specs = cfg.layer_specs()
     n_rec = sum(s.mixer == "rg_lru" for s in specs)
-    return len(specs) - n_rec, n_rec
+    n_attn = sum(s.mixer in ("global_attn", "local_attn") for s in specs)
+    return n_attn, n_rec
 
 
 def check_serve_smoke(dev):
@@ -2283,26 +2347,36 @@ def prefill_vs_plain(cfg, params, prompt, dev):
 
 
 def run_serve(dev, card, desc, cfg, slots, prompt_len, max_new, n_req,
-              segment):
+              segment, phase=13, compare=True):
     """The engine at full width on a mixed queue (greedy), its launch
     counts held per admission (K5 on the tensor cores once per attention
     layer, K6 once per RG-LRU layer) and per segment (none); then one
-    segment profiled, the sampler timed, the eager per-token loop on the
-    same queue, and one admission's prefill against the plain kernels.
-    A decode step's byte bound: every weight read once (bf16), over the
-    card's memory rate.  Returns the run's launch counts."""
+    segment profiled and the sampler timed.  With ``compare`` (phase 13)
+    the eager per-token loop then runs the same queue and one
+    admission's prefill is held against the plain kernels; without it
+    (phase 15) every K5 launch of the run is recorded and held against
+    its plain version on its own inputs.  A decode step's byte bound:
+    every weight read once (bf16) and every slot's recurrent state read
+    and written, over the card's memory rate.  Returns the run's launch
+    counts."""
     import torch
     from repro_torch.core import decode as D
+    from repro_torch.core import protocols as P
     from repro_torch.models import transformer as T
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
     params = T.init_lm(cfg, seed=0, device=dev, draw_on_device=True)
     leaves = tree_leaves(params)
     n_params = sum(t.numel() for t in leaves)
-    step_bound_ms, _ = bound_ms(sum(t.numel() * t.element_size()
-                                    for t in leaves), 0, "bfloat16")
-    n_attn, n_rec = n_mixers(cfg)
     prompts = serve_queue(cfg.vocab, n_req, prompt_len)
     capacity = prompt_len + max_new
+    state_bytes = sum(
+        t.numel() * t.element_size() for path, t in tree_leaves_with_path(
+            P.init_serve_caches(cfg, slots, capacity, per_slot=True,
+                                device="meta")) if "/rec/" in path)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves) \
+        + 2 * state_bytes
+    step_bound_ms, _ = bound_ms(n_bytes, 0, "bfloat16")
+    n_attn, n_rec = n_mixers(cfg)
     eng = D.DecodeEngine(params, cfg, slots=slots, capacity=capacity,
                          segment_len=segment, device=dev)
     run_engine(eng, prompts[:slots], 2)            # warm-up
@@ -2313,7 +2387,13 @@ def run_serve(dev, card, desc, cfg, slots, prompt_len, max_new, n_req,
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    streams = run_engine(eng, prompts, max_new)
+    if compare:
+        streams = run_engine(eng, prompts, max_new)
+    else:
+        out = []
+        k5_calls = record_k5_calls(lambda: out.append(
+            run_engine(eng, prompts, max_new)))
+        streams = out.pop()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -2338,7 +2418,7 @@ def run_serve(dev, card, desc, cfg, slots, prompt_len, max_new, n_req,
     seg_s = [s for s, _ in rec["segment"]]
     step_ms = statistics.median(1e3 * s / segment for s in seg_s)
     decoded = total - n_adm                # the first tokens: admissions
-    log(13, f"{desc} ({n_params} params, {n_attn} attention + {n_rec} "
+    log(phase, f"{desc} ({n_params} params, {n_attn} attention + {n_rec} "
         f"RG-LRU layers; {slots} slots, capacity {capacity}, segments of "
         f"{segment}; {n_req} requests, prompts {sorted(set(map(len, prompts)))}"
         f", {max_new} new each) on {card}: {total} tokens in wall_s {wall} "
@@ -2347,9 +2427,21 @@ def run_serve(dev, card, desc, cfg, slots, prompt_len, max_new, n_req,
         f"{adm_s} s = {eng.prefill_tokens / adm_s} prompt tok/s; decode "
         f"{sum(seg_s)} s = {decoded / sum(seg_s)} tok/s; median ms per "
         f"decode step {step_ms} vs byte bound {step_bound_ms} ms "
-        f"({step_ms / step_bound_ms:.1f}x); max_memory_allocated {peak}; "
-        f"launches {counts} (per admission K5 {n_attn} on the tensor "
-        f"cores, K6 {n_rec}; per segment none)")
+        f"({n_bytes} B: the weights, and {state_bytes} B of recurrent "
+        f"state read and written) ({step_ms / step_bound_ms:.1f}x); "
+        f"max_memory_allocated {peak}; launches {counts} (per admission K5 "
+        f"{n_attn} on the tensor cores, K6 {n_rec}; per segment none)")
+    if not compare and k5_calls:
+        worst = check_k5_recorded(desc, k5_calls)
+        if len(k5_calls) != counts["flash_attention"]:
+            fail(f"{desc}: {len(k5_calls)} K5 calls recorded, "
+                 f"{counts['flash_attention']} launched")
+        log(phase, f"{desc}: every K5 launch of the run recorded "
+            f"({len(k5_calls)}; q of "
+            f"{sorted({tuple(a['q'].shape) for a, _ in k5_calls})}) == "
+            f"plain within check_k5's tolerance on its own inputs: max |d| "
+            f"{worst}")
+        del k5_calls
     del eng._admit_one, eng._decode_segment
     # one segment: its wall unprofiled, then its device time profiled
     with torch.inference_mode():
@@ -2362,7 +2454,7 @@ def run_serve(dev, card, desc, cfg, slots, prompt_len, max_new, n_req,
     rows.sort(reverse=True)
     top = "; ".join(f"{k[:40]} x{n} {us / 1e3:.3f} ms"
                     for us, n, k in rows[:6])
-    log(13, f"{desc}: one segment of {segment} steps, {slots} live slots: "
+    log(phase, f"{desc}: one segment of {segment} steps, {slots} live slots: "
         f"wall {1e3 * wall_seg} ms, device busy {busy} ms (idle share "
         f"{1 - busy / (1e3 * wall_seg)}; profiled segment), "
         f"{sum(r[1] for r in rows) / segment:.0f} kernels a step; top "
@@ -2375,9 +2467,13 @@ def run_serve(dev, card, desc, cfg, slots, prompt_len, max_new, n_req,
     t_s = time_ms(lambda: D.sample_logits(logits, keys, s_cfg), reps=10)
     t_g = time_ms(lambda: D.sample_logits(logits, keys, D.SamplerConfig()),
                   reps=10)
-    log(13, f"{desc}: sampler on ({slots}, {cfg.vocab}) f32 logits: "
+    log(phase, f"{desc}: sampler on ({slots}, {cfg.vocab}) f32 logits: "
         f"{SERVE_SAMPLED} {t_s} ms (the threefry draw of all rows in one "
         f"pass) vs greedy argmax {t_g} ms (CUDA events)")
+    if not compare:
+        del params
+        torch.cuda.empty_cache()
+        return counts
     # the eager per-token loop on the same queue
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2385,7 +2481,7 @@ def run_serve(dev, card, desc, cfg, slots, prompt_len, max_new, n_req,
     wall_e = time.perf_counter() - t0
     same = sum(a == b for a, b in zip(eager, streams))
     first = sum(a[:8] == b[:8] for a, b in zip(eager, streams))
-    log(13, f"{desc}: eager per-token loop on the same queue (batched by "
+    log(phase, f"{desc}: eager per-token loop on the same queue (batched by "
         f"prompt length, prompts fed token by token, a host read per "
         f"token): {total} tokens in {wall_e} s = {total / wall_e} tok/s; "
         f"engine / eager {wall_e / wall:.2f}x; greedy streams equal in "
@@ -2399,7 +2495,7 @@ def run_serve(dev, card, desc, cfg, slots, prompt_len, max_new, n_req,
     if gap > 2 * d and not agree:
         fail(f"{desc}: the first token differs from plain's though the "
              f"top-2 gap {gap} > 2 max |d| {d}")
-    log(13, f"{desc}: one {len(prompts[-1])}-token prefill's last logits "
+    log(phase, f"{desc}: one {len(prompts[-1])}-token prefill's last logits "
         f"through K5{' / K6' if n_rec else ''} vs their plain versions: max "
         f"|d| {d} <= {SERVE_LOGIT_TOL} x max |logits| {mx}; first token "
         f"{'agrees' if agree else 'differs'} (plain top-2 gap {gap})")
@@ -2878,6 +2974,162 @@ def run_train_phase(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the xLSTM and MoE families
+# ---------------------------------------------------------------------------
+
+# one HERON round (N=2, h=1) of a family whose client blocks all take the
+# whole-block fallback: per client the embedding's noise rows, a theta +
+# mu*U tree for each of the two client blocks, one for the aux norm and
+# one for the tied table, and the direction tree (6 launches); the seed
+# replay's two direction trees.  No K2-K6: the fallback runs the plain
+# block (its attention the plain blocked version, as training's server
+# does), and the mLSTM / sLSTM cells and the MoE dispatch are plain torch
+# as the reference's are XLA.
+FAMILY_ROUND = {"zo_noise": 14, "zo_dual_matmul": 0, "zo_dual_matmul_tc": 0,
+                "zo_dual_flash_attention": 0,
+                "zo_dual_flash_attention_tc": 0, "zo_matmul": 0,
+                "zo_matmul_tc": 0, "flash_attention": 0,
+                "flash_attention_tc": 0, "rg_lru_scan": 0}
+
+
+def xlstm_round_config():
+    """xlstm-1.3b at full width and depth (48 layers: 42 mLSTM, 6 sLSTM;
+    d_model 2048, 4 heads of 512), with the reference's chunkwise mLSTM
+    (``mlstm_chunk=64``): autograd through the sequential cell would
+    keep a (B, 4, 512, 512) f32 state per token, 4 GiB a layer at 4 x
+    256 tokens; the chunked cell keeps one per chunk."""
+    from repro_torch.configs.xlstm_1_3b import full_config
+    return full_config().replace(mlstm_chunk=64)
+
+
+def moe_round_config():
+    """qwen3-moe-30b-a3b at full width (d_model 2048, 32 heads / 4 KV
+    heads of 128, 128 experts top-8 of d_ff 768, vocab 151936 untied),
+    depth cut 48 -> 4 layers (2 client + 2 server).  A round holds three
+    server states at once (the caller's, and the state before and after
+    the second client's AdamW step), each 12 B a param (bf16 params, f32
+    moments): 49.66 GB at qwen2-1.5b's 1.2 B server params (phase 12).
+    At ~623 M params a layer, 6 layers' server (2.8 B params with the
+    untied unembedding) would hold ~106 GB; 4 layers' (1.56 B) ~60 GB."""
+    from repro_torch.configs.qwen3_moe_30b_a3b import full_config
+    return full_config().replace(n_layers=4)
+
+
+def recorded_k1_round(desc, setup, dev, expect):
+    """One round with every K1 launch recorded, each run again on fresh
+    inputs of its shape, seed and mode against the plain version bit for
+    bit (phase 15's warm-up round)."""
+    state, rb, rnd = setup
+    calls, rows = record_k1_calls(lambda: rnd(state, rb, ROUND_KEY))
+    n = (check_k1_recorded(desc, calls, dev)
+         + check_k1_rows_recorded(desc, rows))
+    if n != expect:
+        fail(f"{desc}: {n} K1 launches recorded, expected {expect}")
+    n_seg = sum(len(c[1]) for c in calls)
+    n_el = sum(g.rows * g.cols for c in calls for g in c[1])
+    log(15, f"{desc}: every K1 launch of one round recorded ({len(calls)} "
+        f"tree calls over {n_seg} segments, {n_el} entries; {len(rows)} "
+        f"rows calls) and run again == plain bit for bit")
+
+
+def run_family_round(dev, card, name, cfg, desc):
+    """A HERON round at full width (N=2, h=1, 4 x 256 tokens a client,
+    n_pairs 1, the lean uplink, bf16): the warm-up round with every K1
+    launch recorded and held against plain, then drive_round's timed and
+    profiled rounds.  Returns the timed round's launches."""
+    import torch
+    from repro_torch.core.split import param_bytes
+    from repro_torch.tree import tree_leaves
+    setup = _round_setup(cfg, dev, n_clients=2, h=1, batch=4, seq=256,
+                         mu=1e-3, lr=1e-4, server_lr=2e-4,
+                         draw_on_device=True)
+    state = setup[0]
+    n_c = sum(t.numel() for t in tree_leaves(state["client"]))
+    n_s = sum(t.numel() for t in tree_leaves(state["server"]))
+    log(15, f"{name}: client {n_c} params ({param_bytes(state['client'])} "
+        f"B), server {n_s} params ({param_bytes(state['server'])} B)")
+    del state
+    counts = drive_round(
+        15, desc + f" on {card}", setup, FAMILY_ROUND,
+        warmup=lambda: recorded_k1_round(name + " round", setup, dev,
+                                         FAMILY_ROUND["zo_noise"]))
+    del setup
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_family_small_rounds():
+    """15(e): each family's smoke config (f32), a kernel-path round and a
+    threefry round (the reference's default) on the card against the
+    CPU at compare_card_cpu's tolerance.  The server's AdamW eps is 1e-6
+    (1e-3 for xlstm, whose f32 gradients are ill-conditioned: see
+    tests/test_torch_family_rounds.py): a first step g / (|g| + eps)
+    turns rounding in a near-eps gradient entry into an O(lr) change."""
+    from repro_torch.configs import registry as REG
+    for arch in ("xlstm-1.3b", "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"):
+        eps = 1e-3 if arch == "xlstm-1.3b" else 1e-6
+        for impl, scale in (("kernel", "sphere"), ("xla", "gaussian")):
+            check_small_round(
+                15, f"{arch} smoke_config {impl} round (N=2 h=2, 2x16 "
+                "tokens)", lambda d, a=arch, i=impl, sc=scale, e=eps:
+                _round_setup(REG.get_config(a, smoke=True), d, n_clients=2,
+                             h=2, batch=2, seq=16, mu=1e-2, lr=1e-3,
+                             server_lr=1e-4, seed=3, server_eps=e,
+                             forward_impl=i, scale=sc))
+
+
+def run_family_phase(dev, card):
+    """Phase 15: (a) an xlstm-1.3b HERON round at full width and depth;
+    (b) xlstm-1.3b serving at full width and depth; (c) a qwen3-moe-
+    30b-a3b HERON round at full width, 4 layers; (d) its serving at the
+    same depth, 8 slots, every K5 launch of the admissions held against
+    plain; (e) the smoke configs' rounds card == CPU (their engines run in
+    phase 13).  Logs each part's host seconds.  Returns the K1 launches
+    of (a) and (c) and the K5 launches of (d)."""
+    import torch
+    from repro_torch.configs import xlstm_1_3b
+    start = [time.perf_counter()]
+
+    def took(part):
+        now = time.perf_counter()
+        log(15, f"({part} took {now - start[0]:.1f} s)")
+        start[0] = now
+
+    xl = run_family_round(
+        dev, card, "xlstm-1.3b", xlstm_round_config(),
+        "xlstm-1.3b round (48 layers: 42 mLSTM + 6 sLSTM, d_model 2048, "
+        "vocab 50304 tied, bf16, mlstm_chunk 64, cut 2; N=2 h=1 n_pairs=1, "
+        "4x256 tokens per client, seed_replay)")
+    took("15a")
+    run_serve(dev, card, "xlstm-1.3b engine (48 layers, bf16, greedy, "
+              "mlstm_chunk 64 prefill)",
+              xlstm_1_3b.full_config().replace(mlstm_chunk=64), slots=4,
+              prompt_len=128, max_new=64, n_req=8, segment=16, phase=15,
+              compare=False)
+    log(15, "xlstm-1.3b engine: the path launches none of K1-K6 (its "
+        "mLSTM / sLSTM cells are plain torch, as the reference's are "
+        "lax.scan outside any Pallas kernel)")
+    torch.cuda.empty_cache()
+    took("15b")
+    moe = run_family_round(
+        dev, card, "qwen3-moe-30b-a3b", moe_round_config(),
+        "qwen3-moe-30b-a3b round (4 of 48 layers, d_model 2048, 128 "
+        "experts top-8, vocab 151936 untied, bf16, cut 2; N=2 h=1 "
+        "n_pairs=1, 4x256 tokens per client, seed_replay)")
+    took("15c")
+    serve = run_serve(dev, card, "qwen3-moe-30b-a3b engine (4 of 48 layers, "
+                      "bf16, greedy)", moe_round_config(), slots=8,
+                      prompt_len=256, max_new=64, n_req=24, segment=16,
+                      phase=15, compare=False)
+    torch.cuda.empty_cache()
+    took("15d")
+    check_family_small_rounds()
+    took("15e")
+    return {"zo_noise": xl["zo_noise"] + moe["zo_noise"],
+            "flash_attention": serve["flash_attention"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: times
 # ---------------------------------------------------------------------------
 
@@ -3311,13 +3563,15 @@ def k1_sass():
 
 
 def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
-                 counts_train):
+                 counts_train, counts_family):
     """``counts``: launches of the gpt2-small round (K1-K3);
     ``counts_sp``: of the gpt2-small single-probe forward (K4, K5);
     ``counts_rg``: of the recurrentgemma round (K6); ``counts_serve``: of
     phase 13's two full-width engine runs (K5, K6), added to K5's and
     K6's; ``counts_train``: of phase 14's two full-width train steps
-    (K1-K3), added to K1's, K2's and K3's."""
+    (K1-K3), added to K1's, K2's and K3's; ``counts_family``: of phase
+    15's two full-width rounds (K1) and its MoE engine run (K5), added
+    to K1's and K5's."""
     import torch
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import ops as O
@@ -3348,7 +3602,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
     rows.append({"name": "zo_noise", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/zo_noise.cu",
                  "replaces": "src/repro/kernels/zo_matmul.py:274",
-                 "launches": counts["zo_noise"] + counts_train["zo_noise"],
+                 "launches": counts["zo_noise"] + counts_train["zo_noise"]
+                 + counts_family["zo_noise"],
                  "max_abs_err": errs[0],
                  "ms": ms, "plain_ms": pl, "bound_ms": b,
                  "bound_by": by.split(" ")[0], "library_ms": None})
@@ -3400,7 +3655,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
 
     # K3 and K5 (phase 8's attention rows, the main path's first)
     k3_row, k5_row = time_attention(dev, counts, counts_sp, errs)
-    k5_row["launches"] += counts_serve["flash_attention"]
+    k5_row["launches"] += (counts_serve["flash_attention"]
+                           + counts_family["flash_attention"])
     k3_row["launches"] += counts_train["zo_dual_flash_attention"]
     rows.append(k3_row)
 
@@ -3506,28 +3762,47 @@ def main():
     log(1, f"built kernels in {secs:.1f} s (registers, shared memory and "
         f"spills per kernel in phase 8)")
 
+    start = [time.perf_counter()]
+
+    def took(phases):
+        now = time.perf_counter()
+        log(1, f"(phases {phases} took {now - start[0]:.1f} s)")
+        start[0] = now
+
     k1_round = check_k1(dev, card)
     errs = (0.0, check_k2(dev), check_k3(dev), check_k4(dev), check_k5(dev))
+    took("2-4")
     counts = run_round(dev, k1_round)
     counts_cnn = run_cnn_round(dev)
     check_small_rounds()
+    took("5-6")
     counts_sp = check_single_probe(dev)
     errs += (check_k6(dev),)
+    took("7, 9")
     counts_rg = run_rg_round(dev, card)
     torch.cuda.empty_cache()
     check_rg_small_round()
+    took("10")
     run_fo_phase(dev, card, {k: counts_cnn[k] for k in (
         "zo_dual_matmul", "zo_dual_matmul_tc")})
+    took("11")
     run_threefry_phase(dev, card)
+    took("12")
     counts_serve = run_serve_phase(dev, card)
     torch.cuda.empty_cache()
+    took("13")
     counts_train = run_train_phase(dev, card)
     torch.cuda.empty_cache()
+    took("14")
+    counts_family = run_family_phase(dev, card)
+    torch.cuda.empty_cache()
+    took("15")
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs,
-                        counts_serve, counts_train)
+                        counts_serve, counts_train, counts_family)
     compiler_report()
     check_hgmma()
     k1_sass()
+    took("8")
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -5,7 +5,9 @@ that ports them."""
 from __future__ import annotations
 
 from repro_torch.configs import (command_r_35b, gemma2_27b, gpt2,
-                                 qwen2_1_5b, qwen2_5_32b, recurrentgemma_9b)
+                                 kimi_k2_1t_a32b, qwen2_1_5b, qwen2_5_32b,
+                                 qwen3_moe_30b_a3b, recurrentgemma_9b,
+                                 xlstm_1_3b)
 
 
 class _GPT2:
@@ -20,6 +22,9 @@ _MODULES = {
     "command-r-35b": command_r_35b,
     "qwen2.5-32b": qwen2_5_32b,
     "gemma2-27b": gemma2_27b,
+    "kimi-k2-1t-a32b": kimi_k2_1t_a32b,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
+    "xlstm-1.3b": xlstm_1_3b,
     "recurrentgemma-9b": recurrentgemma_9b,
     "gpt2": _GPT2,
 }
@@ -27,10 +32,7 @@ _MODULES = {
 # the reference's architectures the port lacks, by the ROADMAP queue 1
 # item that ports their model
 _NOT_PORTED = {
-    "kimi-k2-1t-a32b": "item 6 (models/moe.py)",
-    "qwen3-moe-30b-a3b": "item 6 (models/moe.py)",
     "seamless-m4t-medium": "item 6 (enc-dec, audio frontend)",
-    "xlstm-1.3b": "item 6 (mLSTM and sLSTM)",
     "qwen2-vl-2b": "item 6 (M-RoPE, vision frontend)",
 }
 

@@ -17,15 +17,19 @@
   slots (``init_serve_caches(..., per_slot=True)``: per-slot ``pos``
   vectors).  Between segments finished slots are drained and refilled
   by a block prefill of the prompt (K5 and K6 on the card) whose caches
-  are copied into the slot.
+  (KV rows, RG-LRU / mLSTM / sLSTM states) are copied into the slot.
 * :func:`make_prompt_consume`: the prompt fed one token at a time
   through the serve step (the reference's enc-dec path; decoder-only
   here).
 
-Finished slots are frozen: the serve step writes no cache row of a slot
+Finished slots are frozen: the serve step keeps no cache row of a slot
 whose ``live`` is False (the reference rebuilds the whole cache with a
 select instead), so the per-step math is the eager ``make_serve_step``
-loop's and greedy decoding gives its tokens.
+loop's and greedy decoding gives its tokens.  A finished slot still runs
+the step as the reference's does (its attention sees the token it feeds,
+whose k/v are then discarded): in an MoE block every slot's token is
+routed and competes for the experts' capacity, so a finished slot's
+hidden state can decide which live tokens an expert drops.
 """
 from __future__ import annotations
 

@@ -343,7 +343,8 @@ def make_cached_prefill_step(cfg: ModelConfig):
     prompt_len``.  Returns ``prefill(params, caches, tokens) -> (logits,
     caches)``; the caches must be fresh (``init_serve_caches``, pos 0)
     and are written in place.  On the card the attention layers run K5
-    and the RG-LRU layers K6."""
+    and the RG-LRU layers K6; the mLSTM / sLSTM cells and the MoE
+    dispatch are plain torch, as in the reference."""
     _decoder_only(cfg, "the cached block prefill")
 
     def prefill(params, caches, tokens):

@@ -189,10 +189,12 @@ def main(argv=None):
     c_name = "zo_sgd" if args.method == "heron" else "adamw"
     copt = make_optimizer(
         c_name, warmup_cosine(args.lr_client, 5, args.steps))
-    # every ported arch's server optimizer is AdamW (the reference's
-    # Adafactor is kimi-k2's, ROADMAP queue 1 item 6)
-    sopt = make_optimizer("adamw",
-                          warmup_cosine(args.lr_server, 5, args.steps))
+    # the config's server optimizer; kimi-k2's Adafactor only at full
+    # width, as the reference's driver chooses
+    sopt = make_optimizer(
+        cfg.optimizer if cfg.optimizer != "adafactor" or not args.smoke
+        else "adamw",
+        warmup_cosine(args.lr_server, 5, args.steps))
 
     params = T.init_lm(cfg, device=dev, key=R.PRNGKey(0))
     state = P.init_train_state(R.PRNGKey(1), params, copt, sopt)

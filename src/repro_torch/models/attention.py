@@ -168,28 +168,36 @@ def decode_attention(q, k_cache, v_cache, valid_len, *, window=0, cap=None,
 def _decode_write(cache, k, v, window: int, live):
     """Write one token's k/v, (B, 1, K, D), at each slot's position
     (``pos % size`` on a ring), in place.  Per-slot positions past the
-    capacity and slots whose ``live`` is False keep their rows (the JAX
-    package's scatter with ``mode="drop"`` and its frozen finished
-    slots); a scalar position past the capacity writes the last row, as
-    ``dynamic_update_slice`` clamps."""
+    capacity keep their rows (the JAX package's scatter with
+    ``mode="drop"``); a scalar position past the capacity writes the
+    last row, as ``dynamic_update_slice`` clamps.  Every slot's row is
+    written, a finished one's too, so its attention sees the token as the
+    JAX package's does; the returned ``restore()`` puts back the rows of
+    the slots whose ``live`` is False (the reference's frozen finished
+    slots) once the attention has read them."""
     pos = cache["pos"]
     size = cache["k"].shape[1]
     B = k.shape[0]
     slot = (pos % size if window > 0 else pos).expand(B)
-    keep = None
-    if pos.dim() == 1:
-        keep = slot >= size
-        if live is not None:
-            keep = keep | ~live
+    drop = slot >= size if pos.dim() == 1 else None
     slot = slot.clamp(max=size - 1).long()
     b_ix = torch.arange(B, device=k.device)
+    old = {name: cache[name][b_ix, slot].clone() for name in ("k", "v")}
     for name, new in (("k", k), ("v", v)):
-        c = cache[name]
-        new = new[:, 0].to(c.dtype)
-        if keep is not None:
-            new = torch.where(keep[:, None, None], c[b_ix, slot], new)
-        c[b_ix, slot] = new
+        new = new[:, 0].to(cache[name].dtype)
+        if drop is not None:
+            new = torch.where(drop[:, None, None], old[name], new)
+        cache[name][b_ix, slot] = new
     pos.add_(1 if live is None else live.to(pos.dtype))
+
+    def restore():
+        if live is None:
+            return
+        for name in ("k", "v"):
+            c = cache[name]
+            c[b_ix, slot] = torch.where(live[:, None, None], c[b_ix, slot],
+                                        old[name])
+    return restore
 
 
 def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
@@ -204,7 +212,7 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
     ``decode`` is a block prefill of a fresh cache (pos 0): the prompt's
     k/v are written so decode continues at ``pos = S``.  ``decode``
     takes one token per slot at the cache's positions, writes its k/v
-    (only for ``live`` slots, when given) and attends the cache."""
+    (kept only for ``live`` slots, when given) and attends the cache."""
     if perturb is not None and (cache is not None or decode):
         raise ValueError("the ZO perturbed forward is a training-time path")
     B, S, _ = x.shape
@@ -242,9 +250,10 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
         valid = cache["pos"] + 1         # a ring holds the last size
         if window > 0:
             valid = torch.clamp(valid, max=cache["k"].shape[1])
-        _decode_write(cache, k, v, window, live)
+        restore = _decode_write(cache, k, v, window, live)
         o = decode_attention(q, cache["k"], cache["v"], valid,
                              cap=cfg.attn_softcap, scale=cfg.attn_scale)
+        restore()
     elif perturb is not None and perturb.dual:
         o = _dual_probe_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), cfg, window=window,

@@ -1,6 +1,7 @@
 """Model configuration: the fields of :class:`repro.models.config.
-ModelConfig` that the dense transformer family and the RG-LRU hybrid
-(RecurrentGemma) read, with the same names and defaults."""
+ModelConfig` that the dense transformer family, the RG-LRU hybrid
+(RecurrentGemma), xLSTM (mLSTM / sLSTM) and the MoE family (qwen3-moe,
+kimi-k2) read, with the same names and defaults."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,10 +12,20 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    n_shared_experts: int = 0      # kimi-style shared expert
+    router_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """One layer = mixer + ffn."""
-    mixer: str = "global_attn"     # global_attn | local_attn | rg_lru
-    ffn: str = "dense"             # dense
+    mixer: str = "global_attn"     # global_attn|local_attn|rg_lru|mlstm|slstm
+    ffn: str = "dense"             # dense | moe | none
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +51,8 @@ class ModelConfig:
     final_softcap: float | None = None
     attn_scale: float | None = None
     window: int = 4096             # local-attention window
-    # --- recurrent (recurrentgemma) ---
+    moe: MoECfg | None = None
+    # --- recurrent (xlstm / recurrentgemma) ---
     lru_width: int = 0             # 0 => d_model
     conv_width: int = 4
     # --- SFL split ---
@@ -53,6 +65,7 @@ class ModelConfig:
     attn_impl: str = "blocked"     # naive | blocked
     q_chunk: int = 1024
     kv_chunk: int = 1024
+    mlstm_chunk: int = 0           # 0 = sequential scan; >0 = chunkwise
     forward_impl: str = "xla"      # xla | kernel: the client's ZO probe on
                                    # JAX's threefry stream (plain
                                    # forwards, the reference's default) or
@@ -62,7 +75,9 @@ class ModelConfig:
                                    # perturbs attention (q/k/v/o weights,
                                    # or the pre-softmax scores with k/v
                                    # shared between the streams)
-    family: str = "dense"
+    optimizer: str = "adamw"       # adamw | adafactor | sgdm (server)
+    family: str = "dense"          # dense | moe | ssm | hybrid
+    subquadratic: bool = False     # eligible for long_500k
 
     @property
     def resolved_head_dim(self) -> int:

@@ -1,15 +1,22 @@
-"""The RG-LRU mixer of RecurrentGemma, mirroring the RG-LRU half of
-:mod:`repro.models.recurrent`: the sequence path (training and the
-serving prefill) and the one-token decode step against a carried state.
+"""The recurrent mixers, mirroring :mod:`repro.models.recurrent`: the
+RG-LRU of RecurrentGemma and the mLSTM / sLSTM of xLSTM, each with its
+sequence path (training and the serving prefill) and its one-token
+decode step against a carried state.
 
-The JAX package runs the linear recurrence h_t = a_t*h_{t-1} + b_t with
-``jax.lax.associative_scan`` (log depth, TPU-friendly) and lets
+The JAX package runs the RG-LRU's linear recurrence h_t = a_t*h_{t-1} +
+b_t with ``jax.lax.associative_scan`` (log depth, TPU-friendly) and lets
 ``jax.grad`` differentiate it.  The port's path is kernel K6 instead
 (:func:`repro_torch.kernels.ops.rg_lru_scan`): one sequential pass per
 channel forward, and the same kernel in reverse mode as the backward, so
 the server's first-order step does not fall back to a per-step loop.
 On the CPU the scan is its plain sequential version; the sequential and
 associative orders round differently, within f32 ulps.
+
+The LSTM cells are plain torch, as the reference computes them outside
+any Pallas kernel (``jax.lax.scan``): a Python loop over the tokens, or
+for the mLSTM with ``cfg.mlstm_chunk > 0`` over chunks of that many
+tokens (the chunkwise-parallel form, which keeps one matrix state per
+chunk for the backward instead of one per token).
 """
 from __future__ import annotations
 
@@ -35,6 +42,22 @@ def init_rg_lru(gen, cfg: ModelConfig):
         "lam": L.init_param(gen, (w,), dt, "lru_lambda"),
         "out": L.init_dense(gen, w, d, dt),
     }
+
+
+def _store(state, new, live=None):
+    """Write the tensors ``new`` into ``state``'s in place, cast to their
+    dtypes; rows (the leading axis) where ``live`` is False keep theirs."""
+    for dst, src in zip(state, new):
+        src = src.to(dst.dtype)
+        if live is not None:
+            m = live.reshape((-1,) + (1,) * (src.dim() - 1))
+            src = torch.where(m, src, dst)
+        dst.copy_(src)
+
+
+def _conv_tail(xb, cw: int):
+    """The last ``cw-1`` rows of the zero-padded input: a conv state."""
+    return F.pad(xb, (0, 0, cw - 1, 0))[:, xb.shape[1]:]
 
 
 def _rg_lru_coeffs(params, xc):
@@ -69,12 +92,7 @@ def rg_lru_block(params, x, cfg: ModelConfig, state=None,
         xc, conv = L.causal_conv1d(params["conv"], xb, state["conv"])
         a, b = _rg_lru_coeffs(params, xc)
         h = a[:, 0] * state["h"].to(torch.float32) + b[:, 0]
-        for name, new in (("h", h), ("conv", conv)):
-            new = new.to(state[name].dtype)
-            if live is not None:
-                m = live.reshape((-1,) + (1,) * (new.dim() - 1))
-                new = torch.where(m, new, state[name])
-            state[name].copy_(new)
+        _store((state["h"], state["conv"]), (h, conv), live)
         y = h[:, None, :]
     else:
         xc = L.causal_conv1d(params["conv"], xb)
@@ -82,10 +100,8 @@ def rg_lru_block(params, x, cfg: ModelConfig, state=None,
         y = O.rg_lru_scan(a, b)
         if state is not None:
             # a block prefill into a fresh state
-            cw = cfg.conv_width
-            state["h"].copy_(y[:, -1])
-            state["conv"].copy_(F.pad(xb, (0, 0, cw - 1, 0))[:,
-                                                            xb.shape[1]:])
+            _store((state["h"], state["conv"]),
+                   (y[:, -1], _conv_tail(xb, cfg.conv_width)))
     y = y.to(cdt) * F.gelu(gateb, approximate="tanh")
     return L.dense(params["out"], y, cdt), state
 
@@ -96,3 +112,252 @@ def init_rg_lru_state(cfg: ModelConfig, batch: int, device="cpu"):
     return {"h": torch.zeros((batch, w), dtype=cdt, device=device),
             "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=cdt,
                                 device=device)}
+
+
+# ===========================================================================
+# mLSTM block (xLSTM): matrix memory, exponential gating
+# ===========================================================================
+
+def init_mlstm(gen, cfg: ModelConfig):
+    d, H, dt = cfg.d_model, cfg.n_heads, cfg.torch_param_dtype()
+    return {
+        "up": L.init_dense(gen, d, 2 * d, dt),
+        "conv": L.init_conv1d(gen, d, dt, cfg.conv_width),
+        "wq": L.init_dense(gen, d, d, dt),
+        "wk": L.init_dense(gen, d, d, dt),
+        "wv": L.init_dense(gen, d, d, dt),
+        "w_if": L.init_dense(gen, d, 2 * H, dt, bias=True),
+        "gn": init_groupnorm(gen, d, dt),
+        "down": L.init_dense(gen, d, d, dt),
+    }
+
+
+def init_groupnorm(gen, dim: int, dtype):
+    return {"scale": L.init_param(gen, (dim,), dtype, "ones")}
+
+
+def groupnorm_heads(params, x, eps: float = 1e-6):
+    """Per-head RMS normalization of (B, S, H, dh), flattened to (B, S,
+    d), in f32."""
+    B, S, H, dh = x.shape
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return y.reshape(B, S, H * dh) * params["scale"].to(torch.float32)
+
+
+def _mlstm_state0(B, H, dh, device):
+    return (torch.zeros((B, H, dh, dh), dtype=torch.float32, device=device),
+            torch.zeros((B, H, dh), dtype=torch.float32, device=device),
+            torch.full((B, H), float("-inf"), dtype=torch.float32,
+                       device=device))
+
+
+def _mlstm_cell_scan(q, k, v, i_pre, f_pre, state=None):
+    """q, k, v: (B, S, H, dh); i_pre, f_pre: (B, S, H) pre-activation
+    gates.  Stabilized exponential gating (xLSTM eq. 19-26), one token a
+    step.  Returns h (B, S, H, dh) f32 and the final state (C, n, m)."""
+    B, S, H, dh = q.shape
+    C, n, m = _mlstm_state0(B, H, dh, q.device) if state is None else state
+    f32 = torch.float32
+    q, k, v, ig = (t.to(f32) for t in (q, k, v, i_pre))
+    log_f = F.logsigmoid(f_pre.to(f32))
+    hs = []
+    for t in range(S):
+        qt, kt, vt, it, lf = q[:, t], k[:, t], v[:, t], ig[:, t], log_f[:, t]
+        m_new = torch.maximum(lf + m, it)
+        i_act = torch.exp(it - m_new)
+        f_act = torch.exp(lf + m - m_new)
+        C = f_act[..., None, None] * C + i_act[..., None, None] * (
+            vt[..., :, None] * kt[..., None, :])          # (B, H, dv, dk)
+        n = f_act[..., None] * n + i_act[..., None] * kt
+        num = (C @ qt[..., None])[..., 0]
+        den = torch.abs(torch.sum(n * qt, dim=-1))
+        den = torch.maximum(den, torch.exp(-m_new))
+        hs.append(num / den[..., None])
+        m = m_new
+    return torch.stack(hs, dim=1), (C, n, m)
+
+
+def _mlstm_cell_chunked(q, k, v, i_pre, f_pre, state=None, chunk: int = 64):
+    """The chunkwise-parallel mLSTM: the same function as
+    :func:`_mlstm_cell_scan` (the reference's exact reformulation), the
+    matrix state read and written once a chunk, with an O(L^2)
+    attention-like term inside each chunk of L tokens.  A sequence that
+    is not a multiple of the chunk is padded with state-identity steps
+    (input gate -> 0, forget gate -> 1).
+
+    The intra-chunk weights exp(a_s - M_t) are masked to s <= t before
+    the exp (the reference masks after it): the same values, and no
+    inf * 0 in the backward where a_s - M_t overflows for s > t."""
+    B, S, H, dh = q.shape
+    Lc = min(chunk, S)
+    if S % Lc != 0:
+        pad = Lc - S % Lc
+
+        def zpad(x, val=0.0):
+            return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad), value=val)
+
+        h, st = _mlstm_cell_chunked(zpad(q), zpad(k), zpad(v),
+                                    zpad(i_pre, -1e9), zpad(f_pre, 1e9),
+                                    state, chunk)
+        return h[:, :S], st
+    n_chunks = S // Lc
+    C, n, m_prev = (_mlstm_state0(B, H, dh, q.device) if state is None
+                    else state)
+    f32 = torch.float32
+
+    def to_chunks(x):           # (B, S, H, ...) -> (n, B, H, L, ...)
+        x = x.movedim(2, 1)
+        x = x.reshape(x.shape[:2] + (n_chunks, Lc) + x.shape[3:])
+        return x.movedim(2, 0)
+
+    qc, kc, vc, lic = (to_chunks(t.to(f32)) for t in (q, k, v, i_pre))
+    lfc = to_chunks(F.logsigmoid(f_pre.to(f32)))
+    causal = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool,
+                                   device=q.device))
+    hs = []
+    for c in range(n_chunks):
+        qb, kb, vb, li, lf = qc[c], kc[c], vc[c], lic[c], lfc[c]
+        b = torch.cumsum(lf, dim=-1)                      # (B, H, L)
+        a = li - b
+        Mt = torch.maximum(m_prev[..., None], torch.cummax(a, dim=-1).values)
+        inter = torch.exp(m_prev[..., None] - Mt)
+        # intra-chunk weights w[t, s] = exp(a_s - M_t), s <= t
+        w = torch.exp(torch.where(causal, a[..., None, :] - Mt[..., :, None],
+                                  float("-inf")))
+        scores = torch.einsum("bhld,bhsd->bhls", qb, kb) * w
+        num = (inter[..., None] * torch.einsum("bhld,bhvd->bhlv", qb, C)
+               + torch.einsum("bhls,bhsv->bhlv", scores, vb))
+        den = (inter * torch.einsum("bhld,bhd->bhl", qb, n)
+               + torch.sum(scores, dim=-1))
+        guard = torch.exp(-(b + Mt))
+        hs.append(num / torch.maximum(torch.abs(den), guard)[..., None])
+        # the carry at the chunk's end (t = L)
+        M_L = Mt[..., -1]
+        gain = torch.exp(a - M_L[..., None])              # (B, H, L)
+        decay = torch.exp(m_prev - M_L)
+        C = (decay[..., None, None] * C
+             + torch.einsum("bhs,bhsv,bhsd->bhvd", gain, vb, kb))
+        n = decay[..., None] * n + torch.einsum("bhs,bhsd->bhd", gain, kb)
+        m_prev = b[..., -1] + M_L
+    h = torch.stack(hs, dim=0).movedim(0, 2).reshape(B, H, S, dh)
+    return h.movedim(1, 2), (C, n, m_prev)
+
+
+def mlstm_block(params, x, cfg: ModelConfig, state=None,
+                decode: bool = False, live=None):
+    """(B, S, d_model) -> ``(out, state)``: the up projection into the
+    cell input and the output gate, the causal conv, the q / k / v and
+    gate projections, the cell, the per-head norm and the down
+    projection.  ``state = {"cell": (C, n, m), "conv": (B, cw-1, d)}``;
+    the sequence path starts from it (a block prefill into a fresh state)
+    and both paths write the state they end in there, in place, decode
+    only the rows where ``live`` is set (all rows when it is None)."""
+    cdt = cfg.torch_compute_dtype()
+    B, S, d = x.shape
+    H = cfg.n_heads
+    dh = d // H
+    up = L.dense(params["up"], x, cdt)
+    xm, z = torch.chunk(up, 2, dim=-1)
+    if decode:
+        xc, conv = L.causal_conv1d(params["conv"], xm, state["conv"])
+    else:
+        xc = L.causal_conv1d(params["conv"], xm)
+        conv = _conv_tail(xm, cfg.conv_width)
+    xc = F.silu(xc)
+    q = L.dense(params["wq"], xc, cdt).reshape(B, S, H, dh)
+    k = L.dense(params["wk"], xc, cdt).reshape(B, S, H, dh) * (dh ** -0.5)
+    v = L.dense(params["wv"], xm, cdt).reshape(B, S, H, dh)
+    gates = L.dense(params["w_if"], xc, torch.float32)
+    i_pre, f_pre = torch.chunk(gates, 2, dim=-1)          # (B, S, H)
+    cell0 = None if state is None else state["cell"]
+    if cfg.mlstm_chunk > 0 and not decode and S > 1:
+        h, cell = _mlstm_cell_chunked(q, k, v, i_pre, f_pre, cell0,
+                                      cfg.mlstm_chunk)
+    else:
+        h, cell = _mlstm_cell_scan(q, k, v, i_pre, f_pre, cell0)
+    if state is not None:
+        _store(state["cell"] + (state["conv"],), cell + (conv,),
+               live if decode else None)
+    h = groupnorm_heads(params["gn"], h).to(cdt)
+    y = h * F.silu(z)
+    return L.dense(params["down"], y, cdt), state
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int, device="cpu"):
+    d, H = cfg.d_model, cfg.n_heads
+    return {"cell": _mlstm_state0(batch, H, d // H, device),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, d),
+                                dtype=cfg.torch_compute_dtype(),
+                                device=device)}
+
+
+# ===========================================================================
+# sLSTM block (xLSTM): scalar memory with recurrent gate connections
+# ===========================================================================
+
+def init_slstm(gen, cfg: ModelConfig):
+    d, dt = cfg.d_model, cfg.torch_param_dtype()
+    return {
+        "wx": L.init_dense(gen, d, 4 * d, dt, bias=True),
+        "r": L.init_param(gen, (d, 4 * d), dt, "normal", 0.02),
+        "gn": init_groupnorm(gen, d, dt),
+        "out": L.init_dense(gen, d, d, dt),
+    }
+
+
+def _slstm_state0(B, d, device):
+    z = lambda: torch.zeros((B, d), dtype=torch.float32,  # noqa: E731
+                            device=device)
+    return (z(), torch.ones((B, d), dtype=torch.float32, device=device),
+            z(), z())
+
+
+def _slstm_cell_scan(gx, r_w, state=None):
+    """gx: (B, S, 4d) input contributions to the (z, i, f, o) gates;
+    ``r_w`` (d, 4d) the recurrent connections, cast to f32 once (the
+    reference casts it every token: the same values).  Returns h (B, S,
+    d) f32 and the final state (c, n, h, m)."""
+    B, S, d4 = gx.shape
+    c, n, h, m = (_slstm_state0(B, d4 // 4, gx.device) if state is None
+                  else state)
+    r = r_w.to(torch.float32)
+    gx = gx.to(torch.float32)
+    hs = []
+    for t in range(S):
+        g = gx[:, t] + h @ r
+        z_pre, i_pre, f_pre, o_pre = torch.chunk(g, 4, dim=-1)
+        z = torch.tanh(z_pre)
+        o = torch.sigmoid(o_pre)
+        log_f = F.logsigmoid(f_pre)
+        m_new = torch.maximum(log_f + m, i_pre)
+        i_act = torch.exp(i_pre - m_new)
+        f_act = torch.exp(log_f + m - m_new)
+        c = f_act * c + i_act * z
+        n = f_act * n + i_act
+        h = o * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), (c, n, h, m)
+
+
+def slstm_block(params, x, cfg: ModelConfig, state=None,
+                decode: bool = False, live=None):
+    """(B, S, d_model) -> ``(out, state)``; ``state = {"cell": (c, n, h,
+    m)}``, each (B, d) f32, read and written as :func:`mlstm_block`
+    does."""
+    cdt = cfg.torch_compute_dtype()
+    B, S, d = x.shape
+    gx = L.dense(params["wx"], x, torch.float32)
+    h, cell = _slstm_cell_scan(gx, params["r"],
+                               None if state is None else state["cell"])
+    if state is not None:
+        _store(state["cell"], cell, live if decode else None)
+    h = groupnorm_heads(params["gn"], h.reshape(
+        B, S, cfg.n_heads, d // cfg.n_heads)).to(cdt)
+    return L.dense(params["out"], h, cdt), state
+
+
+def init_slstm_state(cfg: ModelConfig, batch: int, device="cpu"):
+    return {"cell": _slstm_state0(batch, cfg.d_model, device)}

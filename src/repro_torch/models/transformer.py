@@ -1,7 +1,8 @@
 """The transformer stack with its SFL split, mirroring
-:mod:`repro.models.transformer` (the dense family and the RG-LRU hybrid,
-RecurrentGemma): the training paths, and the serving prefill and decode
-step over per-block caches (``init_stack_cache``).
+:mod:`repro.models.transformer` (the dense family, the RG-LRU hybrid
+RecurrentGemma, xLSTM's mLSTM / sLSTM stacks and the MoE family): the
+training paths, and the serving prefill and decode step over per-block
+caches (``init_stack_cache``).
 
 Layer stacks keep the JAX package's pattern compression: a segment is a
 tuple (one entry per position of the repeating unit) of block-param
@@ -11,10 +12,10 @@ runs as a Python loop over reps, and the rep index rides in
 forward and the server's whole-leaf replay see the same direction.
 Renaming a path or unstacking the reps would change every seed.
 
-A block whose mixer has no fused ZO lowering (RG-LRU) runs its perturbed
-forward through the whole-block fallback: ``theta + mu*U`` materialised
-for the block's leaves (kernel K1) and the plain block run on it, as the
-JAX package does.
+A block without a fused ZO lowering (a recurrent mixer, or an MoE FFN)
+runs its perturbed forward through the whole-block fallback: ``theta +
+mu*U`` materialised for the block's leaves (kernel K1) and the plain
+block run on it, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as O
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import recurrent as REC
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.tree import tree_map, tree_map_with_path
@@ -42,22 +44,33 @@ def _norm_init(cfg: ModelConfig):
     return L.init_rmsnorm if cfg.norm == "rmsnorm" else L.init_layernorm
 
 
+_REC = {"rg_lru": (REC.init_rg_lru, REC.rg_lru_block, REC.init_rg_lru_state),
+        "mlstm": (REC.init_mlstm, REC.mlstm_block, REC.init_mlstm_state),
+        "slstm": (REC.init_slstm, REC.slstm_block, REC.init_slstm_state)}
+
+
 def init_block(gen, spec: LayerSpec, cfg: ModelConfig):
-    if spec.mixer not in ATTN_MIXERS + ("rg_lru",) or spec.ffn != "dense":
-        raise NotImplementedError(f"{spec}: only the attention and RG-LRU "
-                                  "mixers with a dense FFN are ported")
     d, dt = cfg.d_model, cfg.torch_param_dtype()
     ni = _norm_init(cfg)
     p: dict[str, Any] = {"norm1": ni(gen, d, dt)}
-    if spec.mixer == "rg_lru":
-        p["rec"] = REC.init_rg_lru(gen, cfg)
-    else:
+    if spec.mixer in ATTN_MIXERS:
         p["attn"] = A.init_attention(gen, cfg)
-    p["norm2"] = ni(gen, d, dt)
-    p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dt, cfg.gated_mlp, False)
+    elif spec.mixer in _REC:
+        p["rec"] = _REC[spec.mixer][0](gen, cfg)
+    else:
+        raise ValueError(spec.mixer)
+    if spec.ffn == "dense":
+        p["norm2"] = ni(gen, d, dt)
+        p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dt, cfg.gated_mlp, False)
+    elif spec.ffn == "moe":
+        p["norm2"] = ni(gen, d, dt)
+        p["moe"] = M.init_moe(gen, cfg)
+    elif spec.ffn != "none":
+        raise ValueError(spec.ffn)
     if cfg.post_norm:
         p["postnorm1"] = ni(gen, d, dt)
-        p["postnorm2"] = ni(gen, d, dt)
+        if spec.ffn != "none":
+            p["postnorm2"] = ni(gen, d, dt)
     return p
 
 
@@ -66,19 +79,26 @@ def _norm(cfg: ModelConfig, params, x, perturb=None):
     return L.norm_apply(fn, params, x, perturb)
 
 
-def _block_fallback(params, x, spec: LayerSpec, cfg: ModelConfig, perturb):
-    """Whole-block fallback for mixers without a fused kernel lowering
-    (RG-LRU, which reads no positions): materialise theta + mu*U for the
+def _block_fallback(params, x, spec: LayerSpec, cfg: ModelConfig, perturb,
+                    positions=None):
+    """Whole-block fallback for blocks without a fused kernel lowering
+    (recurrent mixers, MoE FFNs): materialise theta + mu*U for the
     block's seeded leaves and run the unmodified block on it.  The noise
     is the same per-leaf hash stream, so replay stays exact.  Dual mode
     runs the clean params on the first half of the batch and the
-    perturbed ones on the second."""
+    perturbed ones on the second, as two blocks (so an MoE's capacity is
+    each half's)."""
     pp = O.perturb_tree(params, perturb.seeds, perturb.mu, perturb.rep)
     if not perturb.dual:
-        return apply_block(pp, x, spec, cfg)
+        return apply_block(pp, x, spec, cfg, positions=positions)
     half = x.shape[0] // 2
-    return torch.cat([apply_block(params, x[:half], spec, cfg)[0],
-                      apply_block(pp, x[half:], spec, cfg)[0]], dim=0), None
+    pos_a = pos_b = positions
+    if positions is not None and positions.shape[0] == x.shape[0]:
+        pos_a, pos_b = positions[:half], positions[half:]
+    return torch.cat([
+        apply_block(params, x[:half], spec, cfg, positions=pos_a)[0],
+        apply_block(pp, x[half:], spec, cfg, positions=pos_b)[0]],
+        dim=0), None
 
 
 def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
@@ -89,8 +109,9 @@ def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
     None without one."""
     if perturb is not None and not O.any_seed(perturb.seeds):
         perturb = None
-    if perturb is not None and spec.mixer not in ATTN_MIXERS:
-        return _block_fallback(params, x, spec, cfg, perturb)
+    if perturb is not None and (spec.mixer not in ATTN_MIXERS
+                                or spec.ffn == "moe"):
+        return _block_fallback(params, x, spec, cfg, perturb, positions)
     h = _norm(cfg, params["norm1"], x, O.psub(perturb, "norm1"))
     if spec.mixer in ATTN_MIXERS:
         o, _ = A.attention_layer(
@@ -99,15 +120,20 @@ def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
             cache=None if cache is None else cache["attn"], decode=decode,
             live=live, perturb=O.psub(perturb, "attn"))
     else:
-        o, _ = REC.rg_lru_block(params["rec"], h, cfg,
-                                None if cache is None else cache["rec"],
-                                decode=decode, live=live)
+        o, _ = _REC[spec.mixer][1](params["rec"], h, cfg,
+                                   None if cache is None else cache["rec"],
+                                   decode=decode, live=live)
     if cfg.post_norm:
         o = _norm(cfg, params["postnorm1"], o, O.psub(perturb, "postnorm1"))
     x = x + o
+    if spec.ffn == "none":
+        return x, cache
     h = _norm(cfg, params["norm2"], x, O.psub(perturb, "norm2"))
-    o = L.mlp(params["mlp"], h, cfg.activation, cfg.torch_compute_dtype(),
-              O.psub(perturb, "mlp"))
+    if spec.ffn == "dense":
+        o = L.mlp(params["mlp"], h, cfg.activation,
+                  cfg.torch_compute_dtype(), O.psub(perturb, "mlp"))
+    else:
+        o = M.moe_ffn(params["moe"], h, cfg)
     if cfg.post_norm:
         o = _norm(cfg, params["postnorm2"], o, O.psub(perturb, "postnorm2"))
     return x + o, cache
@@ -119,7 +145,7 @@ def init_block_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
         return {"attn": A.init_kv_cache(cfg, batch, seq,
                                         local=(spec.mixer == "local_attn"),
                                         per_slot=per_slot, device=device)}
-    return {"rec": REC.init_rg_lru_state(cfg, batch, device)}
+    return {"rec": _REC[spec.mixer][2](cfg, batch, device)}
 
 
 # ---------------------------------------------------------------------------

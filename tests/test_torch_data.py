@@ -15,14 +15,20 @@ import torch
 from repro.configs.gpt2 import gpt2_medium as jax_gpt2_medium
 from repro.configs.gpt2 import gpt2_tiny as jax_gpt2_tiny
 from repro.configs.qwen2_1_5b import smoke_config as jax_qwen_smoke
+from repro.configs.kimi_k2_1t_a32b import smoke_config as jax_kimi_smoke
+from repro.configs.qwen3_moe_30b_a3b import smoke_config as jax_moe_smoke
 from repro.configs.recurrentgemma_9b import smoke_config as jax_rg_smoke
+from repro.configs.xlstm_1_3b import smoke_config as jax_xlstm_smoke
 from repro.data import partition as JPA
 from repro.data import pipeline as JPL
 from repro.data import synthetic as JS
 from repro.models import transformer as JT
 from repro_torch.configs.gpt2 import gpt2_medium, gpt2_tiny
 from repro_torch.configs.qwen2_1_5b import smoke_config as qwen_smoke
+from repro_torch.configs.kimi_k2_1t_a32b import smoke_config as kimi_smoke
+from repro_torch.configs.qwen3_moe_30b_a3b import smoke_config as moe_smoke
 from repro_torch.configs.recurrentgemma_9b import smoke_config as rg_smoke
+from repro_torch.configs.xlstm_1_3b import smoke_config as xlstm_smoke
 from repro_torch.core import prng as R
 from repro_torch.data import partition as PA
 from repro_torch.data import pipeline as PL
@@ -146,8 +152,10 @@ def test_gpt2_medium_equals_jax():
 
 @pytest.mark.parametrize("pair", [
     (jax_gpt2_tiny, gpt2_tiny), (jax_qwen_smoke, qwen_smoke),
-    (jax_rg_smoke, rg_smoke)], ids=["gpt2-tiny", "qwen2-smoke",
-                                    "recurrentgemma-smoke"])
+    (jax_rg_smoke, rg_smoke), (jax_xlstm_smoke, xlstm_smoke),
+    (jax_moe_smoke, moe_smoke), (jax_kimi_smoke, kimi_smoke)],
+    ids=["gpt2-tiny", "qwen2-smoke", "recurrentgemma-smoke", "xlstm-smoke",
+         "qwen3-moe-smoke", "kimi-k2-smoke"])
 def test_init_lm_with_key_equals_jax_init(pair):
     jcfg, cfg = pair[0](), pair[1]()
     want = jax.tree.leaves(JT.init_lm(jax.random.PRNGKey(0), jcfg))

@@ -3,7 +3,8 @@ streaming causal conv, the RG-LRU block's prefill state and decode step,
 the serve caches' tree, the KV-cache prefill (prefix and ring), the
 decode attention, and per port arch (smoke configs, f32) the cached
 block prefill and one serve step, logits and caches at ``rtol=atol=1e-5``
-(the forwards' tolerance of ``test_torch_dense_configs.py``).
+(the forwards' tolerance of ``test_torch_dense_configs.py``; xlstm-1.3b
+at ``torch_serve_parity.XLSTM_TOL``).
 
 The port writes its caches in place and masks the writes of finished
 slots (``live``); the JAX package rebuilds the caches and freezes
@@ -16,7 +17,8 @@ import pytest
 import torch
 
 from torch_round_parity import one_torch_thread  # noqa: F401
-from torch_serve_parity import RULES, TOL, assert_trees_close, jax_config
+from torch_serve_parity import (RULES, TOL, XLSTM_TOL, assert_trees_close,
+                                jax_config)
 from repro.configs import registry as JREG
 from repro.core import decode as JD
 from repro.core import protocols as JP
@@ -98,12 +100,12 @@ def test_rg_lru_prefill_state_and_decode_step_match_jax():
 @pytest.mark.parametrize("arch", REG.ARCH_IDS)
 def test_init_serve_caches_tree_matches_jax(arch, smoke, per_slot):
     """The same tree as the reference's: containers, keys, the leading
-    reps axis, shapes and dtypes (bf16 at full width), zeros."""
+    reps axis, shapes and dtypes (bf16 at full width), and its initial
+    values (zeros, but the mLSTM's m = -inf and the sLSTM's n = 1)."""
     jcfg, cfg = jax_config(arch, smoke), REG.get_config(arch, smoke)
-    ref = jax.eval_shape(lambda: JP.init_serve_caches(jcfg, 2, 12,
-                                                      per_slot))
+    ref = jax.tree.map(np.asarray, JP.init_serve_caches(jcfg, 2, 12,
+                                                        per_slot))
     got = P.init_serve_caches(cfg, 2, 12, per_slot, device="cpu")
-    ref = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), ref)
     assert_trees_close(got, ref, tol=dict(rtol=0, atol=0))
 
 
@@ -165,8 +167,9 @@ def test_cached_prefill_and_serve_step_match_jax(arch):
         jp, jc, jnp.asarray(prompt))
     tc = P.init_serve_caches(cfg, 2, 14, per_slot=True, device="cpu")
     tl, tc = P.make_cached_prefill_step(cfg)(tp, tc, torch.as_tensor(prompt))
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    assert_trees_close(tc, jax.tree.map(np.asarray, jc))
+    tol = XLSTM_TOL if arch == "xlstm-1.3b" else TOL
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **tol)
+    assert_trees_close(tc, jax.tree.map(np.asarray, jc), tol=tol)
     # the cache-free prefill step (the whole model's forward) agrees
     full = P.make_prefill_step(cfg)(tp, {"inputs": torch.as_tensor(prompt)})
     np.testing.assert_allclose(full.numpy(), tl.numpy(), **TOL)
@@ -177,8 +180,8 @@ def test_cached_prefill_and_serve_step_match_jax(arch):
         jl, jnew = jserve(jp, jc, jnp.asarray(tok))
         jc = JD._select_live(jnp.asarray(live), jnew, jc)
         tl, tc = serve(tp, tc, torch.as_tensor(tok), torch.tensor(live))
-        # a finished slot's logits are read by no one: JAX attends the
-        # token it then discards, the port never writes it
-        np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live],
-                                   **TOL)
-        assert_trees_close(tc, jax.tree.map(np.asarray, jc))
+        # a finished slot's logits too: both packages attend its token
+        # and then discard it (an MoE block routes it beside the live
+        # ones)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **tol)
+        assert_trees_close(tc, jax.tree.map(np.asarray, jc), tol=tol)

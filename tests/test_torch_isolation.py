@@ -36,7 +36,10 @@ NEW_MODULES = ("repro_torch.data.synthetic", "repro_torch.data.partition",
                "repro_torch.data.pipeline", "repro_torch.fed.async_engine",
                "repro_torch.fed.controller", "repro_torch.fed.cutplan",
                "repro_torch.checkpoint.checkpoint",
-               "repro_torch.distributed.fault", "repro_torch.launch.train")
+               "repro_torch.distributed.fault", "repro_torch.launch.train",
+               "repro_torch.models.moe", "repro_torch.configs.xlstm_1_3b",
+               "repro_torch.configs.qwen3_moe_30b_a3b",
+               "repro_torch.configs.kimi_k2_1t_a32b")
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_repro():

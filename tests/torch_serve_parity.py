@@ -10,6 +10,13 @@ from repro.distributed.sharding import AxisRules
 
 RULES = AxisRules(mesh=None)
 TOL = dict(rtol=1e-5, atol=1e-5)
+# xlstm-1.3b's smoke stack: torch's exp / log_sigmoid differ from
+# XLA:CPU's by 1-2 ulps, and the mLSTM divides by |n.q| (which nearly
+# cancels in some rows) before a per-head RMS norm, so each of the six
+# mLSTM layers adds ~1.5e-6 x max|x| to the residual stream; the serve
+# caches (|x| <= 4) differ by up to 1.7e-5 after six layers (measured),
+# so an absolute floor of 5e-5 (3x that) on top of TOL's rtol
+XLSTM_TOL = dict(rtol=1e-5, atol=5e-5)
 
 
 def jax_config(arch, smoke=True):
