@@ -124,7 +124,22 @@ Phases, one line each (any failure exits non-zero):
      slots, 24 requests, 64 new; every K5 launch of its admissions held
      against plain); the three smoke configs' kernel and threefry rounds
      on the card against the CPU (their engines are phase 13's).
-Phases 9-15 run before phase 8's timings.  The line before the last
+ 16. the modality archs: one HERON round on qwen2-vl-2b at full width
+     and depth (M-RoPE on a 16 x 16 patch grid's (3, B, S) ids, float
+     patch embeddings: 28 K2, 4 K3 on the tensor cores, 28 K1) and one on
+     seamless-m4t-medium (12 + 12 layers, cut 3, float frame embeddings,
+     decoder tokens: 36 K2, 6 K3 on the tensor cores, 20 K1), N=2, h=1,
+     4 x 256 each, the lean uplink, every K1 / K2 / K3 launch of a
+     warm-up round recorded and held against plain; the qwen2-vl engine
+     at full width and depth (8 slots, 8 requests of 256 / 384 / 512
+     prompt tokens, 64 new; every K5 launch held against plain); the
+     seamless enc-dec token loop (launch/serve.enc_dec_stream: batch 4,
+     prompt 64, 64 new; no kernel launch) with prompt and decode tok/s
+     beside a decode step's byte bound; both smoke configs' kernel and
+     threefry rounds and the seamless token loop on the card against the
+     CPU (the qwen2-vl smoke engine is phase 13's); the launch drivers
+     as processes (train on both archs, serve on seamless).
+Phases 9-16 run before phase 8's timings.  The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
 """
@@ -2228,7 +2243,8 @@ def n_mixers(cfg):
 
 
 def check_serve_smoke(dev):
-    """(a) Every arch of the port's registry on its smoke config (f32):
+    """(a) Every decoder-only arch of the port's registry on its smoke
+    config (f32):
     the engine's greedy streams on the card == the same engine on the CPU
     == the eager per-token loop on the card (2 slots, capacity 24,
     segments of 4, prompts of 5 and 9 tokens, 6 new); K5 and K6 launch
@@ -2243,6 +2259,8 @@ def check_serve_smoke(dev):
     cpu = torch.device("cpu")
     for arch in REG.ARCH_IDS:
         cfg = REG.get_config(arch, smoke=True)
+        if cfg.enc_dec:          # its token loop is phase 16's
+            continue
         pc = T.init_lm(cfg, seed=0, device="cpu")
         pg = tree_map(lambda t: t.to(dev), pc)
         prompts = [np.random.default_rng(0).integers(0, cfg.vocab, size=n)
@@ -3130,6 +3148,323 @@ def run_family_phase(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the modality archs (qwen2-vl-2b's M-RoPE and vision stub,
+# seamless-m4t-medium's enc-dec and audio stub)
+# ---------------------------------------------------------------------------
+
+# one HERON round (N=2, h=1) of qwen2-vl-2b on the kernel stream: K2 per
+# client the two client blocks' q k v o gate up down, on the tensor
+# cores; K3 one per client block; K1 per client twelve theta + mu*U trees
+# (the two blocks' two norms and three qkv biases, the aux norm, the tied
+# table) and the direction tree, and the replay's two direction trees:
+# qwen2-1.5b's counts (phase 12) but its two noise-rows launches (the
+# inputs are float patch embeddings, which read no table)
+VLM_ROUND = {"zo_noise": 28, "zo_dual_matmul": 28, "zo_dual_matmul_tc": 28,
+             "zo_dual_flash_attention": 4, "zo_dual_flash_attention_tc": 4,
+             "zo_matmul": 0, "zo_matmul_tc": 0, "flash_attention": 0,
+             "flash_attention_tc": 0, "rg_lru_scan": 0}
+# seamless-m4t-medium (cut 3): K2 per client the three encoder blocks' q
+# k v o up down; K3 one per block; K1 per client the six blocks'
+# layernorm trees (scale and bias, one tree a norm), the aux norm's, the
+# tied table's and the direction tree, and the replay's two
+ENC_DEC_ROUND = {"zo_noise": 20, "zo_dual_matmul": 36,
+                 "zo_dual_matmul_tc": 36, "zo_dual_flash_attention": 6,
+                 "zo_dual_flash_attention_tc": 6, "zo_matmul": 0,
+                 "zo_matmul_tc": 0, "flash_attention": 0,
+                 "flash_attention_tc": 0, "rg_lru_scan": 0}
+
+
+def patch_grid_ids(batch, seq, width):
+    """(3, batch, seq) M-RoPE ids of one image of ``seq`` patches in rows
+    of ``width``: t = 0, h = i // width, w = i % width."""
+    i = np.arange(seq)
+    ids = np.stack([np.zeros(seq, np.int64), i // width, i % width])
+    return np.broadcast_to(ids[:, None, :], (3, batch, seq))
+
+
+def _modality_round_setup(cfg, dev, n_clients, h, batch, seq, mu, lr,
+                          server_lr, seed=0, draw_on_device=False,
+                          server_eps=1e-8, forward_impl="kernel",
+                          scale="sphere"):
+    """A round on the frontend stub's batch from a numpy seed: float (N,
+    h, B, S, d_model) embeddings (qwen2-vl's patches, seamless's frames)
+    and (N, h, B, S) labels; qwen2-vl adds the (N, h, 3, B, S) ids of a
+    sqrt(S)-wide patch grid; seamless its decoder's tokens and the aux
+    head's labels (seeded uniform tokens: BigramLM's vocab^2 table would
+    be 525 GB at 256,206)."""
+    import torch
+    from repro_torch.core import protocols as P
+    from repro_torch.models import transformer as T
+    cfg = cfg.replace(forward_impl=forward_impl)
+    rng = np.random.default_rng(seed)
+    lead = (n_clients, h, batch, seq)
+
+    def put(a):
+        return torch.as_tensor(a, device=dev)
+
+    rb = {"inputs": put(rng.standard_normal(lead + (cfg.d_model,),
+                                            dtype=np.float32)),
+          "labels": put(rng.integers(0, cfg.vocab, lead))}
+    if cfg.enc_dec:
+        rb["dec_tokens"] = put(rng.integers(0, cfg.vocab, lead))
+        rb["aux_labels"] = put(rng.integers(0, cfg.vocab, lead))
+    else:
+        ids = patch_grid_ids(batch, seq, int(round(seq ** 0.5)))
+        rb["positions"] = put(np.broadcast_to(ids, (n_clients, h) +
+                                              ids.shape).copy())
+    params = T.init_lm(cfg, seed=seed, device=dev,
+                       draw_on_device=draw_on_device)
+    return _make_round(P.lm_api(cfg), params, rb, n_clients, h, mu, lr,
+                       server_lr, server_eps, scale=scale)
+
+
+def recorded_round(desc, setup, dev, expect, card):
+    """One round with every K1, K2 and K3 launch recorded, each held
+    against its plain version as :func:`recorded_step` holds a step's,
+    the recorded launches against ``expect``."""
+    import torch
+    state, rb, rnd = setup
+    k2_calls, k3_calls = [], []
+
+    def run():
+        k3_calls.extend(record_k3_calls(lambda: rnd(state, rb, ROUND_KEY)))
+
+    k1_calls, k1_rows = record_k1_calls(lambda: k2_calls.extend(
+        record_k2_calls(run)))
+    n_k1 = (check_k1_recorded(desc, k1_calls, dev)
+            + check_k1_rows_recorded(desc, k1_rows))
+    k2_worst = check_k2_recorded(desc, k2_calls, dev)
+    k3_worst = check_k3_recorded(desc, k3_calls)
+    got = (n_k1, len(k2_calls), len(k3_calls))
+    want = (expect["zo_noise"], expect["zo_dual_matmul"],
+            expect["zo_dual_flash_attention"])
+    if got != want:
+        fail(f"{desc} recorded {got} K1 / K2 / K3 launches, expected "
+             f"{want}")
+    k2_shapes = sorted({(M, K, Nn) for M, K, Nn, *_ in k2_calls})
+    k3_shapes = sorted({tuple(a["qa"].shape) + (a["k"].shape[2],)
+                        for a, _ in k3_calls})
+    n_el = sum(g.rows * g.cols for c in k1_calls for g in c[1])
+    del k3_calls
+    torch.cuda.empty_cache()
+    log(16, f"{desc}'s kernels == plain on {card}: K1's {len(k1_calls)} "
+        f"tree calls ({n_el} entries) and {len(k1_rows)} rows calls "
+        f"({n_k1} launches) bit for bit; K2's {got[1]} launches (M, K, N "
+        f"in {k2_shapes}) within check_k2's tolerance (max |d| "
+        f"{k2_worst}); K3's {got[2]} launches (B, S, H, D, Kv "
+        f"{k3_shapes}) within check_k3's on their own inputs (max |d| "
+        f"{k3_worst})")
+
+
+def run_modality_round(dev, card, name, cfg, desc, expect):
+    """A HERON round at full width (N=2, h=1, 4 x 256 a client, n_pairs 1,
+    the lean uplink, bf16): the warm-up round recorded and held against
+    plain, then drive_round's timed and profiled rounds.  Returns the
+    timed round's launches."""
+    import torch
+    from repro_torch.core.split import param_bytes
+    from repro_torch.tree import tree_leaves
+    setup = _modality_round_setup(cfg, dev, n_clients=2, h=1, batch=4,
+                                  seq=256, mu=1e-3, lr=1e-4,
+                                  server_lr=2e-4, draw_on_device=True)
+    state = setup[0]
+    n_c = sum(t.numel() for t in tree_leaves(state["client"]))
+    n_s = sum(t.numel() for t in tree_leaves(state["server"]))
+    log(16, f"{name}: client {n_c} params ({param_bytes(state['client'])} "
+        f"B), server {n_s} params ({param_bytes(state['server'])} B)")
+    del state
+    counts = drive_round(
+        16, desc + f" on {card}", setup, expect,
+        warmup=lambda: recorded_round(name + " round", setup, dev, expect,
+                                      card))
+    del setup
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_enc_dec_serve(dev, card, cfg, batch=4, prompt_len=64, max_new=64):
+    """16(d): the enc-dec token loop of launch/serve.py at full width and
+    depth (``enc_dec_stream``, greedy): the prompt consumed one token a
+    step, then ``max_new`` decoder tokens cross-attending the encoder
+    output, none of K1-K6 launched.  A decode step's byte bound: the
+    decoder stack's weights, the final norm and the tied table (the
+    unembedding) read once, the step's token rows of ``dec_embed``, the
+    self-attention caches' valid rows at the loop's mean position and
+    ``enc_out`` read once (the cross k / v are recomputed from it each
+    step, as in the reference), the f32 logits written."""
+    import torch
+    from repro_torch.core import decode as D
+    from repro_torch.launch.serve import enc_dec_stream
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    params = T.init_lm(cfg, seed=0, device=dev, draw_on_device=True)
+    greedy = D.SamplerConfig()
+    enc_dec_stream(params, cfg, batch, 8, 4, greedy, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    gen, t_pre, t_dec = enc_dec_stream(params, cfg, batch, prompt_len,
+                                       max_new, greedy, device=dev)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        fail(f"seamless token loop launched {counts}")
+    if tuple(gen.shape) != (batch, max_new) or not bool(
+            ((gen >= 0) & (gen < cfg.vocab)).all()):
+        fail(f"seamless token loop: tokens {tuple(gen.shape)} or outside "
+             "the vocab")
+    server = params["server"]
+    wbytes = sum(t.numel() * t.element_size() for t in
+                 tree_leaves(server["decoder"])
+                 + tree_leaves(server["final_norm"])
+                 + tree_leaves(params["client"]["embed"]))
+    el = 2                                      # bf16 activations, caches
+    n_dec = cfg.n_layers - cfg.n_enc_layers
+    kv_row = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * el
+    mean_pos = prompt_len + (max_new - 1) / 2
+    n_bytes = int(wbytes + batch * cfg.d_model * el
+                  + n_dec * batch * kv_row * (mean_pos + 1)
+                  + batch * (prompt_len + max_new) * cfg.d_model * el
+                  + batch * cfg.vocab_padded * 4)
+    step_bound, _ = bound_ms(n_bytes, 0, "bfloat16")
+    step_ms = 1e3 * t_dec / (max_new - 1)
+    log(16, f"seamless-m4t-medium token loop (12 + 12 layers, bf16, greedy; "
+        f"batch {batch}, prompt {prompt_len} consumed token by token, "
+        f"{max_new} new) on {card}: prompt consume {t_pre} s = "
+        f"{batch * prompt_len / t_pre} prompt tok/s (the first token "
+        f"included); decode {t_dec} s = {batch * (max_new - 1) / t_dec} "
+        f"tok/s, {step_ms} ms a step (mean) vs byte bound {step_bound} ms "
+        f"({n_bytes} B: {wbytes} B of decoder weights, final norm and tied "
+        f"table; the KV caches at mean position {mean_pos}; enc_out) "
+        f"({step_ms / step_bound:.1f}x); max_memory_allocated {peak}; "
+        f"launches {counts} (none of K1-K6: the decode attention and the "
+        f"cross-attention are plain torch, as in the reference)")
+    del params
+    torch.cuda.empty_cache()
+
+
+def check_modality_small(dev):
+    """16(e): both smoke configs' kernel round (sphere) and threefry round
+    (gaussian, the reference's default) on the card against the CPU
+    (check_small_round; qwen2-vl with grid ids on both streams); the
+    seamless token loop on the card == on the CPU, greedy and sampled,
+    from the same params."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.core import decode as D
+    from repro_torch.launch.serve import enc_dec_stream
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    for arch in ("qwen2-vl-2b", "seamless-m4t-medium"):
+        for impl, scale in (("kernel", "sphere"), ("xla", "gaussian")):
+            check_small_round(
+                16, f"{arch} smoke_config {impl} round (N=2 h=2, 2x16 "
+                "embeddings)", lambda d, a=arch, i=impl, sc=scale:
+                _modality_round_setup(REG.get_config(a, smoke=True), d,
+                                      n_clients=2, h=2, batch=2, seq=16,
+                                      mu=1e-2, lr=1e-3, server_lr=1e-4,
+                                      seed=3, server_eps=1e-6,
+                                      forward_impl=i, scale=sc))
+    cfg = REG.get_config("seamless-m4t-medium", smoke=True)
+    pc = T.init_lm(cfg, seed=0, device="cpu")
+    pg = tree_map(lambda t: t.to(dev), pc)
+    for sampler in (D.SamplerConfig(), D.SamplerConfig(**SERVE_SAMPLED)):
+        got, want = (enc_dec_stream(p, cfg, 2, 6, 8, sampler, seed=3,
+                                    device=d)[0].cpu().tolist()
+                     for p, d in ((pg, dev), (pc, "cpu")))
+        if got != want:
+            fail(f"seamless smoke token loop ({sampler}): card {got} cpu "
+                 f"{want}")
+        log(16, f"seamless smoke token loop ({sampler}; batch 2, prompt 6, "
+            f"8 new): card == cpu {got}")
+
+
+def run_modality_cli(card):
+    """16(f): the launch drivers as processes on the smoke configs (the
+    training driver's bigram table is vocab x vocab), started together
+    (each spends most of its ~11 s starting up): two datacenter steps of
+    each arch, and the seamless serving driver."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    runs = [(f"launch.train --arch {a}", [
+        "repro_torch.launch.train", "--arch", a, "--smoke", "--device",
+        "cuda", "--steps", "2", "--batch", "2", "--seq", "16"],
+        "[train] step    1") for a in ("qwen2-vl-2b", "seamless-m4t-medium")]
+    runs.append(("launch.serve --arch seamless-m4t-medium", [
+        "repro_torch.launch.serve", "--arch", "seamless-m4t-medium",
+        "--smoke", "--device", "cuda"], "[serve] enc-dec generated"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m"] + args, cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _, args, _ in runs]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for (desc, _, want), p, (out, err) in zip(runs, procs, outs):
+        if p.returncode != 0:
+            fail(f"{desc}: exit {p.returncode}: {err[-2000:]}")
+        if want not in out:
+            fail(f"{desc}: no {want!r} in its output: {out[-2000:]}")
+        lines = out.strip().splitlines()
+        log(16, f"{desc} --smoke on {card}: exit 0; last lines: "
+            f"{' | '.join(lines[-2:])}")
+    log(16, f"the three driver processes, started together, done in "
+        f"{wall:.1f} s")
+
+
+def run_modality_phase(dev, card):
+    """Phase 16: (a) a qwen2-vl-2b HERON round at full width and depth;
+    (b) a seamless-m4t-medium round at full width and depth; (c) the
+    qwen2-vl engine at full width and depth, every K5 launch of its
+    admissions held against plain; (d) the seamless token loop; (e) the
+    smoke configs card == CPU; (f) the launch drivers.  Logs each part's
+    host seconds.  Returns the launches of (a), (b) and (c)."""
+    import torch
+    from repro_torch.configs import qwen2_vl_2b, seamless_m4t_medium
+    start = [time.perf_counter()]
+
+    def took(part):
+        now = time.perf_counter()
+        log(16, f"({part} took {now - start[0]:.1f} s)")
+        start[0] = now
+
+    vl = run_modality_round(
+        dev, card, "qwen2-vl-2b", qwen2_vl_2b.full_config(),
+        "qwen2-vl-2b round (28 layers, d_model 1536, 12 heads / 2 KV of "
+        "128, M-RoPE (16, 24, 24) on 16x16 patch-grid ids, vocab 151936 "
+        "tied, bf16, cut 2; N=2 h=1 n_pairs=1, 4x256 patch embeddings per "
+        "client, seed_replay)", VLM_ROUND)
+    took("16a")
+    sm = run_modality_round(
+        dev, card, "seamless-m4t-medium", seamless_m4t_medium.full_config(),
+        "seamless-m4t-medium round (12 + 12 layers, d_model 1024, 16 heads "
+        "of 64, layernorm, GELU, vocab 256206 tied, bf16, cut 3; N=2 h=1 "
+        "n_pairs=1, 4x256 frame embeddings and decoder tokens per client, "
+        "seed_replay)", ENC_DEC_ROUND)
+    took("16b")
+    serve = run_serve(dev, card, "qwen2-vl-2b engine (28 layers, bf16, "
+                      "greedy, M-RoPE from each slot's position)",
+                      qwen2_vl_2b.full_config(), slots=8, prompt_len=512,
+                      max_new=64, n_req=8, segment=16, phase=16,
+                      compare=False)
+    torch.cuda.empty_cache()
+    took("16c")
+    run_enc_dec_serve(dev, card, seamless_m4t_medium.full_config())
+    took("16d")
+    check_modality_small(dev)
+    took("16e")
+    run_modality_cli(card)
+    took("16f")
+    out = {k: vl[k] + sm[k] for k in ("zo_noise", "zo_dual_matmul",
+                                      "zo_dual_flash_attention")}
+    out["flash_attention"] = serve["flash_attention"]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: times
 # ---------------------------------------------------------------------------
 
@@ -3563,7 +3898,7 @@ def k1_sass():
 
 
 def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
-                 counts_train, counts_family):
+                 counts_train, counts_family, counts_modality):
     """``counts``: launches of the gpt2-small round (K1-K3);
     ``counts_sp``: of the gpt2-small single-probe forward (K4, K5);
     ``counts_rg``: of the recurrentgemma round (K6); ``counts_serve``: of
@@ -3571,7 +3906,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
     K6's; ``counts_train``: of phase 14's two full-width train steps
     (K1-K3), added to K1's, K2's and K3's; ``counts_family``: of phase
     15's two full-width rounds (K1) and its MoE engine run (K5), added
-    to K1's and K5's."""
+    to K1's and K5's; ``counts_modality``: of phase 16's two full-width
+    rounds (K1-K3) and its qwen2-vl engine run (K5)."""
     import torch
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import ops as O
@@ -3603,7 +3939,7 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
                  "source": "src/repro_torch/kernels/csrc/zo_noise.cu",
                  "replaces": "src/repro/kernels/zo_matmul.py:274",
                  "launches": counts["zo_noise"] + counts_train["zo_noise"]
-                 + counts_family["zo_noise"],
+                 + counts_family["zo_noise"] + counts_modality["zo_noise"],
                  "max_abs_err": errs[0],
                  "ms": ms, "plain_ms": pl, "bound_ms": b,
                  "bound_by": by.split(" ")[0], "library_ms": None})
@@ -3649,15 +3985,18 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
                  "source": "src/repro_torch/kernels/csrc/zo_dual_matmul.cu",
                  "replaces": "src/repro/kernels/zo_matmul.py:227",
                  "launches": counts["zo_dual_matmul"]
-                 + counts_train["zo_dual_matmul"], "max_abs_err": errs[1],
+                 + counts_train["zo_dual_matmul"]
+                 + counts_modality["zo_dual_matmul"], "max_abs_err": errs[1],
                  "ms": ms, "plain_ms": pl, "bound_ms": b, "bound_by": by,
                  "library_ms": lib})
 
     # K3 and K5 (phase 8's attention rows, the main path's first)
     k3_row, k5_row = time_attention(dev, counts, counts_sp, errs)
     k5_row["launches"] += (counts_serve["flash_attention"]
-                           + counts_family["flash_attention"])
-    k3_row["launches"] += counts_train["zo_dual_flash_attention"]
+                           + counts_family["flash_attention"]
+                           + counts_modality["flash_attention"])
+    k3_row["launches"] += (counts_train["zo_dual_flash_attention"]
+                           + counts_modality["zo_dual_flash_attention"])
     rows.append(k3_row)
 
     # K4: gpt2-small's three client shapes in bf16 (768x3072 is the main
@@ -3797,8 +4136,12 @@ def main():
     counts_family = run_family_phase(dev, card)
     torch.cuda.empty_cache()
     took("15")
+    counts_modality = run_modality_phase(dev, card)
+    torch.cuda.empty_cache()
+    took("16")
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs,
-                        counts_serve, counts_train, counts_family)
+                        counts_serve, counts_train, counts_family,
+                        counts_modality)
     compiler_report()
     check_hgmma()
     k1_sass()

@@ -19,8 +19,9 @@
   by a block prefill of the prompt (K5 and K6 on the card) whose caches
   (KV rows, RG-LRU / mLSTM / sLSTM states) are copied into the slot.
 * :func:`make_prompt_consume`: the prompt fed one token at a time
-  through the serve step (the reference's enc-dec path; decoder-only
-  here).
+  through the serve step: the enc-dec's path (its decoder step
+  cross-attends the encoder output), which the engine refuses as the
+  reference's does.
 
 Finished slots are frozen: the serve step keeps no cache row of a slot
 whose ``live`` is False (the reference rebuilds the whole cache with a

@@ -36,7 +36,9 @@ run in a Python loop where the JAX package uses ``vmap``.
 it.
 
 The serving steps (``make_cached_prefill_step``, ``make_serve_step``,
-``init_serve_caches``) are the decoder-only half of the reference's;
+``init_serve_caches``) are the reference's: the decoder-only archs' cached
+block prefill and decode step, and the enc-dec's decoder step, one token
+cross-attending the encoder output kept in its caches;
 :mod:`repro_torch.core.decode` drives them.
 """
 from __future__ import annotations
@@ -111,22 +113,28 @@ def lm_api(cfg: ModelConfig) -> ModelAPI:
                              batch.get("positions"))
         return aux_loss(cp, s, batch), s
 
+    def server_logits(cp, sp, smashed, batch):
+        return T.server_forward({"client": cp, "server": sp}, cfg, smashed,
+                                positions=batch.get("positions"),
+                                dec_tokens=batch.get("dec_tokens"),
+                                dec_positions=batch.get("dec_positions"))
+
     def server_loss(sp, cp_const, smashed, batch):
-        logits = T.server_forward({"client": cp_const, "server": sp}, cfg,
-                                  smashed, positions=batch.get("positions"))
-        return T.lm_loss(logits, batch["labels"], cfg.vocab)
+        return T.lm_loss(server_logits(cp_const, sp, smashed, batch),
+                         batch["labels"], cfg.vocab)
 
     def joint_loss(cp, sp, batch):
-        logits = T.full_forward({"client": cp, "server": sp}, cfg,
-                                batch["inputs"], batch.get("positions"))
-        return T.lm_loss(logits, batch["labels"], cfg.vocab)
+        s = T.client_forward(cp, cfg, batch["inputs"],
+                             batch.get("positions"))
+        return T.lm_loss(server_logits(cp, sp, s, batch), batch["labels"],
+                         cfg.vocab)
 
     def client_dual_loss(cp, batch, seeds, mu):
         pz = O.Perturb(seeds=seeds, mu=mu, dual=True)
         pos = batch.get("positions")
         s2 = T.client_forward(cp, cfg, batch["inputs"], pos, perturb=pz)
-        pos2 = None if pos is None else torch.cat([pos, pos], dim=0)
-        logits2 = T.aux_forward(cp, cfg, s2, pos2, perturb=pz)
+        logits2 = T.aux_forward(cp, cfg, s2, T.dual_positions(pos),
+                                perturb=pz)
         lbl = batch.get("aux_labels", batch["labels"])
         B = batch["inputs"].shape[0]
         l0 = T.lm_loss(logits2[:B], lbl, cfg.vocab)
@@ -300,23 +308,24 @@ def make_train_step(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
 
 
 # ===========================================================================
-# serving (decoder-only)
+# serving
 # ===========================================================================
 
 def _decoder_only(cfg, what: str):
-    if getattr(cfg, "enc_dec", False):
-        raise NotImplementedError(
-            f"{what} is decoder-only; enc-dec serving comes with the "
-            "enc-dec model, ROADMAP queue 1 item 6")
+    """The reference's refusal of enc-dec archs where serving is
+    decoder-only: enc-dec serving keeps its cross-attended token loop."""
+    if cfg.enc_dec:
+        raise ValueError(f"{what} is decoder-only; enc-dec serving keeps "
+                         "the token loop")
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """``prefill(params, batch) -> logits``: the whole model's forward."""
-    _decoder_only(cfg, "the prefill step")
-
+    """``prefill(params, batch) -> logits``: the whole model's forward
+    (an enc-dec's decoder on ``batch["dec_tokens"]``)."""
     def prefill(params, batch):
         return T.full_forward(params, cfg, batch["inputs"],
-                              batch.get("positions"))
+                              batch.get("positions"),
+                              batch.get("dec_tokens"))
 
     return prefill
 
@@ -360,9 +369,18 @@ def init_serve_caches(cfg: ModelConfig, batch: int, seq: int,
     row.  ``per_slot=True`` lays them out for the decode engine
     (:mod:`repro_torch.core.decode`): every KV cache carries a per-slot
     ``pos`` vector instead of one scalar, so slots at different sequence
-    positions share one batch and finished slots can be recycled."""
-    _decoder_only(cfg, "serving")
+    positions share one batch and finished slots can be recycled.  An
+    enc-dec's caches are its decoder stack's (``"dec"``, scalar ``pos``
+    as in the reference) and the encoder output its cross-attention
+    reads, ``"enc_out"`` (batch, seq, d_model), zeros for the caller to
+    fill."""
     dev = resolve_device(device)
+    if cfg.enc_dec:
+        return {"dec": T.init_stack_cache(cfg, T.decoder_specs(cfg), batch,
+                                          seq, device=dev),
+                "enc_out": torch.zeros((batch, seq, cfg.d_model),
+                                       dtype=cfg.torch_compute_dtype(),
+                                       device=dev)}
     return {part: T.init_stack_cache(cfg, specs(cfg), batch, seq, per_slot,
                                      dev)
             for part, specs in (("client", T.client_specs),
@@ -372,12 +390,16 @@ def init_serve_caches(cfg: ModelConfig, batch: int, seq: int,
 def make_serve_step(cfg: ModelConfig):
     """One decode step: ``serve(params, caches, token, live=None) ->
     (logits, caches)`` for ``token`` (B, 1), the caches written in place
-    (only the ``live`` slots' when given)."""
-    _decoder_only(cfg, "the serve step")
-
+    (only the ``live`` slots' when given).  An enc-dec's step runs its
+    decoder on the token, cross-attending ``caches["enc_out"]``."""
     def serve(params, caches, token, live=None):
-        x = decoder_hidden(params, cfg, caches, token, decode=True,
-                           live=live)
+        if cfg.enc_dec:
+            x = T.decoder_forward(params, cfg, token, caches["enc_out"],
+                                  caches=caches["dec"], decode=True,
+                                  live=live)
+        else:
+            x = decoder_hidden(params, cfg, caches, token, decode=True,
+                               live=live)
         return T.lm_head(params, cfg, x), caches
 
     return serve

@@ -11,6 +11,13 @@ Prints the sustained tok/s, the segment count and the prefill tokens.
 kernels' plain versions.  The weights are random, from ``--seed``: on the
 card drawn by the card's generator (seconds for billions of params), on
 the CPU by the CPU's.
+
+The enc-dec (seamless-m4t-medium) keeps the reference's cross-attended
+token loop (:func:`enc_dec_stream`): the prompt consumed token by token,
+then one decoder token a step through the shared sampler, with the
+reference's params (``init_lm(PRNGKey(0))``), encoder output
+(``normal(PRNGKey(3))``) and prompt (``randint(PRNGKey(1))``), so its
+printed stream is the reference's.  It prints prefill and decode tok/s.
 """
 from __future__ import annotations
 
@@ -22,6 +29,8 @@ import torch
 
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core import decode as D
+from repro_torch.core import prng as R
+from repro_torch.core import protocols as P
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 
@@ -36,6 +45,68 @@ def prompt_lengths(prompt_len: int):
     """The queue's prompt lengths, cycled: 1/2, 3/4 and 1 of
     ``prompt_len``."""
     return [max(1, prompt_len * f // 4) for f in (2, 3, 4)]
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def enc_dec_stream(params, cfg, batch: int, prompt_len: int, max_new: int,
+                   sampler: D.SamplerConfig, seed: int = 0, device="cuda"):
+    """The reference's enc-dec serving loop (``repro.launch.serve.
+    _serve_enc_dec``): caches for ``prompt_len + max_new`` tokens whose
+    ``enc_out`` is ``normal(PRNGKey(3))``, a ``randint(PRNGKey(1))``
+    prompt consumed token by token (:func:`repro_torch.core.decode.
+    make_prompt_consume`), then ``max_new`` tokens, each sampled under
+    ``fold_in(fold_in(PRNGKey(seed), row), step)`` and fed back through
+    the decoder step.  Returns ``(tokens (batch, max_new), prefill_s,
+    decode_s)``, the seconds on the host clock to the device's end."""
+    dev = resolve_device(device)
+    serve = P.make_serve_step(cfg)
+    consume = D.make_prompt_consume(cfg)
+    caches = P.init_serve_caches(cfg, batch, prompt_len + max_new,
+                                 device=dev)
+    enc = caches["enc_out"]
+    enc.copy_(R.normal(R.PRNGKey(3), tuple(enc.shape), device=dev))
+    prompt = R.randint(R.PRNGKey(1), (batch, prompt_len), 0, cfg.vocab,
+                       device=dev)
+    keys = R.fold_in_many(R.PRNGKey(seed), torch.arange(batch, device=dev))
+
+    def pick(logits, step):
+        sk = (R.fold_in_many(keys, torch.full((batch,), step, device=dev))
+              if sampler.draws else None)
+        return D.sample_logits(logits[:, -1, :cfg.vocab].to(torch.float32),
+                               sk, sampler)[:, None]
+
+    with torch.no_grad():
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, caches = consume(params, caches, prompt)
+        toks = [pick(logits, 0)]
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for step in range(1, max_new):
+            logits, caches = serve(params, caches, toks[-1])
+            toks.append(pick(logits, step))
+        _sync(dev)
+        t_decode = time.perf_counter() - t0
+    return torch.cat(toks, dim=1), t_prefill, t_decode
+
+
+def _serve_enc_dec(cfg, args, sampler, dev):
+    params = T.init_lm(cfg, device=dev, key=R.PRNGKey(0))
+    gen, t_prefill, t_decode = enc_dec_stream(
+        params, cfg, args.batch, args.prompt_len, args.max_new, sampler,
+        args.seed, dev)
+    pre_tps = args.batch * args.prompt_len / max(t_prefill, 1e-9)
+    dec_tps = args.batch * (gen.shape[1] - 1) / max(t_decode, 1e-9)
+    print(f"[serve] enc-dec generated {tuple(gen.shape)}: prefill "
+          f"{t_prefill:.2f}s ({pre_tps:.1f} tok/s), decode "
+          f"{t_decode:.2f}s ({dec_tps:.1f} tok/s)")
+    print(gen[0].tolist())
+    return 0
 
 
 def main(argv=None):
@@ -64,6 +135,11 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    sampler = build_sampler(args)
+    if cfg.enc_dec or cfg.frontend is not None:
+        print("[serve] modality archs: serving the text decoder only")
+    if cfg.enc_dec:
+        return _serve_enc_dec(cfg, args, sampler, dev)
     params = T.init_lm(cfg, seed=args.seed, device=dev,
                        draw_on_device=dev.type == "cuda")
     n_req = args.requests or args.batch
@@ -72,7 +148,7 @@ def main(argv=None):
     engine = D.DecodeEngine(
         params, cfg, slots=args.batch,
         capacity=args.prompt_len + args.max_new, segment_len=args.segment,
-        sampler=build_sampler(args), eos_id=args.eos_id, seed=args.seed,
+        sampler=sampler, eos_id=args.eos_id, seed=args.seed,
         device=dev)
     prompts = {}
     for i in range(n_req):

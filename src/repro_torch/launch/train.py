@@ -25,12 +25,17 @@ The data is ``BigramLM``, whose table is ``vocab x vocab``: at a full
 config's vocab (151,936 for qwen2-1.5b) that is 185 GB, so the driver
 runs such archs with ``--smoke``.  ``--model-parallel > 1``,
 ``--replay-shard clients`` and ``--replay-chunk`` are the mesh's,
-ROADMAP queue 1 item 7, and raise.
+ROADMAP queue 1 item 7, and raise.  The modality archs (qwen2-vl-2b,
+seamless-m4t-medium) train with the datacenter step on the reference's
+stub batches (``build_batch``); ``--fed`` refuses them, as the
+reference's driver does.
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+import torch
 
 from repro_torch.checkpoint import checkpoint as CKPT
 from repro_torch.configs.registry import ARCH_IDS, get_config
@@ -46,12 +51,25 @@ from repro_torch.optim.schedules import warmup_cosine
 
 
 def build_batch(cfg, ds, key, batch, seq):
-    """A text batch of ``ds``; the enc-dec and the vision / audio
-    frontend inputs come with those models (ROADMAP queue 1 item 6)."""
-    if getattr(cfg, "enc_dec", False) or getattr(cfg, "frontend", None):
-        raise NotImplementedError("enc-dec and vision / audio frontend "
-                                  "batches: ROADMAP queue 1 item 6")
-    return ds.batch(key, batch)
+    """A batch of ``ds`` under ``key``, as the reference builds it: text
+    for a text arch; for a modality arch the frontend stub's embeddings
+    ``normal(key, (batch, seq - 1, d_model))`` in the compute dtype as
+    the inputs (with (3, B, S) M-RoPE ids of the text positions for
+    vision), and for the enc-dec the text as the decoder's tokens and
+    both heads' labels."""
+    b = ds.batch(key, batch)
+    if not (cfg.enc_dec or cfg.frontend):
+        return b
+    emb = R.normal(key, (batch, seq - 1, cfg.d_model)).to(
+        cfg.torch_compute_dtype())
+    if cfg.enc_dec:
+        return {"inputs": emb, "aux_labels": b["labels"],
+                "dec_tokens": b["inputs"], "labels": b["labels"]}
+    if cfg.frontend == "vision":
+        pos = torch.arange(seq - 1, dtype=torch.int32).expand(
+            3, batch, seq - 1)
+        return {"inputs": emb, "positions": pos, "labels": b["labels"]}
+    return {"inputs": emb, "labels": b["labels"]}
 
 
 def _mesh_flags(args):
@@ -68,6 +86,8 @@ def run_fed(args, cfg, api, dev):
     """N-client federated rounds (``make_fed_round`` or, with
     ``--fed-async``, ``make_async_round``); prints each round's losses
     and uplink bytes."""
+    if cfg.enc_dec or cfg.frontend is not None:
+        raise SystemExit("--fed supports decoder-only text archs")
     copt = make_optimizer("zo_sgd" if args.method == "heron" else "adamw",
                           args.lr_client)
     sopt = make_optimizer("adamw", args.lr_server)

@@ -10,6 +10,12 @@ probe runs both estimator streams through ONE fused pass,
 card); the single probe runs its one stream through
 :func:`repro_torch.kernels.ops.flash_attention` (kernel K5).
 
+Positions rotate q and k by RoPE, or by qwen2-vl's M-RoPE on (3, B, S)
+temporal / height / width ids (2-D ids broadcast to all three).  The
+enc-dec decoder's cross-attention (``cross_kv``) attends the encoder's
+k / v without RoPE or a causal mask, in plain PyTorch, as the JAX package
+keeps it outside any kernel.
+
 Serving takes no gradient, so a block prefill into a cache runs K5 on the
 card too (the JAX package keeps it on ``blocked_attention`` only because
 Pallas calls have no JVP rule); on the CPU it takes the config's plain
@@ -200,11 +206,29 @@ def _decode_write(cache, k, v, window: int, live):
     return restore
 
 
+def _rope(cfg: ModelConfig, q, k, positions, kv_positions):
+    """RoPE, or M-RoPE on (3, B, S) t / h / w ids (2-D ids broadcast to
+    all three, which is RoPE), on q and k."""
+    if cfg.rope_kind == "rope":
+        return (L.apply_rope(q, positions, cfg.rope_theta),
+                L.apply_rope(k, kv_positions, cfg.rope_theta))
+    if cfg.rope_kind == "mrope":
+        def three(p):
+            return p if p.dim() == 3 else p.expand((3,) + tuple(p.shape))
+        return (L.apply_mrope(q, three(positions), cfg.mrope_sections,
+                              cfg.rope_theta),
+                L.apply_mrope(k, three(kv_positions), cfg.mrope_sections,
+                              cfg.rope_theta))
+    if cfg.rope_kind != "none":
+        raise ValueError(f"rope_kind={cfg.rope_kind!r}")
+    return q, k
+
+
 def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
                     local: bool = False, cache=None, decode: bool = False,
-                    live=None, perturb=None):
-    """Self-attention: q/k/v projections, RoPE, attention, output
-    projection.  Returns ``(out, cache)``.
+                    live=None, cross_kv=None, perturb=None):
+    """Self-attention: q/k/v projections, RoPE (or M-RoPE), attention,
+    output projection.  Returns ``(out, cache)``.
 
     ``perturb`` (the training-time ZO probe) fuses weight noise into the
     projections; the dual probe runs the fused dual attention and the
@@ -212,20 +236,32 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
     ``decode`` is a block prefill of a fresh cache (pos 0): the prompt's
     k/v are written so decode continues at ``pos = S``.  ``decode``
     takes one token per slot at the cache's positions, writes its k/v
-    (kept only for ``live`` slots, when given) and attends the cache."""
-    if perturb is not None and (cache is not None or decode):
+    (kept only for ``live`` slots, when given) and attends the cache.
+    ``cross_kv`` = ``(k, v)``, (B, S_enc, Kv, D) each, makes it the
+    enc-dec decoder's cross-attention: no RoPE, every query over every
+    encoder position, in plain PyTorch (no kernel, as in the reference)."""
+    if perturb is not None and (cache is not None or decode
+                                or cross_kv is not None):
         raise ValueError("the ZO perturbed forward is a training-time path")
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     cdt = cfg.torch_compute_dtype()
     window = cfg.window if local else 0
+    q = _split_heads(L.dense(params["wq"], x, cdt, psub(perturb, "wq")),
+                     cfg.n_heads, hd)
+    if cross_kv is not None:
+        k, v = cross_kv
+        kw = dict(causal=False, cap=cfg.attn_softcap, scale=cfg.attn_scale)
+        o = (naive_attention(q, k, v, **kw) if cfg.attn_impl == "naive"
+             else blocked_attention(q, k, v, q_chunk=cfg.q_chunk,
+                                    kv_chunk=cfg.kv_chunk, **kw))
+        o = o.reshape(B, S, cfg.n_heads * hd)
+        return L.dense(params["wo"], o, cdt), None
     # score-probe mode: k/v come from the CLEAN half only and wk/wv are
     # never weight-perturbed (ops.attn_kv_seed_pred keeps the estimator
     # and replay seed streams consistent with this)
     score_probe = (perturb is not None and perturb.dual
                    and cfg.attn_probe == "scores")
-    q = _split_heads(L.dense(params["wq"], x, cdt, psub(perturb, "wq")),
-                     cfg.n_heads, hd)
     xkv = x[: x.shape[0] // 2] if score_probe else x
     pkv = None if score_probe else perturb
     k = _split_heads(L.dense(params["wk"], xkv, cdt, psub(pkv, "wk")),
@@ -237,13 +273,10 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
         if decode:              # each slot (or the batch) at its position
             positions = cache["pos"].reshape(-1, 1) + positions
     kv_positions = positions
-    if score_probe and positions.shape[0] == B:
-        kv_positions = positions[: B // 2]      # k/v carry the clean half
-    if cfg.rope_kind == "rope":
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, kv_positions, cfg.rope_theta)
-    elif cfg.rope_kind != "none":
-        raise NotImplementedError(f"rope_kind={cfg.rope_kind!r}")
+    if score_probe and positions.shape[-2] == B:
+        # k/v carry the clean half: the batch axis of (B, S) or (3, B, S)
+        kv_positions = positions.narrow(-2, 0, B // 2)
+    q, k = _rope(cfg, q, k, positions, kv_positions)
     if decode:
         if S != 1:
             raise ValueError(f"decode takes one token per slot, got {S}")

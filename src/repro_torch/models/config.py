@@ -1,7 +1,8 @@
 """Model configuration: the fields of :class:`repro.models.config.
 ModelConfig` that the dense transformer family, the RG-LRU hybrid
-(RecurrentGemma), xLSTM (mLSTM / sLSTM) and the MoE family (qwen3-moe,
-kimi-k2) read, with the same names and defaults."""
+(RecurrentGemma), xLSTM (mLSTM / sLSTM), the MoE family (qwen3-moe,
+kimi-k2), M-RoPE with its vision stub (qwen2-vl) and the enc-dec with its
+audio stub (seamless-m4t) read, with the same names and defaults."""
 from __future__ import annotations
 
 import dataclasses
@@ -45,16 +46,22 @@ class ModelConfig:
     post_norm: bool = False        # gemma2-style post-block norms
     activation: str = "silu"
     gated_mlp: bool = True
-    rope_kind: str = "rope"        # rope | none
+    rope_kind: str = "rope"        # rope | mrope | none
     rope_theta: float = 10000.0
+    mrope_sections: tuple[int, ...] = ()
     attn_softcap: float | None = None
     final_softcap: float | None = None
     attn_scale: float | None = None
     window: int = 4096             # local-attention window
     moe: MoECfg | None = None
+    # --- enc-dec (seamless-m4t) ---
+    enc_dec: bool = False
+    n_enc_layers: int = 0
     # --- recurrent (xlstm / recurrentgemma) ---
     lru_width: int = 0             # 0 => d_model
     conv_width: int = 4
+    # --- modality frontend stub ---
+    frontend: str | None = None    # None | "audio" | "vision"
     # --- SFL split ---
     cut_layers: int = 2            # client-side depth (the cut layer)
     aux_layers: int = 0            # extra transformer blocks in the aux head
@@ -76,7 +83,7 @@ class ModelConfig:
                                    # or the pre-softmax scores with k/v
                                    # shared between the streams)
     optimizer: str = "adamw"       # adamw | adafactor | sgdm (server)
-    family: str = "dense"          # dense | moe | ssm | hybrid
+    family: str = "dense"          # dense | moe | audio | ssm | hybrid | vlm
     subquadratic: bool = False     # eligible for long_500k
 
     @property

@@ -1,6 +1,7 @@
 """Core layers: param init, norms, dense (plain and ZO-perturbed),
-embeddings, RoPE, MLP, the depthwise causal conv1d of the RG-LRU block.  Plain functions on nested dicts
-of tensors, mirroring :mod:`repro.models.layers`.
+embeddings, RoPE and M-RoPE, MLP, the depthwise causal conv1d of the
+RG-LRU block.  Plain functions on nested dicts of tensors, mirroring
+:mod:`repro.models.layers`.
 
 Init functions draw from an explicit ``torch.Generator``; given None
 they make shape-only tensors on the ``meta`` device, and given
@@ -236,23 +237,45 @@ def unembed(params, x, compute_dtype):
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
 
+def _rope_freqs(half: int, theta: float, device):
+    return theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=device) / half)
+
+
 def _rope_angles(positions, head_dim: int, theta: float):
     # positions: (..., S); returns (..., S, head_dim//2)
-    half = head_dim // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=positions.device) / half)
-    return positions[..., None].to(torch.float32) * freqs
+    return positions[..., None].to(torch.float32) * _rope_freqs(
+        head_dim // 2, theta, positions.device)
 
 
-def apply_rope(x, positions, theta: float = 10000.0):
-    """x: (B, S, H, D); positions: (B, S) int."""
-    d = x.shape[-1]
-    ang = _rope_angles(positions, d, theta)          # (B, S, d/2)
+def _rotate(x, ang):
+    """x: (B, S, H, D) rotated in f32 by the (B, S, D/2) angles ``ang``,
+    its two halves as the pairs."""
     sin = torch.sin(ang)[:, :, None, :]
     cos = torch.cos(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (B, S, H, D); positions: (B, S) int."""
+    return _rotate(x, _rope_angles(positions, x.shape[-1], theta))
+
+
+def apply_mrope(x, positions3, sections, theta: float = 1e6):
+    """Qwen2-VL multimodal RoPE.  x: (B, S, H, D); positions3: (3, B, S)
+    temporal / height / width position ids.  ``sections`` partitions the
+    half-dim: frequency index ``i`` of section ``j`` rotates with
+    ``positions3[j]``, at the angles of :func:`apply_rope`."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {half}")
+    sel = torch.cat([torch.full((s,), j, dtype=torch.long)
+                     for j, s in enumerate(sections)]).to(x.device)
+    pos_half = torch.movedim(positions3.to(torch.float32)[sel], 0, -1)
+    return _rotate(x, pos_half * _rope_freqs(half, theta, x.device))
 
 
 # ---------------------------------------------------------------------------

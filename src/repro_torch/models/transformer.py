@@ -1,8 +1,15 @@
 """The transformer stack with its SFL split, mirroring
 :mod:`repro.models.transformer` (the dense family, the RG-LRU hybrid
-RecurrentGemma, xLSTM's mLSTM / sLSTM stacks and the MoE family): the
-training paths, and the serving prefill and decode step over per-block
-caches (``init_stack_cache``).
+RecurrentGemma, xLSTM's mLSTM / sLSTM stacks, the MoE family, qwen2-vl's
+M-RoPE and seamless-m4t's enc-dec): the training paths, and the serving
+prefill and decode step over per-block caches (``init_stack_cache``).
+
+A modality arch's inputs are its frontend stub's float embeddings (the
+vision patches, the audio frames), cast to the compute dtype in place of
+the token embedding.  The enc-dec's client holds the encoder's first
+``cut_layers`` blocks; its server the rest of the encoder, the
+decoder's embedding ``dec_embed`` and its ``decoder`` stack, whose blocks
+cross-attend the encoder output between the mixer and the FFN.
 
 Layer stacks keep the JAX package's pattern compression: a segment is a
 tuple (one entry per position of the repeating unit) of block-param
@@ -12,10 +19,10 @@ runs as a Python loop over reps, and the rep index rides in
 forward and the server's whole-leaf replay see the same direction.
 Renaming a path or unstacking the reps would change every seed.
 
-A block without a fused ZO lowering (a recurrent mixer, or an MoE FFN)
-runs its perturbed forward through the whole-block fallback: ``theta +
-mu*U`` materialised for the block's leaves (kernel K1) and the plain
-block run on it, as the JAX package does.
+A block without a fused ZO lowering (a recurrent mixer, an MoE FFN or a
+cross-attention) runs its perturbed forward through the whole-block
+fallback: ``theta + mu*U`` materialised for the block's leaves (kernel
+K1) and the plain block run on it, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -49,7 +56,10 @@ _REC = {"rg_lru": (REC.init_rg_lru, REC.rg_lru_block, REC.init_rg_lru_state),
         "slstm": (REC.init_slstm, REC.slstm_block, REC.init_slstm_state)}
 
 
-def init_block(gen, spec: LayerSpec, cfg: ModelConfig):
+def init_block(gen, spec: LayerSpec, cfg: ModelConfig, cross: bool = False):
+    """One block's params; ``cross`` adds the enc-dec decoder's
+    cross-attention (``cross_norm``, ``cross``) between the mixer and the
+    FFN."""
     d, dt = cfg.d_model, cfg.torch_param_dtype()
     ni = _norm_init(cfg)
     p: dict[str, Any] = {"norm1": ni(gen, d, dt)}
@@ -59,6 +69,9 @@ def init_block(gen, spec: LayerSpec, cfg: ModelConfig):
         p["rec"] = _REC[spec.mixer][0](gen, cfg)
     else:
         raise ValueError(spec.mixer)
+    if cross:
+        p["cross_norm"] = ni(gen, d, dt)
+        p["cross"] = A.init_attention(gen, cfg)
     if spec.ffn == "dense":
         p["norm2"] = ni(gen, d, dt)
         p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dt, cfg.gated_mlp, False)
@@ -79,39 +92,53 @@ def _norm(cfg: ModelConfig, params, x, perturb=None):
     return L.norm_apply(fn, params, x, perturb)
 
 
+def _halves(t, n, axis=0):
+    """The clean and perturbed halves of ``t`` on ``axis`` when its
+    length there is the dual batch ``n``; else ``t`` for both."""
+    if t is None or t.shape[axis] != n:
+        return t, t
+    return t.narrow(axis, 0, n // 2), t.narrow(axis, n // 2, n - n // 2)
+
+
 def _block_fallback(params, x, spec: LayerSpec, cfg: ModelConfig, perturb,
-                    positions=None):
+                    positions=None, enc_out=None):
     """Whole-block fallback for blocks without a fused kernel lowering
-    (recurrent mixers, MoE FFNs): materialise theta + mu*U for the
-    block's seeded leaves and run the unmodified block on it.  The noise
-    is the same per-leaf hash stream, so replay stays exact.  Dual mode
-    runs the clean params on the first half of the batch and the
-    perturbed ones on the second, as two blocks (so an MoE's capacity is
-    each half's)."""
+    (recurrent mixers, MoE FFNs, cross-attention): materialise theta +
+    mu*U for the block's seeded leaves and run the unmodified block on
+    it.  The noise is the same per-leaf hash stream, so replay stays
+    exact.  Dual mode runs the clean params on the first half of the
+    batch and the perturbed ones on the second, as two blocks (so an
+    MoE's capacity is each half's); the positions split on their batch
+    axis (dim 0 of (B, S) ids, dim 1 of (3, B, S) M-RoPE ids)."""
     pp = O.perturb_tree(params, perturb.seeds, perturb.mu, perturb.rep)
     if not perturb.dual:
-        return apply_block(pp, x, spec, cfg, positions=positions)
-    half = x.shape[0] // 2
-    pos_a = pos_b = positions
-    if positions is not None and positions.shape[0] == x.shape[0]:
-        pos_a, pos_b = positions[:half], positions[half:]
+        return apply_block(pp, x, spec, cfg, positions=positions,
+                           enc_out=enc_out)
+    n = x.shape[0]
+    pos = _halves(positions, n, -2)
+    enc = _halves(enc_out, n)
     return torch.cat([
-        apply_block(params, x[:half], spec, cfg, positions=pos_a)[0],
-        apply_block(pp, x[half:], spec, cfg, positions=pos_b)[0]],
-        dim=0), None
+        apply_block(params, x[:n // 2], spec, cfg, positions=pos[0],
+                    enc_out=enc[0])[0],
+        apply_block(pp, x[n // 2:], spec, cfg, positions=pos[1],
+                    enc_out=enc[1])[0]], dim=0), None
 
 
 def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
                 positions=None, cache=None, decode=False, live=None,
-                perturb=None):
+                enc_out=None, perturb=None):
     """Returns ``(x, cache)``: the block's cache (``{"attn": ...}`` or
     ``{"rec": ...}``, written in place by a prefill or a decode step) or
-    None without one."""
+    None without one.  ``enc_out`` (B, S_enc, d): the encoder output a
+    decoder block's cross-attention attends."""
     if perturb is not None and not O.any_seed(perturb.seeds):
         perturb = None
     if perturb is not None and (spec.mixer not in ATTN_MIXERS
-                                or spec.ffn == "moe"):
-        return _block_fallback(params, x, spec, cfg, perturb, positions)
+                                or spec.ffn == "moe"
+                                or ("cross" in params
+                                    and enc_out is not None)):
+        return _block_fallback(params, x, spec, cfg, perturb, positions,
+                               enc_out)
     h = _norm(cfg, params["norm1"], x, O.psub(perturb, "norm1"))
     if spec.mixer in ATTN_MIXERS:
         o, _ = A.attention_layer(
@@ -126,6 +153,8 @@ def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
     if cfg.post_norm:
         o = _norm(cfg, params["postnorm1"], o, O.psub(perturb, "postnorm1"))
     x = x + o
+    if "cross" in params and enc_out is not None:
+        x = x + _cross_attention(params, x, cfg, enc_out)
     if spec.ffn == "none":
         return x, cache
     h = _norm(cfg, params["norm2"], x, O.psub(perturb, "norm2"))
@@ -137,6 +166,19 @@ def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
     if cfg.post_norm:
         o = _norm(cfg, params["postnorm2"], o, O.psub(perturb, "postnorm2"))
     return x + o, cache
+
+
+def _cross_attention(params, x, cfg: ModelConfig, enc_out):
+    """The decoder block's cross sub-block: its norm, then attention of
+    x's queries over k / v projected from ``enc_out``."""
+    cdt, hd = cfg.torch_compute_dtype(), cfg.resolved_head_dim
+    B, S_enc = enc_out.shape[:2]
+    k, v = (L.dense(params["cross"][w], enc_out, cdt).reshape(
+        B, S_enc, cfg.n_kv_heads, hd) for w in ("wk", "wv"))
+    o, _ = A.attention_layer(params["cross"],
+                             _norm(cfg, params["cross_norm"], x), cfg,
+                             cross_kv=(k, v))
+    return o
 
 
 def init_block_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
@@ -174,12 +216,13 @@ def build_segments(specs: Sequence[LayerSpec]):
     return segments
 
 
-def init_stack(gen, cfg: ModelConfig, specs: Sequence[LayerSpec]):
+def init_stack(gen, cfg: ModelConfig, specs: Sequence[LayerSpec],
+               cross: bool = False):
     """A list of segment params, each a tuple (per unit position) of
     block-param trees with a stacked leading 'layers' dim."""
     out = []
     for unit, reps in build_segments(specs):
-        per_rep = [tuple(init_block(gen, spec, cfg) for spec in unit)
+        per_rep = [tuple(init_block(gen, spec, cfg, cross) for spec in unit)
                    for _ in range(reps)]
         out.append(tree_map(lambda *xs: L.stack_leaves(xs), *per_rep))
     return out
@@ -201,7 +244,7 @@ def init_stack_cache(cfg: ModelConfig, specs: Sequence[LayerSpec],
 
 def apply_stack(stack_params, x, cfg: ModelConfig,
                 specs: Sequence[LayerSpec], *, positions=None, caches=None,
-                decode=False, live=None, perturb=None):
+                decode=False, live=None, enc_out=None, perturb=None):
     """Returns ``(x, caches)``; the caches (``init_stack_cache``'s
     layout) are written in place, rep r through its views ``c[r]``.
     ``perturb.seeds`` (if given) is a list mirroring ``stack_params``: one
@@ -221,7 +264,7 @@ def apply_stack(stack_params, x, cfg: ModelConfig,
                 x, _ = apply_block(
                     params_rep[j], x, spec, cfg, positions=positions,
                     cache=None if cache_rep is None else cache_rep[j],
-                    decode=decode, live=live, perturb=pj)
+                    decode=decode, live=live, enc_out=enc_out, perturb=pj)
     return x, caches
 
 
@@ -230,11 +273,25 @@ def apply_stack(stack_params, x, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def client_specs(cfg: ModelConfig):
-    return cfg.layer_specs()[: cfg.cut_layers]
+    """The client's blocks: the first ``cut_layers`` of the stack (of the
+    encoder's, for an enc-dec)."""
+    specs = cfg.layer_specs()
+    if cfg.enc_dec:
+        specs = specs[: cfg.n_enc_layers]
+    return specs[: cfg.cut_layers]
 
 
 def server_specs(cfg: ModelConfig):
+    """The server's blocks of the stack (the rest of the encoder, for an
+    enc-dec; its decoder is :func:`decoder_specs`)."""
+    if cfg.enc_dec:
+        return cfg.layer_specs()[cfg.cut_layers: cfg.n_enc_layers]
     return cfg.layer_specs()[cfg.cut_layers:]
+
+
+def decoder_specs(cfg: ModelConfig):
+    """enc-dec only: the decoder stack (server side)."""
+    return cfg.layer_specs()[cfg.n_enc_layers:]
 
 
 def aux_specs(cfg: ModelConfig):
@@ -247,7 +304,9 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda",
     """``{"client": ..., "server": ...}`` from a seeded random init.
 
     client = embedding + first ``cut_layers`` blocks + aux head
-    server = remaining blocks + final norm (+ unembed when untied)
+    server = remaining blocks + final norm (+ unembed when untied; + the
+             decoder's embedding ``dec_embed`` and its cross-attended
+             stack ``decoder`` for an enc-dec)
 
     By default the draws come from a CPU generator and then move to
     ``device``, so one seed gives the same params on every device.
@@ -281,6 +340,11 @@ def _lm_tree(cfg: ModelConfig, gen):
         "layers": init_stack(gen, cfg, server_specs(cfg)),
         "final_norm": _norm_init(cfg)(gen, cfg.d_model, dt),
     }
+    if cfg.enc_dec:
+        server["dec_embed"] = L.init_embedding(gen, cfg.vocab_padded,
+                                               cfg.d_model, dt)
+        server["decoder"] = init_stack(gen, cfg, decoder_specs(cfg),
+                                       cross=True)
     if not cfg.tie_embeddings:
         server["unembed"] = L.init_param(gen, (cfg.d_model, cfg.vocab_padded),
                                          dt, "normal", 0.02)
@@ -291,12 +355,15 @@ def _jax_init_path(part: str, path: str, rep: int) -> str:
     """The JAX package's init path of the port's leaf ``part/path`` (rep
     ``rep`` of a stacked leaf): a stack's ``layers/<seg>/<pos>/...`` is
     ``<stack>.seg<seg>.rep<rep>.pos<pos>....``, the client's stack
-    ``client``, the aux head's ``aux``, the server's ``server``."""
+    ``client``, the aux head's ``aux``, the server's ``server``, the
+    enc-dec's ``decoder``."""
     keys = path.split("/")
     if keys[0] == "aux" and keys[1] == "layers":
         stack, keys = "aux", keys[1:]
     elif keys[0] == "layers":
         stack = part
+    elif keys[0] == "decoder":
+        stack = "decoder"
     else:
         return ".".join(keys)
     seg, pos, rest = keys[1], keys[2], keys[3:]
@@ -339,27 +406,46 @@ def _embed_scale(cfg: ModelConfig, x):
     return x
 
 
+def _embed(client_params, cfg: ModelConfig, inputs):
+    """Token ids through the embedding table; float inputs (the vision /
+    audio frontend stub's patch or frame embeddings) cast to the compute
+    dtype."""
+    cdt = cfg.torch_compute_dtype()
+    if inputs.is_floating_point():
+        return inputs.to(cdt)
+    return L.embed(client_params["embed"], inputs, cdt)
+
+
 def embed_inputs(client_params, cfg: ModelConfig, inputs):
-    return _embed_scale(cfg, L.embed(client_params["embed"], inputs,
-                                     cfg.torch_compute_dtype()))
+    return _embed_scale(cfg, _embed(client_params, cfg, inputs))
 
 
 def _embed_perturbed(client_params, cfg: ModelConfig, inputs, perturb):
     """The embedding with the ZO table perturbation.  The noise rows are
     gathered per token id (kernel K1's gathered mode on the card), never
     materializing the (vocab, d_model) field.  In dual mode returns the
-    stacked [clean; perturbed] embedding on a doubled batch axis."""
-    cdt = cfg.torch_compute_dtype()
-    x = L.embed(client_params["embed"], inputs, cdt)
+    stacked [clean; perturbed] embedding on a doubled batch axis.  Float
+    inputs (a frontend stub's) read no table: both halves are the input,
+    and the table's seed acts only through the aux head's tied
+    unembedding."""
+    x = xp = _embed(client_params, cfg, inputs)
     pe = O.psub(perturb, "embed")
     st = None if pe is None else pe.seeds.get("table")
-    if st is None:
-        xp = x
-    else:
+    if st is not None and not inputs.is_floating_point():
         u = O.zo_noise_rows(st, inputs, x.shape[-1])
-        xp = (x.to(torch.float32) + float(perturb.mu) * u).to(cdt)
+        xp = (x.to(torch.float32) + float(perturb.mu) * u).to(x.dtype)
     return _embed_scale(cfg, torch.cat([x, xp], dim=0) if perturb.dual
                         else xp)
+
+
+def dual_positions(positions):
+    """Position ids for the dual probe's [clean; perturbed] batch: the
+    ids twice on their batch axis, dim 0 of (B, S) and dim 1 of (3, B, S)
+    M-RoPE ids.  (The reference concatenates on axis 0, which for M-RoPE
+    ids is the t / h / w axis.)"""
+    if positions is None:
+        return None
+    return torch.cat([positions, positions], dim=positions.dim() - 2)
 
 
 def client_forward(client_params, cfg: ModelConfig, inputs, positions=None,
@@ -367,15 +453,15 @@ def client_forward(client_params, cfg: ModelConfig, inputs, positions=None,
     """Embedding + client blocks -> smashed data (cut-layer activations).
     With ``perturb`` the forward is ZO-perturbed; ``perturb.dual`` rides
     the clean and perturbed probes on one pass over a doubled batch
-    axis."""
+    axis, the positions doubled on theirs (:func:`dual_positions`)."""
     if perturb is not None and not O.any_seed(perturb.seeds):
         perturb = None
     if perturb is None:
         x = embed_inputs(client_params, cfg, inputs)
     else:
         x = _embed_perturbed(client_params, cfg, inputs, perturb)
-        if perturb.dual and positions is not None:
-            positions = torch.cat([positions, positions], dim=0)
+        if perturb.dual:
+            positions = dual_positions(positions)
     return apply_stack(client_params["layers"], x, cfg, client_specs(cfg),
                        positions=positions,
                        perturb=O.psub(perturb, "layers"))[0]
@@ -424,18 +510,42 @@ def lm_head(params, cfg: ModelConfig, x):
     return L.softcap(logits, cfg.final_softcap)
 
 
-def server_forward(params, cfg: ModelConfig, smashed, positions=None):
-    """Server blocks on smashed data -> logits."""
-    x, _ = apply_stack(params["server"]["layers"], smashed, cfg,
-                       server_specs(cfg), positions=positions)
+def server_forward(params, cfg: ModelConfig, smashed, positions=None,
+                   dec_tokens=None, dec_positions=None):
+    """Server blocks on smashed data -> logits.  An enc-dec's server ends
+    its encoder with the final norm, then runs the decoder on
+    ``dec_tokens`` cross-attending that output; the same final norm ends
+    the decoder."""
+    server = params["server"]
+    x, _ = apply_stack(server["layers"], smashed, cfg, server_specs(cfg),
+                       positions=positions)
+    if cfg.enc_dec:
+        x = decoder_forward(params, cfg, dec_tokens,
+                            _norm(cfg, server["final_norm"], x),
+                            positions=dec_positions)
     return lm_head(params, cfg, x)
 
 
-def full_forward(params, cfg: ModelConfig, inputs, positions=None):
+def decoder_forward(params, cfg: ModelConfig, tokens, enc_out,
+                    positions=None, caches=None, decode=False, live=None):
+    """The enc-dec's decoder on ``tokens``, its blocks cross-attending
+    ``enc_out`` -> hidden states before the head; with ``caches`` (its
+    stack's, written in place) a prefill or, with ``decode``, a step."""
+    server = params["server"]
+    y = L.embed(server["dec_embed"], tokens, cfg.torch_compute_dtype())
+    return apply_stack(server["decoder"], y, cfg, decoder_specs(cfg),
+                       positions=positions, caches=caches, decode=decode,
+                       live=live, enc_out=enc_out)[0]
+
+
+def full_forward(params, cfg: ModelConfig, inputs, positions=None,
+                 dec_tokens=None):
     """Whole-model forward (client blocks, then server blocks; no aux
-    head) -> logits."""
+    head) -> logits; an enc-dec's decoder runs on ``dec_tokens`` at
+    ``positions``."""
     smashed = client_forward(params["client"], cfg, inputs, positions)
-    return server_forward(params, cfg, smashed, positions)
+    return server_forward(params, cfg, smashed, positions, dec_tokens,
+                          positions if cfg.enc_dec else None)
 
 
 def lm_loss(logits, labels, vocab: int):

@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from torch_round_parity import one_torch_thread  # noqa: F401
-from torch_serve_parity import (RULES, TOL, XLSTM_TOL, assert_trees_close,
-                                jax_config)
+from torch_serve_parity import (DECODER_ONLY, RULES, TOL, XLSTM_TOL,
+                                assert_trees_close, jax_config)
 from repro.configs import registry as JREG
 from repro.core import decode as JD
 from repro.core import protocols as JP
@@ -97,7 +97,7 @@ def test_rg_lru_prefill_state_and_decode_step_match_jax():
 
 @pytest.mark.parametrize("per_slot", [False, True])
 @pytest.mark.parametrize("smoke", [True, False])
-@pytest.mark.parametrize("arch", REG.ARCH_IDS)
+@pytest.mark.parametrize("arch", DECODER_ONLY)
 def test_init_serve_caches_tree_matches_jax(arch, smoke, per_slot):
     """The same tree as the reference's: containers, keys, the leading
     reps axis, shapes and dtypes (bf16 at full width), and its initial
@@ -149,7 +149,7 @@ def test_decode_attention_matches_jax(valid, window, cap):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("arch", REG.ARCH_IDS)
+@pytest.mark.parametrize("arch", DECODER_ONLY)
 def test_cached_prefill_and_serve_step_match_jax(arch):
     """A 10-token block prefill into per-slot caches of 14 (the window-8
     local layers' rings wrap), then two serve steps: the first with both

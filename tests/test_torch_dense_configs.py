@@ -138,18 +138,20 @@ def test_kernel_round_matches_jax(arch):
 
 
 def test_registry():
-    assert set(REG.ARCH_IDS) == set(ARCHS) | {
-        "recurrentgemma-9b", "gpt2", "xlstm-1.3b", "qwen3-moe-30b-a3b",
-        "kimi-k2-1t-a32b"}
-    assert set(REG.ARCH_IDS) - {"gpt2"} <= set(JREG.ARCH_IDS)
+    """The port's registry is the reference's, and gpt2."""
+    assert set(REG.ARCH_IDS) == set(JREG.ARCH_IDS) | {"gpt2"}
+    assert set(ARCHS) | {"recurrentgemma-9b", "xlstm-1.3b",
+                         "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b",
+                         "qwen2-vl-2b", "seamless-m4t-medium"} == \
+        set(JREG.ARCH_IDS)
     assert REG.get_config("gpt2").name == "gpt2-small"
     assert REG.get_config("gpt2", smoke=True).name == "gpt2-tiny"
     assert REG.get_config("recurrentgemma-9b").n_layers == 38
-    assert set(JREG.ARCH_IDS) - set(REG.ARCH_IDS) == {
-        "qwen2-vl-2b", "seamless-m4t-medium"}
-    for name in set(JREG.ARCH_IDS) - set(REG.ARCH_IDS):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 "
-                           "item 6"):
-            REG.get_config(name)
+    for name in JREG.ARCH_IDS:
+        for smoke in (False, True):
+            assert REG.get_config(name, smoke).name == \
+                JREG.get_config(name, smoke).name
+    assert REG.get_config("qwen2-vl-2b").rope_kind == "mrope"
+    assert REG.get_config("seamless-m4t-medium", smoke=True).enc_dec
     with pytest.raises(KeyError):
         REG.get_config("gpt5")

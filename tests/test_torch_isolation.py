@@ -39,7 +39,9 @@ NEW_MODULES = ("repro_torch.data.synthetic", "repro_torch.data.partition",
                "repro_torch.distributed.fault", "repro_torch.launch.train",
                "repro_torch.models.moe", "repro_torch.configs.xlstm_1_3b",
                "repro_torch.configs.qwen3_moe_30b_a3b",
-               "repro_torch.configs.kimi_k2_1t_a32b")
+               "repro_torch.configs.kimi_k2_1t_a32b",
+               "repro_torch.configs.qwen2_vl_2b",
+               "repro_torch.configs.seamless_m4t_medium")
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_repro():

@@ -1,6 +1,8 @@
 """The port's continuous-batching ``DecodeEngine`` against the JAX
-package's on the CPU, for every arch in the port's registry (smoke
-configs, f32): mixed-length prompts (5 and 9 tokens) through 2 slots of
+package's on the CPU, for every decoder-only arch in the port's registry
+(``torch_serve_parity.DECODER_ONLY``: the enc-dec keeps its token loop,
+``tests/test_torch_enc_dec_serve.py``; smoke configs, f32): mixed-length
+prompts (5 and 9 tokens) through 2 slots of
 capacity 24 in segments of 4, as ``tests/test_serve.py`` drives the JAX
 engine.  Greedy token streams must be JAX's exactly, and the port's
 eager per-token ``make_serve_step`` loop's; one sampled configuration
@@ -12,7 +14,8 @@ import pytest
 import torch
 
 from torch_round_parity import one_torch_thread  # noqa: F401
-from torch_serve_parity import RULES, TOL, assert_trees_close, jax_config
+from torch_serve_parity import (DECODER_ONLY, RULES, TOL, assert_trees_close,
+                                jax_config)
 from repro.core import decode as JD
 from repro.core import protocols as JP
 from repro.models import transformer as JT
@@ -85,7 +88,7 @@ def eager_greedy(tp, cfg, prompt, max_new, capacity=24):
     return toks
 
 
-@pytest.mark.parametrize("arch", REG.ARCH_IDS)
+@pytest.mark.parametrize("arch", DECODER_ONLY)
 def test_engine_greedy_streams_equal_jax_and_eager(arch):
     """Every port arch: the port engine's greedy streams == the JAX
     engine's == the port's eager per-token loop."""

@@ -3,16 +3,26 @@ in-process on the CPU with ``--smoke``: a resumed datacenter run ends
 where an uninterrupted one does, bit for bit; ``--fed`` (lean uplink)
 and ``--fed-async --cutplan`` print the losses and cut plans of
 ``repro.launch.train.main`` with the same arguments; the mesh flags
-raise and name ROADMAP queue 1 item 7."""
+raise and name ROADMAP queue 1 item 7; ``build_batch`` gives the
+reference's enc-dec, vision and audio batches, and ``--fed`` refuses
+those archs as the reference's does."""
+import dataclasses
 import os
 import re
 import shutil
 
+import jax
 import numpy as np
 import pytest
+import torch
 
 from torch_round_parity import one_torch_thread  # noqa: F401
+from repro.configs import registry as JREG
+from repro.data import synthetic as JDATA
 from repro.launch import train as JTRAIN
+from repro_torch.configs import registry as REG
+from repro_torch.core import prng as R
+from repro_torch.data import synthetic as DATA
 from repro_torch.launch import train as TRAIN
 
 BASE = ["--arch", "qwen2-1.5b", "--smoke", "--batch", "2", "--seq", "16"]
@@ -99,9 +109,38 @@ def test_default_device_is_the_card():
         TRAIN.main(BASE + ["--steps", "1"])
 
 
-def test_build_batch_raises_for_other_frontends():
-    class EncDec:
-        enc_dec = True
+@pytest.mark.parametrize("arch,frontend", [
+    ("seamless-m4t-medium", "audio"), ("qwen2-vl-2b", "vision"),
+    ("qwen2-vl-2b", "audio")], ids=["enc-dec", "vision", "audio"])
+def test_build_batch_matches_jax(arch, frontend):
+    """The enc-dec, vision and audio batches of ``build_batch`` from the
+    same bigram data and key: the token leaves equal, the frontend stub's
+    embeddings (JAX's normals) within 4 f32 ulps, the M-RoPE ids equal.
+    The audio case is qwen2-vl's smoke config with the audio frontend
+    (the reference registers no decoder-only audio arch)."""
+    jcfg = dataclasses.replace(JREG.get_config(arch, smoke=True),
+                               frontend=frontend)
+    cfg = REG.get_config(arch, smoke=True).replace(frontend=frontend)
+    want = JTRAIN.build_batch(
+        jcfg, JDATA.BigramLM(vocab=jcfg.vocab, seq_len=16, seed=0),
+        jax.random.fold_in(jax.random.PRNGKey(7), 3), 2, 16)
+    got = TRAIN.build_batch(cfg, DATA.BigramLM(vocab=cfg.vocab, seq_len=16,
+                                               seed=0),
+                            R.fold_in(R.PRNGKey(7), 3), 2, 16)
+    assert set(got) == set(want)
+    for k, b in want.items():
+        a, b = got[k].numpy(), np.asarray(b)
+        assert a.shape == b.shape, k
+        if k == "inputs":
+            assert got[k].dtype == torch.float32
+            np.testing.assert_allclose(a, b, rtol=0, atol=4 * np.spacing(
+                np.float32(np.abs(b).max())))
+        else:
+            np.testing.assert_array_equal(a, b)
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TRAIN.build_batch(EncDec(), None, None, 2, 16)
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-medium"])
+def test_fed_refuses_modality_archs(arch):
+    with pytest.raises(SystemExit, match="decoder-only text archs"):
+        TRAIN.main(["--arch", arch, "--smoke", "--device", "cpu", "--fed",
+                    "--steps", "1"])

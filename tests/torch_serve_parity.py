@@ -7,8 +7,14 @@ import numpy as np
 from repro.configs import gpt2 as JGPT2
 from repro.configs import registry as JREG
 from repro.distributed.sharding import AxisRules
+from repro_torch.configs import registry as REG
 
 RULES = AxisRules(mesh=None)
+# the port's archs that serve through the engine (tests/test_serve.py's
+# DECODER_ONLY): the enc-dec keeps its token loop
+# (tests/test_torch_enc_dec_serve.py)
+DECODER_ONLY = [a for a in REG.ARCH_IDS
+                if not REG.get_config(a, smoke=True).enc_dec]
 TOL = dict(rtol=1e-5, atol=1e-5)
 # xlstm-1.3b's smoke stack: torch's exp / log_sigmoid differ from
 # XLA:CPU's by 1-2 ulps, and the mLSTM divides by |n.q| (which nearly
