@@ -139,7 +139,22 @@ Phases, one line each (any failure exits non-zero):
      threefry rounds and the seamless token loop on the card against the
      CPU (the qwen2-vl smoke engine is phase 13's); the launch drivers
      as processes (train on both archs, serve on seamless).
-Phases 9-16 run before phase 8's timings.  The line before the last
+ 17. the cohort mesh (the Fed-Server's sharded and chunked seed replay):
+     (a) the kernel-stream replay over qwen2-1.5b's client tree (f32,
+     N=16 clients, h=2, n_pairs=1: 32 entries, 3 clients masked): the flat
+     walk, chunk=5 and a one-rank NCCL group's shard="clients", each ==
+     the flat walk bit for bit; then two ranks as processes on the card
+     (gloo: NCCL takes one rank a device), shard and shard + chunk=5, each
+     within rtol 1e-5 atol 1e-6 of the flat walk, the ranks' results
+     equal bit for bit, shard + chunk equal to shard (the chunk changes
+     nothing in the eager walk); K1 launches (a rank's slab), wall ms and peak
+     memory per mode and rank; (b) the same for the threefry replay over
+     gpt2-small's client tree (N=4, h=1, gaussian); (c) phase 5's
+     gpt2-small round with replay_shard="clients", replay_chunk=4 on the
+     one-rank NCCL group against the unsharded round (server state bit
+     for bit, client within the same bar), and the launch driver with
+     --replay-shard clients --replay-chunk 3 as a process.
+Phases 9-17 run before phase 8's timings.  The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
 """
@@ -1009,12 +1024,14 @@ def check_k5(dev):
 # ---------------------------------------------------------------------------
 
 def _make_round(api, params, rb, n_clients, h, mu, lr, server_lr,
-                server_eps=1e-8, method="heron", fed_kw=None, scale="sphere"):
+                server_eps=1e-8, method="heron", fed_kw=None, scale="sphere",
+                replay_kw=None):
     """HERON on the lean uplink (plain-SGD clients at ``lr``), or a
     first-order ``method`` on the dense uplink with AdamW clients at
     ``lr`` (``eps`` = ``server_eps``).  ``fed_kw``: more FedConfig
     knobs; ``scale``: the threefry direction's (unused by the kernel
-    stream and the first-order methods)."""
+    stream and the first-order methods); ``replay_kw``: HERON's
+    ``replay_shard`` / ``replay_mesh`` / ``replay_chunk``."""
     from repro_torch.core import protocols as P
     from repro_torch.core import zo as Z
     from repro_torch.optim.optimizers import adamw, zo_sgd
@@ -1025,7 +1042,8 @@ def _make_round(api, params, rb, n_clients, h, mu, lr, server_lr,
     zo = Z.ZOConfig(mu=mu, n_pairs=1, scale=scale)
     if method == "heron":
         rnd = P.make_fed_round(api, "heron", zo, fed, zo_sgd(lr), sopt,
-                               uplink="seed_replay", client_lr=lr)
+                               uplink="seed_replay", client_lr=lr,
+                               **(replay_kw or {}))
     else:
         rnd = P.make_fed_round(api, method, zo, fed,
                                adamw(lr, eps=server_eps), sopt)
@@ -1046,7 +1064,7 @@ def _with_lora(params, rank, seed):
 def _round_setup(cfg, dev, n_clients, h, batch, seq, mu, lr, server_lr,
                  seed=0, draw_on_device=False, server_eps=1e-8,
                  method="heron", fed_kw=None, lora_rank=0,
-                 forward_impl="kernel", scale="sphere"):
+                 forward_impl="kernel", scale="sphere", replay_kw=None):
     """``forward_impl="kernel"``: HERON on the fused dual-probe kernels;
     ``"xla"``: on the threefry stream at ``scale``."""
     import torch
@@ -1062,7 +1080,8 @@ def _round_setup(cfg, dev, n_clients, h, batch, seq, mu, lr, server_lr,
                                   draw_on_device=draw_on_device),
                         lora_rank, seed)
     return _make_round(P.lm_api(cfg), params, rb, n_clients, h, mu, lr,
-                       server_lr, server_eps, method, fed_kw, scale)
+                       server_lr, server_eps, method, fed_kw, scale,
+                       replay_kw)
 
 
 def _cnn_round_setup(cfg, dev, n_clients, h, batch, hw, mu, lr, server_lr,
@@ -3465,6 +3484,397 @@ def run_modality_phase(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the cohort mesh (the sharded and chunked seed replay)
+# ---------------------------------------------------------------------------
+
+# (a) the kernel stream over qwen2-1.5b's client tree: N=16 clients, h=2,
+# n_pairs=1 (32 entries), three clients masked; (b) the threefry stream
+# (gaussian) over gpt2-small's: N=4, h=1, one client masked
+MESH_CASES = {"kernel": dict(n=16, h=2, drop=(3, 8, 13), chunk=5),
+              "threefry": dict(n=4, h=1, drop=(2,), chunk=3)}
+MESH_LR = 1e-2
+# the reference's bar for the sharded replay against the flat one
+MESH_TOL = dict(rtol=1e-5, atol=1e-6)
+MESH_WORLD = 2
+MESH_TIMEOUT_S = 300
+
+
+def mesh_inputs(stream, dev):
+    """``(client, seed_pred, keys, coeffs, mask)`` of 17(a) / (b), the
+    same on every process (the card's seeded generator, numpy seeds).
+    The client tree is the model's, cast to f32: the reference holds the
+    sharded replay to the flat one at an f32 bar, which a bf16 cast of
+    the result would round away."""
+    import torch
+    from repro_torch.configs.gpt2 import gpt2_small
+    from repro_torch.configs.qwen2_1_5b import full_config
+    from repro_torch.core import protocols as P
+    from repro_torch.core import zo as Z
+    from repro_torch.kernels import ops as O
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    case = MESH_CASES[stream]
+    cfg = full_config() if stream == "kernel" else gpt2_small()
+    client = tree_map(lambda t: t.float(), T.init_lm(
+        cfg, seed=25, device=dev, draw_on_device=True)["client"])
+    n = case["n"]
+    coeffs = torch.as_tensor(np.random.default_rng(25).standard_normal(
+        (n, case["h"], 1)).astype(np.float32), device=dev)
+    mask = torch.ones((n,), device=dev)
+    mask[list(case["drop"])] = 0.0
+    keys = (O.fold_seed(20261016, np.arange(n)) if stream == "kernel"
+            else Z.fold_in_range(ROUND_KEY, n))
+    return client, P.lm_api(cfg).seed_pred, keys, coeffs, mask
+
+
+def mesh_replay(stream, inputs, **kw):
+    from repro_torch.core import aggregate as AG
+    from repro_torch.core import zo as Z
+    client, pred, keys, coeffs, mask = inputs
+    if stream == "kernel":
+        return AG.seed_replay_aggregate_kernel(client, keys, coeffs, MESH_LR,
+                                               mask, seed_pred=pred, **kw)
+    return AG.seed_replay_aggregate(
+        client, keys, coeffs, MESH_LR,
+        Z.ZOConfig(mu=1e-3, n_pairs=1, scale="gaussian"), mask, **kw)
+
+
+def slab_entries(m, n, r):
+    """The entries of an ``m``-entry stream that rank ``r`` of ``n``
+    walks, padding excluded (``aggregate._replay_engine``'s slabs; the
+    chunk changes nothing)."""
+    per = -(-m // n)
+    return max(0, min((r + 1) * per, m) - r * per)
+
+
+def timed_replay(desc, stream, inputs, k1, **kw):
+    """One replay in the mode ``kw``: its wall ms (to the card's sync;
+    the sharded modes wait in their all-reduce), peak memory and
+    launches, K1 ``k1`` on the kernel stream and none else."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = mesh_replay(stream, inputs, **kw)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = launch_counts()
+    check_counts(desc, counts, {**{k: 0 for k in counts},
+                                "zo_noise": k1 if stream == "kernel" else 0})
+    return out, ms, torch.cuda.max_memory_allocated(), counts["zo_noise"]
+
+
+def trees_equal(a, b):
+    import torch
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y
+        for x, y in zip(la, lb))
+
+
+def trees_close(desc, a, b, rtol, atol):
+    """Fails unless every leaf of ``a`` is within ``atol + rtol |b|`` of
+    ``b``'s; returns the largest |d|."""
+    from repro_torch.tree import tree_leaves
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = (x.float() - y.float()).abs()
+        if not bool((d <= atol + rtol * y.float().abs()).all()):
+            fail(f"{desc}: max |d| {float(d.max())} past rtol {rtol} atol "
+                 f"{atol}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def tree_digest(tree):
+    """blake2b of every leaf's bytes, in leaf order: equal digests are
+    equal trees bit for bit."""
+    import hashlib
+    from repro_torch.tree import tree_leaves
+    h = hashlib.blake2b()
+    for t in tree_leaves(tree):
+        h.update(memoryview(t.detach().contiguous().cpu().numpy()))
+    return h.hexdigest()
+
+
+def first_all_reduce_ms(dev):
+    """Wall ms of a one-entry all-reduce over the default group: the
+    first sets the communicator up, outside the timed replays."""
+    import torch
+    import torch.distributed as dist
+    x = torch.zeros((1,), device=dev)
+    t0 = time.perf_counter()
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def mesh_rank(rank, world, workdir, device="cuda"):
+    """One rank of 17(a) / (b)'s two-rank replay (``chip_smoke.py
+    --mesh-rank RANK WORLD DIR``): a gloo group on a FileStore in DIR,
+    both ranks on the card 0.  Per stream the flat walk (its digest),
+    then ``shard="clients"`` and ``shard + chunk``: each held to the flat
+    walk at MESH_TOL, its K1 launches the rank's slab.  Prints one
+    ``MESH_RANK {json}`` line."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.mesh import make_replay_mesh
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(workdir, "store"), world), rank=rank, world_size=world)
+    try:
+        mesh = make_replay_mesh()
+        res = {"first all-reduce ms": first_all_reduce_ms(dev)}
+        for stream, case in MESH_CASES.items():
+            inputs = mesh_inputs(stream, dev)
+            m = case["n"] * case["h"]
+            flat = mesh_replay(stream, inputs)
+            res[f"{stream} flat"] = {"digest": tree_digest(flat)}
+            for mode, chunk in (("shard", None),
+                                (f"shard+chunk={case['chunk']}",
+                                 case["chunk"])):
+                desc = f"rank {rank} {stream} {mode}"
+                out, ms, peak, k1 = timed_replay(
+                    desc, stream, inputs, slab_entries(m, world, rank),
+                    shard="clients", mesh=mesh, chunk=chunk)
+                res[f"{stream} {mode}"] = {
+                    "k1": k1, "ms": ms, "peak": peak,
+                    "max_abs": trees_close(desc, out, flat, **MESH_TOL),
+                    "digest": tree_digest(out)}
+                del out
+            del flat, inputs
+            torch.cuda.empty_cache()
+        print("MESH_RANK " + json.dumps(res), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_mesh_ranks(card, flat_digests):
+    """17(a) / (b) across two ranks: two processes of ``mesh_rank``
+    started together on the card, gloo on a FileStore (NCCL takes one rank
+    a device); every rank's modes within MESH_TOL of the flat walk, the
+    ranks' results equal bit for bit (digests), ``shard + chunk`` equal
+    to ``shard`` bit for bit (the chunk changes nothing), each rank's
+    flat walk the parent's bit for bit."""
+    import tempfile
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "GLOO_SOCKET_IFNAME": os.environ.get("GLOO_SOCKET_IFNAME", "lo")}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        logs = [(open(os.path.join(d, f"out{r}"), "w+"),
+                 open(os.path.join(d, f"err{r}"), "w+"))
+                for r in range(MESH_WORLD)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--mesh-rank", str(r), str(MESH_WORLD), d], cwd=ROOT, env=env,
+            stdout=o, stderr=e, text=True) for r, (o, e) in enumerate(logs)]
+        try:
+            deadline = time.monotonic() + MESH_TIMEOUT_S
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) or \
+                        time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        outs = []
+        for r, (p, (o, e)) in enumerate(zip(procs, logs)):
+            o.seek(0)
+            e.seek(0)
+            out, err = o.read(), e.read()
+            o.close()
+            e.close()
+            if p.returncode != 0:
+                fail(f"mesh rank {r}: exit {p.returncode} (killed after "
+                     f"{MESH_TIMEOUT_S} s or when a rank failed): "
+                     f"{err[-3000:]}")
+            lines = [ln for ln in out.splitlines()
+                     if ln.startswith("MESH_RANK ")]
+            if len(lines) != 1:
+                fail(f"mesh rank {r}: no MESH_RANK line: {out[-2000:]}")
+            outs.append(json.loads(lines[0][len("MESH_RANK "):]))
+    wall = time.perf_counter() - t0
+    first = [o.pop("first all-reduce ms") for o in outs]
+    for mode, res0 in outs[0].items():
+        for r, res in enumerate(outs):
+            if res[mode]["digest"] != res0["digest"]:
+                fail(f"mesh {mode}: rank {r}'s result differs from rank 0's")
+    for stream, case in MESH_CASES.items():
+        chunked = outs[0][f"{stream} shard+chunk={case['chunk']}"]
+        if chunked["digest"] != outs[0][f"{stream} shard"]["digest"]:
+            fail(f"mesh {stream}: shard + chunk={case['chunk']} differs "
+                 "from shard")
+    for stream, digest in flat_digests.items():
+        if outs[0][f"{stream} flat"]["digest"] != digest:
+            fail(f"mesh {stream} flat walk: the ranks' differs from this "
+                 "process's")
+    for mode in outs[0]:
+        if mode.endswith(" flat"):
+            continue
+        for r, res in enumerate(o[mode] for o in outs):
+            log(17, f"{mode} over {MESH_WORLD} ranks (gloo, one card), rank "
+                f"{r}: K1 launches {res['k1']}, wall_ms {res['ms']}, "
+                f"max_memory_allocated {res['peak']}, max |d| vs the flat "
+                f"walk {res['max_abs']} (within rtol 1e-5 atol 1e-6)")
+    log(17, f"two ranks on {card}: every mode's results equal across the "
+        f"ranks bit for bit (blake2b digests), shard + chunk equal to "
+        f"shard, and each rank's flat walk equal to this process's; first "
+        f"all-reduce (set-up) {first} ms; both processes done in "
+        f"{wall:.1f} s")
+
+
+def run_mesh_round(dev, card, mesh):
+    """17(c): phase 5's gpt2-small round with ``replay_shard="clients"``,
+    ``replay_chunk=4`` on the one-rank NCCL mesh, against phase 5's
+    unsharded round from the same state on the same key: the launches
+    equal, the server and client states bit for bit (one rank).
+    Returns the sharded round's launches."""
+    import torch
+    from repro_torch.configs.gpt2 import gpt2_small
+    from repro_torch.core import protocols as P
+    cfg = gpt2_small()
+    state, rb, rnd = _round_setup(cfg, dev, n_clients=2, h=1, batch=4,
+                                  seq=256, mu=1e-3, lr=1e-4, server_lr=2e-4)
+    _, _, srnd = _make_round(
+        P.lm_api(cfg.replace(forward_impl="kernel")), state, rb, 2, 1, 1e-3,
+        1e-4, 2e-4, replay_kw=dict(replay_shard="clients", replay_mesh=mesh,
+                                   replay_chunk=4))
+    reset_counts()
+    ref, _ = rnd(state, rb, ROUND_KEY)
+    ref_counts = launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    new, m = srnd(state, rb, ROUND_KEY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check_counts("gpt2-small sharded round", counts, ref_counts)
+    for part in ("server", "opt_server"):
+        if not trees_equal(new[part], ref[part]):
+            fail(f"gpt2-small sharded round: {part} differs from the "
+                 "unsharded round's")
+    if not trees_equal(new["client"], ref["client"]):
+        fail("gpt2-small sharded round: the client differs from the "
+             "unsharded round's (one rank: the same walk)")
+    log(17, f"gpt2-small round (phase 5's size, kernel stream) with "
+        f"replay_shard='clients' replay_chunk=4 on a one-rank "
+        f"{torch.distributed.get_backend()} group on {card}: client_loss "
+        f"{float(m['client_loss'])} wall_s {wall} "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()}; "
+        f"launches {counts} == the unsharded round's; server and optimizer "
+        f"state and client == the unsharded round's bit for bit")
+    return counts
+
+
+def run_mesh_cli(card):
+    """17(c): the training driver with the sharded, chunked replay as a
+    process (one rank: an NCCL group on an in-memory store)."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    args = [sys.executable, "-m", "repro_torch.launch.train", "--fed",
+            "--uplink", "seed_replay", "--replay-shard", "clients",
+            "--replay-chunk", "3", "--smoke", "--device", "cuda", "--batch",
+            "2", "--seq", "16", "--clients", "4", "--local-steps", "2",
+            "--steps", "2"]
+    t0 = time.perf_counter()
+    out = subprocess.run(args, capture_output=True, text=True, cwd=ROOT,
+                         env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"launch.train --replay-shard clients --replay-chunk 3: exit "
+             f"{out.returncode}: {out.stderr[-2000:]}")
+    if "[fed] round   1" not in out.stdout:
+        fail(f"launch.train --replay-shard: no second round in its output: "
+             f"{out.stdout[-2000:]}")
+    log(17, f"launch.train --fed --uplink seed_replay --replay-shard clients "
+        f"--replay-chunk 3 --smoke on {card}: exit 0 in {wall:.1f} s; last "
+        f"line: {out.stdout.strip().splitlines()[-1]}")
+
+
+def run_mesh_phase(dev, card):
+    """Phase 17: (a) the kernel-stream replay over qwen2-1.5b's client
+    tree: the flat walk, ``chunk`` (== flat bit for bit) and a one-rank
+    NCCL group's ``shard`` (== flat bit for bit) here, ``shard`` and
+    ``shard + chunk`` over two ranks; (b) the threefry replay over
+    gpt2-small's: flat, ``chunk`` here, the two ranks; (c) a sharded,
+    chunked gpt2-small round and the driver.  Returns the launches of
+    (a)'s one-rank shard walk and (c)'s round."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.mesh import init_distributed, \
+        make_replay_mesh
+    from repro_torch.tree import tree_leaves
+    start = [time.perf_counter()]
+
+    def took(part):
+        now = time.perf_counter()
+        log(17, f"({part} took {now - start[0]:.1f} s)")
+        start[0] = now
+
+    flat_digests = {}
+    owned = init_distributed(dev)
+    try:
+        mesh = make_replay_mesh()
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dist.get_backend() != backend or mesh.shape != {"clients": 1}:
+            fail(f"one-rank replay mesh {mesh.shape} on "
+                 f"{dist.get_backend()}")
+        log(17, f"one-rank {backend} group: first all-reduce (the "
+            f"communicator's set-up) {first_all_reduce_ms(dev)} ms")
+        for stream, case in MESH_CASES.items():
+            inputs = mesh_inputs(stream, dev)
+            mesh_replay(stream, inputs)               # warm-up
+            n_params = sum(t.numel() for t in tree_leaves(inputs[0]))
+            m = case["n"] * case["h"]
+            desc = (f"{stream} replay over {n_params} f32 params, N="
+                    f"{case['n']} h={case['h']} n_pairs=1 ({m} entries), "
+                    f"clients {list(case['drop'])} masked")
+            flat, ms, peak, k1 = timed_replay(desc, stream, inputs, m)
+            log(17, f"{desc}, flat walk on {card}: K1 launches {k1}, wall_ms "
+                f"{ms}, max_memory_allocated {peak}")
+            modes = [(f"chunk={case['chunk']}", dict(chunk=case["chunk"]))]
+            if stream == "kernel":
+                modes.append((f"shard over a one-rank {backend} group",
+                              dict(shard="clients", mesh=mesh)))
+            for mode, kw in modes:
+                out, ms, peak, k1 = timed_replay(f"{desc} {mode}", stream,
+                                                 inputs, m, **kw)
+                if not trees_equal(out, flat):
+                    fail(f"{desc} {mode}: differs from the flat walk")
+                log(17, f"{desc}, {mode}: == the flat walk bit for bit; K1 "
+                    f"launches {k1}, wall_ms {ms}, max_memory_allocated "
+                    f"{peak}")
+                if "shard" in kw:
+                    counts = launch_counts()
+                del out
+            flat_digests[stream] = tree_digest(flat)
+            del flat, inputs
+            torch.cuda.empty_cache()
+        took("17a-b here")
+        round_counts = run_mesh_round(dev, card, mesh)
+        torch.cuda.empty_cache()
+        took("17c round")
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    run_mesh_ranks(card, flat_digests)
+    took("17a-b two ranks")
+    run_mesh_cli(card)
+    took("17c driver")
+    return {k: counts[k] + round_counts[k] for k in counts}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: times
 # ---------------------------------------------------------------------------
 
@@ -3898,7 +4308,7 @@ def k1_sass():
 
 
 def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
-                 counts_train, counts_family, counts_modality):
+                 counts_train, counts_family, counts_modality, counts_mesh):
     """``counts``: launches of the gpt2-small round (K1-K3);
     ``counts_sp``: of the gpt2-small single-probe forward (K4, K5);
     ``counts_rg``: of the recurrentgemma round (K6); ``counts_serve``: of
@@ -3907,7 +4317,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
     (K1-K3), added to K1's, K2's and K3's; ``counts_family``: of phase
     15's two full-width rounds (K1) and its MoE engine run (K5), added
     to K1's and K5's; ``counts_modality``: of phase 16's two full-width
-    rounds (K1-K3) and its qwen2-vl engine run (K5)."""
+    rounds (K1-K3) and its qwen2-vl engine run (K5); ``counts_mesh``: of
+    phase 17's one-rank sharded replay (K1) and sharded round (K1-K3)."""
     import torch
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import ops as O
@@ -3939,7 +4350,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
                  "source": "src/repro_torch/kernels/csrc/zo_noise.cu",
                  "replaces": "src/repro/kernels/zo_matmul.py:274",
                  "launches": counts["zo_noise"] + counts_train["zo_noise"]
-                 + counts_family["zo_noise"] + counts_modality["zo_noise"],
+                 + counts_family["zo_noise"] + counts_modality["zo_noise"]
+                 + counts_mesh["zo_noise"],
                  "max_abs_err": errs[0],
                  "ms": ms, "plain_ms": pl, "bound_ms": b,
                  "bound_by": by.split(" ")[0], "library_ms": None})
@@ -3986,7 +4398,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
                  "replaces": "src/repro/kernels/zo_matmul.py:227",
                  "launches": counts["zo_dual_matmul"]
                  + counts_train["zo_dual_matmul"]
-                 + counts_modality["zo_dual_matmul"], "max_abs_err": errs[1],
+                 + counts_modality["zo_dual_matmul"]
+                 + counts_mesh["zo_dual_matmul"], "max_abs_err": errs[1],
                  "ms": ms, "plain_ms": pl, "bound_ms": b, "bound_by": by,
                  "library_ms": lib})
 
@@ -3996,7 +4409,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
                            + counts_family["flash_attention"]
                            + counts_modality["flash_attention"])
     k3_row["launches"] += (counts_train["zo_dual_flash_attention"]
-                           + counts_modality["zo_dual_flash_attention"])
+                           + counts_modality["zo_dual_flash_attention"]
+                           + counts_mesh["zo_dual_flash_attention"])
     rows.append(k3_row)
 
     # K4: gpt2-small's three client shapes in bf16 (768x3072 is the main
@@ -4079,6 +4493,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
 
 def main():
     import torch
+    if sys.argv[1:2] == ["--mesh-rank"]:          # a rank of phase 17
+        return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -4139,9 +4555,12 @@ def main():
     counts_modality = run_modality_phase(dev, card)
     torch.cuda.empty_cache()
     took("16")
+    counts_mesh = run_mesh_phase(dev, card)
+    torch.cuda.empty_cache()
+    took("17")
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs,
                         counts_serve, counts_train, counts_family,
-                        counts_modality)
+                        counts_modality, counts_mesh)
     compiler_report()
     check_hgmma()
     k1_sass()

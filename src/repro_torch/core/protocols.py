@@ -620,7 +620,9 @@ def _dense_metrics(state, losses, s_losses, mask, n_clients):
 def make_fed_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
                    fed: FedConfig, client_opt: Optimizer,
                    server_opt: Optimizer, uplink: str = "dense",
-                   client_lr: float | None = None):
+                   client_lr: float | None = None,
+                   replay_shard: str = "none", replay_mesh=None,
+                   replay_chunk: int | None = None):
     """Returns ``round(state, round_batch, key, mask=None) ->
     (state, metrics)``.
 
@@ -636,7 +638,14 @@ def make_fed_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
     ``uplink="seed_replay"`` is the paper's lean uplink (HERON only):
     clients step with plain SGD at ``client_lr`` and the Fed-Server
     replays their directions from (key, coeffs); it matches ``"dense"``
-    exactly at h == 1.
+    exactly at h == 1.  ``replay_shard`` / ``replay_mesh`` /
+    ``replay_chunk`` select the replay's mode (:func:`repro_torch.core.
+    aggregate._replay_engine`): ``replay_shard="clients"`` partitions the
+    (client, step, pair) stream over that axis of the cohort mesh, whose
+    ranks run the cohort and the server steps replicated on the same
+    seeds and end the round holding the same state.  ``replay_chunk`` is
+    taken for the reference's API and changes nothing in the eager walk.
+    The defaults are the flat walk.
     """
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
@@ -700,11 +709,13 @@ def make_fed_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
                 if kernel_client:
                     new_client = AG.seed_replay_aggregate_kernel(
                         state["client"], client_keys, coeffs, client_lr,
-                        mask, seed_pred=api.seed_pred)
+                        mask, seed_pred=api.seed_pred, shard=replay_shard,
+                        mesh=replay_mesh, chunk=replay_chunk)
                 else:
                     new_client = AG.seed_replay_aggregate(
                         state["client"], client_keys, coeffs, client_lr,
-                        zo_cfg, mask)
+                        zo_cfg, mask, shard=replay_shard, mesh=replay_mesh,
+                        chunk=replay_chunk)
                 metrics["uplink_bytes"] = float(seed_replay_uplink_bytes(
                     N, h, zo_cfg.n_pairs))
             else:
@@ -740,9 +751,9 @@ def make_async_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
     metrics)``; ``durations`` is an (N,) array of per-client round times
     (e.g. :func:`repro_torch.fed.cutplan.round_time_s`), driving the
     arrival order and ``sim_makespan_s``, ``time_to_first_update_s`` and
-    ``updates_per_sim_s``.  The reference's ``replay_shard`` /
-    ``replay_mesh`` / ``replay_chunk`` raise: the sharded and chunked
-    replay is ROADMAP queue 1 item 7.
+    ``updates_per_sim_s``.  ``replay_shard`` / ``replay_mesh`` /
+    ``replay_chunk``: every flush's replay mode, as in
+    :func:`make_fed_round`.
     """
     from repro_torch.fed.async_engine import AsyncReplayServer, \
         StalenessConfig
@@ -754,11 +765,6 @@ def make_async_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
     if client_lr is None:
         raise ValueError("async round needs client_lr: the Fed-Server "
                          "replays plain-SGD local steps")
-    if replay_shard != "none" or replay_mesh is not None \
-            or replay_chunk is not None:
-        raise NotImplementedError(
-            "replay_shard / replay_mesh / replay_chunk: the sharded and "
-            "chunked replay is ROADMAP queue 1 item 7")
     run_cohort, kernel_client = _make_cohort_trajectory(
         api, method, zo_cfg, fed, client_opt, "seed_replay", client_lr)
     server_updates = _make_server_updates(api, fed, server_opt)
@@ -785,7 +791,8 @@ def make_async_round(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
         srv = AsyncReplayServer(
             state["client"], client_lr, zo_cfg, kernel=kernel_client,
             staleness=StalenessConfig(alpha=staleness_alpha),
-            buffer_k=buffer_k, seed_pred=api.seed_pred, on_flush=on_flush)
+            buffer_k=buffer_k, shard=replay_shard, mesh=replay_mesh,
+            chunk=replay_chunk, seed_pred=api.seed_pred, on_flush=on_flush)
         mask_host = mask.cpu().numpy()
         for cid in order:
             cid = int(cid)

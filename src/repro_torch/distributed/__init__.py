@@ -1,1 +1,2 @@
-"""Fault tolerance of the port (:mod:`repro_torch.distributed.fault`)."""
+"""Fault tolerance, meshes, sharding rules and uplink compressors of the
+port."""

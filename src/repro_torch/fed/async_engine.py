@@ -19,8 +19,11 @@ the server can apply updates as they arrive:
 A single flush holding the full cohort with every weight exactly 1.0
 gives the tokens and scales of :func:`repro_torch.core.aggregate.
 seed_replay_aggregate` byte for byte, hence the same new global.  The
-reference's ``shard`` / ``mesh`` / ``chunk`` / ``shardings`` options
-raise: the sharded and chunked replay is ROADMAP queue 1 item 7.
+staleness weights live in the scales, so the replay's ``shard`` /
+``mesh`` modes (and its ``chunk``, which changes nothing) compose
+unchanged.  The reference's
+``shardings`` (the datacenter step's placement of the directions)
+raises: that mesh mode is ROADMAP queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -85,7 +88,9 @@ class AsyncReplayServer:
     ``seed_pred`` selects); ``buffer_k``: snapshot every ``buffer_k``
     buffered arrivals, ``0`` = only on an explicit :meth:`flush`;
     ``on_flush(cids, t)``: called after each snapshot with the flushed
-    client ids (in client-id order) and the flush's simulated time.
+    client ids (in client-id order) and the flush's simulated time;
+    ``shard`` / ``mesh`` / ``chunk``: each flush's replay mode
+    (:func:`repro_torch.core.aggregate.replay_apply`).
     """
 
     def __init__(self, global_params, client_lr: float,
@@ -96,16 +101,16 @@ class AsyncReplayServer:
                  on_flush: Callable | None = None):
         if not kernel and zo is None:
             raise ValueError("threefry replay needs a ZOConfig")
-        if shard != "none" or mesh is not None or chunk is not None \
-                or shardings is not None:
+        if shardings is not None:
             raise NotImplementedError(
-                "shard / mesh / chunk / shardings: the sharded and chunked "
-                "replay is ROADMAP queue 1 item 7")
+                "shardings: the datacenter step's mesh mode is ROADMAP "
+                "queue 1 item 7")
         self.params = global_params
         self.client_lr = client_lr
         self.zo = zo
         self.kernel = kernel
         self.seed_pred = seed_pred
+        self._mode = dict(shard=shard, mesh=mesh, chunk=chunk)
         self.staleness = staleness
         self.buffer_k = int(buffer_k)
         self.on_flush = on_flush
@@ -158,7 +163,7 @@ class AsyncReplayServer:
         with torch.no_grad():
             self.params = AG.replay_apply(
                 self.params, tokens, scales, kernel=self.kernel, zo=self.zo,
-                seed_pred=self.seed_pred)
+                seed_pred=self.seed_pred, **self._mode)
         self.version += 1
         t = max(e.t_done for e in entries)
         tel = self.telemetry

@@ -13,7 +13,14 @@ Federated simulation with the lean seed-replay uplink:
 
 ``--fed-async --staleness 0.5 --buffer-k 2 --cutplan`` runs the
 buffered-async round with per-client cuts planned from device
-profiles.  ``--device`` is the card by default (``cpu`` runs the
+profiles.  ``--replay-shard clients`` partitions either round's seed
+replay over the ranks (``torchrun --nproc-per-node=N -m
+repro_torch.launch.train ...``; without torchrun one rank); every rank
+runs the cohort and the server replicated, and rank 0 alone prints.
+``--replay-chunk C`` is the reference's flag and changes nothing in the
+port's eager replay walk.  The driver starts the group (NCCL on the
+cards, gloo on the CPU and for ranks that share a card) and destroys it
+at the end.  ``--device`` is the card by default (``cpu`` runs the
 kernels' plain versions).  The keys are the reference's: the params
 ``init_lm(PRNGKey(0))`` (drawn on JAX's key stream, so a run starts
 from the reference's params), the train state's ``PRNGKey(1)``, the
@@ -23,12 +30,11 @@ the round keys ``fold_in(PRNGKey(9), r)``.
 
 The data is ``BigramLM``, whose table is ``vocab x vocab``: at a full
 config's vocab (151,936 for qwen2-1.5b) that is 185 GB, so the driver
-runs such archs with ``--smoke``.  ``--model-parallel > 1``,
-``--replay-shard clients`` and ``--replay-chunk`` are the mesh's,
-ROADMAP queue 1 item 7, and raise.  The modality archs (qwen2-vl-2b,
-seamless-m4t-medium) train with the datacenter step on the reference's
-stub batches (``build_batch``); ``--fed`` refuses them, as the
-reference's driver does.
+runs such archs with ``--smoke``.  ``--model-parallel > 1`` is the
+datacenter step's mesh mode, ROADMAP queue 1 item 7, and raises.  The
+modality archs (qwen2-vl-2b, seamless-m4t-medium) train with the
+datacenter step on the reference's stub batches (``build_batch``);
+``--fed`` refuses them, as the reference's driver does.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as CKPT
 from repro_torch.configs.registry import ARCH_IDS, get_config
@@ -45,6 +52,8 @@ from repro_torch.core import zo as Z
 from repro_torch.data.pipeline import place_batch, round_batches
 from repro_torch.data.synthetic import BigramLM
 from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import (init_distributed, local_device,
+                                          make_replay_mesh)
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.optim.schedules import warmup_cosine
@@ -74,12 +83,13 @@ def build_batch(cfg, ds, key, batch, seq):
 
 def _mesh_flags(args):
     if args.model_parallel > 1:
-        raise NotImplementedError("--model-parallel > 1: the mesh is "
-                                  "ROADMAP queue 1 item 7")
-    if args.replay_shard != "none" or args.replay_chunk is not None:
-        raise NotImplementedError("--replay-shard / --replay-chunk: the "
-                                  "sharded and chunked replay is ROADMAP "
-                                  "queue 1 item 7")
+        raise NotImplementedError("--model-parallel > 1: the datacenter "
+                                  "step's mesh mode is ROADMAP queue 1 "
+                                  "item 7")
+
+
+def _is_rank0():
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def run_fed(args, cfg, api, dev):
@@ -93,6 +103,10 @@ def run_fed(args, cfg, api, dev):
     sopt = make_optimizer("adamw", args.lr_server)
     fed = P.FedConfig(n_clients=args.clients, h=args.local_steps,
                       participation=args.participation)
+    replay_mesh = (make_replay_mesh(axis=args.replay_shard)
+                   if args.replay_shard != "none" else None)
+    replay = dict(replay_shard=args.replay_shard, replay_mesh=replay_mesh,
+                  replay_chunk=args.replay_chunk)
     zo_cfg = Z.ZOConfig(mu=args.zo_mu, n_pairs=args.zo_pairs)
     ds = BigramLM(vocab=cfg.vocab, seq_len=args.seq, seed=0)
     durations = None
@@ -103,7 +117,7 @@ def run_fed(args, cfg, api, dev):
         round_fn = P.make_async_round(
             api, args.method, zo_cfg, fed, copt, sopt,
             client_lr=args.lr_client, staleness_alpha=args.staleness,
-            buffer_k=args.buffer_k)
+            buffer_k=args.buffer_k, **replay)
         if args.cutplan:
             from repro_torch.fed import cutplan as CP
             costs = CP.candidate_costs(cfg, ds.batch(R.PRNGKey(2),
@@ -113,13 +127,14 @@ def run_fed(args, cfg, api, dev):
             plans = CP.plan_fleet(costs, profiles, fed.h, zo_cfg.n_pairs)
             durations = [p.round_s for p in plans]
             for i, (prof, plan) in enumerate(zip(profiles, plans)):
-                print(f"[cutplan] client {i}: {prof.name:8s} "
-                      f"cut={plan.cut} est_round={plan.round_s:.3g}s "
-                      f"feasible={plan.feasible}")
+                if _is_rank0():
+                    print(f"[cutplan] client {i}: {prof.name:8s} "
+                          f"cut={plan.cut} est_round={plan.round_s:.3g}s "
+                          f"feasible={plan.feasible}")
     else:
         round_fn = P.make_fed_round(
             api, args.method, zo_cfg, fed, copt, sopt, uplink=args.uplink,
-            client_lr=args.lr_client)
+            client_lr=args.lr_client, **replay)
     params = T.init_lm(cfg, device=dev, key=R.PRNGKey(0))
     state = {"client": params["client"], "server": params["server"],
              "opt_server": sopt.init(params["server"])}
@@ -137,6 +152,8 @@ def run_fed(args, cfg, api, dev):
         else:
             state, m = round_fn(state, rb, key_r)
             extra = ""
+        if not _is_rank0():
+            continue
         print(f"[fed] round {r:3d} "
               f"client_loss={float(m['client_loss']):.4f} "
               f"server_loss={float(m['server_loss']):.4f} "
@@ -174,9 +191,11 @@ def main(argv=None):
                          "(seed_replay = lean (seed, coeff) uplink)")
     ap.add_argument("--replay-shard", default="none",
                     choices=["none", "clients"],
-                    help="the sharded replay (ROADMAP queue 1 item 7)")
+                    help="partition the seed replay over a 1-D cohort "
+                         "mesh of the ranks (torchrun's, else one)")
     ap.add_argument("--replay-chunk", type=int, default=None,
-                    help="the chunked replay (ROADMAP queue 1 item 7)")
+                    help="the reference's replay chunk: checked, and "
+                         "changes nothing in the eager replay walk")
     ap.add_argument("--fed-async", action="store_true",
                     help="buffered-async round engine: seed-replay "
                          "arrivals are applied as they land, weighted by "
@@ -198,11 +217,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     _mesh_flags(args)
-    dev = resolve_device(args.device)
+    dev = resolve_device(local_device(args.device))
     cfg = get_config(args.arch, smoke=args.smoke)
     api = P.lm_api(cfg)
     if args.fed or args.fed_async:
-        return run_fed(args, cfg, api, dev)
+        owned = args.replay_shard != "none" and init_distributed(dev)
+        try:
+            return run_fed(args, cfg, api, dev)
+        finally:
+            if owned:
+                dist.destroy_process_group()
     if args.uplink != "dense":
         raise SystemExit("--uplink seed_replay requires --fed (the lean "
                          "uplink is a federated-round mechanism)")

@@ -352,7 +352,12 @@ def test_async_validation():
     with pytest.raises(ValueError, match="ZOConfig"):
         AsyncReplayServer(make_params(), 1e-2)
     with pytest.raises(NotImplementedError, match="item 7"):
-        AsyncReplayServer(make_params(), 1e-2, Z.ZOConfig(), chunk=4)
+        AsyncReplayServer(make_params(), 1e-2, Z.ZOConfig(),
+                          shardings=object())
+    # the replay's modes are taken (tests/test_torch_replay_mesh.py runs
+    # them); the datacenter step's placement is not
+    AsyncReplayServer(make_params(), 1e-2, Z.ZOConfig(), chunk=4,
+                      shard="clients")
     sopt = OPT.adamw(1e-3)
     fed = P.FedConfig(n_clients=2, h=1)
     with pytest.raises(ValueError, match="heron"):
@@ -361,7 +366,8 @@ def test_async_validation():
     with pytest.raises(ValueError, match="client_lr"):
         P.make_async_round(None, "heron", Z.ZOConfig(), fed,
                            OPT.zo_sgd(1e-2), sopt, client_lr=None)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        P.make_async_round(None, "heron", Z.ZOConfig(), fed,
-                           OPT.zo_sgd(1e-2), sopt, client_lr=1e-2,
-                           replay_shard="clients")
+    from repro_torch.models import cnn as CNN
+    assert callable(P.make_async_round(
+        P.cnn_api(CNN.CNNConfig(**RP.CNN_KW)), "heron", Z.ZOConfig(), fed,
+        OPT.zo_sgd(1e-2), sopt, client_lr=1e-2, replay_shard="clients",
+        replay_chunk=4))

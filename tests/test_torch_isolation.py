@@ -41,7 +41,10 @@ NEW_MODULES = ("repro_torch.data.synthetic", "repro_torch.data.partition",
                "repro_torch.configs.qwen3_moe_30b_a3b",
                "repro_torch.configs.kimi_k2_1t_a32b",
                "repro_torch.configs.qwen2_vl_2b",
-               "repro_torch.configs.seamless_m4t_medium")
+               "repro_torch.configs.seamless_m4t_medium",
+               "repro_torch.distributed.sharding",
+               "repro_torch.distributed.collectives",
+               "repro_torch.distributed.mesh", "repro_torch.launch.mesh")
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_repro():

@@ -2,8 +2,10 @@
 in-process on the CPU with ``--smoke``: a resumed datacenter run ends
 where an uninterrupted one does, bit for bit; ``--fed`` (lean uplink)
 and ``--fed-async --cutplan`` print the losses and cut plans of
-``repro.launch.train.main`` with the same arguments; the mesh flags
-raise and name ROADMAP queue 1 item 7; ``build_batch`` gives the
+``repro.launch.train.main`` with the same arguments; ``--replay-shard
+clients --replay-chunk 3`` on one rank ends where the flat replay does,
+bit for bit; ``--model-parallel 2`` raises and names ROADMAP queue 1
+item 7; ``build_batch`` gives the
 reference's enc-dec, vision and audio batches, and ``--fed`` refuses
 those archs as the reference's does."""
 import dataclasses
@@ -92,13 +94,50 @@ def test_fed_runs_print_the_reference_losses(mode, capsys):
         assert len(PLAN.findall(out)) == 2
 
 
-@pytest.mark.parametrize("flags", [
-    ["--model-parallel", "2"], ["--fed", "--replay-shard", "clients"],
-    ["--fed", "--replay-chunk", "4"]], ids=["model-parallel",
-                                           "replay-shard", "replay-chunk"])
+@pytest.mark.parametrize("flags", [["--model-parallel", "2"]],
+                         ids=["model-parallel"])
 def test_mesh_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="item 7"):
         TRAIN.main(BASE + ["--device", "cpu", "--steps", "1"] + flags)
+
+
+@pytest.mark.parametrize("mode", ["fed", "fed-async"])
+def test_replay_shard_and_chunk_equal_the_flat_round(mode, monkeypatch,
+                                                     capsys):
+    """``--replay-shard clients --replay-chunk 3`` on one rank (a gloo
+    group the driver starts and destroys): the final client and server
+    params equal those of the same command without the two flags, bit
+    for bit, and so do the printed lines: one rank sums nothing across
+    ranks, and the chunk changes nothing in the eager walk."""
+    import torch.distributed as dist
+    from repro_torch.core import protocols as P
+    from repro_torch.tree import tree_leaves
+
+    last = {}
+    for name in ("make_fed_round", "make_async_round"):
+        def wrap(*a, _make=getattr(P, name), **kw):
+            rnd = _make(*a, **kw)
+
+            def recorded(*ra, **rkw):
+                last["state"], m = rnd(*ra, **rkw)
+                return last["state"], m
+
+            return recorded
+
+        monkeypatch.setattr(P, name, wrap)
+    argv = FED + ["--device", "cpu", "--steps", "2", "--uplink",
+                  "seed_replay", f"--{mode}"]
+    assert not dist.is_initialized()
+    plain_out = _run(TRAIN.main, argv, capsys)
+    plain = last.pop("state")
+    out = _run(TRAIN.main, argv + ["--replay-shard", "clients",
+                                   "--replay-chunk", "3"], capsys)
+    assert not dist.is_initialized()
+    assert _rounds(out) == _rounds(plain_out) and len(_rounds(out)) == 2
+    for part in ("client", "server"):
+        for a, b in zip(tree_leaves(last["state"][part]),
+                        tree_leaves(plain[part])):
+            assert torch.equal(a, b)
 
 
 def test_default_device_is_the_card():
