@@ -497,10 +497,10 @@ QWEN_K2_SHAPES = ((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536))
 K2_FLAGS = ((False, True, 0.0, 1e-3), (True, True, 1e-3, -1e-3))
 
 
-def k2_plain(xa, xb, w, seed, mu_a, mu_b, pa, pb, off):
+def k2_plain(xa, xb, w, seed, mu_a, mu_b, pa, pb, off, col=0):
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import ref as R
-    u = N.uniform_noise(seed, w.shape, off, device=w.device)
+    u = N.uniform_noise(seed, w.shape, off, col, device=w.device)
     return R.zo_dual_matmul_ref(xa, xb, w, u, mu_a, mu_b, perturb_a=pa,
                                 perturb_b=pb)
 
@@ -554,23 +554,24 @@ def route_check(what, got, x, w, u, mu, perturb, worst):
 
 
 def check_k2_launch(what, xa, xb, w, seed, ma, mb, pa, pb, off, u, worst,
-                    key):
+                    key, col=0):
     """One K2 launch against the plain version on the same inputs, with
     :func:`check_k2`'s tolerance; where K and N are multiples of 8 (the
     inputs are fresh, so aligned) also on the tensor-core route (the
     counter says so) and within its arithmetic (:func:`route_check`).
-    ``u`` is U(seed) at ``off``; ``worst[key]`` keeps the largest |d|."""
+    ``u`` is U(seed) at (``off``, ``col``); ``worst[key]`` keeps the
+    largest |d|."""
     import torch
     from repro_torch.kernels import zo_matmul as ZM
     K, Nn = w.shape
     tc0 = ZM.LAUNCHES["zo_dual_matmul_tc"]
     ya, yb = ZM.zo_dual_matmul(xa, xb, w, seed, ma, mb, row_offset=off,
-                               perturb_a=pa, perturb_b=pb)
+                               col_offset=col, perturb_a=pa, perturb_b=pb)
     want_tc = int(K % 8 == 0 and Nn % 8 == 0)
     if ZM.LAUNCHES["zo_dual_matmul_tc"] - tc0 != want_tc:
         fail(f"K2 {what} {w.dtype} {K}x{Nn}: expected {want_tc} "
              f"tensor-core launch, counters {ZM.LAUNCHES}")
-    ra, rb = k2_plain(xa, xb, w, seed, ma, mb, pa, pb, off)
+    ra, rb = k2_plain(xa, xb, w, seed, ma, mb, pa, pb, off, col)
     if want_tc:
         for got, x, m, p in ((ya, xa, ma, pa), (yb, xb, mb, pb)):
             route_check(f"K2 {what} {w.dtype} {K}x{Nn} flags {pa},{pb}",
@@ -625,18 +626,20 @@ def check_k2(dev):
 
 def record_k2_calls(fn):
     """Run ``fn`` with every K2 launch recorded: ``[(M, K, N, dtype,
-    seed, mu_a, mu_b, perturb_a, perturb_b, row_offset)]``."""
+    seed, mu_a, mu_b, perturb_a, perturb_b, row_offset, col_offset)]``."""
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import ops as O
     calls, dual = [], O.zo_dual_matmul
 
-    def rec(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0, perturb_a=False,
-            perturb_b=True):
+    def rec(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0, col_offset=0,
+            perturb_a=False, perturb_b=True):
         calls.append((xa.shape[0], w.shape[0], w.shape[1], w.dtype,
                       int(N._u32(seed)), float(mu_a), float(mu_b),
-                      perturb_a, perturb_b, int(N._u32(row_offset))))
+                      perturb_a, perturb_b, int(N._u32(row_offset)),
+                      int(N._u32(col_offset))))
         return dual(xa, xb, w, seed, mu_a, mu_b, row_offset=row_offset,
-                    perturb_a=perturb_a, perturb_b=perturb_b)
+                    col_offset=col_offset, perturb_a=perturb_a,
+                    perturb_b=perturb_b)
 
     O.zo_dual_matmul = rec
     try:
@@ -648,16 +651,17 @@ def record_k2_calls(fn):
 
 def check_k2_recorded(what, calls, dev):
     """Each recorded K2 launch of a round again on fresh seeded inputs of
-    its shape and type, with its seed, mus, stream flags and row offset,
-    against the plain version (:func:`check_k2_launch`).  Returns the
-    largest |d| by type."""
+    its shape and type, with its seed, mus, stream flags and row and
+    column offsets, against the plain version (:func:`check_k2_launch`).
+    Returns the largest |d| by type."""
     from repro_torch.kernels import noise as N
     worst = {}
-    for k, (M, K, Nn, dt, seed, ma, mb, pa, pb, off) in enumerate(calls):
+    for k, (M, K, Nn, dt, seed, ma, mb, pa, pb, off, col) in enumerate(
+            calls):
         xa, xb, w = k2_inputs(dev, dt, M, K, Nn, seed=k)
-        u = N.uniform_noise(seed, w.shape, off, device=dev)
+        u = N.uniform_noise(seed, w.shape, off, col, device=dev)
         check_k2_launch(f"{what} call {k}", xa, xb, w, seed, ma, mb, pa, pb,
-                        off, u, worst, str(dt).split(".")[-1])
+                        off, u, worst, str(dt).split(".")[-1], col)
         del xa, xb, w, u
     return worst
 
@@ -1340,11 +1344,11 @@ def single_probe(desc, dual_loss, single_loss, expect, rtol):
 
 
 def plain_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
-                      perturb_a=False, perturb_b=True):
+                      col_offset=0, perturb_a=False, perturb_b=True):
     """K2's plain version behind the wrapper's signature: phase 7 swaps it
     in for ``ops.zo_dual_matmul``, inside this script only."""
     return k2_plain(xa, xb, w, seed, mu_a, mu_b, perturb_a, perturb_b,
-                    row_offset)
+                    row_offset, col_offset)
 
 
 def check_dual_vs_plain(desc, dual_loss, rtol):
@@ -3875,6 +3879,410 @@ def run_mesh_phase(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the datacenter step's ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+# 18(a): K2 / K4 on column slabs of W at qwen2-1.5b's client shapes (q / o
+# and the two-head k / v), M rows per stream
+COL_SHAPES = ((1536, 1536), (1536, 256))
+COL_M = 256
+# 18(b) / (c): (config, model axis, world, batch, seq).  f32 (the state
+# cast as phase 17 cast its tree), so the slabs can be held to the
+# unsharded step at an f32 bar
+TRAIN_MESH_CASES = {"qwen": ("qwen2-1.5b", 2, 2, 2, 256),
+                    "gpt2": ("gpt2-small", 2, 4, 4, 128)}
+# each rank's slabs after one HERON step (kernel stream, mu 1e-2) against
+# the unsharded step's on the card: the column-slab and row-parallel
+# products and the vocab-parallel cross entropy sum in other orders than
+# the whole-width ones, a few f32 ulps of each loss, which the
+# coefficient divides by mu
+TRAIN_MESH_TOL = dict(rtol=1e-4, atol=1e-5)
+TRAIN_MESH_RATES = dict(lr=1e-3, server_lr=1e-4, mu=1e-2)
+TRAIN_MESH_TIMEOUT_S = 400
+
+
+def check_col_offset(dev):
+    """18(a): K2 and K4 on each column slab of W (model axis 2 and 4),
+    launched with the slab's ``col_offset``, equal the same columns of
+    the full-width launch bit for bit: bf16 on the wgmma route, f32 on
+    the 3xTF32 route, and bf16 and f32 on the CUDA-core loop (x one
+    element into its buffer).  The slab launches check the kernels and
+    count toward no main path (the counts are reset before each path)."""
+    import torch
+    from repro_torch.kernels import zo_matmul as ZM
+    n_checked = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for K, Nn in COL_SHAPES:
+            xa, xb, w = k2_inputs(dev, dtype, COL_M, K, Nn, seed=18)
+            for route, xs in (("tensor cores", (xa, xb)),
+                              ("CUDA-core loop", (misaligned(xa),
+                                                  misaligned(xb)))):
+                tc = route == "tensor cores"
+                off = 2 * K
+                before = ZM.LAUNCHES["zo_dual_matmul_tc"]
+                fa, fb = ZM.zo_dual_matmul(*xs, w, 7, 0.0, 1e-3,
+                                           row_offset=off)
+                f4 = ZM.zo_matmul(xs[0], w, 7, 1e-3, row_offset=off)
+                if ZM.LAUNCHES["zo_dual_matmul_tc"] - before != int(tc):
+                    fail(f"18(a) K2 {dtype} {K}x{Nn}: not on the {route}")
+                for mp in (2, 4):
+                    n = Nn // mp
+                    for m in range(mp):
+                        cols = slice(m * n, (m + 1) * n)
+                        ws = w[:, cols].contiguous()
+                        before = ZM.LAUNCHES["zo_dual_matmul_tc"]
+                        a, b = ZM.zo_dual_matmul(*xs, ws, 7, 0.0, 1e-3,
+                                                 row_offset=off,
+                                                 col_offset=m * n)
+                        y4 = ZM.zo_matmul(xs[0], ws, 7, 1e-3,
+                                          row_offset=off, col_offset=m * n)
+                        if ZM.LAUNCHES["zo_dual_matmul_tc"] - before != \
+                                int(tc):
+                            fail(f"18(a) K2 {dtype} {K}x{n} slab: not on "
+                                 f"the {route}")
+                        for got, want in ((a, fa), (b, fb), (y4, f4)):
+                            if not torch.equal(got, want[:, cols]):
+                                d = (got.float() - want[:, cols].float()
+                                     ).abs().max()
+                                fail(f"18(a) {dtype} {K}x{Nn} {route} model "
+                                     f"{mp} slab {m}: differs from the "
+                                     f"full launch's columns, max |d| "
+                                     f"{float(d)}")
+                        n_checked += 3
+            del xa, xb, w
+    log(18, f"(a) K2 (both streams) and K4 on every column slab of W at K x "
+        f"N {COL_SHAPES}, M={COL_M}, model axis 2 and 4, with the slab's "
+        f"col_offset: == the full-width launch's columns bit for bit on "
+        f"the bf16 wgmma route, the f32 3xTF32 route and the CUDA-core "
+        f"loop (bf16 and f32): {n_checked} slab outputs")
+
+
+def _mesh_config(name):
+    from repro_torch.configs.gpt2 import gpt2_small
+    from repro_torch.configs.qwen2_1_5b import full_config
+    cfg = full_config() if name == "qwen2-1.5b" else gpt2_small()
+    return cfg.replace(forward_impl="kernel", param_dtype="float32",
+                       compute_dtype="float32")
+
+
+def _slab_check(desc, got, want, places):
+    """Each leaf of ``got`` (a rank's state) against the slab of the
+    unsharded ``want`` at TRAIN_MESH_TOL: ``(max |d|, the replicated
+    leaves' digest)``."""
+    import hashlib
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.tree import tree_leaves_with_path
+    pl = dict(tree_leaves_with_path(places))
+    want = dict(tree_leaves_with_path(want))
+    worst, h = 0.0, hashlib.blake2b()
+    for path, t in tree_leaves_with_path(got):
+        if not torch.is_tensor(t):
+            continue
+        ref = want[path]
+        if tuple(ref.shape) != tuple(t.shape):
+            ref = SH.shard(ref, pl.get(path))
+        d = (t.float() - ref.float()).abs()
+        if not bool((d <= TRAIN_MESH_TOL["atol"] + TRAIN_MESH_TOL["rtol"]
+                     * ref.float().abs()).all()):
+            fail(f"{desc}: {path} max |d| {float(d.max())} past "
+                 f"{TRAIN_MESH_TOL}")
+        worst = max(worst, float(d.max()))
+        if pl.get(path) is None or not pl[path].sharded:
+            h.update(memoryview(t.detach().contiguous().cpu().numpy()))
+    return worst, h.hexdigest()
+
+
+def train_mesh_rank(rank, world, workdir, case, device="cuda"):
+    """One rank of 18(b) / (c) (``chip_smoke.py --train-mesh-rank RANK
+    WORLD DIR CASE``): a gloo group on a FileStore in DIR, every rank on
+    card 0, ``make_local_mesh(mp)``.  The unsharded HERON step first, one
+    rank at a time (the card holds one whole state at a time), keeping
+    its launches and this rank's slabs of its params; then the mesh
+    step with every K1 / K2 / K3 launch recorded, each launch then held
+    against its plain version, the slabs against the unsharded step's at
+    TRAIN_MESH_TOL; then a second mesh step, its launches counted from 0
+    (== the first's), its wall and peak memory; then a third under the
+    profiler for the card's busy time.  Prints one ``TRAIN_MESH_RANK
+    {json}`` line."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import prng as R
+    from repro_torch.core import protocols as P
+    from repro_torch.core import zo as Z
+    from repro_torch.data.pipeline import place_batch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.mesh import make_local_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adamw, zo_sgd
+    name, mp, _, batch_size, seq = TRAIN_MESH_CASES[case]
+    cuda = device == "cuda"
+    dev = torch.device(device, 0) if cuda else torch.device(device)
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(workdir, "store"), world), rank=rank, world_size=world)
+    try:
+        mesh = make_local_mesh(mp)
+        rules = SH.AxisRules(mesh=mesh, enable_fsdp=False)
+        cfg = _mesh_config(name)
+        r8 = TRAIN_MESH_RATES
+        copt, sopt = zo_sgd(r8["lr"]), adamw(r8["server_lr"], eps=1e-6)
+        zo = Z.ZOConfig(mu=r8["mu"], scale="gaussian")
+        batch = _lm_batch(cfg.vocab, batch_size, seq, dev, seed=18)
+
+        def params():
+            return T.init_lm(cfg, seed=18, device=dev, draw_on_device=True)
+
+        api = P.lm_api(cfg, rules)
+        ref = None
+        for r in range(world):
+            if r == rank or name == "gpt2-small":
+                if ref is None:
+                    st = P.init_train_state(R.PRNGKey(1), params(), copt,
+                                            sopt)
+                    reset_counts()
+                    new, rm = P.make_train_step(P.lm_api(cfg), "heron", zo,
+                                                copt, sopt)(st, batch)
+                    sync()
+                    ref = (SH.shard_tree(new["params"],
+                                         api.shardings), launch_counts(),
+                           float(rm["loss"]), float(rm["client_loss"]))
+                    del st, new
+                    if cuda:
+                        torch.cuda.empty_cache()
+            dist.barrier()
+        state = P.init_train_state(R.PRNGKey(1), params(), copt, sopt,
+                                   shardings=api.shardings)
+        step = P.make_train_step(api, "heron", zo, copt, sopt)
+        b = place_batch(batch, dev, rules)
+        out, k2_calls, k3_calls = [], [], []
+
+        def run():
+            k3_calls.extend(record_k3_calls(lambda: out.append(
+                step(state, b))))
+
+        reset_counts()
+        k1_calls, k1_rows = record_k1_calls(lambda: k2_calls.extend(
+            record_k2_calls(run)))
+        counts = launch_counts()
+        new, m = out.pop()
+        desc = f"rank {rank} {name} mesh step"
+        n_k1 = (check_k1_recorded(desc, k1_calls, dev)
+                + check_k1_rows_recorded(desc, k1_rows))
+        k2_worst = check_k2_recorded(desc, k2_calls, dev)
+        k3_worst = check_k3_recorded(desc, k3_calls)
+        if (n_k1, len(k2_calls), len(k3_calls)) != (
+                counts["zo_noise"], counts["zo_dual_matmul"],
+                counts["zo_dual_flash_attention"]):
+            fail(f"{desc}: recorded {n_k1} / {len(k2_calls)} / "
+                 f"{len(k3_calls)} K1 / K2 / K3 launches, counted {counts}")
+        for k in ("zo_noise", "zo_dual_matmul", "zo_dual_flash_attention"):
+            if counts[k] <= 0 or counts[k] != ref[1][k]:
+                fail(f"{desc}: {k} launched {counts[k]} times, the "
+                     f"unsharded step {ref[1][k]}")
+        loss, closs = float(m["loss"]), float(m["client_loss"])
+        for got, want in ((loss, ref[2]), (closs, ref[3])):
+            if not abs(got - want) <= 1e-5 * abs(want):
+                fail(f"{desc}: loss {got} vs the unsharded step's {want}")
+        worst, digest = _slab_check(desc, new["params"], ref[0],
+                                    api.shardings)
+        del k1_calls, k1_rows, k2_calls, k3_calls, ref, state
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        new, _ = step(new, b)
+        sync()
+        wall = time.perf_counter() - t0
+        if launch_counts() != counts:
+            fail(f"{desc}: the second step launched {launch_counts()}, the "
+                 f"first {counts}")
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        busy = 0.0
+        if cuda:
+            rows = device_rows(lambda: step(new, b))
+            busy = sum(r_[0] for r_ in rows) / 1e3
+        res = {"wall_ms": 1e3 * wall, "busy_ms": busy, "peak": peak,
+               "counts": {k: counts[k] for k in (
+                   "zo_noise", "zo_dual_matmul", "zo_dual_matmul_tc",
+                   "zo_dual_flash_attention",
+                   "zo_dual_flash_attention_tc")},
+               "loss": loss, "client_loss": closs, "max_abs": worst,
+               "k2_worst": k2_worst, "k3_worst": k3_worst,
+               "digest": digest, "mesh": mesh.shape,
+               "coords": {a: mesh.rank(a) for a in mesh.shape}}
+        print("TRAIN_MESH_RANK " + json.dumps(res), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_rank_procs(flag, world, args, timeout_s, marker):
+    """``chip_smoke.py FLAG RANK WORLD DIR *ARGS`` as ``world`` processes
+    started together (a FileStore in a temporary DIR); their ``MARKER
+    {json}`` lines, rank by rank, and the wall seconds.  Fails if a rank
+    fails, prints no line or outlives ``timeout_s``."""
+    import tempfile
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "GLOO_SOCKET_IFNAME": os.environ.get("GLOO_SOCKET_IFNAME", "lo")}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        logs = [(open(os.path.join(d, f"out{r}"), "w+"),
+                 open(os.path.join(d, f"err{r}"), "w+"))
+                for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), flag,
+             str(r), str(world), d, *args], cwd=ROOT, env=env, stdout=o,
+            stderr=e, text=True) for r, (o, e) in enumerate(logs)]
+        try:
+            deadline = time.monotonic() + timeout_s
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) or \
+                        time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        outs = []
+        for r, (p, (o, e)) in enumerate(zip(procs, logs)):
+            o.seek(0)
+            e.seek(0)
+            out, err = o.read(), e.read()
+            o.close()
+            e.close()
+            if p.returncode != 0:
+                fail(f"{flag} rank {r}: exit {p.returncode} (killed after "
+                     f"{timeout_s} s or when a rank failed): "
+                     f"{err[-3000:]}")
+            lines = [ln for ln in out.splitlines()
+                     if ln.startswith(marker + " ")]
+            if len(lines) != 1:
+                fail(f"{flag} rank {r}: no {marker} line: {out[-2000:]}")
+            outs.append(json.loads(lines[0][len(marker) + 1:]))
+    return outs, time.perf_counter() - t0
+
+
+def run_train_mesh_ranks(card, case):
+    """18(b) / (c): ``train_mesh_rank`` on every rank of the case's mesh;
+    the replicated leaves equal across the ranks (digests).  Returns the
+    K1 / K2 / K3 launches of the ranks' mesh steps, summed."""
+    name, mp, world, batch_size, seq = TRAIN_MESH_CASES[case]
+    outs, wall = run_rank_procs("--train-mesh-rank", world, [case],
+                                TRAIN_MESH_TIMEOUT_S, "TRAIN_MESH_RANK")
+    if len({o["digest"] for o in outs}) != 1:
+        fail(f"18 {name}: the replicated leaves differ across the ranks")
+    desc = (f"{name} (f32, full width and depth) HERON step, kernel stream, "
+            f"mu {TRAIN_MESH_RATES['mu']}, {batch_size} x {seq} tokens, on "
+            f"the ({world // mp}, {mp}) ('data', 'model') mesh as {world} "
+            f"gloo ranks on one card")
+    for r, o in enumerate(outs):
+        busy = o["busy_ms"]
+        idle = (f"busy {busy:.3f} ms, idle share "
+                f"{1 - busy / o['wall_ms']:.3f}" if busy > 0 else
+                "busy not measured (the profiler saw no device time)")
+        log(18, f"{desc}, rank {r} at {o['coords']}: wall {o['wall_ms']:.3f} "
+            f"ms (the second step), {idle} (a third, profiled), "
+            f"max_memory_allocated {o['peak']}; launches {o['counts']} (== "
+            f"the unsharded step's); every K1 launch == plain bit for bit, "
+            f"K2 max |d| {o['k2_worst']}, K3 {o['k3_worst']}; loss "
+            f"{o['loss']} client_loss {o['client_loss']} (== the unsharded "
+            f"step's within 1e-5); its slabs within {TRAIN_MESH_TOL} of the "
+            f"unsharded step's (max |d| {o['max_abs']})")
+    log(18, f"{desc} on {card}: replicated leaves equal across the {world} "
+        f"ranks (blake2b); all ranks done in {wall:.1f} s")
+    return {k: sum(o["counts"][k] for o in outs)
+            for k in outs[0]["counts"]}
+
+
+def run_mesh_driver(card):
+    """18(d): ``torchrun --nproc-per-node=2 -m repro_torch.launch.train
+    --smoke --model-parallel 2 --ckpt-dir D`` (torch.distributed.run on
+    a local rendezvous; gloo, the two ranks sharing the card) exits 0,
+    rank 0 alone prints, and its checkpoint (rank 0's write of the
+    gathered state) restores into a one-device state."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import checkpoint as CKPT
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import prng as R
+    from repro_torch.core import protocols as P
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.tree import tree_leaves
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "GLOO_SOCKET_IFNAME": os.environ.get("GLOO_SOCKET_IFNAME", "lo")}
+    with tempfile.TemporaryDirectory() as d:
+        args = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node=2", "-m", "repro_torch.launch.train",
+                "--smoke", "--model-parallel", "2", "--ckpt-dir", d,
+                "--steps", "2", "--batch", "2", "--seq", "16"]
+        t0 = time.perf_counter()
+        out = subprocess.run(args, capture_output=True, text=True, cwd=ROOT,
+                             env=env, timeout=600)
+        wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"torchrun launch.train --model-parallel 2: exit "
+                 f"{out.returncode}: {out.stderr[-3000:]}")
+        steps = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith("[train] step")]
+        if len(steps) != 2 or "final checkpoint" not in out.stdout:
+            fail(f"torchrun launch.train --model-parallel 2: expected two "
+                 f"step lines from rank 0 alone: {out.stdout[-2000:]}")
+        cfg = get_config("qwen2-1.5b", smoke=True)
+        tmpl = P.init_train_state(
+            R.PRNGKey(1), T.init_lm(cfg, device="cpu", key=R.PRNGKey(0)),
+            make_optimizer("zo_sgd", 1e-3), make_optimizer("adamw", 1e-3))
+        state, step = CKPT.restore(d, tmpl)
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in
+                     tree_leaves(state["params"]))
+        if step != 2 or not finite:
+            fail(f"the mesh driver's checkpoint: step {step}, finite "
+                 f"{finite}")
+    log(18, f"(d) torchrun --nproc-per-node=2 -m repro_torch.launch.train "
+        f"--smoke --model-parallel 2 --ckpt-dir D on {card}: exit 0 in "
+        f"{wall:.1f} s, rank 0 alone printed {steps}; its step-2 "
+        f"checkpoint restored into a one-device state (finite)")
+
+
+def run_train_mesh_phase(dev, card):
+    """Phase 18: (a) K2 / K4 on column slabs with ``col_offset`` == the
+    full-width launch's columns; (b) qwen2-1.5b on (1, 2) as two gloo
+    ranks; (c) gpt2-small on (2, 2) as four; (d) the driver under
+    torchrun.  Returns the K1 / K2 / K3 launches of (b) and (c)'s mesh
+    steps, summed over the ranks."""
+    start = [time.perf_counter()]
+
+    def took(part):
+        now = time.perf_counter()
+        log(18, f"({part} took {now - start[0]:.1f} s)")
+        start[0] = now
+
+    check_col_offset(dev)
+    took("18a")
+    counts = run_train_mesh_ranks(card, "qwen")
+    took("18b")
+    for k, v in run_train_mesh_ranks(card, "gpt2").items():
+        counts[k] += v
+    took("18c")
+    run_mesh_driver(card)
+    took("18d")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 8: times
 # ---------------------------------------------------------------------------
 
@@ -4318,7 +4726,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
     15's two full-width rounds (K1) and its MoE engine run (K5), added
     to K1's and K5's; ``counts_modality``: of phase 16's two full-width
     rounds (K1-K3) and its qwen2-vl engine run (K5); ``counts_mesh``: of
-    phase 17's one-rank sharded replay (K1) and sharded round (K1-K3)."""
+    phase 17's one-rank sharded replay (K1) and sharded round (K1-K3) and
+    phase 18's mesh steps on every rank (K1-K3)."""
     import torch
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import ops as O
@@ -4495,6 +4904,9 @@ def main():
     import torch
     if sys.argv[1:2] == ["--mesh-rank"]:          # a rank of phase 17
         return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--train-mesh-rank"]:    # a rank of phase 18
+        return train_mesh_rank(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4], sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -4558,9 +4970,14 @@ def main():
     counts_mesh = run_mesh_phase(dev, card)
     torch.cuda.empty_cache()
     took("17")
+    counts_train_mesh = run_train_mesh_phase(dev, card)
+    torch.cuda.empty_cache()
+    took("18")
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs,
                         counts_serve, counts_train, counts_family,
-                        counts_modality, counts_mesh)
+                        counts_modality, {k: counts_mesh[k]
+                                          + counts_train_mesh.get(k, 0)
+                                          for k in counts_mesh})
     compiler_report()
     check_hgmma()
     k1_sass()

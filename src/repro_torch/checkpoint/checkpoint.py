@@ -15,6 +15,13 @@ Leaves are tensors or Python ints.  A Python int (an optimizer's or the
 train state's step count) is stored as an int32 scalar, the reference's
 ``jnp.int32`` step, and restored as an int.  A tensor restores onto its
 template leaf's device.
+
+Under the datacenter step's mesh (``shardings``, the state's placements:
+:func:`repro_torch.core.protocols.train_state_shardings`) every rank
+takes part in gathering the slabs and rank 0 alone writes, so the files
+are an unsharded run's; a restore reads the full leaves and keeps this
+rank's slabs, on a mesh of any width or on one device (the elasticity
+:func:`repro_torch.distributed.fault.remesh` is for).
 """
 from __future__ import annotations
 
@@ -25,8 +32,11 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
+
 
 def _leaves(tree):
     return [leaf for _, leaf in tree_leaves_with_path(tree, sort_keys=True)]
@@ -42,7 +52,24 @@ def _to_numpy(leaf):
     return t.numpy(), str(t.numpy().dtype)
 
 
-def save(ckpt_dir: str, step: int, tree, keep: int = 3) -> str:
+def save(ckpt_dir: str, step: int, tree, keep: int = 3,
+         shardings=None) -> str:
+    """Write ``tree`` as step ``step`` and keep the newest ``keep``;
+    with ``shardings`` (every rank calls it) the gathered tree, written
+    by rank 0 while the others wait."""
+    final = os.path.join(ckpt_dir, f"step_{int(step):08d}")
+    if shardings is not None:
+        tree = SH.gather_tree(tree, shardings)
+        if dist.is_initialized():
+            if dist.get_rank() == 0:
+                _write(ckpt_dir, step, tree, keep)
+            dist.barrier()
+            return final
+    _write(ckpt_dir, step, tree, keep)
+    return final
+
+
+def _write(ckpt_dir: str, step: int, tree, keep: int):
     os.makedirs(ckpt_dir, exist_ok=True)
     payload, dtypes = {}, []
     for i, leaf in enumerate(_leaves(tree)):
@@ -60,7 +87,6 @@ def save(ckpt_dir: str, step: int, tree, keep: int = 3) -> str:
         shutil.rmtree(final)
     os.rename(tmp, final)                      # atomic publish
     _gc(ckpt_dir, keep)
-    return final
 
 
 def _gc(ckpt_dir: str, keep: int):
@@ -98,9 +124,11 @@ def _from_numpy(arr, dt: str, tmpl):
     return t.to(tmpl.device)
 
 
-def restore(ckpt_dir: str, template, step: int | None = None):
+def restore(ckpt_dir: str, template, step: int | None = None,
+            shardings=None):
     """Restore into the structure of ``template`` (leaf count and shapes
-    checked).  Returns ``(tree, step)``."""
+    checked; with ``shardings`` the template's leaves are this rank's
+    slabs, cut from the stored full leaves).  Returns ``(tree, step)``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -111,10 +139,13 @@ def restore(ckpt_dir: str, template, step: int | None = None):
     data = np.load(os.path.join(path, "payload.npz"))
     paths = tree_leaves_with_path(template, sort_keys=True)
     assert manifest["n_leaves"] == len(paths), "structure mismatch"
+    places = dict(tree_leaves_with_path(shardings)) if shardings else {}
     values = {}
     for i, ((p, tmpl), dt) in enumerate(zip(paths, manifest["dtypes"])):
         arr = data[f"p{i}"]
-        want = tuple(tmpl.shape) if isinstance(tmpl, torch.Tensor) else ()
+        pl = places.get(p)
+        want = (tuple(pl.shape) if pl is not None else tuple(tmpl.shape)
+                if isinstance(tmpl, torch.Tensor) else ())
         assert arr.shape == want, f"leaf {i} ({p}): {arr.shape} vs {want}"
-        values[p] = _from_numpy(arr, dt, tmpl)
+        values[p] = _from_numpy(SH.shard(arr, pl), dt, tmpl)
     return tree_map_with_path(lambda p, _: values[p], template), step

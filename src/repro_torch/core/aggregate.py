@@ -185,19 +185,23 @@ def _replay_engine(global_params, tokens, scales, add_direction,
 
 def replay_apply(global_params, tokens, scales, *, kernel: bool = False,
                  zo: Z.ZOConfig | None = None, seed_pred=None,
-                 shard: str = "none", mesh=None, chunk=None):
+                 shard: str = "none", mesh=None, chunk=None,
+                 shardings=None):
     """Apply a flattened ``(tokens, scales)`` stream to ``global_params``:
     each token's direction (a K1 accumulate launch per token on the
     kernel stream, ``direction_like`` under ``zo`` on the threefry
     stream) times its scale into an f32 accumulator, in the mode
-    ``shard`` / ``mesh`` / ``chunk`` select."""
+    ``shard`` / ``mesh`` / ``chunk`` select.  ``shardings`` (placements
+    of ``global_params``' slabs) replays each direction's slabs."""
     if kernel:
         def add_direction(acc, sp, s):
             O.accumulate_direction_tree(
-                acc, O.leaf_seed_tree(global_params, sp, seed_pred), s)
+                acc, O.leaf_seed_tree(global_params, sp, seed_pred), s,
+                shardings)
     else:
         def add_direction(acc, kp, s):
-            Z.accumulate(acc, Z.direction_like(kp, global_params, zo), s)
+            Z.accumulate(acc, Z.direction_like(kp, global_params, zo,
+                                               shardings), s)
 
     return _replay_engine(global_params, tokens, scales, add_direction,
                           shard=shard, mesh=mesh, chunk=chunk)

@@ -14,6 +14,9 @@ A key is a ``(2,)`` int64 tensor on the CPU holding the two uint32
 words (torch's uint32 lacks shifts on some backends); every add and
 shift is masked back to 32 bits.  Draws land on the device asked for,
 in windows of ``WINDOW`` entries so the int64 temporaries stay bounded.
+A draw may be of a slab of its shape (``bounds``, a ``[start, stop)`` per
+dim): the slab's entries hash their global flat counters, so a rank of a
+mesh draws its part of a leaf's field, bit for bit, and never the whole.
 
 ``normal`` needs XLA's f32 ``ErfInv``: the polynomial of M. Giles
 (XLA's ``ErfInv32``), whose Horner steps XLA:CPU contracts into fused
@@ -121,24 +124,44 @@ def split(key, n: int = 2) -> torch.Tensor:
     return fold_in_many(key, np.arange(n))
 
 
-def _bits_window(k0, k1, start: int, n: int, device) -> torch.Tensor:
-    """32-bit random bits of flat counters ``start .. start + n``."""
-    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
+def _bits_at(k0, k1, idx: torch.Tensor) -> torch.Tensor:
+    """32-bit random bits of the flat counters ``idx`` (an int64 tensor,
+    consumed)."""
     hi = idx >> 32
     o0, o1 = threefry2x32(k0, k1, hi, idx.bitwise_and_(M32))
     return o0.bitwise_xor_(o1)
 
 
-def _draw(key, shape, device, dtype, fn) -> torch.Tensor:
-    """``fn(bits)`` over the flat counters of ``shape``, a window at a
-    time, into one ``dtype`` tensor on ``device``."""
+def _counters(shape, bounds, start: int, n: int, device) -> torch.Tensor:
+    """The global flat counters of entries ``start .. start + n`` of the
+    slab ``bounds`` of ``shape`` in the slab's own row-major order (all
+    of ``shape`` without bounds)."""
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    if bounds is None:
+        return idx
+    out = torch.zeros_like(idx)
+    stride = 1
+    for dim, (a, b) in zip(reversed(shape), reversed(bounds)):
+        out.add_((idx % (b - a) + a) * stride)
+        idx = idx.div_(b - a, rounding_mode="floor")
+        stride *= dim
+    return out
+
+
+def _draw(key, shape, device, dtype, fn, bounds=None) -> torch.Tensor:
+    """``fn(bits)`` over the flat counters of ``shape`` (of its slab
+    ``bounds``), a window at a time, into one ``dtype`` tensor on
+    ``device``."""
     k0, k1 = _words(key)
-    n = math.prod(shape)
+    shape = tuple(int(d) for d in shape)
+    local = shape if bounds is None else tuple(b - a for a, b in bounds)
+    n = math.prod(local)
     out = torch.empty((n,), dtype=dtype, device=device)
     for s in range(0, n, WINDOW):
         m = min(WINDOW, n - s)
-        out[s:s + m] = fn(_bits_window(k0, k1, s, m, device))
-    return out.reshape(tuple(shape))
+        out[s:s + m] = fn(_bits_at(k0, k1, _counters(shape, bounds, s, m,
+                                                      device)))
+    return out.reshape(local)
 
 
 def random_bits(key, shape, device="cpu") -> torch.Tensor:
@@ -270,11 +293,12 @@ _NORMAL_LO = _f32(np.nextafter(_F32(-1.0), _F32(0.0)))
 _SQRT2 = _f32(math.sqrt(2.0))
 
 
-def normal(key, shape, device="cpu") -> torch.Tensor:
+def normal(key, shape, device="cpu", bounds=None) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: ``sqrt(2) *
-    erf_inv(uniform(key, shape, nextafter(-1, 0), 1))``."""
+    erf_inv(uniform(key, shape, nextafter(-1, 0), 1))``; with ``bounds``
+    only that slab of it."""
     return _draw(key, shape, device, torch.float32, lambda bits: erf_inv(
-        _uniform_window(bits, _NORMAL_LO, 1.0)).mul_(_SQRT2))
+        _uniform_window(bits, _NORMAL_LO, 1.0)).mul_(_SQRT2), bounds)
 
 
 def permutation(key, n: int) -> torch.Tensor:

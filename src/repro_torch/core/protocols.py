@@ -1,8 +1,20 @@
 """SFL protocols: HERON-SFL and the paper's first-order baselines
 (SFLV1/V2, CSE-FSL, FSL-SAGE, SplitLoRA), mirroring
 :mod:`repro.core.protocols`: the datacenter step (``init_train_state``,
-``make_train_step``, one device), the federated round
-(``make_fed_round``) and its buffered-async form (``make_async_round``).
+``make_train_step``, on one device or over a ("data", "model") mesh of
+ranks), the federated round (``make_fed_round``) and its buffered-async
+form (``make_async_round``).
+
+The datacenter step's mesh mode is the reference's ``lm_api(cfg,
+rules)``: the API carries the rules and each leaf's placement
+(``ModelAPI.rules`` / ``.shardings``), every rank holds its slabs of the
+params and its slab of the batch (``data.pipeline.place_batch``), the
+losses are the global batch's means on every rank, and the first-order
+gradients are all-reduced over the data group.  The data axis takes
+every LM family but MoE (whose expert capacity couples the batch:
+ROADMAP queue 1 item 7.2), the model axis the dense family (item 7.3 for
+the other families, 7.2 for MoE).
+
 The notes below are the federated round's.
 
 * ``"heron"``: each of N clients takes h local steps of the
@@ -56,12 +68,14 @@ from repro_torch.core.split import (combine, dequantize_smashed,
                                     param_bytes, partition,
                                     quantize_smashed)
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels import ops as O
 from repro_torch.models import cnn as CNN
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.optimizers import Optimizer
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map
 
 METHODS = ("heron", "cse_fsl", "fsl_sage", "sflv1", "sflv2", "splitlora")
 LOCKED_METHODS = ("sflv1", "sflv2", "splitlora")
@@ -81,6 +95,10 @@ class ModelAPI:
     client_dual_loss: Callable | None = None
     # leaf-seed predicate the estimator AND the server replay share
     seed_pred: Callable | None = None
+    # the datacenter step's mesh: the rules and every param leaf's
+    # placement ({"client", "server"} trees), None on one device
+    rules: SH.AxisRules | None = None
+    shardings: dict | None = None
 
 
 FORWARD_IMPLS = ("xla", "kernel")
@@ -102,50 +120,82 @@ def kernel_forward(cfg) -> bool:
     return fi == "kernel"
 
 
-def lm_api(cfg: ModelConfig) -> ModelAPI:
+def check_mesh_family(cfg: ModelConfig, mesh) -> None:
+    """The families the datacenter step's mesh takes: the data axis every
+    LM family but MoE, the model axis the dense family.  Raises with the
+    ROADMAP queue 1 sub-item of what is not ported."""
+    moe = cfg.family == "moe" or any(s.ffn == "moe"
+                                     for s in cfg.layer_specs())
+    if mesh.shape.get("data", 1) > 1 and moe:
+        raise NotImplementedError(
+            f"{cfg.name} on a data axis of {mesh.shape['data']}: the MoE "
+            "expert capacity couples the batch; the expert-parallel mesh "
+            "is ROADMAP queue 1 item 7.2")
+    if mesh.shape.get("model", 1) > 1 and cfg.family != "dense":
+        item = "7.2 (moe_ep)" if moe else "7.3"
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a model axis of "
+            f"{mesh.shape['model']}: tensor parallelism runs the dense "
+            f"family; this family's is ROADMAP queue 1 item {item}")
+
+
+def lm_api(cfg: ModelConfig, rules: SH.AxisRules | None = None) -> ModelAPI:
+    """The LM adapter; ``rules`` with a mesh make it the datacenter
+    step's mesh mode (each rank's slabs, the global batch's losses)."""
+    if rules is not None and (rules.mesh is None or all(
+            n == 1 for n in rules.mesh.shape.values())):
+        rules = None      # one device: the unsharded step, op for op
+    if rules is not None:
+        check_mesh_family(cfg, rules.mesh)
+    W = cfg.vocab_padded
+
+    def loss(logits, labels):
+        return T.lm_loss(logits, labels, cfg.vocab, rules, W)
+
     def aux_loss(cp, smashed, batch):
-        logits = T.aux_forward(cp, cfg, smashed, batch.get("positions"))
-        lbl = batch.get("aux_labels", batch["labels"])
-        return T.lm_loss(logits, lbl, cfg.vocab)
+        logits = T.aux_forward(cp, cfg, smashed, batch.get("positions"),
+                               rules=rules)
+        return loss(logits, batch.get("aux_labels", batch["labels"]))
 
     def client_loss(cp, batch):
         s = T.client_forward(cp, cfg, batch["inputs"],
-                             batch.get("positions"))
+                             batch.get("positions"), rules=rules)
         return aux_loss(cp, s, batch), s
 
     def server_logits(cp, sp, smashed, batch):
         return T.server_forward({"client": cp, "server": sp}, cfg, smashed,
                                 positions=batch.get("positions"),
                                 dec_tokens=batch.get("dec_tokens"),
-                                dec_positions=batch.get("dec_positions"))
+                                dec_positions=batch.get("dec_positions"),
+                                rules=rules)
 
     def server_loss(sp, cp_const, smashed, batch):
-        return T.lm_loss(server_logits(cp_const, sp, smashed, batch),
-                         batch["labels"], cfg.vocab)
+        return loss(server_logits(cp_const, sp, smashed, batch),
+                    batch["labels"])
 
     def joint_loss(cp, sp, batch):
         s = T.client_forward(cp, cfg, batch["inputs"],
-                             batch.get("positions"))
-        return T.lm_loss(server_logits(cp, sp, s, batch), batch["labels"],
-                         cfg.vocab)
+                             batch.get("positions"), rules=rules)
+        return loss(server_logits(cp, sp, s, batch), batch["labels"])
 
     def client_dual_loss(cp, batch, seeds, mu):
         pz = O.Perturb(seeds=seeds, mu=mu, dual=True)
         pos = batch.get("positions")
-        s2 = T.client_forward(cp, cfg, batch["inputs"], pos, perturb=pz)
+        s2 = T.client_forward(cp, cfg, batch["inputs"], pos, perturb=pz,
+                              rules=rules)
         logits2 = T.aux_forward(cp, cfg, s2, T.dual_positions(pos),
-                                perturb=pz)
+                                perturb=pz, rules=rules)
         lbl = batch.get("aux_labels", batch["labels"])
         B = batch["inputs"].shape[0]
-        l0 = T.lm_loss(logits2[:B], lbl, cfg.vocab)
-        lp = T.lm_loss(logits2[B:], lbl, cfg.vocab)
-        return l0, lp, s2[:B]
+        return loss(logits2[:B], lbl), loss(logits2[B:], lbl), s2[:B]
 
+    mesh_kw = dict(rules=rules, shardings=T.param_shardings(cfg, rules))
     if not kernel_forward(cfg):
-        return ModelAPI(client_loss, aux_loss, server_loss, joint_loss)
+        return ModelAPI(client_loss, aux_loss, server_loss, joint_loss,
+                        **mesh_kw)
     seed_pred = O.attn_kv_seed_pred if cfg.attn_probe == "scores" else None
     return ModelAPI(client_loss, aux_loss, server_loss, joint_loss,
-                    client_dual_loss, seed_pred)
+                    client_dual_loss, seed_pred, **mesh_kw)
 
 
 def cnn_api(cfg: CNN.CNNConfig) -> ModelAPI:
@@ -182,13 +232,18 @@ def cnn_api(cfg: CNN.CNNConfig) -> ModelAPI:
 # ===========================================================================
 
 def init_train_state(rng, params, client_opt: Optimizer,
-                     server_opt: Optimizer, tc_pred=None, ts_pred=None):
+                     server_opt: Optimizer, tc_pred=None, ts_pred=None,
+                     shardings=None):
     """The datacenter step's state: ``{"params", "opt_client",
     "opt_server", "step", "rng"}``, the optimizers over the trainable
     parts (``tc_pred`` / ``ts_pred`` on the leaf paths, all by default).
     ``step`` is a Python int; ``rng`` the key's two words as a uint32
     tensor, the dtype of JAX's raw key data, so a checkpoint holds the
-    state leaf for leaf as the reference's."""
+    state leaf for leaf as the reference's.  ``shardings`` (a mesh
+    API's ``ModelAPI.shardings``) cuts the full ``params`` to this
+    rank's slabs first."""
+    if shardings is not None:
+        params = SH.shard_tree(params, shardings)
     tc, _ = partition(params["client"], tc_pred or (lambda p: True))
     ts, _ = partition(params["server"], ts_pred or (lambda p: True))
     return {"params": params,
@@ -196,6 +251,28 @@ def init_train_state(rng, params, client_opt: Optimizer,
             "opt_server": server_opt.init(ts),
             "step": 0,
             "rng": R.as_key(rng).to(torch.uint32)}
+
+
+def train_state_shardings(state, shardings, tc_pred=None, ts_pred=None):
+    """The placements of a mesh step's state leaves (for a checkpoint's
+    gather and scatter): the params' ``shardings``, an optimizer state's
+    subtrees shaped as its trainable part the same, and every other leaf
+    (counts, the key) replicated."""
+    if shardings is None:
+        return None
+
+    def opt(ost, placed):
+        want = [p for p, _ in tree_leaves_with_path(placed)]
+        return {k: (placed if isinstance(v, (dict, list, tuple))
+                    and [p for p, _ in tree_leaves_with_path(v)] == want
+                    else tree_map(lambda _: None, v))
+                for k, v in ost.items()}
+
+    tc, _ = partition(shardings["client"], tc_pred or (lambda p: True))
+    ts, _ = partition(shardings["server"], ts_pred or (lambda p: True))
+    return {"params": shardings, "opt_client": opt(state["opt_client"], tc),
+            "opt_server": opt(state["opt_server"], ts), "step": None,
+            "rng": None}
 
 
 def make_train_step(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
@@ -220,18 +297,42 @@ def make_train_step(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
       loss through client and server (the training lock).
 
     Only the leaves ``tc_pred`` / ``ts_pred`` select train (all by
-    default); the others pass through unchanged.  ``client_shardings``
-    (the reference's mesh placement of the ZO draws) raises: the mesh
-    is ROADMAP queue 1 item 7.
+    default); the others pass through unchanged.
+
+    With a mesh API (``lm_api(cfg, rules)``) the state holds this rank's
+    slabs and the batch its slab (``place_batch``): the ZO draws are the
+    slabs of the trainable client params' placements
+    (``client_shardings``, the reference's pin of the threefry draw;
+    by default ``api.shardings``' client part), the losses the global
+    batch's, and the first-order gradients are all-reduced over the data
+    group, so every rank steps as the single-device step would on its
+    slabs.
     """
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
-    if client_shardings is not None:
-        raise NotImplementedError("client_shardings: the mesh mode of "
-                                  "make_train_step is ROADMAP queue 1 "
-                                  "item 7")
     tc_pred = tc_pred or (lambda p: True)
     ts_pred = ts_pred or (lambda p: True)
+    if client_shardings is None and api.shardings is not None:
+        client_shardings, _ = partition(api.shardings["client"], tc_pred)
+    if client_shardings is not None and not all(
+            isinstance(p, SH.Placement)
+            for p in tree_leaves(client_shardings)):
+        raise TypeError("client_shardings: a tree of Placements "
+                        "(repro_torch.distributed.sharding.tree_shardings) "
+                        "matching the trainable client params")
+    mesh = None if api.rules is None else api.rules.mesh
+
+    def mean(x):
+        """The global batch's mean of an activation's entries."""
+        if mesh is None or mesh.shape.get("data", 1) == 1:
+            return torch.mean(x)
+        n = torch.tensor(float(x.numel()), device=x.device)
+        return (TP.reduce_from(torch.sum(x), mesh, "data")
+                / TP.reduce_from(n, mesh, "data"))
+
+    def data_sum(grads):
+        TP.all_reduce_tree(tree_leaves(grads), mesh, "data")
+        return grads
 
     def client_grad(tc, fc, batch, key, metrics):
         """``(g_c, client_loss, smashed)`` of the aux-head methods."""
@@ -248,9 +349,10 @@ def make_train_step(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
                     lambda tcx, seeds, mu: api.client_dual_loss(
                         combine(tcx, fc), batch, seeds, mu),
                     tc, Z.seed_from_key(key), zo_cfg,
-                    seed_pred=api.seed_pred)
+                    seed_pred=api.seed_pred, shardings=client_shardings)
             else:
-                g_c, info = Z.zo_gradient(closs, tc, key, zo_cfg)
+                g_c, info = Z.zo_gradient(closs, tc, key, zo_cfg,
+                                          shardings=client_shardings)
         metrics["zo_coeff_abs"] = torch.mean(torch.abs(info["coeffs"]))
         return g_c, info["loss"], info["aux"].detach()
 
@@ -267,7 +369,7 @@ def make_train_step(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
             g_aux, = torch.autograd.grad(
                 api.aux_loss(combine(tcx, fc), s2, batch), s2,
                 create_graph=True)
-            return torch.mean(torch.square(g_aux.to(torch.float32) - g_srv))
+            return mean(torch.square(g_aux.to(torch.float32) - g_srv))
 
         _, (g_align,) = _value_and_grad(align, tc)
         return g_align
@@ -283,6 +385,7 @@ def make_train_step(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
                 lambda c, s: api.joint_loss(combine(c, fc), combine(s, fs),
                                             batch), tc, ts)
             metrics["loss"] = metrics["client_loss"] = loss
+            data_sum(g_c)
         else:
             g_c, c_loss, smashed = client_grad(tc, fc, batch, key, metrics)
             cp_const = tree_map(lambda p: p.detach(), params["client"])
@@ -294,8 +397,11 @@ def make_train_step(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
                                      batch)
                 g_c = tree_map(lambda a, b: a + align_weight * b, g_c,
                                g_align)
+            if method != "heron":
+                data_sum(g_c)
             metrics["loss"] = s_loss
             metrics["client_loss"] = c_loss
+        data_sum(g_s)
         with torch.no_grad():
             new_tc, oc = client_opt.update(g_c, state["opt_client"], tc)
             new_ts, os_ = server_opt.update(g_s, state["opt_server"], ts)

@@ -11,6 +11,10 @@ so a client update travels as ``(key, coeffs)`` and the Fed-Server
 regenerates it.  ``ZOConfig.scale`` picks the unit sphere with the
 ``d`` factor (``"sphere"``) or plain standard normals (``"gaussian"``).
 The clean and the perturbed loss are two plain forwards: no kernel.
+Under a mesh (``shardings``, a tree of placements matching the
+parameters) each rank draws its slab of every leaf's global normals,
+the sphere's norm is all-reduced over the model group (a replicated leaf
+counted once), and ``d`` is the global tree size.
 
 **The kernel stream** (``forward_impl="kernel"``): each parameter leaf
 gets an int32 hash seed (``base + path_hash``, see
@@ -19,17 +23,20 @@ generates the perturbation inside the matmul and attention kernels.
 Both losses of a pair come out of ONE fused dual-probe pass.  The noise
 is unit-variance uniform, iid per entry (the gaussian-type contract):
 ``coeff = (l_pert - l_clean) / mu / n_pairs``.  A round's int32 base
-seed comes from its key through :func:`seed_from_key`.
+seed comes from its key through :func:`seed_from_key`.  Under a mesh a
+rank's K1 launches add its slabs' part of the global field.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import numpy as np
 import torch
 
 from repro_torch.core import prng as R
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels import ops as O
 from repro_torch.tree import (tree_leaves, tree_leaves_with_path, tree_map,
                               tree_map_with_path)
@@ -57,8 +64,17 @@ def _zeros_f32(p):
 # the threefry stream
 # ---------------------------------------------------------------------------
 
-def tree_size(tree) -> int:
-    return int(sum(leaf.numel() for leaf in tree_leaves(tree)))
+def _places(shardings):
+    """A tree of placements as a dict path -> placement (None: {})."""
+    return dict(tree_leaves_with_path(shardings)) if shardings else {}
+
+
+def tree_size(tree, shardings=None) -> int:
+    """The entries of ``tree``; with ``shardings``, of the global tree
+    its slabs are part of."""
+    pl = _places(shardings)
+    return int(sum(math.prod(pl[p].shape) if p in pl else leaf.numel()
+                   for p, leaf in tree_leaves_with_path(tree)))
 
 
 def _jax_leaves(tree):
@@ -66,31 +82,53 @@ def _jax_leaves(tree):
     return tree_leaves_with_path(tree, sort_keys=True)
 
 
-def normal_like(key, tree):
+def normal_like(key, tree, shardings=None):
     """Per-leaf f32 standard normals: leaf ``i`` of JAX's flatten order
     gets key ``i`` of ``split(key, n_leaves)``.  The result has
-    ``tree``'s structure, each leaf on its leaf's device."""
+    ``tree``'s structure, each leaf on its leaf's device; a leaf with a
+    placement in ``shardings`` is this rank's slab of the global draw
+    (the reference pins the draw to the parameter's sharding, so it is
+    never made whole)."""
     paths = [p for p, _ in _jax_leaves(tree)]
     keys = dict(zip(paths, R.split(key, max(len(paths), 1))))
-    return tree_map_with_path(
-        lambda path, leaf: R.normal(keys[path], leaf.shape, leaf.device),
-        tree)
+    pl = _places(shardings)
+
+    def draw(path, leaf):
+        p = pl.get(path)
+        if p is None or not p.sharded:
+            return R.normal(keys[path], leaf.shape, leaf.device)
+        return R.normal(keys[path], p.shape, leaf.device, bounds=p.bounds)
+
+    return tree_map_with_path(draw, tree)
 
 
-def global_norm(tree):
+def global_norm(tree, shardings=None):
     """``sqrt(sum of squares + 1e-30)`` in f32, summed leaf by leaf in
-    JAX's flatten order."""
-    tot = None
-    for _, leaf in _jax_leaves(tree):
+    JAX's flatten order.  With ``shardings`` the sharded leaves' sum is
+    all-reduced over the mesh axes that split them and the replicated
+    leaves' sum (the same on every rank) added once."""
+    pl = _places(shardings)
+    tot, part, axes, mesh = None, None, set(), None
+    for path, leaf in _jax_leaves(tree):
         s = torch.sum(torch.square(leaf.to(torch.float32)))
-        tot = s if tot is None else tot + s
+        p = pl.get(path)
+        if p is not None and p.sharded:
+            part = s if part is None else part + s
+            axes.update(a for d in range(len(p.shape)) for a in p.dim_axes(d))
+            mesh = p.mesh
+        else:
+            tot = s if tot is None else tot + s
+    if part is not None:
+        for a in sorted(axes):
+            part = TP.reduce_from(part, mesh, a)
+        tot = part if tot is None else tot + part
     return torch.sqrt(tot + 1e-30)
 
 
-def unit_sphere_like(key, tree):
+def unit_sphere_like(key, tree, shardings=None):
     """u ~ Unif(S^{d-1}) over the flattened tree (||u||_2 = 1)."""
-    z = normal_like(key, tree)
-    nrm = global_norm(z)
+    z = normal_like(key, tree, shardings)
+    nrm = global_norm(z, shardings)
     return tree_map(lambda leaf: leaf.div_(nrm), z)
 
 
@@ -99,12 +137,12 @@ def fold_in_range(key, n: int):
     return R.fold_in_many(key, np.arange(n))
 
 
-def direction_like(key, tree, zo: ZOConfig):
+def direction_like(key, tree, zo: ZOConfig, shardings=None):
     """The pair direction u for one folded key, per the configured
-    scale."""
+    scale (this rank's slabs under ``shardings``)."""
     if zo.scale == "sphere":
-        return unit_sphere_like(key, tree)
-    return normal_like(key, tree)
+        return unit_sphere_like(key, tree, shardings)
+    return normal_like(key, tree, shardings)
 
 
 def accumulate(g, u, coeff):
@@ -113,7 +151,8 @@ def accumulate(g, u, coeff):
     return tree_map(lambda gl, ul: gl.add_(coeff * ul), g, u)
 
 
-def zo_gradient(loss_fn: Callable, params, key, zo: ZOConfig):
+def zo_gradient(loss_fn: Callable, params, key, zo: ZOConfig,
+                shardings=None):
     """Two-point ZO gradient of ``loss_fn`` at ``params`` on the
     threefry stream.
 
@@ -123,14 +162,14 @@ def zo_gradient(loss_fn: Callable, params, key, zo: ZOConfig):
     ``dim_factor = d`` for the sphere and 1 for gaussian.  Returns
     ``(grad_tree, info)``: the f32 gradient and the clean loss, its aux
     and the ``(n_pairs,)`` coefficients.  Cost: ``1 + n_pairs`` forward
-    passes."""
-    d = tree_size(params)
+    passes.  ``shardings``: the placements of ``params``' slabs."""
+    d = tree_size(params, shardings)
     l0, aux0 = loss_fn(params)
     dim_factor = float(d) if zo.scale == "sphere" else 1.0
     g = tree_map(_zeros_f32, params)
     coeffs = []
     for kp in fold_in_range(key, zo.n_pairs):
-        u = direction_like(kp, params, zo)
+        u = direction_like(kp, params, zo, shardings)
         lp, _ = loss_fn(add_scaled(params, u, zo.mu))
         coeff = dim_factor * (lp - l0) / zo.mu / zo.n_pairs
         accumulate(g, u, coeff)
@@ -147,19 +186,20 @@ def zo_projected_coeffs(loss_fn: Callable, params, key, zo: ZOConfig):
     return info["coeffs"], info["loss"]
 
 
-def replay_gradient(params, key, coeffs, zo: ZOConfig):
+def replay_gradient(params, key, coeffs, zo: ZOConfig, shardings=None):
     """Regenerate the threefry ZO gradient from ``(key, coeffs)``:
     ``sum_p coeff_p u_p``, the accumulation of :func:`zo_gradient` minus
     the forward passes."""
     g = tree_map(_zeros_f32, params)
     for kp, coeff in zip(fold_in_range(key, coeffs.shape[0]), coeffs):
-        accumulate(g, direction_like(kp, params, zo), coeff)
+        accumulate(g, direction_like(kp, params, zo, shardings), coeff)
     return g
 
 
-def replay_update(params, key, coeffs, lr, zo: ZOConfig):
+def replay_update(params, key, coeffs, lr, zo: ZOConfig, shardings=None):
     """theta - lr * sum_p coeff_p u_p, rebuilt from ``(key, coeffs)``."""
-    return add_scaled(params, replay_gradient(params, key, coeffs, zo), -lr)
+    return add_scaled(params, replay_gradient(params, key, coeffs, zo,
+                                              shardings), -lr)
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +219,7 @@ def pair_seeds(base_seed, n_pairs: int):
 
 
 def zo_gradient_kernel(dual_loss_fn, params, base_seed, zo: ZOConfig,
-                       seed_pred=None):
+                       seed_pred=None, shardings=None):
     """Two-point ZO gradient with the fused kernel noise stream.
 
     ``dual_loss_fn(params, seeds_tree, mu) -> (l_clean, l_pert, aux)``
@@ -190,7 +230,8 @@ def zo_gradient_kernel(dual_loss_fn, params, base_seed, zo: ZOConfig,
     (the lean uplink).  Each pair adds ``coeff * U`` into the f32
     gradient in one K1 launch (accumulate mode).  With ``n_pairs == 0``
     the gradient is zero, and the loss and aux are the base seed's clean
-    half, as in the reference.
+    half, as in the reference.  ``shardings``: the placements of
+    ``params``' slabs, whose part of each leaf's field K1 adds.
     """
     g = tree_map(_zeros_f32, params)
     if zo.n_pairs == 0:
@@ -205,17 +246,18 @@ def zo_gradient_kernel(dual_loss_fn, params, base_seed, zo: ZOConfig,
         seeds = O.leaf_seed_tree(params, sp, seed_pred)
         l0, lp, aux = dual_loss_fn(params, seeds, zo.mu)
         coeff = (lp - l0) / zo.mu / zo.n_pairs
-        O.accumulate_direction_tree(g, seeds, coeff)
+        O.accumulate_direction_tree(g, seeds, coeff, shardings)
         coeffs.append(coeff)
     return g, {"loss": l0, "aux": aux, "coeffs": torch.stack(coeffs)}
 
 
-def replay_gradient_kernel(params, base_seed, coeffs, seed_pred=None):
+def replay_gradient_kernel(params, base_seed, coeffs, seed_pred=None,
+                           shardings=None):
     """Regenerate the kernel-stream ZO gradient from its lean
     ``(base_seed, coeffs)`` form: the same accumulation as
     :func:`zo_gradient_kernel` minus the forward passes."""
     g = tree_map(_zeros_f32, params)
     for sp, coeff in zip(pair_seeds(base_seed, coeffs.shape[0]), coeffs):
         O.accumulate_direction_tree(
-            g, O.leaf_seed_tree(params, sp, seed_pred), coeff)
+            g, O.leaf_seed_tree(params, sp, seed_pred), coeff, shardings)
     return g

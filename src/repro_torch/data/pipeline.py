@@ -2,8 +2,9 @@
 
 A federated round batch carries leading (N, h) axes, client ``i``'s
 step ``m`` drawn under ``fold_in(fold_in(key, i), m)``.  Placement is
-onto one device; the reference's mesh placement (a batch sharded over
-the data axes) comes with the mesh, ROADMAP queue 1 item 7.
+onto one device and, under the datacenter step's mesh, onto this rank's
+slab of the batch axis, as the reference's ``place_batch(batch, rules)``
+shards it over the data axes.
 """
 from __future__ import annotations
 
@@ -11,13 +12,29 @@ import torch
 
 from repro_torch.core import prng as R
 from repro_torch.device import resolve_device
-from repro_torch.tree import tree_map
+from repro_torch.distributed import sharding as SH
+from repro_torch.tree import tree_map, tree_map_with_path
 
 
-def place_batch(batch, device="cuda"):
-    """Every leaf of ``batch`` on ``device``."""
+def place_batch(batch, device="cuda", rules=None):
+    """Every leaf of ``batch`` on ``device``; under ``rules``' mesh, this
+    rank's slab of it on the ``"batch"`` logical axis (the reference's
+    ``spec_for``: sharded over the data axes where they divide it, else
+    replicated).  The batch axis is a leaf's first, but the second-last
+    of ``positions`` ((B, S) ids, or qwen2-vl's (3, B, S) M-RoPE ids,
+    which the reference's first-axis rule would leave whole beside a
+    sharded batch)."""
     dev = resolve_device(device)
-    return tree_map(lambda x: x.to(dev), batch)
+    if rules is None or rules.mesh is None:
+        return tree_map(lambda x: x.to(dev), batch)
+
+    def put(path, x):
+        axis = x.dim() - 2 if path == "positions" else 0
+        logical = tuple("batch" if d == axis else None
+                        for d in range(x.dim()))
+        return SH.shard(x, rules.sharding_for(x.shape, logical)).to(dev)
+
+    return tree_map_with_path(put, batch)
 
 
 def round_batches(dataset, key, n_clients: int, h: int, batch_size: int,

@@ -5,8 +5,9 @@
   preemption, an injected fault) rolls back to the last checkpoint and
   replays; the deterministic data streams (:mod:`repro_torch.data.
   synthetic` is a pure function of its key) make the replay exact.
-* **cluster-level elasticity**: :func:`remesh` counts the devices now
-  visible.
+* **cluster-level elasticity**: :func:`remesh` rebuilds the
+  ("data", "model") mesh from the ranks now in the group; a checkpoint
+  restores onto any mesh width (:mod:`repro_torch.checkpoint`).
 * **the failure injector** the drills and the fleet controller use.
 """
 from __future__ import annotations
@@ -15,9 +16,8 @@ import dataclasses
 import time
 from typing import Callable
 
-import torch
-
 from repro_torch.checkpoint import checkpoint as CKPT
+from repro_torch.distributed.mesh import make_local_mesh
 
 
 @dataclasses.dataclass
@@ -33,15 +33,12 @@ class FaultInjector:
             raise RuntimeError(f"injected fault at step {step}")
 
 
-def remesh(model_parallel: int = 1) -> dict:
-    """The elastic layout of the visible devices, ``{"data": n,
-    "model": 1}``: every CUDA device (the CPU as one device when there is
-    none) on the data axis.  A model axis wider than 1 is ROADMAP queue 1
-    item 7 and raises."""
-    if model_parallel > 1:
-        raise NotImplementedError("model_parallel > 1: the mesh is ROADMAP "
-                                  "queue 1 item 7")
-    return {"data": max(torch.cuda.device_count(), 1), "model": 1}
+def remesh(model_parallel: int = 1):
+    """The elastic mesh of the ranks now in the default group: the same
+    function as :func:`repro_torch.distributed.mesh.make_local_mesh`, as
+    in the reference (a ``model_parallel`` that does not divide the world
+    falls back to 1)."""
+    return make_local_mesh(model_parallel)
 
 
 def backoff_s(attempt: int, base: float = 0.05, cap: float = 1.0) -> float:

@@ -4,13 +4,17 @@ A :class:`Mesh` is an ordered mapping of axis name -> size.  A
 shape-only mesh (no process group) is what the sharding rules read
 (:mod:`repro_torch.distributed.sharding`): the 16x16 production mesh
 needs no 256 ranks to resolve specs on.  A mesh over live ranks also
-holds, per axis, the ``torch.distributed`` group its collectives run on;
-the seed replay's cohort mesh (:func:`make_replay_mesh`) is one axis,
-"clients", over the ranks of the default group.
+holds, per axis, the ``torch.distributed`` group its collectives run on
+and this rank's coordinate on it.  The seed replay's cohort mesh
+(:func:`make_replay_mesh`) is one axis, "clients", over the ranks of the
+default group; the datacenter step's mesh (:func:`make_local_mesh`) is
+("data", "model") over all of them, the model axis fastest.
 
 Nothing here starts a group as a side effect: :func:`make_replay_mesh`
-reads the default group and raises when none is running.  The entry
-points start it with :func:`init_distributed` and destroy it.
+and :func:`make_local_mesh` read the default group (the replay mesh
+raises when none is running; the local mesh is then one shape-only
+device).  The entry points start it with :func:`init_distributed` and
+destroy it.
 """
 from __future__ import annotations
 
@@ -23,13 +27,15 @@ import torch.distributed as dist
 
 class Mesh:
     """Axis name -> size, in order; ``groups`` maps each axis of a mesh
-    over live ranks to its process group (empty for a shape-only
-    mesh)."""
+    over live ranks to its process group (empty for a shape-only mesh);
+    ``coords`` gives this rank's coordinate on an axis without reading
+    its group (a shape-only mesh placed at a coordinate, in tests)."""
 
-    def __init__(self, shape: Mapping[str, int], groups=None):
+    def __init__(self, shape: Mapping[str, int], groups=None, coords=None):
         self.shape = dict(shape)
         self.groups = dict(groups or {})
-        unknown = set(self.groups) - set(self.shape)
+        self.coords = dict(coords or {})
+        unknown = (set(self.groups) | set(self.coords)) - set(self.shape)
         if unknown:
             raise ValueError(f"groups for axes {sorted(unknown)} not in mesh "
                              f"axes {tuple(self.shape)}")
@@ -42,7 +48,12 @@ class Mesh:
         return self.groups[axis]
 
     def rank(self, axis: str) -> int:
-        """This process's coordinate on ``axis``."""
+        """This process's coordinate on ``axis`` (0 on an axis of size 1
+        that has no group)."""
+        if axis in self.coords:
+            return self.coords[axis]
+        if axis not in self.groups and self.shape.get(axis) == 1:
+            return 0
         r = dist.get_rank(self.group(axis))
         if r < 0:
             raise ValueError(f"rank {dist.get_rank()} is not in the mesh's "
@@ -100,3 +111,31 @@ def make_replay_mesh(n_devices: int | None = None, *,
     group = dist.group.WORLD if n == world else dist.new_group(
         list(range(n)))
     return Mesh({axis: n}, {axis: group})
+
+
+def make_local_mesh(model_parallel: int = 1) -> Mesh:
+    """The datacenter step's ("data", "model") mesh over the ranks of the
+    default group, as the reference's ``jax.make_mesh((n // mp, mp))``:
+    rank ``d * mp + m`` sits at (d, m), the model axis fastest.  A
+    ``model_parallel`` that does not divide the world falls back to 1.
+    Every rank builds one group per row (a model group) and one per
+    column (a data group), in the same order, and keeps its own two.
+    With no group running it is one shape-only device."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mp = model_parallel if model_parallel > 0 and world % model_parallel \
+        == 0 else 1
+    dp = world // mp
+    if not dist.is_initialized():
+        return Mesh({"data": dp, "model": mp})
+    rank = dist.get_rank()
+    groups = {}
+    for d in range(dp):
+        g = dist.new_group([d * mp + m for m in range(mp)])
+        if rank // mp == d:
+            groups["model"] = g
+    for m in range(mp):
+        g = dist.new_group([d * mp + m for d in range(dp)])
+        if rank % mp == m:
+            groups["data"] = g
+    return Mesh({"data": dp, "model": mp}, groups,
+                {"data": rank // mp, "model": rank % mp})

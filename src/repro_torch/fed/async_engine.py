@@ -21,9 +21,11 @@ gives the tokens and scales of :func:`repro_torch.core.aggregate.
 seed_replay_aggregate` byte for byte, hence the same new global.  The
 staleness weights live in the scales, so the replay's ``shard`` /
 ``mesh`` modes (and its ``chunk``, which changes nothing) compose
-unchanged.  The reference's
-``shardings`` (the datacenter step's placement of the directions)
-raises: that mesh mode is ROADMAP queue 1 item 7.
+unchanged.  ``shardings`` (the datacenter step's placements of the
+global params, when the server holds this rank's slabs of them) replays
+each direction's slabs: the threefry draws of the slabs' global
+counters (the reference pins the draw to the placement) and the kernel
+stream's K1 segments of the slabs.
 """
 from __future__ import annotations
 
@@ -90,7 +92,8 @@ class AsyncReplayServer:
     ``on_flush(cids, t)``: called after each snapshot with the flushed
     client ids (in client-id order) and the flush's simulated time;
     ``shard`` / ``mesh`` / ``chunk``: each flush's replay mode
-    (:func:`repro_torch.core.aggregate.replay_apply`).
+    (:func:`repro_torch.core.aggregate.replay_apply`); ``shardings``:
+    the placements of ``global_params``' slabs.
     """
 
     def __init__(self, global_params, client_lr: float,
@@ -101,16 +104,13 @@ class AsyncReplayServer:
                  on_flush: Callable | None = None):
         if not kernel and zo is None:
             raise ValueError("threefry replay needs a ZOConfig")
-        if shardings is not None:
-            raise NotImplementedError(
-                "shardings: the datacenter step's mesh mode is ROADMAP "
-                "queue 1 item 7")
         self.params = global_params
         self.client_lr = client_lr
         self.zo = zo
         self.kernel = kernel
         self.seed_pred = seed_pred
-        self._mode = dict(shard=shard, mesh=mesh, chunk=chunk)
+        self._mode = dict(shard=shard, mesh=mesh, chunk=chunk,
+                          shardings=shardings)
         self.staleness = staleness
         self.buffer_k = int(buffer_k)
         self.on_flush = on_flush

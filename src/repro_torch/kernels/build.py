@@ -40,9 +40,9 @@ SIGNATURES = {
     },
     "zo_dual_matmul": {
         "zo_dual_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U,
-                           _F, _F, _U, _P],
+                           _F, _F, _U, _U, _P],
         "zo_dual_matmul_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _U, _F, _F, _U, _P, _P],
+                              _U, _F, _F, _U, _U, _P, _P],
     },
     "zo_dual_flash_attention": {
         "zo_dual_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -53,8 +53,8 @@ SIGNATURES = {
                                        _I, _F, _F, _U, _F, _F, _U, _P],
     },
     "zo_matmul": {
-        "zo_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _U, _F, _U, _P],
-        "zo_matmul_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _U, _F, _U, _P,
+        "zo_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _U, _F, _U, _U, _P],
+        "zo_matmul_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _U, _F, _U, _U, _P,
                          _P],
     },
     "flash_attention": {

@@ -1,7 +1,9 @@
 // Kernel K2: the fused dual probe of the two-point ZO estimator,
 //   (ya, yb) = (xa @ (W + mu_a*U), xb @ (W + mu_b*U)),
 // with U the counter-hash field of hash.cuh on W's global coordinates
-// (rows shifted by row_offset for a leaf stacked along a scan axis).
+// (rows shifted by row_offset for a leaf stacked along a scan axis,
+// columns by col_offset for a column slab of a tensor-parallel W;
+// col_offset = 0 is the whole W).
 //
 // Replaces the Pallas kernel `_zo_dual_kernel` / `zo_dual_matmul` of
 // src/repro/kernels/zo_matmul.py.  Two routes, each run with TWO streams,
@@ -40,14 +42,16 @@ template <typename T, unsigned PMASK>
 __global__ void __launch_bounds__(zo_tile::THREADS)
     zo_dual_matmul_kernel(zo_tile::Streams<T, 2> st, const T* __restrict__ w,
                           int M, int K, int N, uint32_t seed,
-                          uint32_t row_offset) {
-  zo_tile::block_tile<T, 2, PMASK>(st, w, M, K, N, seed, row_offset);
+                          uint32_t row_offset, uint32_t col_offset) {
+  zo_tile::block_tile<T, 2, PMASK>(st, w, M, K, N, seed, row_offset,
+                                    col_offset);
 }
 
 template <typename T>
 int launch(const void* xa, const void* xb, const void* w, void* ya, void* yb,
            int M, int K, int N, int pa, int pb, uint32_t seed, float mu_a,
-           float mu_b, uint32_t row_offset, cudaStream_t stream) {
+           float mu_b, uint32_t row_offset, uint32_t col_offset,
+           cudaStream_t stream) {
   const dim3 grid = zo_tile::grid(M, N);
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
   const zo_tile::Streams<T, 2> st{{{(const T*)xa, (T*)ya, mu_a},
@@ -56,16 +60,16 @@ int launch(const void* xa, const void* xb, const void* w, void* ya, void* yb,
   const unsigned mask = (pa ? 1u : 0u) | (pb ? 2u : 0u);
   if (mask == 3u)
     zo_dual_matmul_kernel<T, 3u><<<grid, zo_tile::THREADS, 0, stream>>>(
-        st, ww, M, K, N, seed, row_offset);
+        st, ww, M, K, N, seed, row_offset, col_offset);
   else if (mask == 1u)
     zo_dual_matmul_kernel<T, 1u><<<grid, zo_tile::THREADS, 0, stream>>>(
-        st, ww, M, K, N, seed, row_offset);
+        st, ww, M, K, N, seed, row_offset, col_offset);
   else if (mask == 2u)
     zo_dual_matmul_kernel<T, 2u><<<grid, zo_tile::THREADS, 0, stream>>>(
-        st, ww, M, K, N, seed, row_offset);
+        st, ww, M, K, N, seed, row_offset, col_offset);
   else
     zo_dual_matmul_kernel<T, 0u><<<grid, zo_tile::THREADS, 0, stream>>>(
-        st, ww, M, K, N, seed, row_offset);
+        st, ww, M, K, N, seed, row_offset, col_offset);
   return (int)cudaGetLastError();
 }
 
@@ -75,14 +79,16 @@ extern "C" int zo_dual_matmul(const void* xa, const void* xb, const void* w,
                               void* ya, void* yb, int M, int K, int N,
                               int dtype, int perturb_a, int perturb_b,
                               unsigned int seed, float mu_a, float mu_b,
-                              unsigned int row_offset, void* stream) {
+                              unsigned int row_offset,
+                              unsigned int col_offset, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == REPRO_DTYPE_BF16)
     return launch<__nv_bfloat16>(xa, xb, w, ya, yb, M, K, N, perturb_a,
-                                 perturb_b, seed, mu_a, mu_b, row_offset, s);
+                                 perturb_b, seed, mu_a, mu_b, row_offset,
+                                 col_offset, s);
   if (dtype == REPRO_DTYPE_F32)
     return launch<float>(xa, xb, w, ya, yb, M, K, N, perturb_a, perturb_b,
-                         seed, mu_a, mu_b, row_offset, s);
+                         seed, mu_a, mu_b, row_offset, col_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -91,7 +97,8 @@ extern "C" int zo_dual_matmul_tc(const void* xa, const void* xb,
                                  int K, int N, int dtype, int perturb_a,
                                  int perturb_b, unsigned int seed, float mu_a,
                                  float mu_b, unsigned int row_offset,
-                                 void* scratch, void* stream) {
+                                 unsigned int col_offset, void* scratch,
+                                 void* stream) {
   const void* const x[2] = {xa, xb};
   void* const y[2] = {ya, yb};
   const float mu[2] = {mu_a, mu_b};
@@ -99,9 +106,9 @@ extern "C" int zo_dual_matmul_tc(const void* xa, const void* xb,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == REPRO_DTYPE_BF16)
     return zo_wgmma::launch<2>(x, w, y, mu, mask, M, K, N, seed, row_offset,
-                               s);
+                               col_offset, s);
   if (dtype == REPRO_DTYPE_F32)
     return zo_tf32::launch<2>(x, w, y, mu, mask, M, K, N, seed, row_offset,
-                              scratch, s);
+                              col_offset, scratch, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,9 @@
 // Kernel K4: the single-probe ZO matmul,
 //   y = x @ (W + mu*U)   (perturb), or   y = x @ W   (!perturb),
 // with U the counter-hash field of hash.cuh on W's global coordinates
-// (rows shifted by row_offset for a leaf stacked along a scan axis).
+// (rows shifted by row_offset for a leaf stacked along a scan axis,
+// columns by col_offset for a column slab of a tensor-parallel W;
+// col_offset = 0 is the whole W).
 //
 // Replaces the Pallas kernel `_zo_matmul_kernel` / `zo_matmul` of
 // src/repro/kernels/zo_matmul.py.  It runs K2's (zo_dual_matmul.cu) routes
@@ -35,23 +37,24 @@ template <typename T, unsigned PMASK>
 __global__ void __launch_bounds__(zo_tile::THREADS)
     zo_matmul_kernel(zo_tile::Streams<T, 1> st, const T* __restrict__ w,
                      int M, int K, int N, uint32_t seed,
-                     uint32_t row_offset) {
-  zo_tile::block_tile<T, 1, PMASK>(st, w, M, K, N, seed, row_offset);
+                     uint32_t row_offset, uint32_t col_offset) {
+  zo_tile::block_tile<T, 1, PMASK>(st, w, M, K, N, seed, row_offset,
+                                    col_offset);
 }
 
 template <typename T>
 int launch(const void* x, const void* w, void* y, int M, int K, int N,
            int perturb, uint32_t seed, float mu, uint32_t row_offset,
-           cudaStream_t stream) {
+           uint32_t col_offset, cudaStream_t stream) {
   const dim3 grid = zo_tile::grid(M, N);
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
   const zo_tile::Streams<T, 1> st{{{(const T*)x, (T*)y, mu}}};
   if (perturb)
     zo_matmul_kernel<T, 1u><<<grid, zo_tile::THREADS, 0, stream>>>(
-        st, (const T*)w, M, K, N, seed, row_offset);
+        st, (const T*)w, M, K, N, seed, row_offset, col_offset);
   else
     zo_matmul_kernel<T, 0u><<<grid, zo_tile::THREADS, 0, stream>>>(
-        st, (const T*)w, M, K, N, seed, row_offset);
+        st, (const T*)w, M, K, N, seed, row_offset, col_offset);
   return (int)cudaGetLastError();
 }
 
@@ -59,20 +62,23 @@ int launch(const void* x, const void* w, void* y, int M, int K, int N,
 
 extern "C" int zo_matmul(const void* x, const void* w, void* y, int M, int K,
                          int N, int dtype, int perturb, unsigned int seed,
-                         float mu, unsigned int row_offset, void* stream) {
+                         float mu, unsigned int row_offset,
+                         unsigned int col_offset, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == REPRO_DTYPE_BF16)
     return launch<__nv_bfloat16>(x, w, y, M, K, N, perturb, seed, mu,
-                                 row_offset, s);
+                                 row_offset, col_offset, s);
   if (dtype == REPRO_DTYPE_F32)
-    return launch<float>(x, w, y, M, K, N, perturb, seed, mu, row_offset, s);
+    return launch<float>(x, w, y, M, K, N, perturb, seed, mu, row_offset,
+                         col_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int zo_matmul_tc(const void* x, const void* w, void* y, int M,
                             int K, int N, int dtype, int perturb,
                             unsigned int seed, float mu,
-                            unsigned int row_offset, void* scratch,
+                            unsigned int row_offset,
+                            unsigned int col_offset, void* scratch,
                             void* stream) {
   const void* const xs[1] = {x};
   void* const ys[1] = {y};
@@ -81,9 +87,9 @@ extern "C" int zo_matmul_tc(const void* x, const void* w, void* y, int M,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == REPRO_DTYPE_BF16)
     return zo_wgmma::launch<1>(xs, w, ys, mus, mask, M, K, N, seed,
-                               row_offset, s);
+                               row_offset, col_offset, s);
   if (dtype == REPRO_DTYPE_F32)
     return zo_tf32::launch<1>(xs, w, ys, mus, mask, M, K, N, seed,
-                              row_offset, scratch, s);
+                              row_offset, col_offset, scratch, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,9 +2,9 @@
 // by K2 (zo_dual_matmul.cu, two streams) and K4 (zo_matmul.cu, one stream):
 //   y_s = x_s @ (W + mu_s*U)   for each stream s of the launch,
 // with U the counter-hash field of hash.cuh on W's global coordinates
-// (rows shifted by row_offset), f32 in and out.  bf16 operands take
-// zo_wgmma_matmul.cuh; shapes TMA cannot take stay on the CUDA-core loop of
-// zo_tile_matmul.cuh.
+// (rows shifted by row_offset, columns by col_offset), f32 in and out.
+// bf16 operands take zo_wgmma_matmul.cuh; shapes TMA cannot take stay on
+// the CUDA-core loop of zo_tile_matmul.cuh.
 //
 // Numerics (3xTF32).  A stream forms p = __fadd_rn(w, __fmul_rn(mu, u)) in
 // f32 as the CUDA-core loop does (p = w for a clean stream), and both p and
@@ -127,7 +127,7 @@ struct PtArgs {
   float* pt;              // [stream][hi, lo] (N, K)
   float mu[NS];
   int K, N;
-  uint32_t seed, row_offset;
+  uint32_t seed, row_offset, col_offset;
 };
 
 // ---------------------------------------------------------------------------
@@ -188,7 +188,7 @@ __global__ void __launch_bounds__(PT_THREADS)
     w[e] = a.w[(int64_t)(k + e) * a.N + n];
     u[e] = PMASK != 0u
                ? zo_uniform(a.seed, a.row_offset + (uint32_t)(k + e),
-                            (uint32_t)n)
+                            a.col_offset + (uint32_t)n)
                : 0.0f;
   }
 #pragma unroll
@@ -376,7 +376,8 @@ int launch_pt(const PtArgs<NS>& p, cudaStream_t stream) {
 template <int NS>
 int launch(const void* const (&x)[NS], const void* w, void* const (&y)[NS],
            const float (&mu)[NS], unsigned mask, int M, int K, int N,
-           uint32_t seed, uint32_t row_offset, void* scratch,
+           uint32_t seed, uint32_t row_offset, uint32_t col_offset,
+           void* scratch,
            cudaStream_t stream) {
   if (M <= 0 || K <= 0 || N <= 0 || K % 8 != 0 || N % 8 != 0)
     return (int)cudaErrorInvalidValue;
@@ -390,6 +391,7 @@ int launch(const void* const (&x)[NS], const void* w, void* const (&y)[NS],
   p.N = N;
   p.seed = seed;
   p.row_offset = row_offset;
+  p.col_offset = col_offset;
   Args<NS> a;
   for (int s = 0; s < NS; ++s) {
     if ((uintptr_t)x[s] % 16 != 0 || (uintptr_t)y[s] % 16 != 0)

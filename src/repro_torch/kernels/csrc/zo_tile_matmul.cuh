@@ -4,7 +4,8 @@
 // (zo_tf32_matmul.cuh, zo_wgmma_matmul.cuh) do not take.
 //   y_s = x_s @ (W + mu_s*U)   for each stream s of the launch,
 // with U the counter-hash field of hash.cuh on W's global coordinates
-// (rows shifted by row_offset for a leaf stacked along a scan axis).
+// (rows shifted by row_offset for a leaf stacked along a scan axis,
+// columns by col_offset for a column slab of a tensor-parallel W).
 //
 // One block owns a 64x64 output tile and loops over k in steps of 32 (the
 // TPU kernels' sequential k grid axis and f32 VMEM accumulator).  At each
@@ -47,7 +48,8 @@ template <typename T, int NS, unsigned PMASK>
 __device__ __forceinline__ void block_tile(const Streams<T, NS>& st,
                                            const T* __restrict__ w, int M,
                                            int K, int N, uint32_t seed,
-                                           uint32_t row_offset) {
+                                           uint32_t row_offset,
+                                           uint32_t col_offset) {
   // x tiles are stored k-major (transposed) so a thread's 4 rows are one
   // float4; the +4 pad keeps rows 16-byte aligned and spreads the banks.
   __shared__ __align__(16) float xs[NS][BK][BM + 4];
@@ -86,7 +88,8 @@ __device__ __forceinline__ void block_tile(const Streams<T, NS>& st,
       const float wv = ok ? zo_load(w + (int64_t)gk * N + gn) : 0.0f;
       float u = 0.0f;
       if (PMASK != 0u) {
-        u = ok ? zo_uniform(seed, row_offset + (uint32_t)gk, (uint32_t)gn)
+        u = ok ? zo_uniform(seed, row_offset + (uint32_t)gk,
+                            col_offset + (uint32_t)gn)
                : 0.0f;
       }
 #pragma unroll

@@ -2,7 +2,9 @@
 // by K2 (zo_dual_matmul.cu, two streams) and K4 (zo_matmul.cu, one stream):
 //   y_s = x_s @ (W + mu_s*U)   for each stream s of the launch,
 // with U the counter-hash field of hash.cuh on W's global coordinates
-// (rows shifted by row_offset).  f32 operands take the 3xTF32 route of
+// (rows shifted by row_offset, columns by col_offset: a stacked leaf's
+// layer, a column slab of a tensor-parallel W).  f32 operands take the
+// 3xTF32 route of
 // zo_tf32_matmul.cuh.
 //
 // Form.  The block computes y^T = p^T x^T with wgmma (sm_90a): the
@@ -107,7 +109,7 @@ struct Args {
   __nv_bfloat16* y[NS];
   float mu[NS];
   int M, K, N;
-  uint32_t seed, row_offset;
+  uint32_t seed, row_offset, col_offset;
 };
 
 // ---------------------------------------------------------------------------
@@ -240,7 +242,7 @@ __device__ __forceinline__ void block_tile(const Args<NS>& a) {
   const int lk = lane % 8 + ((lane & 16) ? 8 : 0);
   const int lchunk = 2 * wq + ((lane >> 3) & 1);
   const uint32_t ld_off = lk * 128 + ((lchunk ^ (lane % 8)) * 16);
-  const uint32_t n_lo = (uint32_t)(n0 + 16 * wq + g);
+  const uint32_t n_lo = a.col_offset + (uint32_t)(n0 + 16 * wq + g);
   const uint32_t ct[2] = {zo_mix_col(n_lo), zo_mix_col(n_lo + 8u)};
   float mu[NS];
 #pragma unroll
@@ -405,7 +407,8 @@ int launch_masked(const Args<NS>& a, cudaStream_t stream) {
 template <int NS>
 int launch(const void* const (&x)[NS], const void* w, void* const (&y)[NS],
            const float (&mu)[NS], unsigned mask, int M, int K, int N,
-           uint32_t seed, uint32_t row_offset, cudaStream_t stream) {
+           uint32_t seed, uint32_t row_offset, uint32_t col_offset,
+           cudaStream_t stream) {
   if (M <= 0 || K <= 0 || N <= 0 || K % 8 != 0 || N % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if ((uintptr_t)w % 16 != 0) return (int)cudaErrorInvalidValue;
@@ -423,6 +426,7 @@ int launch(const void* const (&x)[NS], const void* w, void* const (&y)[NS],
   a.N = N;
   a.seed = seed;
   a.row_offset = row_offset;
+  a.col_offset = col_offset;
   if constexpr (NS == 1) {
     return mask ? launch_masked<1, 1u>(a, stream)
                 : launch_masked<1, 0u>(a, stream);

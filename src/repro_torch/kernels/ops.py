@@ -12,13 +12,18 @@ fnv1a(path)`` (int32, wrapping), and its noise is defined on the
 canonical 2-D view (prod(shape[:-1]), shape[-1]).  A leaf stacked along a
 leading scan axis (reps, K, N) is one (reps*K, N) field and rep r reads
 rows [r*K, (r+1)*K) through ``row_offset``, so per-rep kernel calls and
-whole-leaf replay regenerate the same direction.  Seeds are Python ints
+whole-leaf replay regenerate the same direction.  Under a mesh a rank
+holds a slab of a leaf and draws the slab's part of the global field:
+a :class:`Window` places one layer's slab (its global rows and its first
+row and column), :func:`leaf_segments` a whole slab, one K1 segment per
+layer where the rows are split.  Seeds are Python ints
 (or int32 numpy arrays for seed vectors): they derive on the host and
 reach the kernels as launch arguments.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any
 
 import numpy as np
@@ -154,13 +159,54 @@ def any_seed(seeds) -> bool:
     return True
 
 
-def leaf_segment(seed, shape, rep=0) -> ZM.Segment:
+@dataclasses.dataclass(frozen=True)
+class Window:
+    """Where a slab of one layer of a leaf sits in the leaf's noise field:
+    the layer's global ``rows`` (of the canonical 2-D view) and the slab's
+    first global row ``row0`` and column ``col0``."""
+    rows: int
+    row0: int = 0
+    col0: int = 0
+
+
+def leaf_segment(seed, shape, rep=0, win: Window | None = None) -> \
+        ZM.Segment:
     """K1's segment for one (possibly rep-sliced) leaf: U(seed) on its
     canonical 2-D view (prod(shape[:-1]), shape[-1]), ``rep`` offsetting
-    the rows for a slice of a stacked leaf."""
+    the rows for a slice of a stacked leaf; ``win`` places a slab of it
+    (by default the leaf is whole)."""
     shape = tuple(int(s) for s in shape) or (1,)
     rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
-    return ZM.Segment(rows, shape[-1], seed, int(rep) * rows)
+    if win is None:
+        win = Window(rows)
+    return ZM.Segment(rows, shape[-1], seed, int(rep) * win.rows + win.row0,
+                      win.col0)
+
+
+def leaf_segments(seed, place):
+    """The K1 segments of this rank's slab of a leaf (``place`` a
+    :class:`repro_torch.distributed.sharding.Placement`, global shape and
+    bounds), as ``[(segment, start, size)]`` over the slab's flat
+    layout: one segment per index of the dims before the last split
+    leading dim (a row slab of a stacked leaf: one per layer), the last
+    dim's slab as the column offset."""
+    shape, bounds = tuple(place.shape) or (1,), tuple(place.bounds) or ((0, 1),)
+    (c0, c1) = bounds[-1]
+    lead, lb = shape[:-1], bounds[:-1]
+    split = [d for d in range(len(lead)) if lb[d] != (0, lead[d])]
+    j = split[-1] if split else 0
+    inner = int(np.prod(lead[j + 1:])) if lead else 1
+    rows = (lb[j][1] - lb[j][0]) * inner if lead else 1
+    out, start = [], 0
+    for idx in itertools.product(*(range(a, b) for a, b in lb[:j])):
+        flat = 0
+        for d, i in enumerate(idx):
+            flat = flat * lead[d] + i
+        r0 = (flat * lead[j] + lb[j][0]) * inner if lead else 0
+        out.append((ZM.Segment(rows, c1 - c0, seed, r0, c0), start,
+                    rows * (c1 - c0)))
+        start += rows * (c1 - c0)
+    return out
 
 
 def _paired_leaves(params, seeds, path=(), out=None):
@@ -195,44 +241,72 @@ def _rebuild(tree, values, path=()):
     return tree
 
 
-def kernel_direction_tree(params, seeds):
+def _tree_segments(leaves, places):
+    """``(segments, outs)`` of K1 over ``[(path, tensor, seed)]``: a
+    tensor's whole view as one segment, or with ``places`` (a dict path
+    -> Placement) its slab's segments over flat views of it."""
+    segs, outs = [], []
+    for path, t, s in leaves:
+        pl = None if places is None else places.get(path)
+        if pl is None or not pl.sharded:
+            segs.append(leaf_segment(s, t.shape))
+            outs.append(t)
+            continue
+        flat = t.view(-1)
+        for seg, start, n in leaf_segments(s, pl):
+            segs.append(seg)
+            outs.append(flat[start:start + n])
+    return segs, outs
+
+
+def _place_paths(places):
+    """A tree of placements as a dict keyed like :func:`_paired_leaves`'
+    paths (None: no placements)."""
+    if places is None:
+        return None
+    return {path: pl for path, pl, _ in _paired_leaves(places, None)}
+
+
+def kernel_direction_tree(params, seeds, places=None):
     """Materialized f32 direction U for a whole tree, one K1 launch for
     its seeded leaves (None seed -> zeros): the replay-side oracle of the
-    in-kernel stream."""
+    in-kernel stream.  ``places`` (a matching tree of placements) draws
+    each slab leaf's part of the global field."""
     leaves = _paired_leaves(params, seeds)
-    out, segs, outs = {}, [], []
+    out, seeded = {}, []
     for path, p, s in leaves:
         u = (torch.zeros if s is None else torch.empty)(
             p.shape, dtype=torch.float32, device=p.device)
         out[path] = u
         if s is not None:
-            segs.append(leaf_segment(s, p.shape))
-            outs.append(u)
-    ZM.zo_noise_tree("field", segs, outs)
+            seeded.append((path, u, s))
+    ZM.zo_noise_tree("field", *_tree_segments(seeded, _place_paths(places)))
     return _rebuild(params, out)
 
 
-def accumulate_direction_tree(acc, seeds, scale):
+def accumulate_direction_tree(acc, seeds, scale, places=None):
     """``acc + scale * U(seeds)`` into the f32 tree ``acc`` in place, one
     K1 launch for the whole tree: the direction accumulation of the ZO
     gradient and of the seed replay.  A leaf whose seed is None adds
     ``scale * 0``, as a zero direction does.  ``scale`` is a 0-d tensor
-    (or a number) that the kernel reads on the device."""
+    (or a number) that the kernel reads on the device.  ``places`` (a
+    matching tree of placements) adds each slab leaf's part of the
+    global field."""
     leaves = _paired_leaves(acc, seeds)
     if not leaves:
         return acc
     dev = leaves[0][1].device
     scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
     ZM.zo_noise_tree("accumulate",
-                     [leaf_segment(s, a.shape) for _, a, s in leaves],
-                     [a for _, a, _ in leaves], scale=scale)
+                     *_tree_segments(leaves, _place_paths(places)),
+                     scale=scale)
     return acc
 
 
-def perturb_tree(params, seeds, mu, rep=0):
+def perturb_tree(params, seeds, mu, rep=0, win: Window | None = None):
     """``theta + mu*U(seeds)`` leaf by leaf in the leaf's dtype, one K1
     launch for the seeded leaves; leaves without a seed are returned as
-    they are."""
+    they are.  ``win`` places a slab (for a tree of one leaf)."""
     if seeds is None:
         return params
     leaves = [(path, p, s) for path, p, s in _paired_leaves(params, seeds)
@@ -240,7 +314,8 @@ def perturb_tree(params, seeds, mu, rep=0):
     out = {path: torch.empty_like(p, memory_format=torch.contiguous_format)
            for path, p, _ in leaves}
     ZM.zo_noise_tree("perturb",
-                     [leaf_segment(s, p.shape, rep) for _, p, s in leaves],
+                     [leaf_segment(s, p.shape, rep, win)
+                      for _, p, s in leaves],
                      [out[path] for path, _, _ in leaves],
                      ins=[p.contiguous() for _, p, _ in leaves], mu=mu)
     return _rebuild(params, out)

@@ -246,18 +246,22 @@ def _tf32_scratch(dtype, streams, K, N, dev):
 
 
 def zo_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
-                   perturb_a: bool = False, perturb_b: bool = True):
+                   col_offset=0, perturb_a: bool = False,
+                   perturb_b: bool = True):
     """K2: ``(xa @ (W + mu_a*U), xb @ (W + mu_b*U))`` for one read of W.
 
     xa, xb: (M, K); w: (K, N); one dtype, f32 or bf16; f32 accumulation,
     outputs in x's dtype.  ``perturb_a`` / ``perturb_b`` select the
     streams that see the noise (clean + perturbed by default;
-    ``perturb_a=True, mu_b=-mu_a`` is the antithetic pair).
+    ``perturb_a=True, mu_b=-mu_a`` is the antithetic pair).  ``W``'s
+    element (k, n) reads ``U[row_offset + k, col_offset + n]``: a layer
+    of a stacked leaf, or a tensor-parallel slab of a larger W.
     """
     if xa.device.type == "cpu":
         u = None
         if perturb_a or perturb_b:
-            u = N.uniform_noise(seed, w.shape, row_offset, device=w.device)
+            u = N.uniform_noise(seed, w.shape, row_offset, col_offset,
+                                device=w.device)
         return R.zo_dual_matmul_ref(xa, xb, w, u, mu_a, mu_b,
                                     perturb_a=perturb_a, perturb_b=perturb_b)
     dev = _check_matmul("zo_dual_matmul", w, xa, xb)
@@ -271,7 +275,8 @@ def zo_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
                 yb.data_ptr())
         args = (*ptrs, M, K, Nn, build.DTYPE_CODES[xa.dtype],
                 int(perturb_a), int(perturb_b), int(N._u32(seed)),
-                float(mu_a), float(mu_b), int(N._u32(row_offset)))
+                float(mu_a), float(mu_b), int(N._u32(row_offset)),
+                int(N._u32(col_offset)))
         tc = tensor_core_route(xa.dtype, K, Nn, ptrs)
         if tc:
             scratch = _tf32_scratch(xa.dtype, 2, K, Nn, dev)
@@ -286,19 +291,21 @@ def zo_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
     return ya, yb
 
 
-def zo_matmul(x, w, seed, mu, *, row_offset=0, perturb: bool = True):
+def zo_matmul(x, w, seed, mu, *, row_offset=0, col_offset=0,
+              perturb: bool = True):
     """K4: ``y = x @ (W + mu*U(seed))``, or ``x @ W`` with
     ``perturb=False`` (the clean pass of the two-pass baseline).
 
     x: (M, K); w: (K, N); one dtype, f32 or bf16; f32 accumulation,
     output in x's dtype.  Equals stream b of :func:`zo_dual_matmul` with
-    the same (seed, mu, row_offset) bit for bit on the card when both take
-    the same route.
+    the same (seed, mu, row_offset, col_offset) bit for bit on the card
+    when both take the same route.
     """
     if x.device.type == "cpu":
         if not perturb:
             return R.matmul_ref(x, w)
-        u = N.uniform_noise(seed, w.shape, row_offset, device=w.device)
+        u = N.uniform_noise(seed, w.shape, row_offset, col_offset,
+                            device=w.device)
         return R.zo_matmul_ref(x, w, u, mu)
     dev = _check_matmul("zo_matmul", w, x)
     M, K = x.shape
@@ -308,7 +315,8 @@ def zo_matmul(x, w, seed, mu, *, row_offset=0, perturb: bool = True):
         lib = build.library("zo_matmul")
         ptrs = (x.data_ptr(), w.data_ptr(), y.data_ptr())
         args = (*ptrs, M, K, Nn, build.DTYPE_CODES[x.dtype], int(perturb),
-                int(N._u32(seed)), float(mu), int(N._u32(row_offset)))
+                int(N._u32(seed)), float(mu), int(N._u32(row_offset)),
+                int(N._u32(col_offset)))
         tc = tensor_core_route(x.dtype, K, Nn, ptrs)
         if tc:
             scratch = _tf32_scratch(x.dtype, 1, K, Nn, dev)

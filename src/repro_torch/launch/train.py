@@ -28,17 +28,26 @@ cut planner's batch ``PRNGKey(2)``, the round batches ``fold_in(
 PRNGKey(5), r)``, the step batches ``fold_in(PRNGKey(7), step)`` and
 the round keys ``fold_in(PRNGKey(9), r)``.
 
+The datacenter step's mesh mode runs under torchrun (or any running
+group): ``torchrun --nproc-per-node=N -m repro_torch.launch.train ...
+--model-parallel M`` lays the N ranks out as the reference's
+``make_local_mesh(M)``, ("data" N / M, "model" M) (M not dividing N
+falls back to 1), with ``AxisRules(mesh, enable_fsdp=False)``: each rank
+holds its slabs of the state and of each batch (``place_batch``), and a
+checkpoint is rank 0's write of the gathered state, restored onto any
+mesh width.  The model axis takes the dense family and the data axis
+every family but MoE (``protocols.check_mesh_family``).
+
 The data is ``BigramLM``, whose table is ``vocab x vocab``: at a full
 config's vocab (151,936 for qwen2-1.5b) that is 185 GB, so the driver
-runs such archs with ``--smoke``.  ``--model-parallel > 1`` is the
-datacenter step's mesh mode, ROADMAP queue 1 item 7, and raises.  The
-modality archs (qwen2-vl-2b, seamless-m4t-medium) train with the
+runs such archs with ``--smoke``.  The modality archs (qwen2-vl-2b, seamless-m4t-medium) train with the
 datacenter step on the reference's stub batches (``build_batch``);
 ``--fed`` refuses them, as the reference's driver does.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -53,7 +62,8 @@ from repro_torch.data.pipeline import place_batch, round_batches
 from repro_torch.data.synthetic import BigramLM
 from repro_torch.device import resolve_device
 from repro_torch.distributed.mesh import (init_distributed, local_device,
-                                          make_replay_mesh)
+                                          make_local_mesh, make_replay_mesh)
+from repro_torch.distributed.sharding import AxisRules
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.optim.schedules import warmup_cosine
@@ -79,13 +89,6 @@ def build_batch(cfg, ds, key, batch, seq):
             3, batch, seq - 1)
         return {"inputs": emb, "positions": pos, "labels": b["labels"]}
     return {"inputs": emb, "labels": b["labels"]}
-
-
-def _mesh_flags(args):
-    if args.model_parallel > 1:
-        raise NotImplementedError("--model-parallel > 1: the datacenter "
-                                  "step's mesh mode is ROADMAP queue 1 "
-                                  "item 7")
 
 
 def _is_rank0():
@@ -216,20 +219,41 @@ def main(argv=None):
                          "versions)")
     args = ap.parse_args(argv)
 
-    _mesh_flags(args)
     dev = resolve_device(local_device(args.device))
     cfg = get_config(args.arch, smoke=args.smoke)
-    api = P.lm_api(cfg)
     if args.fed or args.fed_async:
+        if args.model_parallel > 1:
+            raise SystemExit("--model-parallel is the datacenter step's "
+                             "mesh; the rounds shard their replay "
+                             "(--replay-shard)")
         owned = args.replay_shard != "none" and init_distributed(dev)
         try:
-            return run_fed(args, cfg, api, dev)
+            return run_fed(args, cfg, P.lm_api(cfg), dev)
         finally:
             if owned:
                 dist.destroy_process_group()
     if args.uplink != "dense":
         raise SystemExit("--uplink seed_replay requires --fed (the lean "
                          "uplink is a federated-round mechanism)")
+    meshed = (args.model_parallel > 1 or dist.is_initialized()
+              or int(os.environ.get("WORLD_SIZE", 1)) > 1)
+    owned = meshed and init_distributed(dev)
+    try:
+        return run_step(args, cfg, dev, meshed)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def run_step(args, cfg, dev, meshed):
+    """The datacenter step with checkpoint / restart: on one device, or
+    (``meshed``) on ``make_local_mesh(--model-parallel)`` over the running
+    group's ranks."""
+    rules = None
+    if meshed:
+        rules = AxisRules(mesh=make_local_mesh(args.model_parallel),
+                          enable_fsdp=False)
+    api = P.lm_api(cfg, rules)
     c_name = "zo_sgd" if args.method == "heron" else "adamw"
     copt = make_optimizer(
         c_name, warmup_cosine(args.lr_client, 5, args.steps))
@@ -241,11 +265,15 @@ def main(argv=None):
         warmup_cosine(args.lr_server, 5, args.steps))
 
     params = T.init_lm(cfg, device=dev, key=R.PRNGKey(0))
-    state = P.init_train_state(R.PRNGKey(1), params, copt, sopt)
+    state = P.init_train_state(R.PRNGKey(1), params, copt, sopt,
+                               shardings=api.shardings)
+    del params
+    places = P.train_state_shardings(state, api.shardings)
     start = 0
     if args.ckpt_dir and CKPT.latest_step(args.ckpt_dir) is not None:
-        state, start = CKPT.restore(args.ckpt_dir, state)
-        print(f"[train] restored checkpoint at step {start}")
+        state, start = CKPT.restore(args.ckpt_dir, state, shardings=places)
+        if _is_rank0():
+            print(f"[train] restored checkpoint at step {start}")
     step_fn = P.make_train_step(
         api, args.method, Z.ZOConfig(mu=args.zo_mu, n_pairs=args.zo_pairs),
         copt, sopt)
@@ -255,18 +283,19 @@ def main(argv=None):
     t0 = time.time()
     for step in range(start, args.steps):
         batch = place_batch(build_batch(cfg, ds, R.fold_in(key, step),
-                                        args.batch, args.seq), dev)
+                                        args.batch, args.seq), dev, rules)
         state, metrics = step_fn(state, batch)
-        if step % 5 == 0 or step == args.steps - 1:
+        if _is_rank0() and (step % 5 == 0 or step == args.steps - 1):
             m = {k: float(v) for k, v in metrics.items()}
             print(f"[train] step {step:4d} loss={m.get('loss', 0):.4f} "
                   f"client_loss={m.get('client_loss', 0):.4f} "
                   f"({time.time()-t0:.1f}s)", flush=True)
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            CKPT.save(args.ckpt_dir, step + 1, state)
+            CKPT.save(args.ckpt_dir, step + 1, state, shardings=places)
     if args.ckpt_dir:
-        CKPT.save(args.ckpt_dir, args.steps, state)
-        print(f"[train] final checkpoint at {args.ckpt_dir}")
+        CKPT.save(args.ckpt_dir, args.steps, state, shardings=places)
+        if _is_rank0():
+            print(f"[train] final checkpoint at {args.ckpt_dir}")
     return 0
 
 

@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels import ops as O
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.ops import psub
@@ -40,19 +42,76 @@ from repro_torch.models.config import ModelConfig
 NEG_INF = -2.0e38
 
 
+Q_AXES, KV_AXES, O_AXES = (("d_model", "heads"), ("d_model", "kv_heads"),
+                           ("heads", "d_model"))
+
+
 def init_attention(gen, cfg: ModelConfig):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     dt = cfg.torch_param_dtype()
     return {
-        "wq": L.init_dense(gen, d, cfg.n_heads * hd, dt, cfg.qkv_bias),
-        "wk": L.init_dense(gen, d, cfg.n_kv_heads * hd, dt, cfg.qkv_bias),
-        "wv": L.init_dense(gen, d, cfg.n_kv_heads * hd, dt, cfg.qkv_bias),
-        "wo": L.init_dense(gen, cfg.n_heads * hd, d, dt, False),
+        "wq": L.init_dense(gen, d, cfg.n_heads * hd, dt, cfg.qkv_bias,
+                           axes=Q_AXES),
+        "wk": L.init_dense(gen, d, cfg.n_kv_heads * hd, dt, cfg.qkv_bias,
+                           axes=KV_AXES),
+        "wv": L.init_dense(gen, d, cfg.n_kv_heads * hd, dt, cfg.qkv_bias,
+                           axes=KV_AXES),
+        "wo": L.init_dense(gen, cfg.n_heads * hd, d, dt, False, axes=O_AXES),
     }
 
 
-def _split_heads(x, n, hd):
-    return x.reshape(tuple(x.shape[:-1]) + (n, hd))
+def _split_heads(x, hd):
+    """(..., n * hd) -> (..., n, hd): the heads a rank holds (all of them
+    without a mesh)."""
+    return x.reshape(tuple(x.shape[:-1]) + (x.shape[-1] // hd, hd))
+
+
+class AttnTP:
+    """The attention layer's tensor-parallel layout on this rank.  The
+    projections are placed by the rules (the reference's logical axes):
+    wq / wk / wv column slabs, wo a row slab, wherever the model axis
+    divides their flat ``heads * head_dim`` dims.  A rank attends its own
+    q heads ``[h0, h0 + n_local)`` when its wq slab holds whole heads;
+    else q is gathered and every rank attends all heads (and cuts its wo
+    slab's columns out of the output).  Its k / v heads are its own slab
+    where that holds the kv heads of its q heads, else gathered (or, for
+    a whole wk / wv, computed whole) and narrowed to its q heads' GQA
+    groups."""
+
+    def __init__(self, cfg: ModelConfig, rules):
+        H, K, hd, d = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                       cfg.d_model)
+        self.mesh = rules.mesh
+        self.q = L.DenseTP.of(rules, (d, H * hd), Q_AXES)
+        self.kv = L.DenseTP.of(rules, (d, K * hd), KV_AXES)
+        self.o = L.DenseTP.of(rules, (H * hd, d), O_AXES)
+        mp = self.mesh.shape.get("model", 1)
+        self.q_local = self.q is not None and H % mp == 0
+        self.kv_local = self.q_local and self.kv is not None and K % mp == 0
+        self.h0, self.n_local = ((self.q.col0 // hd, H // mp)
+                                 if self.q_local else (0, H))
+        self.G = H // K
+
+    @classmethod
+    def of(cls, cfg, rules):
+        if rules is None or rules.mesh is None or \
+                rules.mesh.shape.get("model", 1) == 1:
+            return None
+        return cls(cfg, rules)
+
+    def kv_heads(self, t):
+        """k or v (B, S, K, D) narrowed to this rank's q heads: a slice of
+        whole GQA groups where the local heads fill them in order, else
+        one kv head per q head."""
+        if self.kv_local or self.n_local == t.shape[2] * self.G:
+            return t
+        ids = (self.h0 + torch.arange(self.n_local)) // self.G
+        lo, hi = int(ids[0]), int(ids[-1]) + 1
+        nk = hi - lo
+        if self.n_local % nk == 0 and torch.equal(
+                ids, lo + torch.arange(self.n_local) // (self.n_local // nk)):
+            return t[:, :, lo:hi]
+        return t.index_select(2, ids.to(t.device))
 
 
 def _mask(q_pos, kv_pos, causal: bool, window: int):
@@ -119,7 +178,7 @@ def blocked_attention(q, k, v, *, causal=True, window=0, cap=None,
 
 
 def _dual_probe_attention(q, k, v, cfg: ModelConfig, *, window: int,
-                          perturb, score_probe: bool):
+                          perturb, score_probe: bool, h0: int = 0):
     """Both estimator streams through ONE fused flash pass.
 
     ``q`` stacks [clean; perturbed] on the leading batch axis.  In
@@ -127,7 +186,8 @@ def _dual_probe_attention(q, k, v, cfg: ModelConfig, *, window: int,
     attends its own K/V.  In score-probe mode k/v carry only the clean
     half, both streams share every K/V load, and the perturbed stream
     adds ``mu * U(seed)`` to its pre-softmax scores, with the scan repeat
-    index row-offsetting the canonical (reps*H*Sq, Skv) field.
+    index row-offsetting the canonical (reps*H*Sq, Skv) field, and ``h0``
+    (a rank's first q head under a mesh) the rows of its heads.
     """
     B2 = q.shape[0] // 2
     S = q.shape[1]
@@ -135,7 +195,7 @@ def _dual_probe_attention(q, k, v, cfg: ModelConfig, *, window: int,
                   cap=cfg.attn_softcap or 0.0, scale=cfg.attn_scale)
     if score_probe:
         sseed = O.attn_score_seed(perturb.seeds)
-        off = int(perturb.rep) * (cfg.n_heads * S)
+        off = int(perturb.rep) * (cfg.n_heads * S) + int(h0) * S
         oa, ob = O.zo_dual_flash_attention(
             q[:B2], q[B2:], k, v, seed=0 if sseed is None else sseed,
             mu_a=0.0, mu_b=perturb.mu, row_offset=off, perturb_a=False,
@@ -226,7 +286,7 @@ def _rope(cfg: ModelConfig, q, k, positions, kv_positions):
 
 def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
                     local: bool = False, cache=None, decode: bool = False,
-                    live=None, cross_kv=None, perturb=None):
+                    live=None, cross_kv=None, perturb=None, rules=None):
     """Self-attention: q/k/v projections, RoPE (or M-RoPE), attention,
     output projection.  Returns ``(out, cache)``.
 
@@ -239,16 +299,36 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
     (kept only for ``live`` slots, when given) and attends the cache.
     ``cross_kv`` = ``(k, v)``, (B, S_enc, Kv, D) each, makes it the
     enc-dec decoder's cross-attention: no RoPE, every query over every
-    encoder position, in plain PyTorch (no kernel, as in the reference)."""
+    encoder position, in plain PyTorch (no kernel, as in the reference).
+    ``rules`` with a model axis make it tensor-parallel (:class:`AttnTP`),
+    a training-time path."""
     if perturb is not None and (cache is not None or decode
                                 or cross_kv is not None):
         raise ValueError("the ZO perturbed forward is a training-time path")
+    tp = AttnTP.of(cfg, rules)
+    if tp is not None and (cache is not None or decode
+                           or cross_kv is not None):
+        raise NotImplementedError("tensor-parallel attention is the "
+                                  "datacenter step's; serving and cross-"
+                                  "attention run on one device")
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     cdt = cfg.torch_compute_dtype()
     window = cfg.window if local else 0
-    q = _split_heads(L.dense(params["wq"], x, cdt, psub(perturb, "wq")),
-                     cfg.n_heads, hd)
+    xin = x
+    if tp is not None and (tp.q is not None or tp.kv is not None):
+        xin = TP.copy_to(x, tp.mesh)
+    if tp is None:
+        q = L.dense(params["wq"], x, cdt, psub(perturb, "wq"))
+    else:
+        q = L.dense(params["wq"], xin if tp.q else x, cdt,
+                    psub(perturb, "wq"), tp.q)
+        if tp.q is not None and not tp.q_local:
+            q = TP.gather_from(q, tp.mesh)
+    q = _split_heads(q, hd)
+    if rules is not None:
+        q = SH.constrain(q, rules, ("batch", None, "heads", None),
+                         (None, S, cfg.n_heads, hd))
     if cross_kv is not None:
         k, v = cross_kv
         kw = dict(causal=False, cap=cfg.attn_softcap, scale=cfg.attn_scale)
@@ -262,12 +342,26 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
     # and replay seed streams consistent with this)
     score_probe = (perturb is not None and perturb.dual
                    and cfg.attn_probe == "scores")
-    xkv = x[: x.shape[0] // 2] if score_probe else x
+    half = x.shape[0] // 2
+    xkv = x[:half] if score_probe else x
     pkv = None if score_probe else perturb
-    k = _split_heads(L.dense(params["wk"], xkv, cdt, psub(pkv, "wk")),
-                     cfg.n_kv_heads, hd)
-    v = _split_heads(L.dense(params["wv"], xkv, cdt, psub(pkv, "wv")),
-                     cfg.n_kv_heads, hd)
+
+    def kv_proj(name):
+        if tp is None:
+            return _split_heads(L.dense(params[name], xkv, cdt,
+                                        psub(pkv, name)), hd)
+        if tp.kv is not None:
+            t = L.dense(params[name], xin[:half] if score_probe else xin,
+                        cdt, psub(pkv, name), tp.kv)
+            if not tp.kv_local:
+                t = TP.gather_from(t, tp.mesh, partial=tp.q_local)
+        else:
+            t = L.dense(params[name], xkv, cdt, psub(pkv, name))
+            if tp.q_local:      # a whole k / v read in part on each rank
+                t = TP.copy_to(t, tp.mesh)
+        return tp.kv_heads(_split_heads(t, hd))
+
+    k, v = kv_proj("wk"), kv_proj("wv")
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         if decode:              # each slot (or the batch) at its position
@@ -290,7 +384,8 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
     elif perturb is not None and perturb.dual:
         o = _dual_probe_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), cfg, window=window,
-                                  perturb=perturb, score_probe=score_probe)
+                                  perturb=perturb, score_probe=score_probe,
+                                  h0=0 if tp is None else tp.h0)
     elif perturb is not None or (cache is not None and x.is_cuda):
         # the single probe's one stream, and the serving prefill on the
         # card, through the flash kernel; the unperturbed forward stays on
@@ -308,8 +403,11 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
                               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     if cache is not None and not decode:
         _prefill_cache(cache, k, v)
-    o = o.reshape(B, S, cfg.n_heads * hd)
-    out = L.dense(params["wo"], o, cdt, psub(perturb, "wo"))
+    o = o.reshape(B, S, q.shape[2] * hd)
+    if tp is not None and tp.o is not None and not tp.q_local:
+        o = TP.split_to(o, tp.mesh)     # wo's row slab of all heads' output
+    out = L.dense(params["wo"], o, cdt, psub(perturb, "wo"),
+                  None if tp is None else tp.o)
     return out, cache
 
 

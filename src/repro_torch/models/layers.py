@@ -5,11 +5,18 @@ RG-LRU block.  Plain functions on nested dicts of tensors, mirroring
 
 Init functions draw from an explicit ``torch.Generator``; given None
 they make shape-only tensors on the ``meta`` device, and given
-:data:`RULES` each leaf's :class:`InitRule`.  The generator's draws are
-not the JAX package's; :func:`repro_torch.models.transformer.init_lm`
-with a ``key`` draws the rules on JAX's key stream
-(:func:`jax_init_leaf`), and parity tests load the JAX params through
-:func:`repro_torch.bridge.from_jax`.
+:data:`RULES` each leaf's :class:`InitRule`, which carries the leaf's
+logical axes (the reference's ``ParamBuilder`` in ``mode="axes"``).  The
+generator's draws are not the JAX package's;
+:func:`repro_torch.models.transformer.init_lm` with a ``key`` draws the
+rules on JAX's key stream (:func:`jax_init_leaf`), and parity tests load
+the JAX params through :func:`repro_torch.bridge.from_jax`.
+
+Under a mesh with a "model" axis (``tp``, a :class:`DenseTP`) a dense
+layer is column-parallel (its W a column slab, the input entering
+through ``copy_to``) or row-parallel (a row slab, the partial products
+summed by ``reduce_from``); its ZO noise reads the slab's global
+coordinates.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng as R
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels import ops as O
 
 
@@ -29,9 +37,10 @@ class InitRule:
     (:func:`jax_init_leaf`).  ``reps`` > 0: a stacked leaf
     (:func:`stack_leaves`), ``reps`` draws of ``shape``."""
 
-    def __init__(self, shape, dtype, init, scale, reps=0):
+    def __init__(self, shape, dtype, init, scale, reps=0, axes=None):
         self.shape, self.dtype, self.init = shape, dtype, init
         self.scale, self.reps = scale, reps
+        self.axes = tuple(axes) if axes is not None else (None,) * len(shape)
 
 
 RULES = object()       # init_param's "generator" that returns InitRules
@@ -58,15 +67,15 @@ def _draw(shape, dtype, init, scale, device, uniform, normal):
 
 
 def init_param(gen: torch.Generator, shape, dtype, init="normal",
-               scale=None):
+               scale=None, axes=None):
     """One leaf, drawn on ``gen``'s device (``gen=None``: an empty
     tensor on the ``meta`` device, its shape and dtype alone;
-    ``gen=RULES``: its :class:`InitRule`)."""
+    ``gen=RULES``: its :class:`InitRule`, with the logical ``axes``)."""
     shape = tuple(int(s) for s in shape)
     if gen is None:
         return torch.empty(shape, dtype=dtype, device="meta")
     if gen is RULES:
-        return InitRule(shape, dtype, init, scale)
+        return InitRule(shape, dtype, init, scale, axes=axes)
     dev = gen.device
     return _draw(shape, dtype, init, scale, dev,
                  lambda lo, hi: lo + (hi - lo) * torch.rand(
@@ -79,7 +88,7 @@ def stack_leaves(xs):
     """The reps of a stacked leaf: tensors stacked, rules counted."""
     if isinstance(xs[0], InitRule):
         return InitRule(xs[0].shape, xs[0].dtype, xs[0].init, xs[0].scale,
-                        len(xs))
+                        len(xs), xs[0].axes)
     return torch.stack(xs)
 
 
@@ -102,7 +111,8 @@ def jax_init_leaf(key, path: str, rule: InitRule, device="cpu"):
 # ---------------------------------------------------------------------------
 
 def init_rmsnorm(gen, dim: int, dtype):
-    return {"scale": init_param(gen, (dim,), dtype, "zeros")}
+    return {"scale": init_param(gen, (dim,), dtype, "zeros",
+                                axes=("d_model",))}
 
 
 def rmsnorm(params, x, eps: float = 1e-6):
@@ -115,8 +125,10 @@ def rmsnorm(params, x, eps: float = 1e-6):
 
 
 def init_layernorm(gen, dim: int, dtype):
-    return {"scale": init_param(gen, (dim,), dtype, "ones"),
-            "bias": init_param(gen, (dim,), dtype, "zeros")}
+    return {"scale": init_param(gen, (dim,), dtype, "ones",
+                                axes=("d_model",)),
+            "bias": init_param(gen, (dim,), dtype, "zeros",
+                               axes=("d_model",))}
 
 
 def layernorm(params, x, eps: float = 1e-5):
@@ -134,35 +146,85 @@ def layernorm(params, x, eps: float = 1e-5):
 # ---------------------------------------------------------------------------
 
 def init_dense(gen, d_in: int, d_out: int, dtype, bias: bool = False,
-               scale=None):
-    p = {"w": init_param(gen, (d_in, d_out), dtype, "normal", scale)}
+               scale=None, axes=(None, None)):
+    """``{"w": (d_in, d_out)[, "b": (d_out,)]}``; ``axes`` the logical
+    names of W's two dims (the bias takes the second)."""
+    p = {"w": init_param(gen, (d_in, d_out), dtype, "normal", scale,
+                         axes=axes)}
     if bias:
-        p["b"] = init_param(gen, (d_out,), dtype, "zeros")
+        p["b"] = init_param(gen, (d_out,), dtype, "zeros", axes=axes[1:])
     return p
 
 
-def dense(params, x, compute_dtype=None, perturb=None):
-    if perturb is not None and O.any_seed(perturb.seeds):
-        return _dense_perturbed(params, x, perturb, compute_dtype)
-    w = params["w"]
+class DenseTP:
+    """A dense layer's tensor-parallel layout on this rank, over
+    ``mesh``'s "model" axis: ``mode`` ``"col"`` (W a column slab from
+    global column ``col0``) or ``"row"`` (a row slab from global row
+    ``row0``); ``rows`` is W's global row count.  :meth:`of` gives None
+    where the rules leave W whole."""
+
+    def __init__(self, mode, mesh, rows, row0=0, col0=0):
+        self.mode, self.mesh = mode, mesh
+        self.rows, self.row0, self.col0 = rows, row0, col0
+
+    @classmethod
+    def of(cls, rules, shape, axes):
+        pl = None if rules is None else rules.sharding_for(shape, axes)
+        if pl is None or not pl.sharded:
+            return None
+        (r0, _), (c0, _) = pl.bounds
+        if pl.dim_axes(0) == ("model",) and not pl.dim_axes(1):
+            return cls("row", rules.mesh, shape[0], row0=r0)
+        if pl.dim_axes(1) == ("model",) and not pl.dim_axes(0):
+            return cls("col", rules.mesh, shape[0], col0=c0)
+        raise NotImplementedError(f"dense W {tuple(shape)} placed "
+                                  f"{pl.spec}: only a column or a row slab "
+                                  "on the model axis is a tensor-parallel "
+                                  "layer")
+
+    def window(self):
+        """Where W's slab sits in the noise field of one layer."""
+        return O.Window(self.rows, self.row0, self.col0)
+
+
+def dense(params, x, compute_dtype=None, perturb=None, tp=None):
+    """``x @ W (+ lora) (+ b)``; ``tp`` (a :class:`DenseTP`) makes it
+    column- or row-parallel.  A column-parallel layer's input must have
+    entered through ``copy_to`` (the caller's, once for all the layers
+    that read it); a row-parallel layer sums its partial products with
+    ``reduce_from`` before the bias, and its adapter's ``x @ lora_a``
+    likewise before ``lora_b``."""
+    if perturb is not None and not O.any_seed(perturb.seeds):
+        perturb = None
     if compute_dtype is not None:
-        w = w.to(compute_dtype)
         x = x.to(compute_dtype)
-    y = x @ w
+    if perturb is not None:
+        y = _dense_perturbed(params, x, perturb, compute_dtype, tp)
+    else:
+        w = params["w"]
+        if compute_dtype is not None:
+            w = w.to(compute_dtype)
+        y = x @ w
+    if tp is not None and tp.mode == "row":
+        y = TP.reduce_from(y, tp.mesh)
     if "lora_a" in params:  # low-rank adapter branch (pre-scaled at init)
-        y = y + (x @ params["lora_a"].to(x.dtype)) \
-            @ params["lora_b"].to(x.dtype)
+        y = y + _lora(params, x, perturb, tp)
     if "b" in params:
-        y = y + params["b"].to(y.dtype)
+        b = params["b"]
+        if perturb is not None:
+            y = _bias_perturbed(b, y, perturb, tp)
+        else:
+            y = y + b.to(y.dtype)
     return y
 
 
-def _dense_perturbed(params, x, perturb, compute_dtype=None):
+def _dense_perturbed(params, x, perturb, compute_dtype=None, tp=None):
     """Dense with the ZO perturbation fused into the matmul.  In dual
     mode the activations carry [clean; perturbed] halves along the
     leading axis and one read of W serves both (kernel K2 on the card);
     in single-probe mode the whole batch sees ``W + mu*U`` (kernel K4).
-    ``perturb.rep`` row-offsets the noise of a slice of a stacked leaf."""
+    ``perturb.rep`` row-offsets the noise of a slice of a stacked leaf;
+    ``tp`` places a slab of W at its global rows and columns."""
     w = params["w"]
     if compute_dtype is not None:
         w = w.to(compute_dtype)
@@ -172,40 +234,75 @@ def _dense_perturbed(params, x, perturb, compute_dtype=None):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])   # batch axis leads: rows [0, M/2)
     half = x2.shape[0] // 2           # of the dual stack are the clean half
-    off = int(rep) * w.shape[0]
+    win = O.Window(w.shape[0]) if tp is None else tp.window()
+    off = int(rep) * win.rows + win.row0
     sw = seeds.get("w")
     if sw is None:
         y2 = x2 @ w
     elif dual:
         ya, yb = O.zo_dual_matmul(x2[:half].contiguous(),
                                   x2[half:].contiguous(), w.contiguous(),
-                                  sw, 0.0, mu, row_offset=off)
+                                  sw, 0.0, mu, row_offset=off,
+                                  col_offset=win.col0)
         y2 = torch.cat([ya, yb], dim=0)
     else:
         y2 = O.zo_matmul(x2.contiguous(), w.contiguous(), sw, mu,
-                         row_offset=off)
-
-    if "lora_a" in params:
-        la = params["lora_a"].to(x2.dtype)
-        lb = params["lora_b"].to(x2.dtype)
-        lap = O.perturb_tree(la, seeds.get("lora_a"), mu, rep)
-        lbp = O.perturb_tree(lb, seeds.get("lora_b"), mu, rep)
-        if dual:
-            y2 = y2 + torch.cat([(x2[:half] @ la) @ lb,
-                                 (x2[half:] @ lap) @ lbp], dim=0)
-        else:
-            y2 = y2 + (x2 @ lap) @ lbp
-    if "b" in params:
-        b = params["b"]
-        bp = O.perturb_tree(b, seeds.get("b"), mu, rep)
-        if dual:
-            y2 = y2 + torch.cat(
-                [b.to(y2.dtype).expand(half, b.shape[-1]),
-                 bp.to(y2.dtype).expand(y2.shape[0] - half, b.shape[-1])],
-                dim=0)
-        else:
-            y2 = y2 + bp.to(y2.dtype)
+                         row_offset=off, col_offset=win.col0)
     return y2.reshape(tuple(lead) + (w.shape[1],))
+
+
+def _lora(params, x, perturb, tp=None):
+    """The adapter branch ``(x @ lora_a) @ lora_b`` (perturbed as the
+    weight is: the dual stack's second half, or the whole single-probe
+    batch, sees ``theta + mu*U`` of both factors).  A row-parallel
+    layer's ``lora_a`` is a row slab whose partial products are summed
+    before the whole ``lora_b``; a column-parallel layer's ``lora_b`` is
+    a column slab."""
+    la = params["lora_a"].to(x.dtype)
+    lb = params["lora_b"].to(x.dtype)
+    row = tp is not None and tp.mode == "row"
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if perturb is None:
+        t = x2 @ la
+        return ((TP.reduce_from(t, tp.mesh) if row else t) @ lb).reshape(
+            tuple(lead) + (lb.shape[-1],))
+    seeds = perturb.seeds if isinstance(perturb.seeds, dict) else {}
+    mu, rep, half = perturb.mu, perturb.rep, x2.shape[0] // 2
+    wa = tp.window() if row else None
+    wb = None if tp is None or row else O.Window(lb.shape[-2], 0, tp.col0)
+    lap = O.perturb_tree(la, seeds.get("lora_a"), mu, rep, wa)
+    lbp = O.perturb_tree(lb, seeds.get("lora_b"), mu, rep, wb)
+    if perturb.dual:
+        t = torch.cat([x2[:half] @ la, x2[half:] @ lap], dim=0)
+        if row:
+            t = TP.reduce_from(t, tp.mesh)
+        y = torch.cat([t[:half] @ lb, t[half:] @ lbp], dim=0)
+    else:
+        t = x2 @ lap
+        y = (TP.reduce_from(t, tp.mesh) if row else t) @ lbp
+    return y.reshape(tuple(lead) + (lb.shape[-1],))
+
+
+def _bias_perturbed(b, y, perturb, tp=None):
+    """``y + b`` with the bias perturbed as the weight is: the perturbed
+    half of a dual stack (or the whole single-probe batch) adds ``b +
+    mu*U``; a column slab's bias reads its global columns."""
+    seeds = perturb.seeds if isinstance(perturb.seeds, dict) else {}
+    mu, rep, dual = perturb.mu, perturb.rep, perturb.dual
+    win = None if tp is None or tp.mode != "col" else O.Window(1, 0, tp.col0)
+    lead = y.shape[:-1]
+    y2 = y.reshape(-1, y.shape[-1])
+    half = y2.shape[0] // 2
+    bp = O.perturb_tree(b, seeds.get("b"), mu, rep, win)
+    if dual:
+        y2 = y2 + torch.cat(
+            [b.to(y2.dtype).expand(half, b.shape[-1]),
+             bp.to(y2.dtype).expand(y2.shape[0] - half, b.shape[-1])],
+            dim=0)
+    else:
+        y2 = y2 + bp.to(y2.dtype)
+    return y2.reshape(tuple(lead) + (y.shape[-1],))
 
 
 def norm_apply(norm_fn, params, x, perturb=None):
@@ -222,7 +319,8 @@ def norm_apply(norm_fn, params, x, perturb=None):
 
 
 def init_embedding(gen, vocab: int, dim: int, dtype):
-    return {"table": init_param(gen, (vocab, dim), dtype, "normal", 0.02)}
+    return {"table": init_param(gen, (vocab, dim), dtype, "normal", 0.02,
+                                axes=("vocab", "d_model"))}
 
 
 def embed(params, ids, compute_dtype):
@@ -282,12 +380,17 @@ def apply_mrope(x, positions3, sections, theta: float = 1e6):
 # MLPs
 # ---------------------------------------------------------------------------
 
+MLP_AXES = ("d_model", "d_ff")
+
+
 def init_mlp(gen, d_model: int, d_ff: int, dtype, gated: bool = True,
              bias: bool = False):
-    p = {"up": init_dense(gen, d_model, d_ff, dtype, bias),
-         "down": init_dense(gen, d_ff, d_model, dtype, bias)}
+    p = {"up": init_dense(gen, d_model, d_ff, dtype, bias, axes=MLP_AXES),
+         "down": init_dense(gen, d_ff, d_model, dtype, bias,
+                            axes=MLP_AXES[::-1])}
     if gated:
-        p["gate"] = init_dense(gen, d_model, d_ff, dtype, bias)
+        p["gate"] = init_dense(gen, d_model, d_ff, dtype, bias,
+                               axes=MLP_AXES)
     return p
 
 
@@ -298,14 +401,25 @@ def _act(x, activation: str):
 
 
 def mlp(params, x, activation: str = "silu", compute_dtype=None,
-        perturb=None):
-    up = dense(params["up"], x, compute_dtype, O.psub(perturb, "up"))
+        perturb=None, rules=None, d_ff=None):
+    """The (gated) MLP.  Under ``rules`` whose model axis splits the
+    global ``d_ff``, up and gate are column-parallel (``x`` enters both
+    through one ``copy_to``) and down row-parallel (one all-reduce)."""
+    tp_in = tp_out = None
+    if d_ff is not None:
+        tp_in = DenseTP.of(rules, (x.shape[-1], d_ff), MLP_AXES)
+        tp_out = DenseTP.of(rules, (d_ff, x.shape[-1]), MLP_AXES[::-1])
+    if tp_in is not None:
+        x = TP.copy_to(x, tp_in.mesh)
+    up = dense(params["up"], x, compute_dtype, O.psub(perturb, "up"), tp_in)
     if "gate" in params:
-        g = dense(params["gate"], x, compute_dtype, O.psub(perturb, "gate"))
+        g = dense(params["gate"], x, compute_dtype, O.psub(perturb, "gate"),
+                  tp_in)
         h = _act(g, activation) * up
     else:
         h = _act(up, activation)
-    return dense(params["down"], h, compute_dtype, O.psub(perturb, "down"))
+    return dense(params["down"], h, compute_dtype, O.psub(perturb, "down"),
+                 tp_out)
 
 
 # ---------------------------------------------------------------------------
@@ -313,8 +427,9 @@ def mlp(params, x, activation: str = "silu", compute_dtype=None,
 # ---------------------------------------------------------------------------
 
 def init_conv1d(gen, dim: int, dtype, width: int = 4):
-    return {"w": init_param(gen, (width, dim), dtype, "normal", 0.1),
-            "b": init_param(gen, (dim,), dtype, "zeros")}
+    return {"w": init_param(gen, (width, dim), dtype, "normal", 0.1,
+                            axes=("conv", "lru")),
+            "b": init_param(gen, (dim,), dtype, "zeros", axes=("lru",))}
 
 
 def causal_conv1d(params, x, state=None):

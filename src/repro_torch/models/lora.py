@@ -6,11 +6,16 @@ leaves to every dense-layer dict whose key is in ``targets``;
 ``lora_b`` starts at zero, so an adapted model computes what the base
 model does until it trains.  The port draws ``lora_a`` from a
 ``torch.Generator``; the parity tests load the JAX package's adapters
-through the bridge instead.
+through the bridge instead.  :func:`add_lora_axes` gives the adapters'
+logical axes, for the datacenter step's mesh: ``lora_a`` takes W's input
+axis, ``lora_b`` its output axis, so a column-parallel W's ``lora_b``
+and a row-parallel W's ``lora_a`` are slabs like W.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.sharding import Logical
 
 DEFAULT_TARGETS = ("wq", "wv", "wk", "wo", "up", "down", "gate")
 
@@ -66,3 +71,25 @@ def merge_lora(params):
         return node
 
     return walk(params)
+
+
+def add_lora_axes(axes, targets=DEFAULT_TARGETS):
+    """The logical axes of :func:`add_lora`'s tree from those of the
+    params (``repro_torch.models.transformer.param_axes``): beside each
+    targeted ``w`` of 2 or 3 dims, ``lora_a`` (its leading and input
+    axes, then the rank's None) and ``lora_b`` (None, then its output
+    axis)."""
+    def walk(node, name):
+        if isinstance(node, dict):
+            w = node.get("w")
+            if (isinstance(w, Logical) and len(w.names) in (2, 3)
+                    and name in targets and "lora_a" not in node):
+                *lead, a_in, a_out = w.names
+                return {**node, "lora_a": Logical((*lead, a_in, None)),
+                        "lora_b": Logical((*lead, None, a_out))}
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, name) for v in node)
+        return node
+
+    return walk(axes, "")

@@ -8,7 +8,7 @@ Two execution paths share one routing function:
   of every block here (training, the serving prefill and decode).
 
 The reference's third path, ``moe_ep`` (``shard_map`` over a mesh with
-all-to-all expert exchange), is ROADMAP queue 1 item 7: :func:`moe_ffn`
+all-to-all expert exchange), is ROADMAP queue 1 item 7.2: :func:`moe_ffn`
 with a mesh raises.
 
 Capacity semantics match GShard / Switch: per-expert capacity ``C =
@@ -39,13 +39,17 @@ from repro_torch.models.config import ModelConfig
 def init_moe(gen, cfg: ModelConfig):
     m, d, dt = cfg.moe, cfg.d_model, cfg.torch_param_dtype()
     p = {
-        "router": L.init_param(gen, (d, m.n_experts), dt, "normal", 0.02),
+        "router": L.init_param(gen, (d, m.n_experts), dt, "normal", 0.02,
+                               axes=("d_model", "experts")),
         "up": L.init_param(gen, (m.n_experts, d, m.d_ff_expert), dt,
-                           "normal"),
+                           "normal", axes=("experts", "d_model",
+                                           "expert_ff")),
         "gate": L.init_param(gen, (m.n_experts, d, m.d_ff_expert), dt,
-                             "normal"),
+                             "normal", axes=("experts", "d_model",
+                                             "expert_ff")),
         "down": L.init_param(gen, (m.n_experts, m.d_ff_expert, d), dt,
-                             "normal"),
+                             "normal", axes=("experts", "expert_ff",
+                                             "d_model")),
     }
     if m.n_shared_experts:
         p["shared"] = L.init_mlp(gen, d, m.n_shared_experts * m.d_ff_expert,
@@ -154,5 +158,5 @@ def moe_ffn(params, x, cfg: ModelConfig, mesh=None):
     if mesh is not None:
         raise NotImplementedError("moe_ffn over a mesh (the reference's "
                                   "expert-parallel moe_ep) is ROADMAP "
-                                  "queue 1 item 7")
+                                  "queue 1 item 7.2")
     return moe_xla(params, x, cfg)

@@ -34,13 +34,13 @@ def init_rg_lru(gen, cfg: ModelConfig):
     d, dt = cfg.d_model, cfg.torch_param_dtype()
     w = cfg.lru_width or d
     return {
-        "in_x": L.init_dense(gen, d, w, dt),
-        "in_gate": L.init_dense(gen, d, w, dt),
+        "in_x": L.init_dense(gen, d, w, dt, axes=("d_model", "lru")),
+        "in_gate": L.init_dense(gen, d, w, dt, axes=("d_model", "lru")),
         "conv": L.init_conv1d(gen, w, dt, cfg.conv_width),
-        "w_i": L.init_dense(gen, w, w, dt, bias=True),
-        "w_r": L.init_dense(gen, w, w, dt, bias=True),
-        "lam": L.init_param(gen, (w,), dt, "lru_lambda"),
-        "out": L.init_dense(gen, w, d, dt),
+        "w_i": L.init_dense(gen, w, w, dt, bias=True, axes=("lru", None)),
+        "w_r": L.init_dense(gen, w, w, dt, bias=True, axes=("lru", None)),
+        "lam": L.init_param(gen, (w,), dt, "lru_lambda", axes=("lru",)),
+        "out": L.init_dense(gen, w, d, dt, axes=("lru", "d_model")),
     }
 
 
@@ -121,19 +121,21 @@ def init_rg_lru_state(cfg: ModelConfig, batch: int, device="cpu"):
 def init_mlstm(gen, cfg: ModelConfig):
     d, H, dt = cfg.d_model, cfg.n_heads, cfg.torch_param_dtype()
     return {
-        "up": L.init_dense(gen, d, 2 * d, dt),
+        "up": L.init_dense(gen, d, 2 * d, dt, axes=("d_model", "d_ff")),
         "conv": L.init_conv1d(gen, d, dt, cfg.conv_width),
-        "wq": L.init_dense(gen, d, d, dt),
-        "wk": L.init_dense(gen, d, d, dt),
-        "wv": L.init_dense(gen, d, d, dt),
-        "w_if": L.init_dense(gen, d, 2 * H, dt, bias=True),
+        "wq": L.init_dense(gen, d, d, dt, axes=("d_model", "heads")),
+        "wk": L.init_dense(gen, d, d, dt, axes=("d_model", "heads")),
+        "wv": L.init_dense(gen, d, d, dt, axes=("d_model", "heads")),
+        "w_if": L.init_dense(gen, d, 2 * H, dt, bias=True,
+                             axes=("d_model", None)),
         "gn": init_groupnorm(gen, d, dt),
-        "down": L.init_dense(gen, d, d, dt),
+        "down": L.init_dense(gen, d, d, dt, axes=("d_ff", "d_model")),
     }
 
 
 def init_groupnorm(gen, dim: int, dtype):
-    return {"scale": L.init_param(gen, (dim,), dtype, "ones")}
+    return {"scale": L.init_param(gen, (dim,), dtype, "ones",
+                                  axes=("d_model",))}
 
 
 def groupnorm_heads(params, x, eps: float = 1e-6):
@@ -300,10 +302,12 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, device="cpu"):
 def init_slstm(gen, cfg: ModelConfig):
     d, dt = cfg.d_model, cfg.torch_param_dtype()
     return {
-        "wx": L.init_dense(gen, d, 4 * d, dt, bias=True),
-        "r": L.init_param(gen, (d, 4 * d), dt, "normal", 0.02),
+        "wx": L.init_dense(gen, d, 4 * d, dt, bias=True,
+                           axes=("d_model", "d_ff")),
+        "r": L.init_param(gen, (d, 4 * d), dt, "normal", 0.02,
+                          axes=("d_model", "d_ff")),
         "gn": init_groupnorm(gen, d, dt),
-        "out": L.init_dense(gen, d, d, dt),
+        "out": L.init_dense(gen, d, d, dt, axes=("d_model", "d_model")),
     }
 
 

@@ -23,6 +23,15 @@ A block without a fused ZO lowering (a recurrent mixer, an MoE FFN or a
 cross-attention) runs its perturbed forward through the whole-block
 fallback: ``theta + mu*U`` materialised for the block's leaves (kernel
 K1) and the plain block run on it, as the JAX package does.
+
+The training paths take the datacenter step's ``rules``
+(:class:`repro_torch.distributed.sharding.AxisRules`): each rank holds
+the slabs :func:`param_shardings` places and its slab of the batch.
+Under a "model" axis the dense family is tensor-parallel (attention and
+MLP as :mod:`repro_torch.models.attention` and
+:func:`repro_torch.models.layers.mlp` say; the embedding, the tied or
+untied unembedding and :func:`lm_loss` vocab-parallel); the "data"
+axis reduces the loss's sums and counts over the data group.
 """
 from __future__ import annotations
 
@@ -32,6 +41,8 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels import ops as O
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -126,11 +137,12 @@ def _block_fallback(params, x, spec: LayerSpec, cfg: ModelConfig, perturb,
 
 def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
                 positions=None, cache=None, decode=False, live=None,
-                enc_out=None, perturb=None):
+                enc_out=None, perturb=None, rules=None):
     """Returns ``(x, cache)``: the block's cache (``{"attn": ...}`` or
     ``{"rec": ...}``, written in place by a prefill or a decode step) or
     None without one.  ``enc_out`` (B, S_enc, d): the encoder output a
-    decoder block's cross-attention attends."""
+    decoder block's cross-attention attends.  ``rules``: the mesh's
+    (tensor-parallel attention and MLP under a model axis)."""
     if perturb is not None and not O.any_seed(perturb.seeds):
         perturb = None
     if perturb is not None and (spec.mixer not in ATTN_MIXERS
@@ -145,7 +157,7 @@ def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
             params["attn"], h, cfg, positions=positions,
             local=(spec.mixer == "local_attn"),
             cache=None if cache is None else cache["attn"], decode=decode,
-            live=live, perturb=O.psub(perturb, "attn"))
+            live=live, perturb=O.psub(perturb, "attn"), rules=rules)
     else:
         o, _ = _REC[spec.mixer][1](params["rec"], h, cfg,
                                    None if cache is None else cache["rec"],
@@ -156,16 +168,26 @@ def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
     if "cross" in params and enc_out is not None:
         x = x + _cross_attention(params, x, cfg, enc_out)
     if spec.ffn == "none":
-        return x, cache
+        return _constrain_hidden(x, cfg, rules), cache
     h = _norm(cfg, params["norm2"], x, O.psub(perturb, "norm2"))
     if spec.ffn == "dense":
         o = L.mlp(params["mlp"], h, cfg.activation,
-                  cfg.torch_compute_dtype(), O.psub(perturb, "mlp"))
+                  cfg.torch_compute_dtype(), O.psub(perturb, "mlp"),
+                  rules=rules, d_ff=cfg.d_ff)
     else:
         o = M.moe_ffn(params["moe"], h, cfg)
     if cfg.post_norm:
         o = _norm(cfg, params["postnorm2"], o, O.psub(perturb, "postnorm2"))
-    return x + o, cache
+    return _constrain_hidden(x + o, cfg, rules), cache
+
+
+def _constrain_hidden(x, cfg: ModelConfig, rules):
+    """The reference's constraint on the residual stream: the batch on
+    the data axes, d_model whole on every rank."""
+    if rules is None:
+        return x
+    return SH.constrain(x, rules, ("batch", None, None),
+                        (None, None, cfg.d_model))
 
 
 def _cross_attention(params, x, cfg: ModelConfig, enc_out):
@@ -244,7 +266,8 @@ def init_stack_cache(cfg: ModelConfig, specs: Sequence[LayerSpec],
 
 def apply_stack(stack_params, x, cfg: ModelConfig,
                 specs: Sequence[LayerSpec], *, positions=None, caches=None,
-                decode=False, live=None, enc_out=None, perturb=None):
+                decode=False, live=None, enc_out=None, perturb=None,
+                rules=None):
     """Returns ``(x, caches)``; the caches (``init_stack_cache``'s
     layout) are written in place, rep r through its views ``c[r]``.
     ``perturb.seeds`` (if given) is a list mirroring ``stack_params``: one
@@ -264,7 +287,8 @@ def apply_stack(stack_params, x, cfg: ModelConfig,
                 x, _ = apply_block(
                     params_rep[j], x, spec, cfg, positions=positions,
                     cache=None if cache_rep is None else cache_rep[j],
-                    decode=decode, live=live, enc_out=enc_out, perturb=pj)
+                    decode=decode, live=live, enc_out=enc_out, perturb=pj,
+                    rules=rules)
     return x, caches
 
 
@@ -347,8 +371,33 @@ def _lm_tree(cfg: ModelConfig, gen):
                                        cross=True)
     if not cfg.tie_embeddings:
         server["unembed"] = L.init_param(gen, (cfg.d_model, cfg.vocab_padded),
-                                         dt, "normal", 0.02)
+                                         dt, "normal", 0.02,
+                                         axes=("d_model", "vocab"))
     return {"client": client, "server": server}
+
+
+def _global_shape(rule: L.InitRule):
+    return ((rule.reps,) if rule.reps else ()) + tuple(rule.shape)
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical axes of every leaf of :func:`init_lm`'s tree (each a
+    :class:`repro_torch.distributed.sharding.Logical`), as the
+    reference's ``init_lm(None, cfg, mode="axes")``: a stacked leaf's
+    leading dim is ``"layers"``."""
+    return tree_map(lambda r: SH.Logical(("layers",) * (r.reps > 0)
+                                         + r.axes), _lm_tree(cfg, L.RULES))
+
+
+def param_shardings(cfg: ModelConfig, rules):
+    """The placement of every leaf of :func:`init_lm`'s tree on this rank
+    (``rules.sharding_for`` of its global shape and :func:`param_axes`);
+    None without a mesh."""
+    if rules is None or rules.mesh is None:
+        return None
+    return tree_map(lambda r: rules.sharding_for(
+        _global_shape(r), ("layers",) * (r.reps > 0) + r.axes),
+        _lm_tree(cfg, L.RULES))
 
 
 def _jax_init_path(part: str, path: str, rep: int) -> str:
@@ -406,21 +455,35 @@ def _embed_scale(cfg: ModelConfig, x):
     return x
 
 
-def _embed(client_params, cfg: ModelConfig, inputs):
-    """Token ids through the embedding table; float inputs (the vision /
-    audio frontend stub's patch or frame embeddings) cast to the compute
-    dtype."""
+def _vocab_v0(cfg: ModelConfig, rules):
+    """The first global vocab row of this rank's slab of the embedding
+    table (and column of the untied unembedding), or None where the
+    rules leave the vocab whole."""
+    pl = None if rules is None else rules.sharding_for(
+        (cfg.vocab_padded, cfg.d_model), ("vocab", "d_model"))
+    return pl.bounds[0][0] if pl is not None and pl.sharded else None
+
+
+def _embed(client_params, cfg: ModelConfig, inputs, rules=None):
+    """Token ids through the embedding table (vocab-parallel where the
+    rules split it); float inputs (the vision / audio frontend stub's
+    patch or frame embeddings) cast to the compute dtype."""
     cdt = cfg.torch_compute_dtype()
     if inputs.is_floating_point():
         return inputs.to(cdt)
+    v0 = _vocab_v0(cfg, rules)
+    if v0 is not None:
+        return TP.vocab_embed(client_params["embed"]["table"].to(cdt),
+                              inputs, v0, rules.mesh)
     return L.embed(client_params["embed"], inputs, cdt)
 
 
-def embed_inputs(client_params, cfg: ModelConfig, inputs):
-    return _embed_scale(cfg, _embed(client_params, cfg, inputs))
+def embed_inputs(client_params, cfg: ModelConfig, inputs, rules=None):
+    return _embed_scale(cfg, _embed(client_params, cfg, inputs, rules))
 
 
-def _embed_perturbed(client_params, cfg: ModelConfig, inputs, perturb):
+def _embed_perturbed(client_params, cfg: ModelConfig, inputs, perturb,
+                     rules=None):
     """The embedding with the ZO table perturbation.  The noise rows are
     gathered per token id (kernel K1's gathered mode on the card), never
     materializing the (vocab, d_model) field.  In dual mode returns the
@@ -428,7 +491,7 @@ def _embed_perturbed(client_params, cfg: ModelConfig, inputs, perturb):
     inputs (a frontend stub's) read no table: both halves are the input,
     and the table's seed acts only through the aux head's tied
     unembedding."""
-    x = xp = _embed(client_params, cfg, inputs)
+    x = xp = _embed(client_params, cfg, inputs, rules)
     pe = O.psub(perturb, "embed")
     st = None if pe is None else pe.seeds.get("table")
     if st is not None and not inputs.is_floating_point():
@@ -449,7 +512,7 @@ def dual_positions(positions):
 
 
 def client_forward(client_params, cfg: ModelConfig, inputs, positions=None,
-                   perturb=None):
+                   perturb=None, rules=None):
     """Embedding + client blocks -> smashed data (cut-layer activations).
     With ``perturb`` the forward is ZO-perturbed; ``perturb.dual`` rides
     the clean and perturbed probes on one pass over a doubled batch
@@ -457,18 +520,32 @@ def client_forward(client_params, cfg: ModelConfig, inputs, positions=None,
     if perturb is not None and not O.any_seed(perturb.seeds):
         perturb = None
     if perturb is None:
-        x = embed_inputs(client_params, cfg, inputs)
+        x = embed_inputs(client_params, cfg, inputs, rules)
     else:
-        x = _embed_perturbed(client_params, cfg, inputs, perturb)
+        x = _embed_perturbed(client_params, cfg, inputs, perturb, rules)
         if perturb.dual:
             positions = dual_positions(positions)
+    x = _constrain_hidden(x, cfg, rules)
     return apply_stack(client_params["layers"], x, cfg, client_specs(cfg),
                        positions=positions,
-                       perturb=O.psub(perturb, "layers"))[0]
+                       perturb=O.psub(perturb, "layers"), rules=rules)[0]
+
+
+def _unembed(x, table_t, cfg: ModelConfig, rules):
+    """f32 logits ``x @ table_t`` (table_t (d_model, vocab) or its
+    column slab, f32), ``x`` entering a vocab-parallel product through
+    ``copy_to``; constrained to the vocab slab the rules give."""
+    if _vocab_v0(cfg, rules) is not None:
+        x = TP.copy_to(x, rules.mesh)
+    logits = x.to(torch.float32) @ table_t
+    if rules is not None:
+        logits = SH.constrain(logits, rules, ("batch", None, "vocab"),
+                              (None, None, cfg.vocab_padded))
+    return logits
 
 
 def aux_forward(client_params, cfg: ModelConfig, smashed, positions=None,
-                perturb=None):
+                perturb=None, rules=None):
     """Aux head on smashed data -> logits (the client-local predictor).
     With ``perturb`` the tied unembedding perturbs the table (the
     embedding's leaf and seed, its noise materialised): for the second
@@ -480,50 +557,61 @@ def aux_forward(client_params, cfg: ModelConfig, smashed, positions=None,
     x = smashed
     if "layers" in aux:
         x, _ = apply_stack(aux["layers"], x, cfg, aux_specs(cfg),
-                           positions=positions, perturb=O.psub(pa, "layers"))
+                           positions=positions, perturb=O.psub(pa, "layers"),
+                           rules=rules)
     x = _norm(cfg, aux["norm"], x, O.psub(pa, "norm"))
     pe = O.psub(perturb, "embed")
     st = None if pe is None else pe.seeds.get("table")
-    if st is None:
+    if st is None and rules is None:
         logits = L.unembed(client_params["embed"], x, torch.float32)
+    elif st is None:
+        logits = _unembed(x, client_params["embed"]["table"].to(
+            torch.float32).T, cfg, rules)
     else:
         table = client_params["embed"]["table"].to(torch.float32)
-        tp = O.perturb_tree(table, st, perturb.mu)
+        v0 = _vocab_v0(cfg, rules)
+        tp = O.perturb_tree(table, st, perturb.mu, win=None if v0 is None
+                            else O.Window(cfg.vocab_padded, v0))
         if perturb.dual:
             half = x.shape[0] // 2
-            logits = torch.cat([x[:half].to(torch.float32) @ table.T,
-                                x[half:].to(torch.float32) @ tp.T], dim=0)
+            logits = torch.cat([_unembed(x[:half], table.T, cfg, rules),
+                                _unembed(x[half:], tp.T, cfg, rules)], dim=0)
         else:
-            logits = x.to(torch.float32) @ tp.T
+            logits = _unembed(x, tp.T, cfg, rules)
     return L.softcap(logits, cfg.final_softcap)
 
 
-def lm_head(params, cfg: ModelConfig, x):
+def lm_head(params, cfg: ModelConfig, x, rules=None):
     """The final norm, the (tied or untied) unembedding in f32 and the
-    final soft-cap: hidden states -> logits."""
+    final soft-cap: hidden states -> logits (vocab-parallel where the
+    rules split the vocab)."""
     server = params["server"]
     x = _norm(cfg, server["final_norm"], x)
-    if cfg.tie_embeddings:
+    if rules is None and cfg.tie_embeddings:
         logits = L.unembed(params["client"]["embed"], x, torch.float32)
-    else:
+    elif rules is None:
         logits = x.to(torch.float32) @ server["unembed"].to(torch.float32)
+    else:
+        table_t = (params["client"]["embed"]["table"].T
+                   if cfg.tie_embeddings else server["unembed"])
+        logits = _unembed(x, table_t.to(torch.float32), cfg, rules)
     return L.softcap(logits, cfg.final_softcap)
 
 
 def server_forward(params, cfg: ModelConfig, smashed, positions=None,
-                   dec_tokens=None, dec_positions=None):
+                   dec_tokens=None, dec_positions=None, rules=None):
     """Server blocks on smashed data -> logits.  An enc-dec's server ends
     its encoder with the final norm, then runs the decoder on
     ``dec_tokens`` cross-attending that output; the same final norm ends
     the decoder."""
     server = params["server"]
     x, _ = apply_stack(server["layers"], smashed, cfg, server_specs(cfg),
-                       positions=positions)
+                       positions=positions, rules=rules)
     if cfg.enc_dec:
         x = decoder_forward(params, cfg, dec_tokens,
                             _norm(cfg, server["final_norm"], x),
                             positions=dec_positions)
-    return lm_head(params, cfg, x)
+    return lm_head(params, cfg, x, rules)
 
 
 def decoder_forward(params, cfg: ModelConfig, tokens, enc_out,
@@ -548,16 +636,31 @@ def full_forward(params, cfg: ModelConfig, inputs, positions=None,
                           positions if cfg.enc_dec else None)
 
 
-def lm_loss(logits, labels, vocab: int):
+def lm_loss(logits, labels, vocab: int, rules=None, width=None):
     """Mean next-token cross entropy; labels == -100 are masked; the
-    padded vocab tail is excluded from the softmax."""
-    V = logits.shape[-1]
-    if V > vocab:
-        mask = torch.where(torch.arange(V, device=logits.device) >= vocab,
-                           -1e30, 0.0).to(logits.dtype)
-        logits = logits + mask
-    valid = labels != -100
-    labels_safe = torch.where(valid, labels, torch.zeros_like(labels))
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels_safe[..., None].long())[..., 0]
-    return -torch.sum(ll * valid) / torch.clamp(torch.sum(valid), min=1)
+    padded vocab tail is excluded from the softmax.  Under ``rules``'
+    mesh: logits whose global ``width`` (by default their own) the rules
+    split on the model axis take the vocab-parallel cross entropy, and
+    the sums and counts are reduced over the data group, so the loss is
+    the mean of the global batch on every rank."""
+    mesh = None if rules is None else rules.mesh
+    pl = None if mesh is None else rules.sharding_for(
+        (width or logits.shape[-1],), ("vocab",))
+    if pl is not None and pl.sharded:
+        tot, cnt = TP.vocab_cross_entropy(logits, labels, vocab,
+                                          pl.bounds[0][0], mesh)
+    else:
+        V = logits.shape[-1]
+        if V > vocab:
+            mask = torch.where(torch.arange(V, device=logits.device)
+                               >= vocab, -1e30, 0.0).to(logits.dtype)
+            logits = logits + mask
+        valid = labels != -100
+        labels_safe = torch.where(valid, labels, torch.zeros_like(labels))
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels_safe[..., None].long())[..., 0]
+        tot, cnt = -torch.sum(ll * valid), torch.sum(valid)
+    if mesh is not None:
+        tot = TP.reduce_from(tot, mesh, "data")
+        cnt = TP.reduce_from(cnt.to(tot.dtype), mesh, "data")
+    return tot / torch.clamp(cnt, min=1)

@@ -351,13 +351,19 @@ def test_controller_staleness_across_versions():
 def test_async_validation():
     with pytest.raises(ValueError, match="ZOConfig"):
         AsyncReplayServer(make_params(), 1e-2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        AsyncReplayServer(make_params(), 1e-2, Z.ZOConfig(),
-                          shardings=object())
-    # the replay's modes are taken (tests/test_torch_replay_mesh.py runs
-    # them); the datacenter step's placement is not
+    # the replay's modes and the datacenter step's placements are taken
+    # (tests/test_torch_replay_mesh.py runs the modes,
+    # test_torch_mesh_axes.py the placements)
     AsyncReplayServer(make_params(), 1e-2, Z.ZOConfig(), chunk=4,
                       shard="clients")
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.mesh import Mesh
+    rules = S.AxisRules(mesh=Mesh({"data": 1, "model": 2},
+                                  coords={"model": 1}))
+    AsyncReplayServer(make_params(), 1e-2, Z.ZOConfig(),
+                      shardings=S.tree_shardings(rules, {
+                          "w": S.Logical(("d_model", "d_ff")),
+                          "b": {"c": S.Logical(("d_ff",))}}, make_params()))
     sopt = OPT.adamw(1e-3)
     fed = P.FedConfig(n_clients=2, h=1)
     with pytest.raises(ValueError, match="heron"):

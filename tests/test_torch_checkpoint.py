@@ -217,10 +217,12 @@ def test_run_resilient_gives_up_after_max_retries(tmp_path):
 
 
 def test_remesh_counts_visible_devices():
-    assert F.remesh(1) == {"data": max(torch.cuda.device_count(), 1),
-                           "model": 1}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        F.remesh(2)
+    """``remesh`` is ``make_local_mesh``, as in the reference: the mesh of
+    the ranks now running (one without a group), a model axis that does
+    not divide them falling back to 1 (four ranks:
+    ``test_torch_train_mesh.py``)."""
+    for mp in (1, 2):
+        assert F.remesh(mp).shape == {"data": 1, "model": 1}
 
 
 def test_resilient_train_step_equals_uninterrupted(tmp_path):

@@ -44,7 +44,8 @@ NEW_MODULES = ("repro_torch.data.synthetic", "repro_torch.data.partition",
                "repro_torch.configs.seamless_m4t_medium",
                "repro_torch.distributed.sharding",
                "repro_torch.distributed.collectives",
-               "repro_torch.distributed.mesh", "repro_torch.launch.mesh")
+               "repro_torch.distributed.mesh", "repro_torch.launch.mesh",
+               "repro_torch.distributed.tensor_parallel")
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_repro():

@@ -120,8 +120,9 @@ def test_mesh_helpers_shapes():
     with pytest.raises(ValueError, match="not in mesh"):
         M.Mesh({"data": 2}, {"model": None})
     assert M.make_local_mesh().shape == {"data": 1, "model": 1}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        M.make_local_mesh(2)
+    # one device: a model axis of 2 does not divide it and falls back
+    one = M.make_local_mesh(2)
+    assert one.shape == {"data": 1, "model": 1} and not one.groups
     # the rules resolve the production mesh as the reference's 16x16 mesh
     rules = S.AxisRules(mesh=prod)
     assert rules.spec_for((48, 4096), ("batch", "d_ff")) == ("data", "model")

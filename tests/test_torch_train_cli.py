@@ -4,8 +4,9 @@ where an uninterrupted one does, bit for bit; ``--fed`` (lean uplink)
 and ``--fed-async --cutplan`` print the losses and cut plans of
 ``repro.launch.train.main`` with the same arguments; ``--replay-shard
 clients --replay-chunk 3`` on one rank ends where the flat replay does,
-bit for bit; ``--model-parallel 2`` raises and names ROADMAP queue 1
-item 7; ``build_batch`` gives the
+bit for bit; ``--model-parallel 2`` on one rank (the model axis falls
+back to 1) ends where the run without it does, bit for bit (its two-rank
+run is in ``test_torch_mesh_axes.py``); ``build_batch`` gives the
 reference's enc-dec, vision and audio batches, and ``--fed`` refuses
 those archs as the reference's does."""
 import dataclasses
@@ -96,9 +97,25 @@ def test_fed_runs_print_the_reference_losses(mode, capsys):
 
 @pytest.mark.parametrize("flags", [["--model-parallel", "2"]],
                          ids=["model-parallel"])
-def test_mesh_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TRAIN.main(BASE + ["--device", "cpu", "--steps", "1"] + flags)
+def test_mesh_flags_raise(flags, tmp_path, capsys):
+    """The flag that raised until the datacenter step's mesh mode was
+    ported now runs: on one rank (the group the driver starts and
+    destroys) ``make_local_mesh(2)`` falls back to the ("data" 1, "model"
+    1) mesh, and the final checkpoint and printed lines are the run
+    without the flag, bit for bit."""
+    import torch.distributed as dist
+    outs, ckpts = [], []
+    for extra in ([], flags):
+        d = str(tmp_path / f"ckpt{len(extra)}")
+        out = _run(TRAIN.main, BASE + ["--device", "cpu", "--steps", "2",
+                                       "--ckpt-dir", d] + extra, capsys)
+        outs.append(re.sub(r"\(\d+\.\ds\)", "", out.replace(d, "D")))
+        ckpts.append(dict(_payload(d, 2)))
+        assert not dist.is_initialized()
+    assert outs[0] == outs[1] and "[train] step    1" in outs[0]
+    assert set(ckpts[0]) == set(ckpts[1])
+    for k in ckpts[0]:
+        np.testing.assert_array_equal(ckpts[1][k], ckpts[0][k])
 
 
 @pytest.mark.parametrize("mode", ["fed", "fed-async"])

@@ -1,0 +1,73 @@
+"""The datacenter step's mesh mode (``lm_api(cfg, rules)``,
+``make_train_step``, ``place_batch``) across four gloo ranks.
+
+One ``torch.multiprocessing`` spawn of four ranks on a ``FileStore``
+(``torch_train_mesh_ranks.py``, which imports only the port) runs
+gpt2-tiny and qwen2-1.5b's smoke config on the (2, 2) ("data", "model")
+mesh and qwen2-1.5b's on (1, 4) (its two kv heads then split below a
+head: k / v are gathered and each rank's one q head meets its GQA
+group), one step of HERON on the kernel stream and on the threefry
+stream (gaussian, as every threefry step test: the sphere's coefficient
+is ``d`` times the losses' rounding) and of every first-order method:
+
+* each rank's slab of every state leaf (params and both optimizer
+  states) equals the port's unsharded step's slab at ``PARAM_TOL``
+  (rtol 2e-5, atol 1e-6; mu 1e-2), and the losses at rtol 2e-5;
+* every replicated leaf is the same bytes on all four ranks;
+* HERON on the threefry stream, gathered from the (2, 2) slabs, equals
+  JAX's single-device jitted step on gpt2-tiny at ``PARAM_TOL`` (one JAX
+  compile);
+* ``fault.remesh`` over the four ranks.
+
+The two-rank cases and the steps held to JAX's single-device step are in
+``test_torch_mesh_axes.py``.
+
+A spawn that outlives ``SPAWN_TIMEOUT_S`` is killed and fails its
+test."""
+import numpy as np
+import pytest
+
+import torch_round_parity as RP
+import torch_train_mesh_ranks as RANKS
+
+SPAWN_TIMEOUT_S = 240
+CASES = [f"{tag}_{stream}_{method}" for tag, _, _, steps, _ in
+         RANKS.MESHES[4] for stream, method in steps]
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    return RANKS.spawn(4, str(tmp_path_factory.mktemp("world4")),
+                       RP.mesh_step_inputs(), SPAWN_TIMEOUT_S)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_mesh_step_slabs_match_unsharded(ranks, case):
+    for r, out in enumerate(ranks):
+        fails = str(out[f"{case}|fail"])
+        assert not fails, f"rank {r}:\n{fails}"
+
+
+@pytest.mark.parametrize("tag", [m[0] for m in RANKS.MESHES[4]])
+def test_replicated_leaves_equal_across_ranks(ranks, tag):
+    keys = [k for k in ranks[0] if k.startswith(tag) and "|rep|" in k]
+    assert keys
+    for out in ranks[1:]:
+        assert sorted(k for k in out if k.startswith(tag)
+                      and "|rep|" in k) == sorted(keys)
+        for k in keys:
+            np.testing.assert_array_equal(out[k], ranks[0][k], err_msg=k)
+
+
+def test_heron_threefry_mesh_step_matches_jax(ranks):
+    """gpt2-tiny's HERON step on (2, 2) on the threefry stream, gathered,
+    against the reference's jitted single-device step from the same
+    params, batch and key (the kernel stream's is in
+    ``test_torch_mesh_axes.py``, on (1, 2))."""
+    RP.assert_mesh_heron_matches_jax(ranks[0], "gpt2_2x2_threefry_heron",
+                                     "threefry")
+
+
+def test_remesh_over_four_ranks(ranks):
+    for out in ranks:
+        np.testing.assert_array_equal(out["misc|remesh"], [[2, 2], [4, 1]])

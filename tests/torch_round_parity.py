@@ -314,3 +314,60 @@ def assert_train_state_close(state, jstate, params):
     assert any(not np.array_equal(a, b) for a, b in zip(
         leaves(state["params"]["client"]),
         jax.tree.leaves(params["client"])))
+
+
+# the mesh step tests' (tests/test_torch_train_mesh.py, test_torch_mesh_
+# axes.py) rates: the kernel stream's and the gaussian threefry's (mu,
+# client lr), the first-order (client lr, server lr, AdamW eps)
+MESH_KERNEL_RATES = (1e-2, 1e-3)
+
+
+def jax_heron_step(stream):
+    """The reference's jitted single-device HERON step on gpt2-tiny from
+    ``init_lm(PRNGKey(0))`` on :func:`mesh_step_inputs`' batch and rates
+    (``stream`` "kernel" or "threefry", gaussian): ``(params after,
+    params before)`` as ``{path: array}``."""
+    from repro_torch.tree import tree_leaves_with_path
+    inp = mesh_step_inputs()
+    mu, lr = (float(x) for x in inp[f"{stream}_rates"])
+    jcfg = jax_gpt2_tiny()
+    if stream == "kernel":
+        jcfg = dataclasses.replace(jcfg, forward_impl="kernel")
+    params = JT.init_lm(jax.random.PRNGKey(0), jcfg)
+    copt = JOPT.zo_sgd(lr)
+    sopt = JOPT.adamw(FO_SERVER_LR, eps=FO_EPS)
+    state = JP.init_train_state(jax.random.PRNGKey(TRAIN_KEY), params,
+                                copt, sopt)
+    step = jax.jit(JP.make_train_step(
+        JP.lm_api(jcfg, RULES), "heron", JZ.ZOConfig(mu=mu,
+                                                    scale="gaussian"),
+        copt, sopt))
+    new, _ = step(state, {"inputs": inp["batch_inputs"] % jcfg.vocab,
+                          "labels": inp["batch_labels"] % jcfg.vocab})
+    return tuple(dict(tree_leaves_with_path(jax.tree.map(np.asarray, t)))
+                 for t in (new["params"], params))
+
+
+def assert_mesh_heron_matches_jax(out, case, stream):
+    """The params a rank gathered from a mesh HERON step (``<case>|full|``
+    keys of its results) against :func:`jax_heron_step` at
+    ``PARAM_TOL``; the client moved."""
+    want, start = jax_heron_step(stream)
+    prefix = f"{case}|full|"
+    got = {k[len(prefix):]: v for k, v in out.items()
+           if k.startswith(prefix)}
+    assert sorted(got) == sorted(want)
+    for path, v in want.items():
+        np.testing.assert_allclose(got[path], v, err_msg=path, **PARAM_TOL)
+    assert any(not np.array_equal(v, start[p]) for p, v in want.items()
+               if p.startswith("client/"))
+
+
+def mesh_step_inputs():
+    """The inputs of the mesh step's ranks (``torch_train_mesh_ranks``):
+    the rates and one 2 x 16 batch from a numpy seed."""
+    b = step_batches("lm", vocab=jax_gpt2_tiny().vocab, n=1)[0]
+    return dict(kernel_rates=np.array(MESH_KERNEL_RATES),
+                threefry_rates=np.array(THREEFRY_RATES["gaussian"]),
+                fo_rates=np.array([FO_LR, FO_SERVER_LR, FO_EPS]),
+                batch_inputs=b["inputs"], batch_labels=b["labels"])

@@ -1,0 +1,299 @@
+"""The ranks of ``tests/test_torch_train_mesh.py`` (not a test module;
+imported by name in each spawned process, so it imports ``repro_torch``
+and nothing of JAX or :mod:`repro`).
+
+Each rank joins a gloo group on a ``FileStore``, reads the test's
+inputs (``inputs.npz``: the rates and the batches), runs every case of
+its world size in one process and writes ``rank<r>.npz``:
+
+* ``<case>|fail``: each slab leaf of the mesh step's state that is not
+  the port's unsharded step's slab at ``PARAM_TOL`` (both run here, from
+  the same params, the reference's ``init_lm(PRNGKey(0))``), as text;
+* ``<case>|rep|<path>``: the bytes of every replicated leaf, which the
+  test holds equal across the ranks;
+* ``<case>|full|<path>`` (rank 0, the cases the test holds to JAX): the
+  params gathered from the slabs;
+* ``misc|...``: ``remesh``, the sphere's slabs and the checkpoint
+  case.
+"""
+import hashlib
+import os
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.bridge import from_jax, to_numpy
+from repro_torch.checkpoint import checkpoint as CKPT
+from repro_torch.configs.gpt2 import gpt2_tiny
+from repro_torch.configs.registry import get_config
+from repro_torch.core import prng as R
+from repro_torch.core import protocols as P
+from repro_torch.core import zo as Z
+from repro_torch.core.split import partition
+from repro_torch.data.pipeline import place_batch
+from repro_torch.distributed import fault as F
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.mesh import make_local_mesh
+from repro_torch.models import lora as LORA
+from repro_torch.models import transformer as T
+from repro_torch.optim import optimizers as OPT
+from repro_torch.tree import tree_leaves_with_path, tree_map
+
+PARAM_TOL = dict(rtol=2e-5, atol=1e-6)
+# (stream, method): HERON on the kernel stream (forward_impl "kernel"; in
+# "scores" with attn_probe="scores", the probe on each rank's heads' rows
+# of the score field) and the threefry stream (gaussian), and every
+# first-order method
+HERON = [("kernel", "heron"), ("threefry", "heron")]
+STEPS = HERON + [("fo", m) for m in ("cse_fsl", "fsl_sage", "sflv1",
+                                     "sflv2", "splitlora")]
+# world -> [(tag, config, model_parallel, steps, gathered for JAX)]
+MESHES = {4: [("gpt2_2x2", "gpt2-tiny", 2,
+               STEPS + [("scores", "heron")], True),
+              ("qwen_2x2", "qwen2-1.5b", 2, STEPS, False),
+              ("qwen_1x4", "qwen2-1.5b", 4, STEPS, False)],
+          2: [("rg_2x1", "recurrentgemma-9b", 1, HERON[:1], False),
+              ("gpt2_1x2", "gpt2-tiny", 2, HERON[:1], True)]}
+
+
+def config(name, stream):
+    cfg = gpt2_tiny() if name == "gpt2-tiny" else get_config(name, True)
+    if stream == "scores":
+        return cfg.replace(forward_impl="kernel", attn_probe="scores")
+    return cfg.replace(forward_impl="kernel" if stream == "kernel"
+                       else "xla")
+
+
+def batch_of(inp, cfg):
+    b = {k: torch.as_tensor(inp[f"batch_{k}"]) for k in ("inputs",
+                                                          "labels")}
+    return {k: v % cfg.vocab for k, v in b.items()}
+
+
+def _digest(t):
+    return np.frombuffer(hashlib.sha1(
+        t.detach().contiguous().view(torch.uint8).numpy().tobytes()
+    ).digest(), np.uint8)
+
+
+def run_step(cfg, rules, method, stream, inp, batch):
+    """One datacenter step from the reference's params: ``(state,
+    metrics, state placements)``."""
+    rates = "kernel" if stream == "scores" else stream
+    mu, lr = (float(x) for x in inp[f"{rates}_rates"]) if stream != "fo" \
+        else (1e-3, 0.0)
+    fo_lr, fo_slr, fo_eps = (float(x) for x in inp["fo_rates"])
+    zo = Z.ZOConfig(mu=mu, scale="gaussian")
+    copt = (OPT.zo_sgd(lr) if method == "heron"
+            else OPT.adamw(fo_lr, eps=fo_eps))
+    sopt = OPT.adamw(fo_slr, eps=fo_eps)
+    api = P.lm_api(cfg, rules)
+    params = T.init_lm(cfg, device="cpu", key=R.PRNGKey(0))
+    shardings, tc_pred = api.shardings, None
+    if method == "splitlora":
+        gen = torch.Generator().manual_seed(5)
+        params = {**params, "client": LORA.add_lora(gen, params["client"],
+                                                    rank=4)}
+        tc_pred = LORA.lora_pred
+        if rules is not None:
+            axes = T.param_axes(cfg)
+            axes = {**axes, "client": LORA.add_lora_axes(axes["client"])}
+            shardings = SH.tree_shardings(rules, axes, params)
+    state = P.init_train_state(R.PRNGKey(1), params, copt, sopt, tc_pred,
+                               shardings=shardings)
+    cs = None
+    if method == "splitlora" and shardings is not None:
+        cs = partition(shardings["client"], tc_pred)[0]
+    step = P.make_train_step(api, method, zo, copt, sopt, tc_pred,
+                             client_shardings=cs)
+    new, m = step(state, place_batch(batch, "cpu", rules))
+    return new, m, P.train_state_shardings(new, shardings, tc_pred)
+
+
+def step_cases(inp, out, world):
+    refs = {}       # the unsharded steps, shared by the meshes of a config
+    for tag, name, mp, steps, to_jax in MESHES[world]:
+        mesh = make_local_mesh(mp)
+        assert mesh.shape == {"data": world // mp, "model": mp}, mesh.shape
+        rules = SH.AxisRules(mesh=mesh, enable_fsdp=False)
+        for stream, method in steps:
+            cfg = config(name, stream)
+            batch = batch_of(inp, cfg)
+            case = f"{tag}_{stream}_{method}"
+            new, m, places = run_step(cfg, rules, method, stream, inp, batch)
+            if (name, stream, method) not in refs:
+                # rank 0's unsharded step, sent to the others as numpy
+                one = [None]
+                if dist.get_rank() == 0:
+                    st, ms, _ = run_step(cfg, None, method, stream, inp,
+                                         batch)
+                    one = [(tree_map(lambda t: t.detach().numpy() if
+                                     isinstance(t, torch.Tensor) else t, st),
+                            {k: float(v) for k, v in ms.items()})]
+                dist.broadcast_object_list(one, src=0)
+                refs[name, stream, method] = one[0]
+            ref, rm = refs[name, stream, method]
+            fails = []
+            for k in ("loss", "client_loss"):
+                if not np.isclose(float(m[k]), float(rm[k]), rtol=2e-5,
+                                  atol=0):
+                    fails.append(f"{k} {float(m[k])} vs {float(rm[k])}")
+            pl = dict(tree_leaves_with_path(places))
+            for path, got in tree_leaves_with_path(new):
+                if not isinstance(got, torch.Tensor):
+                    continue
+                want = torch.as_tensor(SH.shard(_leaf(ref, path),
+                                                pl.get(path)))
+                if not torch.allclose(got.double(), want.double(),
+                                      **PARAM_TOL):
+                    err = (got.double() - want.double()).abs().max()
+                    fails.append(f"{path}: max err {float(err):.3g}")
+                if pl.get(path) is None or not pl[path].sharded:
+                    out[f"{case}|rep|{path}"] = _digest(got)
+            out[f"{case}|fail"] = np.array("\n".join(fails))
+            if to_jax and method == "heron":
+                full = SH.gather_tree(new["params"], places["params"])
+                if dist.get_rank() == 0:
+                    for path, t in tree_leaves_with_path(full):
+                        out[f"{case}|full|{path}"] = t.numpy()
+            dist.barrier()
+
+
+def _leaf(tree, path):
+    for k in path.split("/"):
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
+    return tree
+
+
+def remesh_case(out):
+    """``fault.remesh`` over the four ranks: (2, 2), and (4, 1) where the
+    model axis does not divide the world."""
+    out["misc|remesh"] = np.array([list(F.remesh(m).shape.values())
+                                   for m in (2, 3)])
+
+
+def sphere_case(inp, out):
+    """The threefry sphere on (1, 2) over qwen2-1.5b's smoke client: this
+    rank's slabs and the norm all-reduced over the model group, beside
+    the unsharded draw's slabs and norm; and the client through the
+    bridge to this rank's slabs and gathered back."""
+    rules = SH.AxisRules(mesh=make_local_mesh(2), enable_fsdp=False)
+    cfg = config("qwen2-1.5b", "threefry")
+    client = T.init_lm(cfg, device="cpu", key=R.PRNGKey(0))["client"]
+    places = T.param_shardings(cfg, rules)["client"]
+    key = R.PRNGKey(3)
+    z = Z.normal_like(key, SH.shard_tree(client, places), places)
+    out["misc|sphere_norm"] = np.array([
+        float(Z.global_norm(z, places)),
+        float(Z.global_norm(Z.normal_like(key, client)))])
+    # the bridge: numpy leaves cut to the slabs and gathered back
+    full_np = to_numpy(client)
+    out["misc|bridge_roundtrip"] = np.array(all(
+        np.array_equal(a, b) for (_, a), (_, b) in zip(
+            tree_leaves_with_path(to_numpy(from_jax(full_np, "cpu", places),
+                                           places)),
+            tree_leaves_with_path(full_np))))
+    u = Z.unit_sphere_like(key, SH.shard_tree(client, places), places)
+    full = Z.unit_sphere_like(key, client)
+    pl = dict(tree_leaves_with_path(places))
+    for path, t in tree_leaves_with_path(u):
+        out[f"misc|sphere|{path}"] = np.stack([
+            t.numpy(), SH.shard(_leaf(full, path), pl[path]).numpy()])
+
+
+def checkpoint_case(inp, out, workdir):
+    """A HERON step on (1, 2) saved (rank 0 writes the gathered state),
+    then restored on one device (a template of full leaves) and on the
+    mesh: the next step from either equals the mesh's next step."""
+    mesh = make_local_mesh(2)
+    rules = SH.AxisRules(mesh=mesh, enable_fsdp=False)
+    cfg = config("gpt2-tiny", "kernel")
+    batch = batch_of(inp, cfg)
+    new, _, places = run_step(cfg, rules, "heron", "kernel", inp, batch)
+    ckpt = os.path.join(workdir, "ckpt")
+    CKPT.save(ckpt, 1, new, shardings=places)
+    back, step = CKPT.restore(ckpt, new, shardings=places)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        tree_leaves_with_path(back), tree_leaves_with_path(new))
+        if isinstance(a, torch.Tensor))
+    out["misc|ckpt_mesh_roundtrip"] = np.array([same, step == 1])
+    api = P.lm_api(cfg, rules)
+    zo = Z.ZOConfig(mu=float(inp["kernel_rates"][0]), scale="gaussian")
+    copt = OPT.zo_sgd(float(inp["kernel_rates"][1]))
+    sopt = OPT.adamw(float(inp["fo_rates"][1]), eps=float(inp["fo_rates"][2]))
+    nxt, _ = P.make_train_step(api, "heron", zo, copt, sopt)(
+        back, place_batch(batch, "cpu", rules))
+    full = SH.gather_tree(nxt["params"], places["params"])
+    if dist.get_rank() == 0:
+        for path, t in tree_leaves_with_path(full):
+            out[f"misc|ckpt_next_mesh|{path}"] = t.numpy()
+    dist.barrier()
+
+
+DRIVER = ["--arch", "qwen2-1.5b", "--smoke", "--batch", "2", "--seq", "16",
+          "--device", "cpu", "--steps", "2", "--zo-mu", "1e-2",
+          "--lr-client", "1e-3", "--lr-server", "1e-4"]
+
+
+def driver_case(out, workdir):
+    """``launch.train --model-parallel 2`` on the two ranks (the group
+    running, as torchrun's would be): its exit code and what each rank
+    prints (rank 0 alone prints)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as TRAIN
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = TRAIN.main(DRIVER + ["--model-parallel", "2", "--ckpt-dir",
+                                  os.path.join(workdir, "driver_ckpt")])
+    out["misc|driver_run"] = np.array([str(rc), buf.getvalue()])
+
+
+def run_rank(rank, world, workdir):
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(workdir, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    try:
+        inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
+        out = {}
+        step_cases(inp, out, world)
+        if world == 4:
+            remesh_case(out)
+        else:
+            sphere_case(inp, out)
+            checkpoint_case(inp, out, workdir)
+            driver_case(out, workdir)
+        blocked = sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("jax", "repro"))
+        assert not blocked, blocked
+        np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(world, workdir, inputs, timeout_s):
+    """Run :func:`run_rank` on ``world`` ranks (one process each) on
+    ``inputs``; their results, rank by rank.  A spawn that outlives
+    ``timeout_s`` is killed and fails the test."""
+    np.savez(os.path.join(workdir, "inputs.npz"), **inputs)
+    ctx = mp.start_processes(run_rank, args=(world, workdir), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                pytest.fail(f"the {world}-rank spawn ran past {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [dict(np.load(os.path.join(workdir, f"rank{r}.npz")))
+            for r in range(world)]
