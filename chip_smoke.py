@@ -95,8 +95,9 @@ Phases, one line each (any failure exits non-zero):
      per RG-LRU layer and admission, none in decode segments; prefill and
      decode tok/s, median ms per decode step beside its byte bound, peak
      memory, one segment's device busy time and idle share, the sampler's
-     time, the eager loop's tok/s on the same queue, and one admission's
-     prefill logits against the plain K5 / K6.
+     time, the eager loop's tok/s on the queue's shortest-prompt
+     requests, and one admission's prefill logits against the plain K5 /
+     K6.
  14. the training driver: three HERON datacenter steps
      (core/protocols.make_train_step, AdamW server) on qwen2-1.5b at
      full width and depth, 4 x 256 tokens, every K1 and K2 launch of
@@ -154,7 +155,20 @@ Phases, one line each (any failure exits non-zero):
      one-rank NCCL group against the unsharded round (server state bit
      for bit, client within the same bar), and the launch driver with
      --replay-shard clients --replay-chunk 3 as a process.
-Phases 9-17 run before phase 8's timings.  The line before the last
+ 18. the datacenter step's ("data", "model") mesh: K2 / K4 on column
+     slabs with col_offset, qwen2-1.5b (1, 2) and gpt2-small (2, 2) HERON
+     steps as gloo ranks sharing the card against the unsharded step,
+     and launch.train --model-parallel 2 under torch.distributed.run.
+ 19. the expert-parallel MoE (models/moe.moe_ep) on (1, 2) gloo ranks:
+     (a) one qwen3-moe-30b-a3b MoE layer at full width in bf16 (its
+     capacity factor 1.25, 2 x 256 tokens): each rank's output, dropped
+     entries and gradients against moe_ep_plain on the card; (b) one
+     HERON step (kernel stream, f32) at full width, 3 of 48 layers,
+     capacity factor 16 (no slab drops) against the unsharded step; (c)
+     the same in bf16 at capacity factor 1.25, 4 layers, timed, the drops
+     of each rank and layer; (d) launch.train --arch qwen3-moe-30b-a3b
+     --smoke --model-parallel 2 under torch.distributed.run.
+Phases 9-19 run before phase 8's timings.  The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
 """
@@ -2393,8 +2407,9 @@ def run_serve(dev, card, desc, cfg, slots, prompt_len, max_new, n_req,
     counts held per admission (K5 on the tensor cores once per attention
     layer, K6 once per RG-LRU layer) and per segment (none); then one
     segment profiled and the sampler timed.  With ``compare`` (phase 13)
-    the eager per-token loop then runs the same queue and one
-    admission's prefill is held against the plain kernels; without it
+    the eager per-token loop then runs the queue's shortest-prompt
+    requests and one admission's prefill is held against the plain
+    kernels; without it
     (phase 15) every K5 launch of the run is recorded and held against
     its plain version on its own inputs.  A decode step's byte bound:
     every weight read once (bf16) and every slot's recurrent state read
@@ -2515,19 +2530,27 @@ def run_serve(dev, card, desc, cfg, slots, prompt_len, max_new, n_req,
         del params
         torch.cuda.empty_cache()
         return counts
-    # the eager per-token loop on the same queue
+    # the eager per-token loop on the queue's shortest-prompt requests:
+    # one batch (its time grows with the prompt tokens it feeds one by
+    # one; it launches no kernel of the port)
+    short = [i for i, p in enumerate(prompts)
+             if len(p) == min(map(len, prompts))]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eager = eager_serve(params, cfg, dev, prompts, max_new, capacity)
+    eager = eager_serve(params, cfg, dev, [prompts[i] for i in short],
+                        max_new, capacity)
     wall_e = time.perf_counter() - t0
-    same = sum(a == b for a, b in zip(eager, streams))
-    first = sum(a[:8] == b[:8] for a, b in zip(eager, streams))
-    log(phase, f"{desc}: eager per-token loop on the same queue (batched by "
-        f"prompt length, prompts fed token by token, a host read per "
-        f"token): {total} tokens in {wall_e} s = {total / wall_e} tok/s; "
-        f"engine / eager {wall_e / wall:.2f}x; greedy streams equal in "
-        f"{same} of {n_req} requests, the first 8 tokens in {first} (bf16: "
-        f"K5 prefill vs token-by-token decode attention; not gated)")
+    total_e = len(short) * max_new
+    same = sum(a == streams[i] for a, i in zip(eager, short))
+    first = sum(a[:8] == streams[i][:8] for a, i in zip(eager, short))
+    log(phase, f"{desc}: eager per-token loop on the queue's {len(short)} "
+        f"{len(prompts[short[0]])}-token-prompt requests (one batch, prompts "
+        f"fed token by token, a host read per token): {total_e} tokens in "
+        f"{wall_e} s = {total_e / wall_e} tok/s; engine / eager "
+        f"{(total / wall) / (total_e / wall_e):.2f}x in tok/s; greedy "
+        f"streams equal in {same} of {len(short)} requests, the first 8 "
+        f"tokens in {first} (bf16: K5 prefill vs token-by-token decode "
+        f"attention; not gated)")
     # one admission's prefill against the plain kernels
     d, mx, agree, gap = prefill_vs_plain(cfg, params, prompts[-1], dev)
     if not d <= SERVE_LOGIT_TOL * mx:
@@ -4207,12 +4230,13 @@ def run_train_mesh_ranks(card, case):
             for k in outs[0]["counts"]}
 
 
-def run_mesh_driver(card):
-    """18(d): ``torchrun --nproc-per-node=2 -m repro_torch.launch.train
-    --smoke --model-parallel 2 --ckpt-dir D`` (torch.distributed.run on
-    a local rendezvous; gloo, the two ranks sharing the card) exits 0,
-    rank 0 alone prints, and its checkpoint (rank 0's write of the
-    gathered state) restores into a one-device state."""
+def run_mesh_driver(card, arch="qwen2-1.5b", phase=18):
+    """18(d) / 19(d): ``torchrun --nproc-per-node=2 -m
+    repro_torch.launch.train --arch ARCH --smoke --model-parallel 2
+    --ckpt-dir D`` (torch.distributed.run on a local rendezvous; gloo,
+    the two ranks sharing the card) exits 0, rank 0 alone prints, and its
+    checkpoint (rank 0's write of the gathered state) restores into a
+    one-device state."""
     import tempfile
     import torch
     from repro_torch.checkpoint import checkpoint as CKPT
@@ -4227,7 +4251,8 @@ def run_mesh_driver(card):
     with tempfile.TemporaryDirectory() as d:
         args = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                 "--nproc-per-node=2", "-m", "repro_torch.launch.train",
-                "--smoke", "--model-parallel", "2", "--ckpt-dir", d,
+                "--arch", arch, "--smoke", "--model-parallel", "2",
+                "--ckpt-dir", d,
                 "--steps", "2", "--batch", "2", "--seq", "16"]
         t0 = time.perf_counter()
         out = subprocess.run(args, capture_output=True, text=True, cwd=ROOT,
@@ -4241,7 +4266,7 @@ def run_mesh_driver(card):
         if len(steps) != 2 or "final checkpoint" not in out.stdout:
             fail(f"torchrun launch.train --model-parallel 2: expected two "
                  f"step lines from rank 0 alone: {out.stdout[-2000:]}")
-        cfg = get_config("qwen2-1.5b", smoke=True)
+        cfg = get_config(arch, smoke=True)
         tmpl = P.init_train_state(
             R.PRNGKey(1), T.init_lm(cfg, device="cpu", key=R.PRNGKey(0)),
             make_optimizer("zo_sgd", 1e-3), make_optimizer("adamw", 1e-3))
@@ -4251,9 +4276,9 @@ def run_mesh_driver(card):
         if step != 2 or not finite:
             fail(f"the mesh driver's checkpoint: step {step}, finite "
                  f"{finite}")
-    log(18, f"(d) torchrun --nproc-per-node=2 -m repro_torch.launch.train "
-        f"--smoke --model-parallel 2 --ckpt-dir D on {card}: exit 0 in "
-        f"{wall:.1f} s, rank 0 alone printed {steps}; its step-2 "
+    log(phase, f"(d) torchrun --nproc-per-node=2 -m repro_torch.launch.train "
+        f"--arch {arch} --smoke --model-parallel 2 --ckpt-dir D on {card}: "
+        f"exit 0 in {wall:.1f} s, rank 0 alone printed {steps}; its step-2 "
         f"checkpoint restored into a one-device state (finite)")
 
 
@@ -4280,6 +4305,279 @@ def run_train_mesh_phase(dev, card):
     run_mesh_driver(card)
     took("18d")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the expert-parallel MoE (moe_ep) on the ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+# the model axis of phase 19's ranks, and 19(a)'s tokens (B, S)
+MOE_EP_MP = 2
+MOE_EP_TOKENS = (2, 256)
+# 19(a): a rank's output against moe_ep_plain's on the card: the same
+# slab dispatch, but the expert products run on (E/n, n*C, d) in place of
+# (E, C, d) (other GEMM tilings) and the router's slab gradient is
+# reduce-scattered; the bar is two bf16 ulps of the oracle's largest
+# entry (2^-6 of it) for the output, four (2^-5) for the gradients
+MOE_EP_OUT_BAR = 2.0 ** -6
+MOE_EP_GRAD_BAR = 2.0 ** -5
+# 19(b) / (c): (layers, capacity factor, dtype), 2 x 256 tokens.  (b)'s
+# n_experts / top_k lets no slab drop, so each rank's slabs are the
+# unsharded step's at TRAIN_MESH_TOL
+MOE_STEP_CASES = {"b": (3, 16.0, "float32"), "c": (4, 1.25, "bfloat16")}
+MOE_EP_TIMEOUT_S = 600
+
+
+def _moe_config(case):
+    """qwen3-moe-30b-a3b at full width: "a" one MoE layer in bf16 at its
+    capacity factor, "b" / "c" the steps of MOE_STEP_CASES."""
+    from repro_torch.configs.qwen3_moe_30b_a3b import full_config
+    cfg = full_config()
+    layers, cf, dtype = ((1, cfg.moe.capacity_factor, "bfloat16")
+                         if case == "a" else MOE_STEP_CASES[case])
+    return cfg.replace(n_layers=layers, forward_impl="kernel",
+                       param_dtype=dtype, compute_dtype=dtype,
+                       moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+
+
+def check_moe_layer(rank, rules, dev):
+    """19(a): ``moe_ep`` on this rank's slabs of one MoE layer and its
+    token slab, forward and backward of ``sum(out * w)``, against
+    ``moe_ep_plain`` (every token slab at its own capacity, in this
+    process) on the same card: the output and x's gradient, the router's
+    and the experts' slab gradients within the bars, the dropped entries
+    of the two slabs equal and more than zero."""
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.tree import tree_map
+    cfg = _moe_config("a")
+    gen = torch.Generator(dev).manual_seed(19)
+    params = M.init_moe(gen, cfg)
+    B, S = MOE_EP_TOKENS
+    x, w = (torch.randn((B, S, cfg.d_model), generator=gen, device=dev
+                        ).to(torch.bfloat16) for _ in range(2))
+    keys = ("router", "up", "gate", "down")
+
+    def run(fn, p, args):
+        xg = x.clone().requires_grad_(True)
+        p = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        with M.recording_drops() as drops:
+            y = fn(p, xg, cfg, *args)
+        g = torch.autograd.grad(torch.sum(y.float() * w.float()),
+                                [xg] + [p[k] for k in keys])
+        return y.detach(), g, drops
+
+    yo, go, do = run(M.moe_ep_plain, params, (1, MOE_EP_MP))
+    places = tree_map(lambda r: rules.sharding_for(tuple(r.shape), r.axes),
+                      M.init_moe(L.RULES, cfg))
+    slabs = {k: SH.shard(params[k], places[k]) for k in keys}
+    yr, gr, dr = run(M.moe_ep, slabs, (rules,))
+    n_drop = int(TP.reduce_from(torch.tensor(sum(dr)), rules.mesh))
+    errs = {}
+    for name, got, want, bar in (
+            [("out", yr, yo, MOE_EP_OUT_BAR), ("grad x", gr[0], go[0],
+                                                 MOE_EP_GRAD_BAR)]
+            + [(f"grad {k}", g, SH.shard(o, places[k]), MOE_EP_GRAD_BAR)
+               for k, g, o in zip(keys, gr[1:], go[1:])]):
+        d = max_abs(got, want)
+        top = float(want.float().abs().max())
+        if not d <= bar * top:
+            fail(f"19(a) rank {rank}: {name} max |d| {d} past {bar} x "
+                 f"max |oracle| {top}")
+        errs[name] = (d, top)
+    if n_drop != sum(do) or n_drop <= 0:
+        fail(f"19(a) rank {rank}: {n_drop} entries dropped on the mesh, "
+             f"the oracle {sum(do)} (want equal and > 0)")
+    return {"errs": errs, "drops": n_drop, "entries": B * S * cfg.moe.top_k}
+
+
+def moe_mesh_step(case, rank, world, rules, dev, sync):
+    """19(b) / (c) on this rank.  (b): the unsharded HERON step first, one
+    rank at a time (the card holds one whole state at a time), keeping
+    this rank's slabs of its params and its K1 launches; then the mesh
+    step with every K1 launch recorded and held against plain, its
+    slabs against the unsharded step's at TRAIN_MESH_TOL.  (c): the mesh
+    step with the dropped entries of every dispatch recorded, a second
+    timed (wall, peak memory, launches == the first's), a third under
+    the profiler (busy)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import prng as R
+    from repro_torch.core import protocols as P
+    from repro_torch.core import zo as Z
+    from repro_torch.data.pipeline import place_batch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adamw, zo_sgd
+    cfg = _moe_config(case)
+    r8 = TRAIN_MESH_RATES
+    copt, sopt = zo_sgd(r8["lr"]), adamw(r8["server_lr"], eps=1e-6)
+    zo = Z.ZOConfig(mu=r8["mu"], scale="gaussian")
+    batch = _lm_batch(cfg.vocab, *MOE_EP_TOKENS, dev, seed=19)
+    desc = f"19({case}) rank {rank}"
+
+    def params():
+        return T.init_lm(cfg, seed=19, device=dev, draw_on_device=True)
+
+    api = P.lm_api(cfg, rules)
+    ref = None
+    for r in range(world if case == "b" else 0):
+        if r == rank:
+            st = P.init_train_state(R.PRNGKey(1), params(), copt, sopt)
+            reset_counts()
+            new, rm = P.make_train_step(P.lm_api(cfg), "heron", zo, copt,
+                                        sopt)(st, batch)
+            sync()
+            ref = (SH.shard_tree(new["params"], api.shardings),
+                   launch_counts()["zo_noise"], float(rm["loss"]),
+                   float(rm["client_loss"]))
+            del st, new
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    state = P.init_train_state(R.PRNGKey(1), params(), copt, sopt,
+                               shardings=api.shardings)
+    step = P.make_train_step(api, "heron", zo, copt, sopt)
+    b = place_batch(batch, dev, rules)
+    out = []
+    reset_counts()
+    with M.recording_drops() as drops:
+        if case == "b":
+            k1_calls, k1_rows = record_k1_calls(lambda: out.append(
+                step(state, b)))
+        else:
+            out.append(step(state, b))
+    sync()
+    counts = launch_counts()
+    new, m = out.pop()
+    res = {"k1": counts["zo_noise"], "drops": drops,
+           "entries": b["inputs"].numel() // MOE_EP_MP * cfg.moe.top_k,
+           "loss": float(m["loss"]), "client_loss": float(m["client_loss"])}
+    if case == "b":
+        n_k1 = (check_k1_recorded(desc, k1_calls, dev)
+                + check_k1_rows_recorded(desc, k1_rows))
+        if n_k1 != counts["zo_noise"] or counts["zo_noise"] != ref[1] or \
+                counts["zo_noise"] <= 0:
+            fail(f"{desc}: {counts['zo_noise']} K1 launches ({n_k1} "
+                 f"recorded), the unsharded step {ref[1]}")
+        if sum(drops):
+            fail(f"{desc}: {drops} entries dropped at capacity factor "
+                 f"{cfg.moe.capacity_factor}")
+        for got, want in ((res["loss"], ref[2]), (res["client_loss"],
+                                                  ref[3])):
+            if not abs(got - want) <= 1e-5 * abs(want):
+                fail(f"{desc}: loss {got} vs the unsharded step's {want}")
+        res["max_abs"], res["digest"] = _slab_check(desc, new["params"],
+                                                    ref[0], api.shardings)
+        return res
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    new, _ = step(new, b)
+    sync()
+    res["wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    if launch_counts() != counts:
+        fail(f"{desc}: the second step launched {launch_counts()}, the "
+             f"first {counts}")
+    res["peak"] = torch.cuda.max_memory_allocated() if dev.type == "cuda" \
+        else 0
+    res["busy_ms"] = (sum(r_[0] for r_ in device_rows(
+        lambda: step(new, b))) / 1e3 if dev.type == "cuda" else 0.0)
+    return res
+
+
+def moe_ep_rank(rank, world, workdir, device="cuda"):
+    """One rank of 19(a)-(c) (``chip_smoke.py --moe-ep-rank RANK WORLD
+    DIR``): a gloo group on a FileStore in DIR, every rank on card 0,
+    ``make_local_mesh(MOE_EP_MP)``.  Prints one ``MOE_EP_RANK {json}``
+    line."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.mesh import make_local_mesh
+    cuda = device == "cuda"
+    dev = torch.device(device, 0) if cuda else torch.device(device)
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(workdir, "store"), world), rank=rank, world_size=world)
+    try:
+        mesh = make_local_mesh(MOE_EP_MP)
+        rules = SH.AxisRules(mesh=mesh, enable_fsdp=False)
+        res = {"a": check_moe_layer(rank, rules, dev)}
+        for case in ("b", "c"):
+            res[case] = moe_mesh_step(case, rank, world, rules, dev, sync)
+            if cuda:
+                torch.cuda.empty_cache()
+        res["coords"] = {a: mesh.rank(a) for a in mesh.shape}
+        print("MOE_EP_RANK " + json.dumps(res), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_moe_ep_phase(dev, card):
+    """Phase 19: (a)-(c) as MOE_EP_MP gloo rank processes on the card, (d)
+    the driver under torch.distributed.run.  Returns the K1 launches of
+    the ranks' mesh steps in (b) and (c), summed."""
+    t0 = time.perf_counter()
+    outs, wall = run_rank_procs("--moe-ep-rank", MOE_EP_MP, [],
+                                MOE_EP_TIMEOUT_S, "MOE_EP_RANK")
+    if len({o["b"]["digest"] for o in outs}) != 1:
+        fail("19(b): the replicated leaves differ across the ranks")
+    for r, o in enumerate(outs):
+        a, sb, sc = o["a"], o["b"], o["c"]
+        if sc["k1"] != sb["k1"]:
+            fail(f"19(c) rank {r}: {sc['k1']} K1 launches, (b) {sb['k1']} "
+                 "(the same two client blocks)")
+        log(19, f"(a) rank {r} at {o['coords']}: qwen3-moe-30b-a3b MoE layer "
+            f"(d 2048, 128 experts, top-8, d_ff_expert 768, capacity factor "
+            f"1.25, bf16), {MOE_EP_TOKENS[0]} x {MOE_EP_TOKENS[1]} tokens: "
+            f"moe_ep == moe_ep_plain on the card within the bars (out "
+            f"{MOE_EP_OUT_BAR}, gradients {MOE_EP_GRAD_BAR} x max |oracle|): "
+            + ", ".join(f"{k} max |d| {d} of {t}" for k, (d, t) in
+                        a["errs"].items())
+            + f"; {a['drops']} of {a['entries']} (token, choice) entries "
+            f"dropped on the two slabs (== the oracle's)")
+        log(19, f"(b) rank {r}: HERON step, kernel stream, f32, full width, "
+            f"3 of 48 layers, capacity factor 16: {sb['k1']} K1 launches "
+            f"(== the unsharded step's, each == plain bit for bit), no "
+            f"drops, loss {sb['loss']} client_loss {sb['client_loss']} (== "
+            f"the unsharded step's within 1e-5), slabs within "
+            f"{TRAIN_MESH_TOL} of the unsharded step's (max |d| "
+            f"{sb['max_abs']})")
+        idle = (f"busy {sc['busy_ms']:.3f} ms, idle share "
+                f"{1 - sc['busy_ms'] / sc['wall_ms']:.3f}"
+                if sc["busy_ms"] > 0 else
+                "busy not measured (the profiler saw no device time)")
+        log(19, f"(c) rank {r}: HERON step, bf16, 4 of 48 layers, capacity "
+            f"factor 1.25, {MOE_EP_TOKENS[0]} x {MOE_EP_TOKENS[1]} tokens: "
+            f"wall {sc['wall_ms']:.3f} ms (the second step), {idle} (a "
+            f"third, profiled), max_memory_allocated {sc['peak']}; "
+            f"{sc['k1']} K1 launches; dropped entries by dispatch (client "
+            f"blocks 0-1 clean, perturbed; server blocks 2-3) "
+            f"{sc['drops']} of {sc['entries']} each; loss {sc['loss']} "
+            f"client_loss {sc['client_loss']}")
+    log(19, f"(a)-(c) on {card}: replicated leaves of (b) equal across the "
+        f"{MOE_EP_MP} ranks (blake2b); the ranks done in {wall:.1f} s")
+    run_mesh_driver(card, "qwen3-moe-30b-a3b", 19)
+    log(19, f"(phase 19 took {time.perf_counter() - t0:.1f} s)")
+    return {"zo_noise": sum(o["b"]["k1"] + o["c"]["k1"] for o in outs)}
 
 
 # ---------------------------------------------------------------------------
@@ -4726,8 +5024,9 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
     15's two full-width rounds (K1) and its MoE engine run (K5), added
     to K1's and K5's; ``counts_modality``: of phase 16's two full-width
     rounds (K1-K3) and its qwen2-vl engine run (K5); ``counts_mesh``: of
-    phase 17's one-rank sharded replay (K1) and sharded round (K1-K3) and
-    phase 18's mesh steps on every rank (K1-K3)."""
+    phase 17's one-rank sharded replay (K1) and sharded round (K1-K3),
+    phase 18's mesh steps on every rank (K1-K3) and phase 19's MoE mesh
+    steps on every rank (K1)."""
     import torch
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import ops as O
@@ -4907,6 +5206,8 @@ def main():
     if sys.argv[1:2] == ["--train-mesh-rank"]:    # a rank of phase 18
         return train_mesh_rank(int(sys.argv[2]), int(sys.argv[3]),
                                sys.argv[4], sys.argv[5])
+    if sys.argv[1:2] == ["--moe-ep-rank"]:        # a rank of phase 19
+        return moe_ep_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -4973,10 +5274,14 @@ def main():
     counts_train_mesh = run_train_mesh_phase(dev, card)
     torch.cuda.empty_cache()
     took("18")
+    counts_moe_ep = run_moe_ep_phase(dev, card)
+    torch.cuda.empty_cache()
+    took("19")
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs,
                         counts_serve, counts_train, counts_family,
                         counts_modality, {k: counts_mesh[k]
                                           + counts_train_mesh.get(k, 0)
+                                          + counts_moe_ep.get(k, 0)
                                           for k in counts_mesh})
     compiler_report()
     check_hgmma()

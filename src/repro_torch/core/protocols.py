@@ -11,9 +11,9 @@ rules)``: the API carries the rules and each leaf's placement
 params and its slab of the batch (``data.pipeline.place_batch``), the
 losses are the global batch's means on every rank, and the first-order
 gradients are all-reduced over the data group.  The data axis takes
-every LM family but MoE (whose expert capacity couples the batch:
-ROADMAP queue 1 item 7.2), the model axis the dense family (item 7.3 for
-the other families, 7.2 for MoE).
+every LM family, the model axis the dense family (tensor-parallel) and
+MoE (expert-parallel, :func:`repro_torch.models.moe.moe_ep`; item 7.3
+for the other families).
 
 The notes below are the federated round's.
 
@@ -122,21 +122,14 @@ def kernel_forward(cfg) -> bool:
 
 def check_mesh_family(cfg: ModelConfig, mesh) -> None:
     """The families the datacenter step's mesh takes: the data axis every
-    LM family but MoE, the model axis the dense family.  Raises with the
-    ROADMAP queue 1 sub-item of what is not ported."""
-    moe = cfg.family == "moe" or any(s.ffn == "moe"
-                                     for s in cfg.layer_specs())
-    if mesh.shape.get("data", 1) > 1 and moe:
-        raise NotImplementedError(
-            f"{cfg.name} on a data axis of {mesh.shape['data']}: the MoE "
-            "expert capacity couples the batch; the expert-parallel mesh "
-            "is ROADMAP queue 1 item 7.2")
-    if mesh.shape.get("model", 1) > 1 and cfg.family != "dense":
-        item = "7.2 (moe_ep)" if moe else "7.3"
+    LM family, the model axis the dense and MoE families.  Raises with
+    the ROADMAP queue 1 sub-item of what is not ported."""
+    if mesh.shape.get("model", 1) > 1 and cfg.family not in ("dense",
+                                                             "moe"):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) on a model axis of "
-            f"{mesh.shape['model']}: tensor parallelism runs the dense "
-            f"family; this family's is ROADMAP queue 1 item {item}")
+            f"{mesh.shape['model']}: the model axis runs the dense and MoE "
+            "families; this family's is ROADMAP queue 1 item 7.3")
 
 
 def lm_api(cfg: ModelConfig, rules: SH.AxisRules | None = None) -> ModelAPI:
@@ -149,17 +142,25 @@ def lm_api(cfg: ModelConfig, rules: SH.AxisRules | None = None) -> ModelAPI:
         check_mesh_family(cfg, rules.mesh)
     W = cfg.vocab_padded
 
+    def placed(batch):
+        """The rules for this batch: whether its rows are this rank's
+        slab (``place_batch``'s ``"batch_split"``)."""
+        if rules is None or rules.batch_split == batch.get("batch_split",
+                                                           True):
+            return rules
+        return dataclasses.replace(rules, batch_split=batch["batch_split"])
+
     def loss(logits, labels):
         return T.lm_loss(logits, labels, cfg.vocab, rules, W)
 
     def aux_loss(cp, smashed, batch):
         logits = T.aux_forward(cp, cfg, smashed, batch.get("positions"),
-                               rules=rules)
+                               rules=placed(batch))
         return loss(logits, batch.get("aux_labels", batch["labels"]))
 
     def client_loss(cp, batch):
         s = T.client_forward(cp, cfg, batch["inputs"],
-                             batch.get("positions"), rules=rules)
+                             batch.get("positions"), rules=placed(batch))
         return aux_loss(cp, s, batch), s
 
     def server_logits(cp, sp, smashed, batch):
@@ -167,7 +168,7 @@ def lm_api(cfg: ModelConfig, rules: SH.AxisRules | None = None) -> ModelAPI:
                                 positions=batch.get("positions"),
                                 dec_tokens=batch.get("dec_tokens"),
                                 dec_positions=batch.get("dec_positions"),
-                                rules=rules)
+                                rules=placed(batch))
 
     def server_loss(sp, cp_const, smashed, batch):
         return loss(server_logits(cp_const, sp, smashed, batch),
@@ -175,16 +176,17 @@ def lm_api(cfg: ModelConfig, rules: SH.AxisRules | None = None) -> ModelAPI:
 
     def joint_loss(cp, sp, batch):
         s = T.client_forward(cp, cfg, batch["inputs"],
-                             batch.get("positions"), rules=rules)
+                             batch.get("positions"), rules=placed(batch))
         return loss(server_logits(cp, sp, s, batch), batch["labels"])
 
     def client_dual_loss(cp, batch, seeds, mu):
         pz = O.Perturb(seeds=seeds, mu=mu, dual=True)
         pos = batch.get("positions")
+        r = placed(batch)
         s2 = T.client_forward(cp, cfg, batch["inputs"], pos, perturb=pz,
-                              rules=rules)
+                              rules=r)
         logits2 = T.aux_forward(cp, cfg, s2, T.dual_positions(pos),
-                                perturb=pz, rules=rules)
+                                perturb=pz, rules=r)
         lbl = batch.get("aux_labels", batch["labels"])
         B = batch["inputs"].shape[0]
         return loss(logits2[:B], lbl), loss(logits2[B:], lbl), s2[:B]
@@ -253,20 +255,51 @@ def init_train_state(rng, params, client_opt: Optimizer,
             "rng": R.as_key(rng).to(torch.uint32)}
 
 
+def _stat_places(stats, placed):
+    """Adafactor's statistics of a trainable tree (``{"vr", "vc"}`` of a
+    factored leaf, ``{"v"}`` of another, at each leaf) placed as their
+    leaf: ``vr`` without its last dim, ``vc`` without its second-last.
+    Raises ``KeyError`` where ``stats`` is not that layout."""
+    if isinstance(placed, dict):
+        if not isinstance(stats, dict) or set(stats) != set(placed):
+            raise KeyError("not Adafactor's statistics")
+        return {k: _stat_places(stats[k], placed[k]) for k in placed}
+    if isinstance(placed, (list, tuple)):
+        if not isinstance(stats, (list, tuple)) or len(stats) != len(placed):
+            raise KeyError("not Adafactor's statistics")
+        return type(placed)(_stat_places(a, b) for a, b in zip(stats, placed))
+    if not isinstance(stats, dict) or not stats or \
+            not set(stats) <= {"vr", "vc", "v"}:
+        raise KeyError("not Adafactor's statistics")
+    if placed is None or not placed.sharded:
+        return {k: None for k in stats}
+    if "v" in stats:
+        return {"v": placed}
+    return {"vr": placed.drop(-1), "vc": placed.drop(-2)}
+
+
 def train_state_shardings(state, shardings, tc_pred=None, ts_pred=None):
     """The placements of a mesh step's state leaves (for a checkpoint's
     gather and scatter): the params' ``shardings``, an optimizer state's
-    subtrees shaped as its trainable part the same, and every other leaf
-    (counts, the key) replicated."""
+    subtrees shaped as its trainable part the same, Adafactor's factored
+    statistics as their leaf without the dim each averages, and every
+    other leaf (counts, the key) replicated."""
     if shardings is None:
         return None
 
     def opt(ost, placed):
         want = [p for p, _ in tree_leaves_with_path(placed)]
-        return {k: (placed if isinstance(v, (dict, list, tuple))
-                    and [p for p, _ in tree_leaves_with_path(v)] == want
-                    else tree_map(lambda _: None, v))
-                for k, v in ost.items()}
+        out = {}
+        for k, v in ost.items():
+            if isinstance(v, (dict, list, tuple)) and \
+                    [p for p, _ in tree_leaves_with_path(v)] == want:
+                out[k] = placed
+                continue
+            try:
+                out[k] = _stat_places(v, placed)
+            except KeyError:
+                out[k] = tree_map(lambda _: None, v)
+        return out
 
     tc, _ = partition(shardings["client"], tc_pred or (lambda p: True))
     ts, _ = partition(shardings["server"], ts_pred or (lambda p: True))
@@ -306,7 +339,8 @@ def make_train_step(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
     by default ``api.shardings``' client part), the losses the global
     batch's, and the first-order gradients are all-reduced over the data
     group, so every rank steps as the single-device step would on its
-    slabs.
+    slabs (the optimizers get the slabs' placements: Adafactor's factored
+    means are the whole leaf's).
     """
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
@@ -321,6 +355,8 @@ def make_train_step(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
                         "(repro_torch.distributed.sharding.tree_shardings) "
                         "matching the trainable client params")
     mesh = None if api.rules is None else api.rules.mesh
+    server_shardings = (None if api.shardings is None
+                        else partition(api.shardings["server"], ts_pred)[0])
 
     def mean(x):
         """The global batch's mean of an activation's entries."""
@@ -403,8 +439,10 @@ def make_train_step(api: ModelAPI, method: str, zo_cfg: Z.ZOConfig,
             metrics["client_loss"] = c_loss
         data_sum(g_s)
         with torch.no_grad():
-            new_tc, oc = client_opt.update(g_c, state["opt_client"], tc)
-            new_ts, os_ = server_opt.update(g_s, state["opt_server"], ts)
+            new_tc, oc = client_opt.update(g_c, state["opt_client"], tc,
+                                           places=client_shardings)
+            new_ts, os_ = server_opt.update(g_s, state["opt_server"], ts,
+                                            places=server_shardings)
         return ({"params": {"client": combine(new_tc, fc),
                             "server": combine(new_ts, fs)},
                  "opt_client": oc, "opt_server": os_,

@@ -13,7 +13,7 @@ import torch
 from repro_torch.core import prng as R
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as SH
-from repro_torch.tree import tree_map, tree_map_with_path
+from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
 
 def place_batch(batch, device="cuda", rules=None):
@@ -23,18 +23,24 @@ def place_batch(batch, device="cuda", rules=None):
     replicated).  The batch axis is a leaf's first, but the second-last
     of ``positions`` ((B, S) ids, or qwen2-vl's (3, B, S) M-RoPE ids,
     which the reference's first-axis rule would leave whole beside a
-    sharded batch)."""
+    sharded batch).  Under a mesh the placed batch also holds
+    ``"batch_split"``, a bool: whether its rows are this rank's slab (a
+    model's activations cannot tell a slab from a whole batch that did
+    not divide; ``protocols.lm_api`` hands it to the rules)."""
     dev = resolve_device(device)
     if rules is None or rules.mesh is None:
         return tree_map(lambda x: x.to(dev), batch)
 
-    def put(path, x):
+    def place(path, x):
         axis = x.dim() - 2 if path == "positions" else 0
         logical = tuple("batch" if d == axis else None
                         for d in range(x.dim()))
-        return SH.shard(x, rules.sharding_for(x.shape, logical)).to(dev)
+        return rules.sharding_for(x.shape, logical)
 
-    return tree_map_with_path(put, batch)
+    places = tree_map_with_path(place, batch)
+    out = tree_map(lambda x, pl: SH.shard(x, pl).to(dev), batch, places)
+    out["batch_split"] = any(pl.sharded for pl in tree_leaves(places))
+    return out
 
 
 def round_batches(dataset, key, n_clients: int, h: int, batch_size: int,

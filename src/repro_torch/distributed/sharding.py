@@ -103,18 +103,32 @@ class Placement:
     def slices(self) -> tuple:
         return tuple(slice(a, b) for a, b in self.bounds)
 
+    def drop(self, d: int) -> "Placement":
+        """The placement of this array reduced over dim ``d`` (a factored
+        optimizer statistic: the other dims keep their slabs)."""
+        d %= len(self.shape)
+        cut = lambda t: tuple(t[:d]) + tuple(t[d + 1:])  # noqa: E731
+        return Placement(cut(self.spec), cut(self.shape), cut(self.bounds),
+                         self.mesh)
+
 
 @dataclasses.dataclass(frozen=True)
 class AxisRules:
     """Maps logical axis names to mesh axes, with divisibility fallback.
     ``mesh``: anything with a ``shape`` mapping of axis name -> size, or
     None (every axis replicated); ``enable_fsdp=False`` resolves "fsdp"
-    to replication."""
+    to replication.  ``batch_split``: whether the activations' batch dim
+    is this rank's slab over the data axes, or (where the batch does not
+    divide them) the whole batch on every data rank, as
+    :func:`repro_torch.data.pipeline.place_batch` decided for the batch
+    in hand (its ``"batch_split"`` entry); only the MoE dispatch, whose
+    capacity couples the batch, reads it."""
 
     rules: Mapping[str, tuple[str, ...]] = dataclasses.field(
         default_factory=lambda: dict(DEFAULT_RULES))
     mesh: Any = None
     enable_fsdp: bool = True
+    batch_split: bool = True
 
     def with_updates(self, **updates: tuple[str, ...]) -> "AxisRules":
         new = dict(self.rules)

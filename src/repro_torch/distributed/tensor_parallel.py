@@ -20,6 +20,11 @@ FSL-SAGE's double backward differentiates through them too):
   rank's own q heads);
 * :func:`split_to`: forward this rank's slice, backward all-gather.
 
+:func:`all_to_all` (the reference's tiled ``lax.all_to_all``, the MoE
+expert exchange) is its own conjugate: its backward is the inverse
+exchange.  :func:`all_gather_ints` gathers small integer tensors outside
+autograd (the MoE dispatch's per-expert counts).
+
 Each is the identity on an axis of size 1 or without a mesh.
 """
 from __future__ import annotations
@@ -48,6 +53,30 @@ def _all_gather(x, mesh, axis, dim):
 def _slice(x, mesh, axis, dim):
     n = x.shape[dim] // mesh.shape[axis]
     return x.narrow(dim, mesh.rank(axis) * n, n).contiguous()
+
+
+def _exchange(x, mesh, axis, split_dim, concat_dim):
+    """Chunk ``i`` of ``x`` on ``split_dim`` goes to rank ``i`` of the
+    axis; the chunks received, in rank order, are concatenated on
+    ``concat_dim``.  (gloo runs it on a card's tensors by copying them
+    through host memory; NCCL card to card.)"""
+    buf = torch.stack(x.chunk(mesh.shape[axis], dim=split_dim))
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=mesh.group(axis))
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, split_dim, concat_dim)
+        return _exchange(x, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_dim, concat_dim = ctx.args
+        return (_AllToAll.apply(g, mesh, axis, concat_dim, split_dim), None,
+                None, None, None)
 
 
 class _Copy(torch.autograd.Function):
@@ -126,6 +155,31 @@ def split_to(x, mesh, axis: str = "model", dim: int = -1):
     if not _live(mesh, axis):
         return x
     return _Split.apply(x, mesh, axis, dim % x.dim())
+
+
+def all_to_all(x, mesh, axis: str = "model", split_dim: int = 0,
+               concat_dim: int = 1):
+    """The reference's ``lax.all_to_all(x, axis, split_dim, concat_dim,
+    tiled=True)``: ``x`` cut into the axis size's chunks on
+    ``split_dim``, chunk ``i`` sent to rank ``i``, the received chunks
+    concatenated on ``concat_dim`` in rank order.  Its backward is the
+    inverse exchange."""
+    if not _live(mesh, axis):
+        return x
+    return _AllToAll.apply(x, mesh, axis, split_dim % x.dim(),
+                           concat_dim % x.dim())
+
+
+def all_gather_ints(x, mesh, axis: str = "data"):
+    """``(n, *x.shape)``: the integer tensor ``x`` of every rank of the
+    axis, in rank order, outside autograd; ``x[None]`` without a live
+    axis."""
+    x = x.detach()
+    if not _live(mesh, axis):
+        return x[None]
+    parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
+    dist.all_gather(parts, x.contiguous(), group=mesh.group(axis))
+    return torch.stack(parts)
 
 
 def all_max(x, mesh, axis: str = "model"):

@@ -241,20 +241,24 @@ def _rebuild(tree, values, path=()):
     return tree
 
 
-def _tree_segments(leaves, places):
+def _tree_segments(leaves, places, rep=0, win: Window | None = None):
     """``(segments, outs)`` of K1 over ``[(path, tensor, seed)]``: a
-    tensor's whole view as one segment, or with ``places`` (a dict path
-    -> Placement) its slab's segments over flat views of it."""
+    tensor's whole view as one segment (``rep`` and ``win`` as
+    :func:`leaf_segment`'s), or with ``places`` (a dict path ->
+    Placement of one layer's leaf) its slab's segments over flat views of
+    it, ``rep`` layers down."""
     segs, outs = [], []
     for path, t, s in leaves:
         pl = None if places is None else places.get(path)
         if pl is None or not pl.sharded:
-            segs.append(leaf_segment(s, t.shape))
+            segs.append(leaf_segment(s, t.shape, rep, win))
             outs.append(t)
             continue
+        layer_rows = int(np.prod(pl.shape[:-1])) if len(pl.shape) > 1 else 1
         flat = t.view(-1)
         for seg, start, n in leaf_segments(s, pl):
-            segs.append(seg)
+            segs.append(dataclasses.replace(
+                seg, row_offset=seg.row_offset + int(rep) * layer_rows))
             outs.append(flat[start:start + n])
     return segs, outs
 
@@ -303,21 +307,26 @@ def accumulate_direction_tree(acc, seeds, scale, places=None):
     return acc
 
 
-def perturb_tree(params, seeds, mu, rep=0, win: Window | None = None):
+def perturb_tree(params, seeds, mu, rep=0, win: Window | None = None,
+                 places=None):
     """``theta + mu*U(seeds)`` leaf by leaf in the leaf's dtype, one K1
     launch for the seeded leaves; leaves without a seed are returned as
-    they are.  ``win`` places a slab (for a tree of one leaf)."""
+    they are.  ``win`` places a slab (for a tree of one leaf); ``places``
+    (a tree of placements matching ``params``, one layer's leaves: a
+    block's under a mesh) draws each slab leaf's part of the global
+    field, ``rep`` layers down."""
     if seeds is None:
         return params
     leaves = [(path, p, s) for path, p, s in _paired_leaves(params, seeds)
               if s is not None]
     out = {path: torch.empty_like(p, memory_format=torch.contiguous_format)
            for path, p, _ in leaves}
-    ZM.zo_noise_tree("perturb",
-                     [leaf_segment(s, p.shape, rep, win)
-                      for _, p, s in leaves],
-                     [out[path] for path, _, _ in leaves],
-                     ins=[p.contiguous() for _, p, _ in leaves], mu=mu)
+    places = _place_paths(places)
+    segs, outs = _tree_segments([(path, out[path], s)
+                                 for path, _, s in leaves], places, rep, win)
+    _, ins = _tree_segments([(path, p.contiguous(), s)
+                             for path, p, s in leaves], places, rep, win)
+    ZM.zo_noise_tree("perturb", segs, outs, ins=ins, mu=mu)
     return _rebuild(params, out)
 
 

@@ -35,8 +35,10 @@ group): ``torchrun --nproc-per-node=N -m repro_torch.launch.train ...
 falls back to 1), with ``AxisRules(mesh, enable_fsdp=False)``: each rank
 holds its slabs of the state and of each batch (``place_batch``), and a
 checkpoint is rank 0's write of the gathered state, restored onto any
-mesh width.  The model axis takes the dense family and the data axis
-every family but MoE (``protocols.check_mesh_family``).
+mesh width.  The data axis takes every family, the model axis the dense
+family (tensor-parallel) and MoE (expert-parallel, e.g. ``--arch
+qwen3-moe-30b-a3b --smoke --model-parallel 2``;
+``protocols.check_mesh_family``).
 
 The data is ``BigramLM``, whose table is ``vocab x vocab``: at a full
 config's vocab (151,936 for qwen2-1.5b) that is 185 GB, so the driver

@@ -30,8 +30,10 @@ the slabs :func:`param_shardings` places and its slab of the batch.
 Under a "model" axis the dense family is tensor-parallel (attention and
 MLP as :mod:`repro_torch.models.attention` and
 :func:`repro_torch.models.layers.mlp` say; the embedding, the tied or
-untied unembedding and :func:`lm_loss` vocab-parallel); the "data"
-axis reduces the loss's sums and counts over the data group.
+untied unembedding and :func:`lm_loss` vocab-parallel) and the MoE
+family's FFN expert-parallel (:func:`repro_torch.models.moe.moe_ep`);
+the "data" axis reduces the loss's sums and counts over the data
+group.
 """
 from __future__ import annotations
 
@@ -111,28 +113,41 @@ def _halves(t, n, axis=0):
     return t.narrow(axis, 0, n // 2), t.narrow(axis, n // 2, n - n // 2)
 
 
+def _block_places(params, spec: LayerSpec, cfg: ModelConfig, rules):
+    """The placements of one block's leaves (one layer of its segment's
+    stacked leaves) under ``rules``' mesh; None without one."""
+    if rules is None or rules.mesh is None:
+        return None
+    return tree_map(lambda r: rules.sharding_for(tuple(r.shape), r.axes),
+                    init_block(L.RULES, spec, cfg, "cross" in params))
+
+
 def _block_fallback(params, x, spec: LayerSpec, cfg: ModelConfig, perturb,
-                    positions=None, enc_out=None):
+                    positions=None, enc_out=None, rules=None):
     """Whole-block fallback for blocks without a fused kernel lowering
     (recurrent mixers, MoE FFNs, cross-attention): materialise theta +
     mu*U for the block's seeded leaves and run the unmodified block on
     it.  The noise is the same per-leaf hash stream, so replay stays
-    exact.  Dual mode runs the clean params on the first half of the
-    batch and the perturbed ones on the second, as two blocks (so an
-    MoE's capacity is each half's); the positions split on their batch
-    axis (dim 0 of (B, S) ids, dim 1 of (3, B, S) M-RoPE ids)."""
-    pp = O.perturb_tree(params, perturb.seeds, perturb.mu, perturb.rep)
+    exact; under ``rules``' mesh each slab leaf takes its part of the
+    global field (still one K1 launch for the block).  Dual mode runs the
+    clean params on the first half of the batch and the perturbed ones
+    on the second, as two blocks (so an MoE's capacity is each half's;
+    on a mesh each rank's halves are its slabs of the global halves); the
+    positions split on their batch axis (dim 0 of (B, S) ids, dim 1 of
+    (3, B, S) M-RoPE ids)."""
+    pp = O.perturb_tree(params, perturb.seeds, perturb.mu, perturb.rep,
+                        places=_block_places(params, spec, cfg, rules))
     if not perturb.dual:
         return apply_block(pp, x, spec, cfg, positions=positions,
-                           enc_out=enc_out)
+                           enc_out=enc_out, rules=rules)
     n = x.shape[0]
     pos = _halves(positions, n, -2)
     enc = _halves(enc_out, n)
     return torch.cat([
         apply_block(params, x[:n // 2], spec, cfg, positions=pos[0],
-                    enc_out=enc[0])[0],
+                    enc_out=enc[0], rules=rules)[0],
         apply_block(pp, x[n // 2:], spec, cfg, positions=pos[1],
-                    enc_out=enc[1])[0]], dim=0), None
+                    enc_out=enc[1], rules=rules)[0]], dim=0), None
 
 
 def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
@@ -142,7 +157,8 @@ def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
     ``{"rec": ...}``, written in place by a prefill or a decode step) or
     None without one.  ``enc_out`` (B, S_enc, d): the encoder output a
     decoder block's cross-attention attends.  ``rules``: the mesh's
-    (tensor-parallel attention and MLP under a model axis)."""
+    (tensor-parallel attention and MLP under a model axis, the
+    expert-parallel MoE)."""
     if perturb is not None and not O.any_seed(perturb.seeds):
         perturb = None
     if perturb is not None and (spec.mixer not in ATTN_MIXERS
@@ -150,7 +166,7 @@ def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
                                 or ("cross" in params
                                     and enc_out is not None)):
         return _block_fallback(params, x, spec, cfg, perturb, positions,
-                               enc_out)
+                               enc_out, rules)
     h = _norm(cfg, params["norm1"], x, O.psub(perturb, "norm1"))
     if spec.mixer in ATTN_MIXERS:
         o, _ = A.attention_layer(
@@ -175,7 +191,7 @@ def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
                   cfg.torch_compute_dtype(), O.psub(perturb, "mlp"),
                   rules=rules, d_ff=cfg.d_ff)
     else:
-        o = M.moe_ffn(params["moe"], h, cfg)
+        o = M.moe_ffn(params["moe"], h, cfg, rules)
     if cfg.post_norm:
         o = _norm(cfg, params["postnorm2"], o, O.psub(perturb, "postnorm2"))
     return _constrain_hidden(x + o, cfg, rules), cache

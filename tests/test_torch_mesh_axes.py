@@ -20,7 +20,12 @@ Across two gloo ranks (one spawn, ``torch_train_mesh_ranks.py``):
 recurrentgemma's smoke config on the (2, 1) mesh and gpt2-tiny's HERON
 step on (1, 2) against the unsharded step, the latter also against JAX's
 single-device jitted step at ``PARAM_TOL`` (the kernel stream; the
-threefry stream is held so in ``test_torch_train_mesh.py``); the
+threefry stream is held so in ``test_torch_train_mesh.py``);
+qwen3-moe's smoke HERON step on (1, 2) at a capacity no slab fills and
+kimi-k2's with Adafactor on the server against the unsharded step; the
+expert-parallel ``moe_ep`` on (1, 2) and (2, 1) against the reference's
+jitted ``moe_ep`` on Auto-axes meshes of forced host devices
+(``torch_moe_ep_cases``); the
 threefry sphere's slabs and its all-reduced norm within 4 f32 ulps of
 the unsharded ones; a checkpoint saved on (1, 2) (rank 0 writing the
 gathered state), restored on one device, giving the mesh's next step."""
@@ -28,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_moe_ep_cases as MC
 import torch_round_parity as RP
 import torch_train_mesh_ranks as RANKS
 from repro.configs import command_r_35b as JC, gemma2_27b as JG
@@ -157,9 +163,11 @@ def test_place_batch_cuts_the_data_axis():
         b = place_batch({"inputs": ids, "positions": pos}, "cpu", rules)
         assert torch.equal(b["inputs"], ids[2 * d:2 * d + 2])
         assert torch.equal(b["positions"], pos[:, 2 * d:2 * d + 2])
+        assert b["batch_split"] is True
         # 3 rows do not divide: replicated, as spec_for falls back
         odd = place_batch({"inputs": ids[:3]}, "cpu", rules)
         assert torch.equal(odd["inputs"], ids[:3])
+        assert odd["batch_split"] is False
     assert place_batch({"x": ids}, "cpu", S.AxisRules(mesh=None))["x"] \
         .data_ptr() == ids.data_ptr()
 
@@ -206,7 +214,11 @@ SLAB_LEAVES = {"wq": ((3, 64, 128), ("layers", "d_model", "heads")),
                "wo": ((3, 128, 64), ("layers", "heads", "d_model")),
                "table": ((256, 64), ("vocab", "d_model")),
                "b": ((3, 128), ("layers", "heads")),
-               "scale": ((3, 64), ("layers", "d_model"))}
+               "scale": ((3, 64), ("layers", "d_model")),
+               # the MoE's expert and router slabs
+               "up": ((3, 4, 16, 8), ("layers", "experts", "d_model",
+                                      "expert_ff")),
+               "router": ((3, 16, 4), ("layers", "d_model", "experts"))}
 
 
 def _slab_rules(mp, m):
@@ -235,6 +247,8 @@ def test_kernel_stream_slabs_are_the_unsharded_draw(mp):
         # a row slab of a stacked leaf is one segment a layer
         assert len(O.leaf_segments(1, places["wo"])) == 3
         assert len(O.leaf_segments(1, places["wq"])) == 1
+        # an expert slab is one row window of a layer's (E*d, f) view
+        assert len(O.leaf_segments(1, places["up"])) == 3
 
 
 @pytest.mark.parametrize("mp", [2, 4])
@@ -292,8 +306,6 @@ def test_async_server_replays_slabs(kernel):
 
 
 @pytest.mark.parametrize("arch,mesh,item", [
-    ("qwen3-moe-30b-a3b", {"data": 2, "model": 1}, "7.2"),
-    ("qwen3-moe-30b-a3b", {"data": 1, "model": 2}, "7.2"),
     ("recurrentgemma-9b", {"data": 1, "model": 2}, "7.3"),
     ("xlstm-1.3b", {"data": 1, "model": 2}, "7.3"),
     ("qwen2-vl-2b", {"data": 1, "model": 2}, "7.3"),
@@ -304,10 +316,8 @@ def test_unported_families_raise(arch, mesh, item):
                        match=f"ROADMAP queue 1 item {item}"):
         P.lm_api(get_config(arch, smoke=True), rules)
     # the data axis takes the recurrent family
-    if arch != "qwen3-moe-30b-a3b":
-        P.lm_api(get_config(arch, smoke=True), S.AxisRules(
-            mesh=Mesh({"data": 2, "model": 1}, coords={"data": 0,
-                                                       "model": 0})))
+    P.lm_api(get_config(arch, smoke=True), S.AxisRules(
+        mesh=Mesh({"data": 2, "model": 1}, coords={"data": 0, "model": 0})))
 
 
 def test_local_mesh_without_a_group():
@@ -322,13 +332,16 @@ def test_local_mesh_without_a_group():
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
+    MC.start_jax(tmp_path_factory)     # overlaps the spawn
     workdir = str(tmp_path_factory.mktemp("world2"))
     return workdir, RANKS.spawn(2, workdir, RP.mesh_step_inputs(),
                                 SPAWN_TIMEOUT_S)
 
 
 @pytest.mark.parametrize("case", ["rg_2x1_kernel_heron",
-                                  "gpt2_1x2_kernel_heron"])
+                                  "gpt2_1x2_kernel_heron",
+                                  "moe_1x2_kernel_heron",
+                                  "kimi_1x2_kernel_heron"])
 def test_two_rank_step_slabs_match_unsharded(ranks, case):
     outs = ranks[1]
     for r, out in enumerate(outs):
@@ -447,3 +460,13 @@ def test_driver_model_parallel_on_two_ranks(ranks, tmp_path, capsys):
     assert TRAIN.main(RANKS.DRIVER[:-7] + ["3"] + RANKS.DRIVER[-6:] + [
         "--ckpt-dir", f"{workdir}/driver_ckpt"]) == 0
     assert "[train] restored checkpoint at step 2" in capsys.readouterr().out
+
+
+@pytest.fixture(scope="module")
+def jax_moe(tmp_path_factory):
+    return MC.jax_results(tmp_path_factory)
+
+
+@pytest.mark.parametrize("case", MC.world_cases(2))
+def test_moe_ep_on_two_ranks_matches_jax(ranks, jax_moe, case):
+    MC.assert_ranks_match(ranks[1], case, jax_moe)

@@ -4,10 +4,10 @@ top-2): the router (ties to the lower index, as ``lax.top_k``), the
 capacity rule, ``moe_xla`` at a capacity that drops tokens and at one
 that does not, ``moe_xla`` against the all-experts oracle at high
 capacity, the shared-expert branch, the dispatch and a bf16 combine bit
-for bit against the reference's (serial scatter-add order), ``moe_ffn``
-with a mesh, and kernel K1's noise on a stacked 4-D expert leaf bit for
-bit.  Inputs come from numpy seeds, params from the JAX init through
-the bridge."""
+for bit against the reference's (serial scatter-add order), and kernel
+K1's noise on a stacked 4-D expert leaf bit for bit.  Inputs come from
+numpy seeds, params from the JAX init through the bridge.  The
+expert-parallel path is ``test_torch_moe_ep.py``'s."""
 import dataclasses
 
 import jax
@@ -187,12 +187,6 @@ def test_dispatch_and_bf16_combine_bit_equal_to_jax(monkeypatch, cf):
         tx, torch.as_tensor(g), torch.as_tensor(idx).long(), None, None,
         None, cfg).float().numpy()
     assert not np.array_equal(rev, got)
-
-
-def test_moe_ffn_with_a_mesh_raises_naming_item_7():
-    _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        M.moe_ffn({}, torch.zeros((1, 2, cfg.d_model)), cfg, mesh=object())
 
 
 def test_stacked_expert_leaf_noise_bit_equal_to_jax():

@@ -17,7 +17,17 @@ is ``d`` times the losses' rounding) and of every first-order method:
 * HERON on the threefry stream, gathered from the (2, 2) slabs, equals
   JAX's single-device jitted step on gpt2-tiny at ``PARAM_TOL`` (one JAX
   compile);
-* ``fault.remesh`` over the four ranks.
+* ``fault.remesh`` over the four ranks;
+* the expert-parallel MoE (``moe_ep``) on the (2, 2) mesh, forward and
+  gradients, against the reference's jitted ``moe_ep`` on an Auto-axes
+  (2, 2) mesh of 4 forced host devices (``torch_moe_ep_cases``: drops
+  and none, a shared expert, a sequence and a batch that do not divide,
+  the global view); qwen3-moe-30b-a3b's smoke config in one HERON step
+  (kernel stream, mu 1e-2, per-slab drops) gathered from its slabs
+  against the reference's sharded jitted step at ``PARAM_TOL``; and
+  kimi-k2's smoke config with Adafactor on the server against the
+  unsharded Adafactor step (its factored statistics of a cut attention
+  leaf are the whole leaf's).
 
 The two-rank cases and the steps held to JAX's single-device step are in
 ``test_torch_mesh_axes.py``.
@@ -27,16 +37,21 @@ test."""
 import numpy as np
 import pytest
 
+import torch_moe_ep_cases as MC
 import torch_round_parity as RP
 import torch_train_mesh_ranks as RANKS
 
 SPAWN_TIMEOUT_S = 240
-CASES = [f"{tag}_{stream}_{method}" for tag, _, _, steps, _ in
-         RANKS.MESHES[4] for stream, method in steps]
+# the cases held to the unsharded step (the MoE case with per-slab drops
+# is held to the reference's sharded step)
+CASES = [f"{tag}_{stream}_{method}" for tag, _, _, steps, _, *opts in
+         RANKS.MESHES[4] for stream, method in steps
+         if not (opts and opts[0].get("jax_step"))]
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
+    MC.start_jax(tmp_path_factory)     # overlaps the spawn
     return RANKS.spawn(4, str(tmp_path_factory.mktemp("world4")),
                        RP.mesh_step_inputs(), SPAWN_TIMEOUT_S)
 
@@ -71,3 +86,39 @@ def test_heron_threefry_mesh_step_matches_jax(ranks):
 def test_remesh_over_four_ranks(ranks):
     for out in ranks:
         np.testing.assert_array_equal(out["misc|remesh"], [[2, 2], [4, 1]])
+
+
+@pytest.fixture(scope="module")
+def jax_moe(tmp_path_factory):
+    return MC.jax_results(tmp_path_factory)
+
+
+@pytest.mark.parametrize("case", MC.world_cases(4))
+def test_moe_ep_on_2x2_matches_jax(ranks, jax_moe, case):
+    MC.assert_ranks_match(ranks, case, jax_moe)
+
+
+def test_moe_heron_step_on_2x2_matches_jax_sharded_step(ranks, jax_moe):
+    """qwen3-moe-30b-a3b's smoke HERON step on (2, 2), gathered, against
+    the reference's jitted step on the Auto-axes (2, 2) mesh: each (data,
+    model) token slab dispatched at its own capacity, as the reference's
+    ``shard_map`` does."""
+    from repro_torch.core import prng as R
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves_with_path
+    start = {p: v.numpy() for p, v in tree_leaves_with_path(T.init_lm(
+        RANKS.config("qwen3-moe-30b-a3b", "kernel"), device="cpu",
+        key=R.PRNGKey(0)))}
+    MC.assert_step_matches(ranks[0], "moe_2x2_kernel_heron", jax_moe, start)
+
+
+def test_adafactor_stats_of_a_cut_attention_leaf_are_whole(ranks):
+    """kimi-k2's server wq is a column slab on (2, 2): its Adafactor row
+    statistic (a mean over the columns) is the whole leaf's, the same
+    bytes on every rank and equal to the unsharded step's (the slab
+    check), and its column statistic the slab's."""
+    vr = "kimi_2x2_kernel_heron|rep|opt_server/v/layers/0/0/attn/wq/w/vr"
+    vc = "kimi_2x2_kernel_heron|rep|opt_server/v/layers/0/0/attn/wq/w/vc"
+    for out in ranks:
+        assert vr in out and vc not in out
+        assert not str(out["kimi_2x2_kernel_heron|fail"])

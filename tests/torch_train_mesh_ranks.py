@@ -14,8 +14,14 @@ its world size in one process and writes ``rank<r>.npz``:
 * ``<case>|full|<path>`` (rank 0, the cases the test holds to JAX): the
   params gathered from the slabs;
 * ``misc|...``: ``remesh``, the sphere's slabs and the checkpoint
-  case.
+  case;
+* ``moe|<case>|...`` (``torch_moe_ep_cases``): ``moe_ep`` on this rank's
+  slabs, its output rows, the gradients of ``sum(out * w)`` (the params'
+  summed over the data group where the batch is split, as the step
+  does) with each slab's global bounds, and the dropped entries of the
+  distinct token slabs beside :func:`repro_torch.models.moe.moe_ep_plain`'s.
 """
+import dataclasses
 import hashlib
 import os
 import sys
@@ -27,6 +33,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+import torch_moe_ep_cases as MC
 from repro_torch.bridge import from_jax, to_numpy
 from repro_torch.checkpoint import checkpoint as CKPT
 from repro_torch.configs.gpt2 import gpt2_tiny
@@ -38,9 +45,13 @@ from repro_torch.core.split import partition
 from repro_torch.data.pipeline import place_batch
 from repro_torch.distributed import fault as F
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.mesh import make_local_mesh
+from repro_torch.models import layers as L
 from repro_torch.models import lora as LORA
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig, MoECfg
 from repro_torch.optim import optimizers as OPT
 from repro_torch.tree import tree_leaves_with_path, tree_map
 
@@ -52,24 +63,43 @@ PARAM_TOL = dict(rtol=2e-5, atol=1e-6)
 HERON = [("kernel", "heron"), ("threefry", "heron")]
 STEPS = HERON + [("fo", m) for m in ("cse_fsl", "fsl_sage", "sflv1",
                                      "sflv2", "splitlora")]
-# world -> [(tag, config, model_parallel, steps, gathered for JAX)]
+# world -> [(tag, config, model_parallel, steps, gathered for JAX[,
+# options])]; options: "cf" the MoE capacity factor (n_experts / top_k:
+# no slab drops, so the expert-parallel step is the unsharded one),
+# "jax_step" the 4 x 16 batch of torch_moe_ep_cases, the step held to
+# the reference's sharded step (per-slab drops and all) in place of the
+# unsharded one, "adafactor" the server's optimizer
 MESHES = {4: [("gpt2_2x2", "gpt2-tiny", 2,
                STEPS + [("scores", "heron")], True),
               ("qwen_2x2", "qwen2-1.5b", 2, STEPS, False),
-              ("qwen_1x4", "qwen2-1.5b", 4, STEPS, False)],
+              ("qwen_1x4", "qwen2-1.5b", 4, STEPS, False),
+              ("moe_2x2", "qwen3-moe-30b-a3b", 2, HERON[:1], True,
+               {"jax_step": True}),
+              ("kimi_2x2", "kimi-k2-1t-a32b", 2, HERON[:1], False,
+               {"adafactor": True, "cf": 4.0})],
           2: [("rg_2x1", "recurrentgemma-9b", 1, HERON[:1], False),
-              ("gpt2_1x2", "gpt2-tiny", 2, HERON[:1], True)]}
+              ("gpt2_1x2", "gpt2-tiny", 2, HERON[:1], True),
+              ("moe_1x2", "qwen3-moe-30b-a3b", 2, HERON[:1], False,
+               {"cf": 4.0}),
+              ("kimi_1x2", "kimi-k2-1t-a32b", 2, HERON[:1], False,
+               {"adafactor": True, "cf": 4.0})]}
 
 
-def config(name, stream):
+def config(name, stream, opts=None):
     cfg = gpt2_tiny() if name == "gpt2-tiny" else get_config(name, True)
+    if (opts or {}).get("cf"):
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=opts["cf"]))
     if stream == "scores":
         return cfg.replace(forward_impl="kernel", attn_probe="scores")
     return cfg.replace(forward_impl="kernel" if stream == "kernel"
                        else "xla")
 
 
-def batch_of(inp, cfg):
+def batch_of(inp, cfg, opts=None):
+    if (opts or {}).get("jax_step"):
+        return {k: torch.as_tensor(v).long()
+                for k, v in MC.step_batch(cfg.vocab).items()}
     b = {k: torch.as_tensor(inp[f"batch_{k}"]) for k in ("inputs",
                                                           "labels")}
     return {k: v % cfg.vocab for k, v in b.items()}
@@ -81,7 +111,7 @@ def _digest(t):
     ).digest(), np.uint8)
 
 
-def run_step(cfg, rules, method, stream, inp, batch):
+def run_step(cfg, rules, method, stream, inp, batch, opts=None):
     """One datacenter step from the reference's params: ``(state,
     metrics, state placements)``."""
     rates = "kernel" if stream == "scores" else stream
@@ -91,7 +121,8 @@ def run_step(cfg, rules, method, stream, inp, batch):
     zo = Z.ZOConfig(mu=mu, scale="gaussian")
     copt = (OPT.zo_sgd(lr) if method == "heron"
             else OPT.adamw(fo_lr, eps=fo_eps))
-    sopt = OPT.adamw(fo_slr, eps=fo_eps)
+    sopt = (OPT.adafactor(fo_slr) if (opts or {}).get("adafactor")
+            else OPT.adamw(fo_slr, eps=fo_eps))
     api = P.lm_api(cfg, rules)
     params = T.init_lm(cfg, device="cpu", key=R.PRNGKey(0))
     shardings, tc_pred = api.shardings, None
@@ -116,30 +147,36 @@ def run_step(cfg, rules, method, stream, inp, batch):
 
 
 def step_cases(inp, out, world):
-    refs = {}       # the unsharded steps, shared by the meshes of a config
-    for tag, name, mp, steps, to_jax in MESHES[world]:
+    refs = {}
+    for tag, name, mp, steps, to_jax, *opts in MESHES[world]:
+        opts = opts[0] if opts else {}
         mesh = make_local_mesh(mp)
         assert mesh.shape == {"data": world // mp, "model": mp}, mesh.shape
         rules = SH.AxisRules(mesh=mesh, enable_fsdp=False)
         for stream, method in steps:
-            cfg = config(name, stream)
-            batch = batch_of(inp, cfg)
+            cfg = config(name, stream, opts)
+            batch = batch_of(inp, cfg, opts)
             case = f"{tag}_{stream}_{method}"
-            new, m, places = run_step(cfg, rules, method, stream, inp, batch)
-            if (name, stream, method) not in refs:
-                # rank 0's unsharded step, sent to the others as numpy
+            new, m, places = run_step(cfg, rules, method, stream, inp, batch,
+                                      opts)
+            # the unsharded step (rank 0's, sent to the others as numpy),
+            # shared by the meshes of a config; None for a case held to
+            # the reference's sharded step instead
+            ref_key = (None if opts.get("jax_step") else
+                       (tag if opts else name, stream, method))
+            if ref_key is not None and ref_key not in refs:
                 one = [None]
                 if dist.get_rank() == 0:
                     st, ms, _ = run_step(cfg, None, method, stream, inp,
-                                         batch)
+                                         batch, opts)
                     one = [(tree_map(lambda t: t.detach().numpy() if
                                      isinstance(t, torch.Tensor) else t, st),
                             {k: float(v) for k, v in ms.items()})]
                 dist.broadcast_object_list(one, src=0)
-                refs[name, stream, method] = one[0]
-            ref, rm = refs[name, stream, method]
+                refs[ref_key] = one[0]
+            ref, rm = refs.get(ref_key, (None, None))
             fails = []
-            for k in ("loss", "client_loss"):
+            for k in ("loss", "client_loss") if rm else ():
                 if not np.isclose(float(m[k]), float(rm[k]), rtol=2e-5,
                                   atol=0):
                     fails.append(f"{k} {float(m[k])} vs {float(rm[k])}")
@@ -147,12 +184,13 @@ def step_cases(inp, out, world):
             for path, got in tree_leaves_with_path(new):
                 if not isinstance(got, torch.Tensor):
                     continue
-                want = torch.as_tensor(SH.shard(_leaf(ref, path),
-                                                pl.get(path)))
-                if not torch.allclose(got.double(), want.double(),
-                                      **PARAM_TOL):
-                    err = (got.double() - want.double()).abs().max()
-                    fails.append(f"{path}: max err {float(err):.3g}")
+                if ref is not None:
+                    want = torch.as_tensor(SH.shard(_leaf(ref, path),
+                                                    pl.get(path)))
+                    if not torch.allclose(got.double(), want.double(),
+                                          **PARAM_TOL):
+                        err = (got.double() - want.double()).abs().max()
+                        fails.append(f"{path}: max err {float(err):.3g}")
                 if pl.get(path) is None or not pl[path].sharded:
                     out[f"{case}|rep|{path}"] = _digest(got)
             out[f"{case}|fail"] = np.array("\n".join(fails))
@@ -168,6 +206,64 @@ def _leaf(tree, path):
     for k in path.split("/"):
         tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
     return tree
+
+
+def moe_config(cf, shared):
+    """The one-layer MoE of a ``torch_moe_ep_cases`` case."""
+    return ModelConfig(
+        name="t", n_layers=1, d_model=MC.D_MODEL, n_heads=4, n_kv_heads=4,
+        d_ff=0, vocab=64,
+        moe=MoECfg(n_experts=MC.N_EXPERTS, top_k=MC.TOP_K,
+                   d_ff_expert=MC.D_FF, capacity_factor=cf,
+                   n_shared_experts=shared),
+        param_dtype="float32", compute_dtype="float32")
+
+
+def moe_case(case, out):
+    """``moe_ep`` forward and backward on this rank's slabs of the
+    case's params and batch."""
+    (nd, nm), cf, shared, (B, S) = MC.CASES[case]
+    mesh = make_local_mesh(nm)
+    assert mesh.shape == {"data": nd, "model": nm}, mesh.shape
+    rules = SH.AxisRules(mesh=mesh, enable_fsdp=False)
+    cfg = moe_config(cf, shared)
+    params, x, w = MC.inputs(case)
+    places = tree_map(lambda r: rules.sharding_for(tuple(r.shape), r.axes),
+                      M.init_moe(L.RULES, cfg))
+    p = tree_map(lambda a, pl: SH.shard(torch.as_tensor(a), pl)
+                 .requires_grad_(True), params, places)
+    b = place_batch({"inputs": torch.as_tensor(x),
+                     "labels": torch.as_tensor(w)}, "cpu", rules)
+    split = b["batch_split"]
+    xl = b["inputs"].requires_grad_(True)
+    with M.recording_drops() as drops:
+        y = M.moe_ep(p, xl, cfg, dataclasses.replace(rules,
+                                                     batch_split=split))
+    leaves = tree_leaves_with_path(p)
+    grads = torch.autograd.grad(torch.sum(y * b["labels"]),
+                                [xl] + [t for _, t in leaves])
+    if split:
+        TP.all_reduce_tree(grads[1:], mesh, "data")
+    key = f"moe|{case}"
+    rows = rules.sharding_for((B,), ("batch",)).bounds[0]
+    out[f"{key}|rows"] = np.array(rows)
+    out[f"{key}|out"] = y.detach().numpy()
+    out[f"{key}|grad|x"] = grads[0].numpy()
+    pl = dict(tree_leaves_with_path(places))
+    for (path, _), g in zip(leaves, grads[1:]):
+        out[f"{key}|grad|{path}"] = g.numpy()
+        out[f"{key}|bounds|{path}"] = np.array(pl[path].bounds)
+    # the drops of the distinct token slabs: every rank's on the exchange,
+    # the data group's in the global view over a split batch, this
+    # rank's where the batch is whole on every rank
+    ep = nm > 1 and S % nm == 0 and (nd == 1 or split)
+    n = torch.tensor(sum(drops))
+    for a in (("data", "model") if ep else ("data",) if split else ()):
+        n = TP.reduce_from(n, mesh, a)
+    with M.recording_drops() as plain:
+        M.moe_ep_plain(tree_map(torch.as_tensor, params), torch.as_tensor(x),
+                       cfg, nd, nm)
+    out[f"{key}|drops"] = np.array([int(n), sum(plain)])
 
 
 def remesh_case(out):
@@ -263,6 +359,8 @@ def run_rank(rank, world, workdir):
     try:
         inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
         out = {}
+        for case in MC.world_cases(world):
+            moe_case(case, out)
         step_cases(inp, out, world)
         if world == 4:
             remesh_case(out)
