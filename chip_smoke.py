@@ -168,7 +168,18 @@ Phases, one line each (any failure exits non-zero):
      the same in bf16 at capacity factor 1.25, 4 layers, timed, the drops
      of each rank and layer; (d) launch.train --arch qwen3-moe-30b-a3b
      --smoke --model-parallel 2 under torch.distributed.run.
-Phases 9-19 run before phase 8's timings.  The line before the last
+ 20. the recurrences on the mesh, (1, 2) gloo ranks: (a) one
+     recurrentgemma-9b RG-LRU block at full width in bf16 (2 x 256
+     tokens) on each rank's "lru" slab against the whole block on the
+     card: output, input gradient and slab gradients, and every K6
+     launch (forward and reverse on the (2, 256, 2048) slab) == plain;
+     (b) recurrentgemma-9b's HERON step (kernel stream, f32, full width,
+     4 of 38 layers) against the unsharded step, every K1 / K6 launch ==
+     plain; (c) the same in bf16, timed; (d) xlstm-1.3b (8 of 48 layers,
+     the chunkwise mLSTM) likewise, f32 against the unsharded step and
+     bf16 timed; (e) launch.train --model-parallel 2 under
+     torch.distributed.run for both families' smoke configs.
+Phases 9-20 run before phase 8's timings.  The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
 """
@@ -3988,10 +3999,10 @@ def _mesh_config(name):
                        compute_dtype="float32")
 
 
-def _slab_check(desc, got, want, places):
+def _slab_check(desc, got, want, places, tol=TRAIN_MESH_TOL):
     """Each leaf of ``got`` (a rank's state) against the slab of the
-    unsharded ``want`` at TRAIN_MESH_TOL: ``(max |d|, the replicated
-    leaves' digest)``."""
+    unsharded ``want`` at ``tol``: ``(max |d|, the replicated leaves'
+    digest)``."""
     import hashlib
     import torch
     from repro_torch.distributed import sharding as SH
@@ -4006,10 +4017,9 @@ def _slab_check(desc, got, want, places):
         if tuple(ref.shape) != tuple(t.shape):
             ref = SH.shard(ref, pl.get(path))
         d = (t.float() - ref.float()).abs()
-        if not bool((d <= TRAIN_MESH_TOL["atol"] + TRAIN_MESH_TOL["rtol"]
+        if not bool((d <= tol["atol"] + tol["rtol"]
                      * ref.float().abs()).all()):
-            fail(f"{desc}: {path} max |d| {float(d.max())} past "
-                 f"{TRAIN_MESH_TOL}")
+            fail(f"{desc}: {path} max |d| {float(d.max())} past {tol}")
         worst = max(worst, float(d.max()))
         if pl.get(path) is None or not pl[path].sharded:
             h.update(memoryview(t.detach().contiguous().cpu().numpy()))
@@ -4230,8 +4240,8 @@ def run_train_mesh_ranks(card, case):
             for k in outs[0]["counts"]}
 
 
-def run_mesh_driver(card, arch="qwen2-1.5b", phase=18):
-    """18(d) / 19(d): ``torchrun --nproc-per-node=2 -m
+def run_mesh_driver(card, arch="qwen2-1.5b", phase=18, part="d"):
+    """18(d) / 19(d) / 20(e): ``torchrun --nproc-per-node=2 -m
     repro_torch.launch.train --arch ARCH --smoke --model-parallel 2
     --ckpt-dir D`` (torch.distributed.run on a local rendezvous; gloo,
     the two ranks sharing the card) exits 0, rank 0 alone prints, and its
@@ -4276,10 +4286,11 @@ def run_mesh_driver(card, arch="qwen2-1.5b", phase=18):
         if step != 2 or not finite:
             fail(f"the mesh driver's checkpoint: step {step}, finite "
                  f"{finite}")
-    log(phase, f"(d) torchrun --nproc-per-node=2 -m repro_torch.launch.train "
-        f"--arch {arch} --smoke --model-parallel 2 --ckpt-dir D on {card}: "
-        f"exit 0 in {wall:.1f} s, rank 0 alone printed {steps}; its step-2 "
-        f"checkpoint restored into a one-device state (finite)")
+    log(phase, f"({part}) torchrun --nproc-per-node=2 -m "
+        f"repro_torch.launch.train --arch {arch} --smoke --model-parallel "
+        f"2 --ckpt-dir D on {card}: exit 0 in {wall:.1f} s, rank 0 alone "
+        f"printed {steps}; its step-2 checkpoint restored into a one-device "
+        f"state (finite)")
 
 
 def run_train_mesh_phase(dev, card):
@@ -4471,8 +4482,8 @@ def moe_mesh_step(case, rank, world, rules, dev, sync):
                                                   ref[3])):
             if not abs(got - want) <= 1e-5 * abs(want):
                 fail(f"{desc}: loss {got} vs the unsharded step's {want}")
-        res["max_abs"], res["digest"] = _slab_check(desc, new["params"],
-                                                    ref[0], api.shardings)
+        res["max_abs"], res["digest"] = _slab_check(
+            desc, new["params"], ref[0], api.shardings, REC_STEP_TOL)
         return res
     del state
     if dev.type == "cuda":
@@ -4578,6 +4589,337 @@ def run_moe_ep_phase(dev, card):
     run_mesh_driver(card, "qwen3-moe-30b-a3b", 19)
     log(19, f"(phase 19 took {time.perf_counter() - t0:.1f} s)")
     return {"zo_noise": sum(o["b"]["k1"] + o["c"]["k1"] for o in outs)}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the recurrences on the ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+# the model axis of phase 20's ranks, and the tokens (B, S) of every case
+REC_MESH_MP = 2
+REC_MESH_TOKENS = (2, 256)
+# 20(a): a rank's bf16 block against the whole block on the card: the
+# column and row slabs' products and the reduce-scatter's partial sums
+# round in other orders; 19(a)'s bars, two bf16 ulps of the whole
+# block's largest entry (2^-6 of it) for the output, four for gradients
+REC_OUT_BAR = 2.0 ** -6
+REC_GRAD_BAR = 2.0 ** -5
+# 20(b)-(d): (arch, layers, dtype, the server AdamW's eps).  recurrentgemma
+# at 4 layers is (rg_lru, rg_lru | local_attn, rg_lru): the server runs
+# one RG-LRU block forward and in reverse; xlstm at 8 is 2 mLSTM | 5
+# mLSTM and the first sLSTM (block 7).  xlstm's f32 stack is
+# ill-conditioned (ROADMAP queue 3), so its server's AdamW runs at eps
+# 1e-3, as the CPU tests hold it
+REC_STEP_CASES = {"b": ("recurrentgemma-9b", 4, "float32", 1e-6),
+                  "c": ("recurrentgemma-9b", 4, "bfloat16", 1e-6),
+                  "d32": ("xlstm-1.3b", 8, "float32", 1e-3),
+                  "d16": ("xlstm-1.3b", 8, "bfloat16", 1e-3)}
+REC_MESH_TIMEOUT_S = 600
+# 20(b) / (d32): a rank's f32 slabs against the unsharded step's, an
+# absolute bar of 2.5e-6 on every entry (phase 18 measured 1.10e-6 and
+# phase 19 2.45e-6 on their f32 steps)
+REC_STEP_TOL = dict(rtol=0.0, atol=2.5e-6)
+
+
+def record_k6_calls(fn):
+    """Run ``fn`` with every K6 launch held against its plain version on
+    its own inputs as it returns (``torch.equal``: forward ``h``, reverse
+    ``da`` and ``db``): ``[((B, S, W), reverse, equal)]``.  The plain
+    loops launch no K6."""
+    import torch
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import rg_lru as RG
+    calls, launch = [], RG._launch
+
+    def rec(a, x, hs, out, da, reverse):
+        launch(a, x, hs, out, da, reverse)
+        with torch.no_grad():
+            if reverse:
+                rda, rdb = R.rg_lru_scan_reverse_ref(a, x, hs)
+                same = torch.equal(out, rdb) and torch.equal(da, rda)
+            else:
+                same = torch.equal(out, R.rg_lru_scan_ref(a, x))
+        calls.append((tuple(a.shape), bool(reverse), bool(same)))
+
+    RG._launch = rec
+    try:
+        fn()
+    finally:
+        RG._launch = launch
+    return calls
+
+
+def check_k6_recorded(desc, calls):
+    bad = [c for c in calls if not c[2]]
+    if bad:
+        fail(f"{desc}: K6 launches differ from plain: {bad}")
+    return [list(c[:2]) for c in calls]
+
+
+def _rec_config(arch, layers, dtype):
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch).replace(n_layers=layers, forward_impl="kernel",
+                                   param_dtype=dtype, compute_dtype=dtype)
+    return cfg.replace(mlstm_chunk=64) if arch == "xlstm-1.3b" else cfg
+
+
+def check_rg_block(rank, rules, dev):
+    """20(a): ``rg_lru_block`` on this rank's slabs of one recurrentgemma-9b
+    RG-LRU block (bf16, lru 4096), forward and backward of ``sum(out *
+    w)``, against the whole block on the same card: the output and x's
+    gradient, each slab's gradient within the bars; every K6 launch of
+    the slab block (forward and reverse on (B, S, 2048)) == plain."""
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import layers as L
+    from repro_torch.models import recurrent as REC
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+    cfg = _rec_config("recurrentgemma-9b", 1, "bfloat16")
+    gen = torch.Generator(dev).manual_seed(20)
+    params = REC.init_rg_lru(gen, cfg)
+    B, S = REC_MESH_TOKENS
+    x, w = (torch.randn((B, S, cfg.d_model), generator=gen, device=dev
+                        ).to(torch.bfloat16) for _ in range(2))
+    places = tree_map(lambda r: rules.sharding_for(tuple(r.shape), r.axes),
+                      REC.init_rg_lru(L.RULES, cfg))
+
+    def run(p, r):
+        xg = x.clone().requires_grad_(True)
+        p = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        y, _ = REC.rg_lru_block(p, xg, cfg, rules=r)
+        leaves = tree_leaves_with_path(p)
+        g = torch.autograd.grad(torch.sum(y.float() * w.float()),
+                                [xg] + [t for _, t in leaves])
+        return y.detach(), g[0], dict(zip([q for q, _ in leaves], g[1:]))
+
+    yo, gxo, gpo = run(params, None)
+    out = []
+    calls = record_k6_calls(lambda: out.append(run(tree_map(
+        SH.shard, params, places), rules)))
+    yr, gxr, gpr = out.pop()
+    pl = dict(tree_leaves_with_path(places))
+    errs = {}
+    for name, got, want, bar in (
+            [("out", yr, yo, REC_OUT_BAR), ("grad x", gxr, gxo,
+                                            REC_GRAD_BAR)]
+            + [(f"grad {k}", g, SH.shard(gpo[k], pl[k]), REC_GRAD_BAR)
+               for k, g in gpr.items()]):
+        d = max_abs(got, want)
+        top = float(want.float().abs().max())
+        if not d <= bar * top:
+            fail(f"20(a) rank {rank}: {name} max |d| {d} past {bar} x "
+                 f"max |whole block| {top}")
+        errs[name] = (d, top)
+    k6 = check_k6_recorded(f"20(a) rank {rank}", calls)
+    want = [[(B, S, cfg.lru_width // REC_MESH_MP), False],
+            [(B, S, cfg.lru_width // REC_MESH_MP), True]]
+    if [[tuple(s), r] for s, r in k6] != want:
+        fail(f"20(a) rank {rank}: K6 launches {k6}, expected {want}")
+    return {"errs": errs, "k6": k6}
+
+
+def rec_mesh_step(case, rank, world, rules, dev, sync):
+    """20(b)-(d) on this rank.  An f32 case: the unsharded HERON step
+    first, one rank at a time (the card holds one whole state at a
+    time), keeping this rank's slabs of its params and its launches;
+    then the mesh step with every K1 and K6 launch recorded and held
+    against plain, its slabs against the unsharded step's at
+    REC_STEP_TOL.  A bf16 case: the mesh step with every K6 launch
+    held against plain, a second timed (wall, peak memory, launches ==
+    the first's), a third under the profiler (busy)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import prng as R
+    from repro_torch.core import protocols as P
+    from repro_torch.core import zo as Z
+    from repro_torch.data.pipeline import place_batch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adamw, zo_sgd
+    arch, layers, dtype, eps = REC_STEP_CASES[case]
+    cfg = _rec_config(arch, layers, dtype)
+    r8 = TRAIN_MESH_RATES
+    copt, sopt = zo_sgd(r8["lr"]), adamw(r8["server_lr"], eps=eps)
+    zo = Z.ZOConfig(mu=r8["mu"], scale="gaussian")
+    batch = _lm_batch(cfg.vocab, *REC_MESH_TOKENS, dev, seed=20)
+    desc = f"20({case}) rank {rank}"
+    f32 = dtype == "float32"
+    kinds = ("zo_noise", "rg_lru_scan", "rg_lru_scan_reverse")
+
+    def params():
+        return T.init_lm(cfg, seed=20, device=dev, draw_on_device=True)
+
+    api = P.lm_api(cfg, rules)
+    ref = None
+    for r in range(world if f32 else 0):
+        if r == rank:
+            st = P.init_train_state(R.PRNGKey(1), params(), copt, sopt)
+            reset_counts()
+            new, rm = P.make_train_step(P.lm_api(cfg), "heron", zo, copt,
+                                        sopt)(st, batch)
+            sync()
+            ref = (SH.shard_tree(new["params"], api.shardings),
+                   {k: launch_counts()[k] for k in kinds},
+                   float(rm["loss"]), float(rm["client_loss"]))
+            del st, new
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    state = P.init_train_state(R.PRNGKey(1), params(), copt, sopt,
+                               shardings=api.shardings)
+    step = P.make_train_step(api, "heron", zo, copt, sopt)
+    b = place_batch(batch, dev, rules)
+    out, k1 = [], ([], [])
+
+    def run():
+        if f32:
+            k1[0][:], k1[1][:] = record_k1_calls(lambda: out.append(
+                step(state, b)))
+        else:
+            out.append(step(state, b))
+
+    reset_counts()
+    k6 = check_k6_recorded(desc, record_k6_calls(run))
+    sync()
+    counts = {k: launch_counts()[k] for k in kinds}
+    new, m = out.pop()
+    res = {"counts": counts, "k6_shapes": sorted({str(s) for s, _ in k6}),
+           "loss": float(m["loss"]), "client_loss": float(m["client_loss"])}
+    if len(k6) != counts["rg_lru_scan"]:
+        fail(f"{desc}: {len(k6)} K6 launches recorded, counted {counts}")
+    if f32:
+        n_k1 = (check_k1_recorded(desc, k1[0], dev)
+                + check_k1_rows_recorded(desc, k1[1]))
+        if n_k1 != counts["zo_noise"] or counts != ref[1] or \
+                counts["zo_noise"] <= 0:
+            fail(f"{desc}: launches {counts} ({n_k1} K1 recorded), the "
+                 f"unsharded step {ref[1]}")
+        for got, want in ((res["loss"], ref[2]), (res["client_loss"],
+                                                  ref[3])):
+            if not abs(got - want) <= 1e-5 * abs(want):
+                fail(f"{desc}: loss {got} vs the unsharded step's {want}")
+        res["max_abs"], res["digest"] = _slab_check(
+            desc, new["params"], ref[0], api.shardings, REC_STEP_TOL)
+        return res
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    new, _ = step(new, b)
+    sync()
+    res["wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    if {k: launch_counts()[k] for k in kinds} != counts:
+        fail(f"{desc}: the second step launched {launch_counts()}, the "
+             f"first {counts}")
+    res["peak"] = torch.cuda.max_memory_allocated() if dev.type == "cuda" \
+        else 0
+    res["busy_ms"] = (sum(r_[0] for r_ in device_rows(
+        lambda: step(new, b))) / 1e3 if dev.type == "cuda" else 0.0)
+    return res
+
+
+def rec_mesh_rank(rank, world, workdir, device="cuda"):
+    """One rank of 20(a)-(d) (``chip_smoke.py --rec-mesh-rank RANK WORLD
+    DIR``): a gloo group on a FileStore in DIR, every rank on card 0,
+    ``make_local_mesh(REC_MESH_MP)``.  Prints one ``REC_MESH_RANK
+    {json}`` line."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.mesh import make_local_mesh
+    cuda = device == "cuda"
+    dev = torch.device(device, 0) if cuda else torch.device(device)
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(workdir, "store"), world), rank=rank, world_size=world)
+    try:
+        mesh = make_local_mesh(REC_MESH_MP)
+        rules = SH.AxisRules(mesh=mesh, enable_fsdp=False)
+        res = {"a": check_rg_block(rank, rules, dev)}
+        for case in REC_STEP_CASES:
+            t0 = time.perf_counter()
+            res[case] = rec_mesh_step(case, rank, world, rules, dev, sync)
+            res[case]["seconds"] = time.perf_counter() - t0
+            if cuda:
+                torch.cuda.empty_cache()
+        res["coords"] = {a: mesh.rank(a) for a in mesh.shape}
+        print("REC_MESH_RANK " + json.dumps(res), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_rec_mesh_phase(dev, card):
+    """Phase 20: (a)-(d) as REC_MESH_MP gloo rank processes on the card,
+    (e) the driver under torch.distributed.run for both families.
+    Returns the K1 and K6 launches of the ranks' mesh steps in (b)-(d),
+    summed."""
+    t0 = time.perf_counter()
+    outs, wall = run_rank_procs("--rec-mesh-rank", REC_MESH_MP, [],
+                                REC_MESH_TIMEOUT_S, "REC_MESH_RANK")
+    for case in ("b", "d32"):
+        if len({o[case]["digest"] for o in outs}) != 1:
+            fail(f"20({case}): the replicated leaves differ across the "
+                 "ranks")
+    what = {"b": "recurrentgemma-9b HERON step, kernel stream, f32, full "
+            "width, 4 of 38 layers",
+            "c": "recurrentgemma-9b HERON step, bf16, 4 of 38 layers",
+            "d32": "xlstm-1.3b HERON step, kernel stream, f32, full width, "
+            "8 of 48 layers (chunkwise mLSTM, 64)",
+            "d16": "xlstm-1.3b HERON step, bf16, 8 of 48 layers"}
+    for r, o in enumerate(outs):
+        log(20, f"(a) rank {r} at {o['coords']}: recurrentgemma-9b RG-LRU "
+            f"block (d 4096, lru 4096, bf16), {REC_MESH_TOKENS[0]} x "
+            f"{REC_MESH_TOKENS[1]} tokens, on its lru slab == the whole "
+            f"block on the card within the bars (out {REC_OUT_BAR}, "
+            f"gradients {REC_GRAD_BAR} x max |whole|): "
+            + ", ".join(f"{k} max |d| {d} of {t}" for k, (d, t) in
+                        o["a"]["errs"].items())
+            + f"; K6 launches (shape, reverse) {o['a']['k6']}, each == "
+            f"plain bit for bit")
+        for case in ("b", "d32"):
+            sb = o[case]
+            log(20, f"({case}) rank {r}: {what[case]}, "
+                f"{REC_MESH_TOKENS[0]} x {REC_MESH_TOKENS[1]} tokens: "
+                f"launches {sb['counts']} (== the unsharded step's; every "
+                f"K1 launch run again == plain, every K6 launch on "
+                f"{sb['k6_shapes']} == plain bit for bit), loss "
+                f"{sb['loss']} client_loss {sb['client_loss']} (== the "
+                f"unsharded step's within 1e-5), slabs within "
+                f"{REC_STEP_TOL} of the unsharded step's (max |d| "
+                f"{sb['max_abs']}); {sb['seconds']:.1f} s")
+        for case in ("c", "d16"):
+            sc = o[case]
+            idle = (f"busy {sc['busy_ms']:.3f} ms, idle share "
+                    f"{1 - sc['busy_ms'] / sc['wall_ms']:.3f}"
+                    if sc["busy_ms"] > 0 else
+                    "busy not measured (the profiler saw no device time)")
+            log(20, f"({case}) rank {r}: {what[case]}, {REC_MESH_TOKENS[0]} "
+                f"x {REC_MESH_TOKENS[1]} tokens: wall {sc['wall_ms']:.3f} ms "
+                f"(the second step), {idle} (a third, profiled), "
+                f"max_memory_allocated {sc['peak']}; launches "
+                f"{sc['counts']} (every K6 launch of the first on "
+                f"{sc['k6_shapes']} == plain); loss {sc['loss']} "
+                f"client_loss {sc['client_loss']}; {sc['seconds']:.1f} s")
+    log(20, f"(a)-(d) on {card}: replicated leaves of (b) and (d) equal "
+        f"across the {REC_MESH_MP} ranks (blake2b); the ranks done in "
+        f"{wall:.1f} s")
+    for arch in ("recurrentgemma-9b", "xlstm-1.3b"):
+        run_mesh_driver(card, arch, 20, "e")
+    log(20, f"(phase 20 took {time.perf_counter() - t0:.1f} s)")
+    return {k: sum(o[c]["counts"][k] for o in outs for c in REC_STEP_CASES)
+            for k in ("zo_noise", "rg_lru_scan")}
 
 
 # ---------------------------------------------------------------------------
@@ -5025,8 +5367,9 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
     to K1's and K5's; ``counts_modality``: of phase 16's two full-width
     rounds (K1-K3) and its qwen2-vl engine run (K5); ``counts_mesh``: of
     phase 17's one-rank sharded replay (K1) and sharded round (K1-K3),
-    phase 18's mesh steps on every rank (K1-K3) and phase 19's MoE mesh
-    steps on every rank (K1)."""
+    phase 18's mesh steps on every rank (K1-K3), phase 19's MoE mesh
+    steps on every rank (K1) and phase 20's recurrent mesh steps on every
+    rank (K1, K6), added to K6's."""
     import torch
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import ops as O
@@ -5185,7 +5528,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
                  "source": "src/repro_torch/kernels/csrc/rg_lru_scan.cu",
                  "replaces": "src/repro/kernels/rg_lru.py:50",
                  "launches": counts_rg["rg_lru_scan"]
-                 + counts_serve["rg_lru_scan"], "max_abs_err": errs[5],
+                 + counts_serve["rg_lru_scan"]
+                 + counts_mesh["rg_lru_scan"], "max_abs_err": errs[5],
                  "ms": ms, "plain_ms": pl, "bound_ms": bd, "bound_by": by,
                  "library_ms": None})
 
@@ -5208,6 +5552,9 @@ def main():
                                sys.argv[4], sys.argv[5])
     if sys.argv[1:2] == ["--moe-ep-rank"]:        # a rank of phase 19
         return moe_ep_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--rec-mesh-rank"]:      # a rank of phase 20
+        return rec_mesh_rank(int(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -5277,12 +5624,17 @@ def main():
     counts_moe_ep = run_moe_ep_phase(dev, card)
     torch.cuda.empty_cache()
     took("19")
+    counts_rec_mesh = run_rec_mesh_phase(dev, card)
+    torch.cuda.empty_cache()
+    took("20")
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs,
                         counts_serve, counts_train, counts_family,
-                        counts_modality, {k: counts_mesh[k]
+                        counts_modality, {k: counts_mesh.get(k, 0)
                                           + counts_train_mesh.get(k, 0)
                                           + counts_moe_ep.get(k, 0)
-                                          for k in counts_mesh})
+                                          + counts_rec_mesh.get(k, 0)
+                                          for k in set(counts_mesh)
+                                          | set(counts_rec_mesh)})
     compiler_report()
     check_hgmma()
     k1_sass()

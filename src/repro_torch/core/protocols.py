@@ -11,9 +11,11 @@ rules)``: the API carries the rules and each leaf's placement
 params and its slab of the batch (``data.pipeline.place_batch``), the
 losses are the global batch's means on every rank, and the first-order
 gradients are all-reduced over the data group.  The data axis takes
-every LM family, the model axis the dense family (tensor-parallel) and
-MoE (expert-parallel, :func:`repro_torch.models.moe.moe_ep`; item 7.3
-for the other families).
+every LM family, the model axis the dense family (tensor-parallel), MoE
+(expert-parallel, :func:`repro_torch.models.moe.moe_ep`) and the
+recurrent hybrid and xLSTM families (their mixers on "lru" / "heads" /
+"d_ff" slabs, :mod:`repro_torch.models.recurrent`; item 7.4 for the
+vlm and enc-dec families).
 
 The notes below are the federated round's.
 
@@ -120,16 +122,21 @@ def kernel_forward(cfg) -> bool:
     return fi == "kernel"
 
 
+MODEL_AXIS_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+
+
 def check_mesh_family(cfg: ModelConfig, mesh) -> None:
     """The families the datacenter step's mesh takes: the data axis every
-    LM family, the model axis the dense and MoE families.  Raises with
-    the ROADMAP queue 1 sub-item of what is not ported."""
-    if mesh.shape.get("model", 1) > 1 and cfg.family not in ("dense",
-                                                             "moe"):
+    LM family, the model axis the dense, MoE, recurrent hybrid and xLSTM
+    families.  Raises with the ROADMAP queue 1 sub-item of what is not
+    ported."""
+    if mesh.shape.get("model", 1) > 1 and \
+            cfg.family not in MODEL_AXIS_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) on a model axis of "
-            f"{mesh.shape['model']}: the model axis runs the dense and MoE "
-            "families; this family's is ROADMAP queue 1 item 7.3")
+            f"{mesh.shape['model']}: the model axis runs the "
+            f"{', '.join(MODEL_AXIS_FAMILIES)} families; this family's is "
+            "ROADMAP queue 1 item 7.4")
 
 
 def lm_api(cfg: ModelConfig, rules: SH.AxisRules | None = None) -> ModelAPI:

@@ -4,9 +4,10 @@ them.
 
 Every rank of a mesh axis computes the same replicated values (the
 loss above all), and a parameter's gradient on a rank is the full
-gradient of its slab.  Four conjugate pairs keep that true through the
-backward (Megatron-LM's scheme; each backward is the other function, so
-FSL-SAGE's double backward differentiates through them too):
+gradient of its slab.  Five collectives, in conjugate pairs, keep that
+true through the backward (Megatron-LM's scheme; each backward is the
+other function, so FSL-SAGE's double backward differentiates through
+them too):
 
 * :func:`copy_to`: forward identity, backward all-reduce (a replicated
   input entering a column-parallel product, whose input gradients are
@@ -18,7 +19,13 @@ FSL-SAGE's double backward differentiates through them too):
   the slice of the gradient's sum over the axis, a reduce-scatter (a
   slab whose whole each rank reads only in part: the k / v heads of a
   rank's own q heads);
-* :func:`split_to`: forward this rank's slice, backward all-gather.
+* :func:`split_to`: forward this rank's slice, backward all-gather;
+* :func:`reduce_scatter`: forward this rank's slice of the sum over the
+  axis, backward all-gather (the partial outputs of a row-parallel
+  product whose sum each rank reads only in its own columns: the
+  RG-LRU's gate projections); the conjugate of ``gather_from(partial=
+  True)``.  (``reduce_from`` and a slice would pass each rank only its
+  own columns' gradient back to its partial product.)
 
 :func:`all_to_all` (the reference's tiled ``lax.all_to_all``, the MoE
 expert exchange) is its own conjugate: its backward is the inverse
@@ -120,8 +127,20 @@ class _GatherPartial(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _Split.apply(_Reduce.apply(g, ctx.mesh, ctx.axis), ctx.mesh,
-                            ctx.axis, ctx.dim), None, None, None
+        return (_ReduceScatter.apply(g, ctx.mesh, ctx.axis, ctx.dim), None,
+                None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _slice(_all_reduce(x, mesh, axis), mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_GatherPartial.apply(g, ctx.mesh, ctx.axis, ctx.dim), None,
+                None, None)
 
 
 class _Split(torch.autograd.Function):
@@ -155,6 +174,15 @@ def split_to(x, mesh, axis: str = "model", dim: int = -1):
     if not _live(mesh, axis):
         return x
     return _Split.apply(x, mesh, axis, dim % x.dim())
+
+
+def reduce_scatter(x, mesh, axis: str = "model", dim: int = -1):
+    """This rank's slice on ``dim`` of ``x`` summed over the axis (an
+    all-reduce, then the slice: gloo has no reduce-scatter); its
+    backward all-gathers the slice's gradient."""
+    if not _live(mesh, axis):
+        return x
+    return _ReduceScatter.apply(x, mesh, axis, dim % x.dim())
 
 
 def all_to_all(x, mesh, axis: str = "model", split_dim: int = 0,

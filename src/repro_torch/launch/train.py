@@ -36,9 +36,13 @@ falls back to 1), with ``AxisRules(mesh, enable_fsdp=False)``: each rank
 holds its slabs of the state and of each batch (``place_batch``), and a
 checkpoint is rank 0's write of the gathered state, restored onto any
 mesh width.  The data axis takes every family, the model axis the dense
-family (tensor-parallel) and MoE (expert-parallel, e.g. ``--arch
-qwen3-moe-30b-a3b --smoke --model-parallel 2``;
-``protocols.check_mesh_family``).
+family (tensor-parallel), MoE (expert-parallel, e.g. ``--arch
+qwen3-moe-30b-a3b --smoke --model-parallel 2``) and the recurrent
+families, their mixers on the rank's slabs (``--arch recurrentgemma-9b
+--smoke --model-parallel 2``: the RG-LRU on its "lru" channels;
+``--arch xlstm-1.3b``: the mLSTM on its heads, the sLSTM's gates
+gathered); the vlm and enc-dec families raise
+(``protocols.check_mesh_family``).
 
 The data is ``BigramLM``, whose table is ``vocab x vocab``: at a full
 config's vocab (151,936 for qwen2-1.5b) that is 185 GB, so the driver

@@ -257,10 +257,14 @@ def _lora(params, x, perturb, tp=None):
     batch, sees ``theta + mu*U`` of both factors).  A row-parallel
     layer's ``lora_a`` is a row slab whose partial products are summed
     before the whole ``lora_b``; a column-parallel layer's ``lora_b`` is
-    a column slab."""
+    a column slab, and its whole ``lora_a``, read for the rank's columns
+    alone, enters through ``copy_to`` (its gradient summed over
+    "model")."""
     la = params["lora_a"].to(x.dtype)
     lb = params["lora_b"].to(x.dtype)
     row = tp is not None and tp.mode == "row"
+    if tp is not None and not row:
+        la = TP.copy_to(la, tp.mesh)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if perturb is None:

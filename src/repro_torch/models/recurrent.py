@@ -17,12 +17,40 @@ any Pallas kernel (``jax.lax.scan``): a Python loop over the tokens, or
 for the mLSTM with ``cfg.mlstm_chunk > 0`` over chunks of that many
 tokens (the chunkwise-parallel form, which keeps one matrix state per
 chunk for the backward instead of one per token).
+
+Under the datacenter step's mesh (``rules`` with a "model" axis, a
+training path) each block runs on the rank's slabs of its leaves, which
+the reference's logical axes place:
+
+* the RG-LRU on the rank's ``W / n`` "lru" channels: ``in_x`` /
+  ``in_gate`` column slabs, the conv's channel slab, ``w_r`` / ``w_i``
+  row slabs whose partial products each rank reads only in its own
+  columns (:func:`repro_torch.distributed.tensor_parallel.
+  reduce_scatter`), their replicated biases read in part, K6 on the
+  ``(B, S, W / n)`` slab, ``out`` a row slab;
+* the mLSTM on the rank's heads: ``up``'s column slab gathered whole
+  (it does not line up with the cell input / output gate halves), the
+  conv on the rank's channels and gathered, ``wq`` / ``wk`` / ``wv``
+  column slabs on "heads", the replicated ``w_if`` and norm scale read at
+  the rank's heads, ``down`` a row slab; where the "heads" slab cuts
+  below a head, q / k / v are gathered and every rank runs every head;
+* the sLSTM whole on every rank (the reference keeps its ``h``
+  replicated): the ``wx`` and ``r`` column slabs gathered once a call.
+
+Every rank reads a replicated input or a gathered tensor only in its own
+part, so a replicated leaf read in part enters through ``copy_to`` (its
+gradient summed over "model") and a gather's backward is a
+reduce-scatter (``gather_from(partial=True)``); the sLSTM's gathered
+gates feed a replicated cell instead, so its gathers are plain.  Where
+the model axis does not divide a block's widths the rules leave its
+leaves whole and it runs as on one device.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels import ops as O
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -60,10 +88,30 @@ def _conv_tail(xb, cw: int):
     return F.pad(xb, (0, 0, cw - 1, 0))[:, xb.shape[1]:]
 
 
-def _rg_lru_coeffs(params, xc):
-    """xc: (B, S, W) conved input -> (a, b) of the linear recurrence, f32."""
-    r = torch.sigmoid(L.dense(params["w_r"], xc, torch.float32))
-    i = torch.sigmoid(L.dense(params["w_i"], xc, torch.float32))
+def _no_state_on_mesh(mixer: str):
+    raise NotImplementedError(
+        f"{mixer}: a cache or a decode step under a model axis is not "
+        "ported; the mesh runs the training path (the sequence without a "
+        "state)")
+
+
+def _rg_lru_gate(p, xc, mesh, c0: int):
+    """sigmoid of ``xc @ W + b`` in f32 for ``w_r`` / ``w_i`` (``p``) on
+    the ``xc.shape[-1]`` channels from ``c0``: under a live axis W is a
+    row slab whose partial products are summed and cut to those columns
+    (``reduce_scatter``) and the replicated bias is read there."""
+    part = L.dense({k: t for k, t in p.items() if k != "b"}, xc,
+                   torch.float32)
+    b = TP.copy_to(p["b"], mesh)[c0:c0 + xc.shape[-1]]
+    return torch.sigmoid(TP.reduce_scatter(part, mesh)
+                         + b.to(torch.float32))
+
+
+def _rg_lru_coeffs(params, xc, mesh=None, c0: int = 0):
+    """xc: (B, S, W) conved input (the channels from ``c0``) -> (a, b) of
+    the linear recurrence, f32."""
+    r = _rg_lru_gate(params["w_r"], xc, mesh, c0)
+    i = _rg_lru_gate(params["w_i"], xc, mesh, c0)
     log_a = -_LRU_C * F.softplus(params["lam"].to(torch.float32)) * r
     a = torch.exp(log_a)
     # sqrt(1 - a^2) input normalization (Griffin eq. 4)
@@ -73,7 +121,7 @@ def _rg_lru_coeffs(params, xc):
 
 
 def rg_lru_block(params, x, cfg: ModelConfig, state=None,
-                 decode: bool = False, live=None):
+                 decode: bool = False, live=None, rules=None):
     """(B, S, d_model) -> ``(out, state)``: input and gate
     projections, the causal conv, the gated recurrence, the output
     projection.  ``state = {"h": (B, W), "conv": (B, cw-1, W)}``.
@@ -84,10 +132,23 @@ def rg_lru_block(params, x, cfg: ModelConfig, state=None,
     input.  ``decode`` takes one token against ``state``: ``h = a*h + b``
     in f32, no scan.  Both write ``state``'s tensors in place and return
     it (None without a state); decode writes only the rows where ``live``
-    is set (all rows when it is None)."""
+    is set (all rows when it is None).
+
+    ``rules`` with a model axis dividing W: the sequence path on this
+    rank's "lru" channels ``[c0, c0 + W / n)`` (``x`` enters the
+    column-parallel ``in_x`` / ``in_gate`` through one ``copy_to``, K6
+    scans the ``(B, S, W / n)`` slab, ``out`` is a row slab); a state or
+    a decode step there raises."""
+    w = cfg.lru_width or cfg.d_model
+    tp = L.DenseTP.of(rules, (cfg.d_model, w), ("d_model", "lru"))
+    tp_out = L.DenseTP.of(rules, (w, cfg.d_model), ("lru", "d_model"))
+    mesh, c0 = (None, 0) if tp is None else (tp.mesh, tp.col0)
+    if mesh is not None and (state is not None or decode):
+        _no_state_on_mesh("RG-LRU")
     cdt = cfg.torch_compute_dtype()
-    xb = L.dense(params["in_x"], x, cdt)
-    gateb = L.dense(params["in_gate"], x, cdt)
+    x = TP.copy_to(x, mesh)
+    xb = L.dense(params["in_x"], x, cdt, tp=tp)
+    gateb = L.dense(params["in_gate"], x, cdt, tp=tp)
     if decode:
         xc, conv = L.causal_conv1d(params["conv"], xb, state["conv"])
         a, b = _rg_lru_coeffs(params, xc)
@@ -96,14 +157,14 @@ def rg_lru_block(params, x, cfg: ModelConfig, state=None,
         y = h[:, None, :]
     else:
         xc = L.causal_conv1d(params["conv"], xb)
-        a, b = _rg_lru_coeffs(params, xc)
+        a, b = _rg_lru_coeffs(params, xc, mesh, c0)
         y = O.rg_lru_scan(a, b)
         if state is not None:
             # a block prefill into a fresh state
             _store((state["h"], state["conv"]),
                    (y[:, -1], _conv_tail(xb, cfg.conv_width)))
     y = y.to(cdt) * F.gelu(gateb, approximate="tanh")
-    return L.dense(params["out"], y, cdt), state
+    return L.dense(params["out"], y, cdt, tp=tp_out), state
 
 
 def init_rg_lru_state(cfg: ModelConfig, batch: int, device="cpu"):
@@ -248,31 +309,68 @@ def _mlstm_cell_chunked(q, k, v, i_pre, f_pre, state=None, chunk: int = 64):
 
 
 def mlstm_block(params, x, cfg: ModelConfig, state=None,
-                decode: bool = False, live=None):
+                decode: bool = False, live=None, rules=None):
     """(B, S, d_model) -> ``(out, state)``: the up projection into the
     cell input and the output gate, the causal conv, the q / k / v and
     gate projections, the cell, the per-head norm and the down
     projection.  ``state = {"cell": (C, n, m), "conv": (B, cw-1, d)}``;
     the sequence path starts from it (a block prefill into a fresh state)
     and both paths write the state they end in there, in place, decode
-    only the rows where ``live`` is set (all rows when it is None)."""
-    cdt = cfg.torch_compute_dtype()
+    only the rows where ``live`` is set (all rows when it is None).
+
+    ``rules`` with a model axis of n dividing d: the sequence path on
+    this rank's channels ``[c0, c0 + d / n)`` and its heads where they
+    are whole.  ``up``'s column slab (of the ``xm | z`` halves together)
+    is gathered whole; the conv runs on the rank's channels of ``xm`` and
+    is gathered for the column-parallel ``wq`` / ``wk``; ``wv`` reads the
+    whole ``xm``.  The replicated ``w_if`` and norm scale enter through
+    ``copy_to`` and are read at the rank's heads.  Where the slab cuts
+    below a head q / k / v are gathered and every head runs on every
+    rank; either way ``down``'s row slab reads the rank's channels of the
+    gated output.  Every gathered tensor is read in part, so the gathers
+    are ``partial``.  A state or a decode step there raises."""
+    cdt, f32 = cfg.torch_compute_dtype(), torch.float32
     B, S, d = x.shape
     H = cfg.n_heads
     dh = d // H
-    up = L.dense(params["up"], x, cdt)
+    tp_up = L.DenseTP.of(rules, (d, 2 * d), ("d_model", "d_ff"))
+    tp_q = L.DenseTP.of(rules, (d, d), ("d_model", "heads"))
+    tp_down = L.DenseTP.of(rules, (d, d), ("d_ff", "d_model"))
+    mesh = None if tp_up is None else tp_up.mesh
+    if mesh is not None:
+        if state is not None or decode:
+            _no_state_on_mesh("mLSTM")
+        if tp_q is None or tp_down is None:
+            raise NotImplementedError(f"mLSTM: a model axis of "
+                                      f"{mesh.shape['model']} divides 2 "
+                                      f"d_model but not d_model {d}")
+    c0, dn = (0, d) if mesh is None else (tp_down.row0,
+                                          d // mesh.shape["model"])
+    x = TP.copy_to(x, mesh)
+    up = TP.gather_from(L.dense(params["up"], x, cdt, tp=tp_up), mesh,
+                        partial=True)
     xm, z = torch.chunk(up, 2, dim=-1)
     if decode:
         xc, conv = L.causal_conv1d(params["conv"], xm, state["conv"])
     else:
-        xc = L.causal_conv1d(params["conv"], xm)
+        xc = L.causal_conv1d(params["conv"], xm[..., c0:c0 + dn])
         conv = _conv_tail(xm, cfg.conv_width)
-    xc = F.silu(xc)
-    q = L.dense(params["wq"], xc, cdt).reshape(B, S, H, dh)
-    k = L.dense(params["wk"], xc, cdt).reshape(B, S, H, dh) * (dh ** -0.5)
-    v = L.dense(params["wv"], xm, cdt).reshape(B, S, H, dh)
-    gates = L.dense(params["w_if"], xc, torch.float32)
-    i_pre, f_pre = torch.chunk(gates, 2, dim=-1)          # (B, S, H)
+    xc = TP.gather_from(F.silu(xc), mesh, partial=True)
+    q = L.dense(params["wq"], xc, cdt, tp=tp_q)
+    k = L.dense(params["wk"], xc, cdt, tp=tp_q) * (dh ** -0.5)
+    v = L.dense(params["wv"], xm, cdt, tp=tp_q)
+    w_if = {n: TP.copy_to(t, mesh) for n, t in params["w_if"].items()}
+    i_pre, f_pre = torch.chunk(L.dense(w_if, xc, f32), 2, dim=-1)
+    scale = TP.copy_to(params["gn"]["scale"], mesh)
+    local = dn % dh == 0        # the rank's whole heads [h0, h0 + hn)
+    if local:
+        h0, hn = c0 // dh, dn // dh
+        i_pre, f_pre = i_pre[..., h0:h0 + hn], f_pre[..., h0:h0 + hn]
+        scale, z = scale[c0:c0 + dn], z[..., c0:c0 + dn]
+    else:
+        q, k, v = (TP.gather_from(t, mesh, partial=True) for t in (q, k, v))
+        hn = H
+    q, k, v = (t.reshape(B, S, hn, dh) for t in (q, k, v))
     cell0 = None if state is None else state["cell"]
     if cfg.mlstm_chunk > 0 and not decode and S > 1:
         h, cell = _mlstm_cell_chunked(q, k, v, i_pre, f_pre, cell0,
@@ -282,9 +380,10 @@ def mlstm_block(params, x, cfg: ModelConfig, state=None,
     if state is not None:
         _store(state["cell"] + (state["conv"],), cell + (conv,),
                live if decode else None)
-    h = groupnorm_heads(params["gn"], h).to(cdt)
-    y = h * F.silu(z)
-    return L.dense(params["down"], y, cdt), state
+    y = groupnorm_heads({"scale": scale}, h).to(cdt) * F.silu(z)
+    if not local:
+        y = y[..., c0:c0 + dn]
+    return L.dense(params["down"], y, cdt, tp=tp_down), state
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, device="cpu"):
@@ -347,14 +446,27 @@ def _slstm_cell_scan(gx, r_w, state=None):
 
 
 def slstm_block(params, x, cfg: ModelConfig, state=None,
-                decode: bool = False, live=None):
+                decode: bool = False, live=None, rules=None):
     """(B, S, d_model) -> ``(out, state)``; ``state = {"cell": (c, n, h,
     m)}``, each (B, d) f32, read and written as :func:`mlstm_block`
-    does."""
+    does.  ``rules`` with a model axis dividing 4d: ``wx`` and ``r`` are
+    column slabs of the four gates, whose cell needs every gate of a
+    channel and the whole ``h`` each token; so ``x @ wx`` (``x`` through
+    ``copy_to``) and ``r`` are gathered once a call and the cell runs
+    whole on every rank (plain gathers: it is replicated)."""
     cdt = cfg.torch_compute_dtype()
     B, S, d = x.shape
+    r = params["r"]
+    tp = L.DenseTP.of(rules, (d, 4 * d), ("d_model", "d_ff"))
+    if tp is not None:
+        if state is not None or decode:
+            _no_state_on_mesh("sLSTM")
+        x = TP.copy_to(x, tp.mesh)
+        r = TP.gather_from(r, tp.mesh)
     gx = L.dense(params["wx"], x, torch.float32)
-    h, cell = _slstm_cell_scan(gx, params["r"],
+    if tp is not None:
+        gx = TP.gather_from(gx, tp.mesh)
+    h, cell = _slstm_cell_scan(gx, r,
                                None if state is None else state["cell"])
     if state is not None:
         _store(state["cell"], cell, live if decode else None)

@@ -30,10 +30,11 @@ the slabs :func:`param_shardings` places and its slab of the batch.
 Under a "model" axis the dense family is tensor-parallel (attention and
 MLP as :mod:`repro_torch.models.attention` and
 :func:`repro_torch.models.layers.mlp` say; the embedding, the tied or
-untied unembedding and :func:`lm_loss` vocab-parallel) and the MoE
-family's FFN expert-parallel (:func:`repro_torch.models.moe.moe_ep`);
-the "data" axis reduces the loss's sums and counts over the data
-group.
+untied unembedding and :func:`lm_loss` vocab-parallel), the MoE
+family's FFN expert-parallel (:func:`repro_torch.models.moe.moe_ep`)
+and the recurrent mixers on their "lru" / "heads" / "d_ff" slabs
+(:mod:`repro_torch.models.recurrent`); the "data" axis reduces the
+loss's sums and counts over the data group.
 """
 from __future__ import annotations
 
@@ -157,8 +158,8 @@ def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
     ``{"rec": ...}``, written in place by a prefill or a decode step) or
     None without one.  ``enc_out`` (B, S_enc, d): the encoder output a
     decoder block's cross-attention attends.  ``rules``: the mesh's
-    (tensor-parallel attention and MLP under a model axis, the
-    expert-parallel MoE)."""
+    (tensor-parallel attention, MLP and recurrent mixers under a model
+    axis, the expert-parallel MoE)."""
     if perturb is not None and not O.any_seed(perturb.seeds):
         perturb = None
     if perturb is not None and (spec.mixer not in ATTN_MIXERS
@@ -177,7 +178,7 @@ def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
     else:
         o, _ = _REC[spec.mixer][1](params["rec"], h, cfg,
                                    None if cache is None else cache["rec"],
-                                   decode=decode, live=live)
+                                   decode=decode, live=live, rules=rules)
     if cfg.post_norm:
         o = _norm(cfg, params["postnorm1"], o, O.psub(perturb, "postnorm1"))
     x = x + o

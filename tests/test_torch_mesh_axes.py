@@ -14,13 +14,20 @@ In process, against :mod:`repro`:
 * a rank's slab of the kernel stream (K1's segments of a slab:
   accumulate and field modes) and of the threefry gaussian draw is that
   slab of the unsharded draw bit for bit;
-* the families the mesh does not take raise, naming their ROADMAP item.
+* a rank's slab of each recurrent leaf on both streams, bit for bit;
+* the recurrent families build on a model axis; the vlm and enc-dec
+  families raise, naming their ROADMAP item.
 
 Across two gloo ranks (one spawn, ``torch_train_mesh_ranks.py``):
 recurrentgemma's smoke config on the (2, 1) mesh and gpt2-tiny's HERON
 step on (1, 2) against the unsharded step, the latter also against JAX's
 single-device jitted step at ``PARAM_TOL`` (the kernel stream; the
 threefry stream is held so in ``test_torch_train_mesh.py``);
+recurrentgemma's smoke config on (1, 2) (HERON on both streams, every
+first-order method) and xlstm's (HERON on both streams, CSE-FSL; AdamW
+eps 1e-3) against the unsharded step, their kernel-stream HERON steps
+also against JAX's; each recurrent mixer alone on (1, 2) against the
+whole block, and the reduce-scatter pair against a single-process sum;
 qwen3-moe's smoke HERON step on (1, 2) at a capacity no slab fills and
 kimi-k2's with Adafactor on the server against the unsharded step; the
 expert-parallel ``moe_ep`` on (1, 2) and (2, 1) against the reference's
@@ -28,7 +35,10 @@ jitted ``moe_ep`` on Auto-axes meshes of forced host devices
 (``torch_moe_ep_cases``); the
 threefry sphere's slabs and its all-reduced norm within 4 f32 ulps of
 the unsharded ones; a checkpoint saved on (1, 2) (rank 0 writing the
-gathered state), restored on one device, giving the mesh's next step."""
+gathered state), restored on one device, giving the mesh's next step
+(gpt2-tiny and recurrentgemma)."""
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -53,6 +63,7 @@ from repro_torch.distributed.mesh import Mesh, make_local_mesh
 from repro_torch.kernels import noise as N
 from repro_torch.kernels import ops as O
 from repro_torch.kernels import zo_matmul as ZM
+from repro_torch.models import recurrent as REC
 from repro_torch.models import transformer as T
 from repro_torch.optim import optimizers as OPT
 from repro_torch.tree import tree_leaves_with_path
@@ -306,18 +317,101 @@ def test_async_server_replays_slabs(kernel):
 
 
 @pytest.mark.parametrize("arch,mesh,item", [
-    ("recurrentgemma-9b", {"data": 1, "model": 2}, "7.3"),
-    ("xlstm-1.3b", {"data": 1, "model": 2}, "7.3"),
-    ("qwen2-vl-2b", {"data": 1, "model": 2}, "7.3"),
-    ("seamless-m4t-medium", {"data": 1, "model": 2}, "7.3")])
+    ("recurrentgemma-9b", {"data": 1, "model": 2}, None),
+    ("xlstm-1.3b", {"data": 1, "model": 2}, None),
+    ("qwen2-vl-2b", {"data": 1, "model": 2}, "7.4"),
+    ("seamless-m4t-medium", {"data": 1, "model": 2}, "7.4")])
 def test_unported_families_raise(arch, mesh, item):
+    """The model axis takes the recurrent hybrid and xLSTM families (their
+    mixers on "lru" / "heads" / "d_ff" slabs); the vlm and enc-dec
+    families raise, naming their ROADMAP item.  The data axis takes
+    every family."""
     rules = S.AxisRules(mesh=Mesh(mesh, coords={"data": 0, "model": 0}))
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1 item {item}"):
-        P.lm_api(get_config(arch, smoke=True), rules)
-    # the data axis takes the recurrent family
-    P.lm_api(get_config(arch, smoke=True), S.AxisRules(
+    cfg = get_config(arch, smoke=True)
+    if item is None:
+        api = P.lm_api(cfg, rules)
+        assert api.rules is rules
+        assert any(pl.sharded for path, pl in tree_leaves_with_path(
+            api.shardings) if "/rec/" in path)
+    else:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP queue 1 item {item}"):
+            P.lm_api(cfg, rules)
+    P.lm_api(cfg, S.AxisRules(
         mesh=Mesh({"data": 2, "model": 1}, coords={"data": 0, "model": 0})))
+
+
+# one layer's leaves of each recurrent mixer, stacked over 3 layers:
+# (global shape, logical axes) of recurrentgemma's RG-LRU at lru 64 and
+# xlstm's mLSTM / sLSTM at d 32
+REC_LEAVES = {
+    "in_x": ((3, 64, 64), ("layers", "d_model", "lru")),
+    "conv_w": ((3, 4, 64), ("layers", "conv", "lru")),
+    "conv_b": ((3, 64), ("layers", "lru")),
+    "w_r": ((3, 64, 64), ("layers", "lru", None)),
+    "w_r_b": ((3, 64), ("layers", None)),
+    "lam": ((3, 64), ("layers", "lru")),
+    "out": ((3, 64, 64), ("layers", "lru", "d_model")),
+    "up": ((3, 32, 64), ("layers", "d_model", "d_ff")),
+    "wq": ((3, 32, 32), ("layers", "d_model", "heads")),
+    "down": ((3, 32, 32), ("layers", "d_ff", "d_model")),
+    "wx_b": ((3, 128), ("layers", "d_ff")),
+    "r": ((3, 32, 128), ("layers", "d_model", "d_ff"))}
+
+
+@pytest.mark.parametrize("mp", [2, 4])
+def test_recurrent_slabs_of_both_streams_are_the_unsharded_draw(mp):
+    """A rank's slab of each recurrent leaf, on the threefry stream (the
+    gaussian draw) and on the kernel stream (K1's accumulate mode), is
+    that slab of the unsharded draw bit for bit."""
+    key = R.PRNGKey(13)
+    full = {k: torch.zeros(s) for k, (s, _) in REC_LEAVES.items()}
+    want = Z.normal_like(key, full)
+    seeds = O.leaf_seed_tree(full, 91)
+    acc = O.accumulate_direction_tree(
+        {k: v.clone() for k, v in full.items()}, seeds, 0.5)
+    for m in range(mp):
+        rules = _slab_rules(mp, m)
+        places = {k: rules.sharding_for(s, lg)
+                  for k, (s, lg) in REC_LEAVES.items()}
+        assert not places["w_r_b"].sharded and places["w_r"].sharded
+        got = Z.normal_like(key, S.shard_tree(full, places), places)
+        got_acc = O.accumulate_direction_tree(
+            {k: torch.zeros(places[k].local_shape) for k in full}, seeds,
+            0.5, places)
+        for k in full:
+            assert torch.equal(got[k], S.shard(want[k], places[k])), k
+            assert torch.equal(got_acc[k], S.shard(acc[k], places[k])), k
+
+
+@pytest.mark.parametrize("mixer", ["rg_lru", "mlstm", "slstm"])
+@pytest.mark.parametrize("decode", [False, True])
+def test_recurrent_state_on_a_model_axis_raises(mixer, decode):
+    """A block prefill into a state or a decode step of each recurrent
+    mixer under a (1, 2) mesh raises, naming the mixer: the mesh runs
+    the training path alone."""
+    cfg = get_config("recurrentgemma-9b" if mixer == "rg_lru"
+                     else "xlstm-1.3b", smoke=True)
+    init, block = RANKS._MIXERS[mixer]
+    init_state = {"rg_lru": REC.init_rg_lru_state,
+                  "mlstm": REC.init_mlstm_state,
+                  "slstm": REC.init_slstm_state}[mixer]
+    params = init(torch.Generator().manual_seed(0), cfg)
+    x = torch.zeros((2, 1 if decode else 4, cfg.d_model))
+    name = {"rg_lru": "RG-LRU", "mlstm": "mLSTM", "slstm": "sLSTM"}[mixer]
+    with pytest.raises(NotImplementedError,
+                       match=f"{name}: a cache or a decode step under a "
+                       "model axis is not ported"):
+        block(params, x, cfg, state=init_state(cfg, 2), decode=decode,
+              rules=_slab_rules(2, 0))
+
+
+def test_reduce_scatter_is_the_identity_without_a_live_axis():
+    from repro_torch.distributed import tensor_parallel as TP
+    x = torch.randn(2, 3, 8)
+    for mesh in (None, Mesh({"data": 2, "model": 1},
+                            coords={"data": 0, "model": 0})):
+        assert TP.reduce_scatter(x, mesh) is x
 
 
 def test_local_mesh_without_a_group():
@@ -330,18 +424,32 @@ def test_local_mesh_without_a_group():
 # two ranks
 # ---------------------------------------------------------------------------
 
+# the recurrent (1, 2) cases held to JAX's single-device step: (tag,
+# arch, the server AdamW's eps)
+REC_JAX = [("rg_1x2", "recurrentgemma-9b", RP.FO_EPS),
+           ("xlstm_1x2", "xlstm-1.3b", RANKS.XLSTM["eps"])]
+
+
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
+def jax_rec_steps():
+    """The reference's jitted HERON steps of ``REC_JAX`` (kernel stream),
+    as futures of a thread that runs while the spawn does."""
+    with ThreadPoolExecutor(1) as pool:
+        yield {tag: pool.submit(RP.jax_heron_step, "kernel", arch, eps)
+               for tag, arch, eps in REC_JAX}
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory, jax_rec_steps):
     MC.start_jax(tmp_path_factory)     # overlaps the spawn
     workdir = str(tmp_path_factory.mktemp("world2"))
     return workdir, RANKS.spawn(2, workdir, RP.mesh_step_inputs(),
                                 SPAWN_TIMEOUT_S)
 
 
-@pytest.mark.parametrize("case", ["rg_2x1_kernel_heron",
-                                  "gpt2_1x2_kernel_heron",
-                                  "moe_1x2_kernel_heron",
-                                  "kimi_1x2_kernel_heron"])
+@pytest.mark.parametrize("case", [
+    f"{tag}_{stream}_{method}" for tag, *_, steps, _ in
+    (m[:5] for m in RANKS.MESHES[2]) for stream, method in steps])
 def test_two_rank_step_slabs_match_unsharded(ranks, case):
     outs = ranks[1]
     for r, out in enumerate(outs):
@@ -360,6 +468,50 @@ def test_heron_kernel_mesh_step_matches_jax(ranks):
     ``test_torch_train_mesh.py``, on (2, 2))."""
     RP.assert_mesh_heron_matches_jax(ranks[1][0], "gpt2_1x2_kernel_heron",
                                      "kernel")
+
+
+@pytest.mark.parametrize("tag", [t for t, _, _ in REC_JAX])
+def test_recurrent_heron_kernel_mesh_step_matches_jax(ranks, jax_rec_steps,
+                                                      tag):
+    """recurrentgemma's and xlstm's smoke HERON steps on (1, 2) on the
+    kernel stream (the RG-LRU on its "lru" slabs, the mLSTM on its heads,
+    the sLSTM's gates gathered), gathered, against the reference's jitted
+    single-device step from the same params, batch and key (xlstm's
+    server AdamW at eps 1e-3 on both sides)."""
+    RP.assert_mesh_heron_matches_jax(ranks[1][0], f"{tag}_kernel_heron",
+                                     jax_step=jax_rec_steps[tag].result())
+
+
+@pytest.mark.parametrize("case", [c[0] for c in RANKS.REC_LAYERS[2]])
+def test_recurrent_layers_on_1x2_match_unsharded(ranks, case):
+    """Each recurrent mixer on (1, 2): the output, the input's gradient
+    and every slab's gradient of ``sum(out * w)`` against the whole
+    block (``torch_train_mesh_ranks.rec_layer_cases``); the RG-LRU's K6
+    scans its rank's 32 of 64 lru channels."""
+    for r, out in enumerate(ranks[1]):
+        fails = str(out[f"rec|{case}|fail"])
+        assert not fails, f"rank {r}: {fails}"
+        widths = out[f"rec|{case}|scan_widths"].tolist()
+        assert widths == ([32] if case == "rg_lru" else []), widths
+
+
+def test_reduce_scatter_pair_on_two_ranks(ranks):
+    """``reduce_scatter`` on (1, 2): the rank's slice of the sum of the
+    ranks' inputs, and its backward the all-gather of the slices'
+    gradients."""
+    for out in ranks[1]:
+        assert out["rec|reduce_scatter"].all()
+
+
+def test_lora_dense_on_1x2_matches_unsharded(ranks):
+    """A column- and a row-parallel dense layer with LoRA adapters on
+    (1, 2) against the whole layer: the output and every slab's gradient
+    (``torch_train_mesh_ranks.lora_dense_case``; the column layer's
+    replicated ``lora_a`` gradient summed over "model", ROADMAP queue
+    3)."""
+    for r, out in enumerate(ranks[1]):
+        fails = str(out["lora|fail"])
+        assert not fails, f"rank {r}: {fails}"
 
 
 def test_bridge_loads_slabs(ranks):
@@ -393,31 +545,43 @@ def test_sphere_slabs_within_4_ulps(ranks):
                                        atol=0, err_msg=k)
 
 
-def test_checkpoint_saved_on_mesh_restores_on_one_rank(ranks):
-    """The state after a HERON step on (1, 2), saved by rank 0 from the
-    gathered slabs, restored into a one-device state: its next step
-    equals the mesh's next step (gathered) at ``PARAM_TOL``."""
+def _assert_checkpoint_restores_on_one_rank(ranks, name, tag):
     workdir, outs = ranks
-    assert all(out["misc|ckpt_mesh_roundtrip"].all() for out in outs)
+    assert all(out[f"misc|ckpt_mesh_roundtrip{tag}"].all() for out in outs)
     inp = RP.mesh_step_inputs()
     mu, lr = (float(x) for x in inp["kernel_rates"])
-    cfg = RANKS.config("gpt2-tiny", "kernel")
+    cfg = RANKS.config(name, "kernel")
     copt, sopt = OPT.zo_sgd(lr), OPT.adamw(RP.FO_SERVER_LR, eps=RP.FO_EPS)
     template = P.init_train_state(
         R.PRNGKey(1), T.init_lm(cfg, device="cpu", key=R.PRNGKey(0)), copt,
         sopt)
-    state, step = CKPT.restore(f"{workdir}/ckpt", template)
+    state, step = CKPT.restore(f"{workdir}/ckpt{tag}", template)
     assert step == 1 and state["step"] == 1
     nxt, _ = P.make_train_step(P.lm_api(cfg), "heron",
                                Z.ZOConfig(mu=mu, scale="gaussian"), copt,
                                sopt)(state, RANKS.batch_of(inp, cfg))
-    want = {f"misc|ckpt_next_mesh|{p}": v.numpy()
+    prefix = f"misc|ckpt_next_mesh{tag}|"
+    want = {f"{prefix}{p}": v.numpy()
             for p, v in tree_leaves_with_path(nxt["params"])}
     assert sorted(want) == sorted(k for k in outs[0]
-                                  if k.startswith("misc|ckpt_next_mesh|"))
+                                  if k.startswith(prefix))
     for k, v in want.items():
         np.testing.assert_allclose(outs[0][k], v, err_msg=k,
                                    **RP.PARAM_TOL)
+
+
+def test_checkpoint_saved_on_mesh_restores_on_one_rank(ranks):
+    """The state after a HERON step on (1, 2), saved by rank 0 from the
+    gathered slabs, restored into a one-device state: its next step
+    equals the mesh's next step (gathered) at ``PARAM_TOL``."""
+    _assert_checkpoint_restores_on_one_rank(ranks, "gpt2-tiny", "")
+
+
+def test_recurrent_checkpoint_saved_on_mesh_restores_on_one_rank(ranks):
+    """As above for recurrentgemma's smoke config, its RG-LRU leaves
+    saved from their "lru" slabs."""
+    _assert_checkpoint_restores_on_one_rank(ranks, "recurrentgemma-9b",
+                                            "_rg")
 
 
 def test_driver_model_parallel_on_two_ranks(ranks, tmp_path, capsys):

@@ -27,7 +27,13 @@ is ``d`` times the losses' rounding) and of every first-order method:
   against the reference's sharded jitted step at ``PARAM_TOL``; and
   kimi-k2's smoke config with Adafactor on the server against the
   unsharded Adafactor step (its factored statistics of a cut attention
-  leaf are the whole leaf's).
+  leaf are the whole leaf's);
+* the recurrent families on the model axis: recurrentgemma's smoke
+  config on (2, 2) and xlstm's on (1, 4) (AdamW eps 1e-3), one HERON
+  step on the kernel stream each against the unsharded step; each
+  recurrent mixer alone on (1, 4), with the edge layouts (an mLSTM
+  "heads" slab below a head, an lru width 4 does not divide), and the
+  reduce-scatter pair.
 
 The two-rank cases and the steps held to JAX's single-device step are in
 ``test_torch_mesh_axes.py``.
@@ -81,6 +87,36 @@ def test_heron_threefry_mesh_step_matches_jax(ranks):
     ``test_torch_mesh_axes.py``, on (1, 2))."""
     RP.assert_mesh_heron_matches_jax(ranks[0], "gpt2_2x2_threefry_heron",
                                      "threefry")
+
+
+@pytest.mark.parametrize("case", [c[0] for c in RANKS.REC_LAYERS[4]])
+def test_recurrent_layers_on_1x4_match_unsharded(ranks, case):
+    """Each recurrent mixer on (1, 4) against the whole block
+    (``torch_train_mesh_ranks.rec_layer_cases``): the output, the input's
+    gradient and every slab's gradient of ``sum(out * w)``.  The RG-LRU's
+    K6 scans 16 of 64 lru channels a rank, or all 66 where 4 does not
+    divide the width (the rules leave the block whole); the mLSTM with 2
+    heads of 16 cuts its "heads" slab below a head (q / k / v gathered,
+    every head on every rank)."""
+    widths = {"rg_lru": [16], "rg_lru_w66": [66]}.get(case, [])
+    for r, out in enumerate(ranks):
+        fails = str(out[f"rec|{case}|fail"])
+        assert not fails, f"rank {r}: {fails}"
+        assert out[f"rec|{case}|scan_widths"].tolist() == widths
+
+
+def test_reduce_scatter_pair_on_four_ranks(ranks):
+    """``reduce_scatter`` on (1, 4): forward the rank's slice of the sum,
+    backward the all-gather of the slices' gradients."""
+    for out in ranks:
+        assert out["rec|reduce_scatter"].all()
+
+
+def test_lora_dense_on_1x4_matches_unsharded(ranks):
+    """``torch_train_mesh_ranks.lora_dense_case`` on (1, 4)."""
+    for r, out in enumerate(ranks):
+        fails = str(out["lora|fail"])
+        assert not fails, f"rank {r}: {fails}"
 
 
 def test_remesh_over_four_ranks(ranks):

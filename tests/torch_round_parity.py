@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import registry as JREG
 from repro.configs.gpt2 import gpt2_tiny as jax_gpt2_tiny
 from repro.configs.recurrentgemma_9b import smoke_config as jax_rg_smoke
 from repro.core import aggregate as JAG
@@ -322,20 +323,22 @@ def assert_train_state_close(state, jstate, params):
 MESH_KERNEL_RATES = (1e-2, 1e-3)
 
 
-def jax_heron_step(stream):
-    """The reference's jitted single-device HERON step on gpt2-tiny from
+def jax_heron_step(stream, arch="gpt2-tiny", eps=FO_EPS):
+    """The reference's jitted single-device HERON step on gpt2-tiny (or
+    the smoke config of the registry's ``arch``) from
     ``init_lm(PRNGKey(0))`` on :func:`mesh_step_inputs`' batch and rates
-    (``stream`` "kernel" or "threefry", gaussian): ``(params after,
-    params before)`` as ``{path: array}``."""
+    (``stream`` "kernel" or "threefry", gaussian; the server's AdamW at
+    ``eps``): ``(params after, params before)`` as ``{path: array}``."""
     from repro_torch.tree import tree_leaves_with_path
     inp = mesh_step_inputs()
     mu, lr = (float(x) for x in inp[f"{stream}_rates"])
-    jcfg = jax_gpt2_tiny()
+    jcfg = (jax_gpt2_tiny() if arch == "gpt2-tiny"
+            else JREG.get_config(arch, smoke=True))
     if stream == "kernel":
         jcfg = dataclasses.replace(jcfg, forward_impl="kernel")
     params = JT.init_lm(jax.random.PRNGKey(0), jcfg)
     copt = JOPT.zo_sgd(lr)
-    sopt = JOPT.adamw(FO_SERVER_LR, eps=FO_EPS)
+    sopt = JOPT.adamw(FO_SERVER_LR, eps=eps)
     state = JP.init_train_state(jax.random.PRNGKey(TRAIN_KEY), params,
                                 copt, sopt)
     step = jax.jit(JP.make_train_step(
@@ -348,11 +351,12 @@ def jax_heron_step(stream):
                  for t in (new["params"], params))
 
 
-def assert_mesh_heron_matches_jax(out, case, stream):
+def assert_mesh_heron_matches_jax(out, case, stream="kernel", jax_step=None):
     """The params a rank gathered from a mesh HERON step (``<case>|full|``
-    keys of its results) against :func:`jax_heron_step` at
-    ``PARAM_TOL``; the client moved."""
-    want, start = jax_heron_step(stream)
+    keys of its results) against :func:`jax_heron_step` (on gpt2-tiny and
+    ``stream``, or its result ``jax_step``) at ``PARAM_TOL``; the client
+    moved."""
+    want, start = jax_step or jax_heron_step(stream)
     prefix = f"{case}|full|"
     got = {k[len(prefix):]: v for k, v in out.items()
            if k.startswith(prefix)}

@@ -13,8 +13,12 @@ its world size in one process and writes ``rank<r>.npz``:
   test holds equal across the ranks;
 * ``<case>|full|<path>`` (rank 0, the cases the test holds to JAX): the
   params gathered from the slabs;
+* ``rec|<case>|...``: a recurrent mixer (``rg_lru_block``,
+  ``mlstm_block``, ``slstm_block``) on this rank's slabs against the
+  unsharded block (each rank runs both), the widths its K6 scans took,
+  and the reduce-scatter pair against a single-process sum;
 * ``misc|...``: ``remesh``, the sphere's slabs and the checkpoint
-  case;
+  cases;
 * ``moe|<case>|...`` (``torch_moe_ep_cases``): ``moe_ep`` on this rank's
   slabs, its output rows, the gradients of ``sum(out * w)`` (the params'
   summed over the data group where the batch is split, as the step
@@ -50,6 +54,7 @@ from repro_torch.distributed.mesh import make_local_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import lora as LORA
 from repro_torch.models import moe as M
+from repro_torch.models import recurrent as REC
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig, MoECfg
 from repro_torch.optim import optimizers as OPT
@@ -63,12 +68,18 @@ PARAM_TOL = dict(rtol=2e-5, atol=1e-6)
 HERON = [("kernel", "heron"), ("threefry", "heron")]
 STEPS = HERON + [("fo", m) for m in ("cse_fsl", "fsl_sage", "sflv1",
                                      "sflv2", "splitlora")]
+# xlstm's f32 stack is ill-conditioned (ROADMAP queue 3): its steps run
+# AdamW at eps 1e-3 and hold the optimizer moments, which carry the
+# gradient itself, at 5e-4 x their leaf's max
+# (tests/test_torch_family_rounds.py's XLSTM_EPS, XLSTM_MOMENT_ATOL)
+XLSTM = {"eps": 1e-3, "moment_atol": 5e-4}
 # world -> [(tag, config, model_parallel, steps, gathered for JAX[,
 # options])]; options: "cf" the MoE capacity factor (n_experts / top_k:
 # no slab drops, so the expert-parallel step is the unsharded one),
 # "jax_step" the 4 x 16 batch of torch_moe_ep_cases, the step held to
 # the reference's sharded step (per-slab drops and all) in place of the
-# unsharded one, "adafactor" the server's optimizer
+# unsharded one, "adafactor" the server's optimizer, "eps" the AdamW eps
+# and "moment_atol" the optimizer moments' tolerance (x their leaf's max)
 MESHES = {4: [("gpt2_2x2", "gpt2-tiny", 2,
                STEPS + [("scores", "heron")], True),
               ("qwen_2x2", "qwen2-1.5b", 2, STEPS, False),
@@ -76,13 +87,18 @@ MESHES = {4: [("gpt2_2x2", "gpt2-tiny", 2,
               ("moe_2x2", "qwen3-moe-30b-a3b", 2, HERON[:1], True,
                {"jax_step": True}),
               ("kimi_2x2", "kimi-k2-1t-a32b", 2, HERON[:1], False,
-               {"adafactor": True, "cf": 4.0})],
+               {"adafactor": True, "cf": 4.0}),
+              ("rg_2x2", "recurrentgemma-9b", 2, HERON[:1], False),
+              ("xlstm_1x4", "xlstm-1.3b", 4, HERON[:1], False, XLSTM)],
           2: [("rg_2x1", "recurrentgemma-9b", 1, HERON[:1], False),
               ("gpt2_1x2", "gpt2-tiny", 2, HERON[:1], True),
               ("moe_1x2", "qwen3-moe-30b-a3b", 2, HERON[:1], False,
                {"cf": 4.0}),
               ("kimi_1x2", "kimi-k2-1t-a32b", 2, HERON[:1], False,
-               {"adafactor": True, "cf": 4.0})]}
+               {"adafactor": True, "cf": 4.0}),
+              ("rg_1x2", "recurrentgemma-9b", 2, STEPS, True),
+              ("xlstm_1x2", "xlstm-1.3b", 2, HERON + [("fo", "cse_fsl")],
+               True, XLSTM)]}
 
 
 def config(name, stream, opts=None):
@@ -118,6 +134,7 @@ def run_step(cfg, rules, method, stream, inp, batch, opts=None):
     mu, lr = (float(x) for x in inp[f"{rates}_rates"]) if stream != "fo" \
         else (1e-3, 0.0)
     fo_lr, fo_slr, fo_eps = (float(x) for x in inp["fo_rates"])
+    fo_eps = (opts or {}).get("eps", fo_eps)
     zo = Z.ZOConfig(mu=mu, scale="gaussian")
     copt = (OPT.zo_sgd(lr) if method == "heron"
             else OPT.adamw(fo_lr, eps=fo_eps))
@@ -185,10 +202,15 @@ def step_cases(inp, out, world):
                 if not isinstance(got, torch.Tensor):
                     continue
                 if ref is not None:
-                    want = torch.as_tensor(SH.shard(_leaf(ref, path),
-                                                    pl.get(path)))
+                    full = torch.as_tensor(_leaf(ref, path))
+                    want = SH.shard(full, pl.get(path))
+                    tol = dict(PARAM_TOL)
+                    if opts.get("moment_atol") and path.startswith("opt_") \
+                            and full.is_floating_point():
+                        tol["atol"] = opts["moment_atol"] * float(
+                            full.abs().max())
                     if not torch.allclose(got.double(), want.double(),
-                                          **PARAM_TOL):
+                                          **tol):
                         err = (got.double() - want.double()).abs().max()
                         fails.append(f"{path}: max err {float(err):.3g}")
                 if pl.get(path) is None or not pl[path].sharded:
@@ -266,6 +288,142 @@ def moe_case(case, out):
     out[f"{key}|drops"] = np.array([int(n), sum(plain)])
 
 
+_MIXERS = {"rg_lru": (REC.init_rg_lru, REC.rg_lru_block),
+           "mlstm": (REC.init_mlstm, REC.mlstm_block),
+           "slstm": (REC.init_slstm, REC.slstm_block)}
+# world -> [(case, config, mixer, config changes)]: each recurrent mixer
+# on (1, world); on (1, 4) also the edge layouts: the "heads" slab below
+# a head (2 heads of 16 over 4 ranks) and an lru width the model axis
+# does not divide (66: the rules leave the block whole)
+REC_LAYERS = {2: [("rg_lru", "recurrentgemma-9b", "rg_lru", {}),
+                  ("mlstm", "xlstm-1.3b", "mlstm", {}),
+                  ("mlstm_chunked", "xlstm-1.3b", "mlstm",
+                   {"mlstm_chunk": 4}),
+                  ("slstm", "xlstm-1.3b", "slstm", {})],
+              4: [("rg_lru", "recurrentgemma-9b", "rg_lru", {}),
+                  ("rg_lru_w66", "recurrentgemma-9b", "rg_lru",
+                   {"lru_width": 66}),
+                  ("mlstm", "xlstm-1.3b", "mlstm", {}),
+                  ("mlstm_2heads", "xlstm-1.3b", "mlstm",
+                   {"n_heads": 2, "n_kv_heads": 2}),
+                  ("slstm", "xlstm-1.3b", "slstm", {})]}
+# a block on its slabs against the whole block: rtol 1e-5 and an
+# absolute floor of 4e-6 x max|ref| (measured: 5e-7 x max)
+LAYER_RTOL, LAYER_ATOL = 1e-5, 4e-6
+
+
+def _close(got, want):
+    return torch.allclose(got, want, rtol=LAYER_RTOL,
+                          atol=LAYER_ATOL * float(want.abs().max()))
+
+
+def rec_layer_cases(out, world):
+    """Each case's block on this rank's slabs of seeded params (their
+    1-D leaves moved off their init, so a bias read at the wrong columns
+    shows) against the whole block on the same inputs: the output, the
+    input's gradient and each slab's gradient of ``sum(out * w)``."""
+    mesh = make_local_mesh(world)
+    rules = SH.AxisRules(mesh=mesh, enable_fsdp=False)
+    for case, name, mixer, changes in REC_LAYERS[world]:
+        cfg = get_config(name, True).replace(**changes)
+        init, block = _MIXERS[mixer]
+        gen = torch.Generator().manual_seed(0)
+        full = tree_map(lambda t: t + 0.1 * torch.randn(
+            t.shape, generator=gen) if t.dim() == 1 else t, init(gen, cfg))
+        places = tree_map(lambda r: rules.sharding_for(r.shape, r.axes),
+                          init(L.RULES, cfg))
+        rng = np.random.default_rng(7)
+        x, w = (torch.as_tensor(rng.standard_normal(
+            (2, 12, cfg.d_model)).astype(np.float32)) for _ in "xw")
+        res = []
+        for p, r in ((full, None), (tree_map(SH.shard, full, places),
+                                    rules)):
+            p = tree_map(lambda t: t.clone().requires_grad_(True), p)
+            xr = x.clone().requires_grad_(True)
+            widths, scan = [], REC.O.rg_lru_scan
+
+            def counted(a, b):
+                widths.append(a.shape[-1])
+                return scan(a, b)
+            REC.O.rg_lru_scan = counted
+            try:
+                y, _ = block(p, xr, cfg, rules=r)
+            finally:
+                REC.O.rg_lru_scan = scan
+            leaves = tree_leaves_with_path(p)
+            g = torch.autograd.grad(torch.sum(y * w),
+                                    [xr] + [t for _, t in leaves])
+            res.append((y.detach(), g[0], dict(zip(
+                [q for q, _ in leaves], g[1:])), widths))
+        (y0, gx0, gp0, _), (y1, gx1, gp1, widths) = res
+        fails = [k for k, a, b in (("out", y1, y0), ("grad x", gx1, gx0))
+                 if not _close(a, b)]
+        pl = dict(tree_leaves_with_path(places))
+        fails += [f"grad {path}" for path, g in gp1.items()
+                  if not _close(g, SH.shard(gp0[path], pl[path]))]
+        out[f"rec|{case}|fail"] = np.array("\n".join(fails))
+        out[f"rec|{case}|scan_widths"] = np.array(widths, np.int64)
+    # the reduce-scatter pair: each rank's (2, 3, 4 * world) input, the
+    # slice of the sum and the gradient of sum(y * w_r), every rank's
+    # inputs made here from their seeds
+    def draw(seed, shape):
+        return torch.as_tensor(
+            np.random.default_rng(seed).standard_normal(shape))
+    xs = [draw(r, (2, 3, 4 * world)) for r in range(world)]
+    ws = [draw(100 + r, (2, 3, 4)) for r in range(world)]
+    me = mesh.rank("model")
+    xr = xs[me].clone().requires_grad_(True)
+    y = TP.reduce_scatter(xr, mesh)
+    g, = torch.autograd.grad(torch.sum(y * ws[me]), xr)
+    out["rec|reduce_scatter"] = np.array([
+        torch.allclose(y, sum(xs)[..., 4 * me:4 * me + 4]),
+        torch.equal(g, torch.cat(ws, dim=-1))])
+
+
+def lora_dense_case(out, world):
+    """A column- and a row-parallel dense layer with LoRA adapters (a
+    non-zero ``lora_b``: a step from the adapters' init has ``lora_b``
+    zero, so ``lora_a``'s gradient is zero and one step cannot tell) on
+    this rank's slabs against the whole layer: the output and every
+    slab's gradient of ``sum(out * w)``.  The column layer's replicated
+    ``lora_a`` is read for the rank's columns alone; its gradient must
+    be summed over "model"."""
+    mesh = make_local_mesh(world)
+    rules = SH.AxisRules(mesh=mesh, enable_fsdp=False)
+    fails = []
+    for mode, (d_in, d_out), axes in (("col", (16, 24), L.MLP_AXES),
+                                      ("row", (24, 16), L.MLP_AXES[::-1])):
+        gen = torch.Generator().manual_seed(3)
+        full = {"w": torch.randn((d_in, d_out), generator=gen),
+                "lora_a": torch.randn((d_in, 4), generator=gen),
+                "lora_b": torch.randn((4, d_out), generator=gen)}
+        places = {"w": rules.sharding_for((d_in, d_out), axes),
+                  "lora_a": rules.sharding_for((d_in, 4), (axes[0], None)),
+                  "lora_b": rules.sharding_for((4, d_out), (None, axes[1]))}
+        tp = L.DenseTP.of(rules, (d_in, d_out), axes)
+        x = torch.randn((2, 5, d_in), generator=gen)
+        w = torch.randn((2, 5, d_out), generator=gen)
+        res = []
+        for p, xin, t in (
+                (full, x, None),
+                (tree_map(SH.shard, full, places),
+                 TP.copy_to(x, mesh) if mode == "col"
+                 else x[..., slice(*places["w"].bounds[0])], tp)):
+            p = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+            y = L.dense(p, xin, tp=t)
+            ww = (w[..., slice(*places["w"].bounds[1])]
+                  if t is not None and mode == "col" else w)
+            res.append((y.detach(), dict(zip(p, torch.autograd.grad(
+                torch.sum(y * ww), list(p.values()))))))
+        (y0, g0), (y1, g1) = res
+        if not _close(y1, SH.shard(y0, rules.sharding_for(
+                tuple(y0.shape), (None, None, axes[1])))):
+            fails.append(f"{mode} out")
+        fails += [f"{mode} grad {k}" for k in g1
+                  if not _close(g1[k], SH.shard(g0[k], places[k]))]
+    out["lora|fail"] = np.array("\n".join(fails))
+
+
 def remesh_case(out):
     """``fault.remesh`` over the four ranks: (2, 2), and (4, 1) where the
     model axis does not divide the world."""
@@ -302,22 +460,26 @@ def sphere_case(inp, out):
             t.numpy(), SH.shard(_leaf(full, path), pl[path]).numpy()])
 
 
-def checkpoint_case(inp, out, workdir):
+# the checkpoint cases: (config, its directory and keys' suffix)
+CKPT_CASES = [("gpt2-tiny", ""), ("recurrentgemma-9b", "_rg")]
+
+
+def checkpoint_case(inp, out, workdir, name="gpt2-tiny", tag=""):
     """A HERON step on (1, 2) saved (rank 0 writes the gathered state),
     then restored on one device (a template of full leaves) and on the
     mesh: the next step from either equals the mesh's next step."""
     mesh = make_local_mesh(2)
     rules = SH.AxisRules(mesh=mesh, enable_fsdp=False)
-    cfg = config("gpt2-tiny", "kernel")
+    cfg = config(name, "kernel")
     batch = batch_of(inp, cfg)
     new, _, places = run_step(cfg, rules, "heron", "kernel", inp, batch)
-    ckpt = os.path.join(workdir, "ckpt")
+    ckpt = os.path.join(workdir, f"ckpt{tag}")
     CKPT.save(ckpt, 1, new, shardings=places)
     back, step = CKPT.restore(ckpt, new, shardings=places)
     same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
         tree_leaves_with_path(back), tree_leaves_with_path(new))
         if isinstance(a, torch.Tensor))
-    out["misc|ckpt_mesh_roundtrip"] = np.array([same, step == 1])
+    out[f"misc|ckpt_mesh_roundtrip{tag}"] = np.array([same, step == 1])
     api = P.lm_api(cfg, rules)
     zo = Z.ZOConfig(mu=float(inp["kernel_rates"][0]), scale="gaussian")
     copt = OPT.zo_sgd(float(inp["kernel_rates"][1]))
@@ -327,7 +489,7 @@ def checkpoint_case(inp, out, workdir):
     full = SH.gather_tree(nxt["params"], places["params"])
     if dist.get_rank() == 0:
         for path, t in tree_leaves_with_path(full):
-            out[f"misc|ckpt_next_mesh|{path}"] = t.numpy()
+            out[f"misc|ckpt_next_mesh{tag}|{path}"] = t.numpy()
     dist.barrier()
 
 
@@ -362,11 +524,14 @@ def run_rank(rank, world, workdir):
         for case in MC.world_cases(world):
             moe_case(case, out)
         step_cases(inp, out, world)
+        rec_layer_cases(out, world)
+        lora_dense_case(out, world)
         if world == 4:
             remesh_case(out)
         else:
             sphere_case(inp, out)
-            checkpoint_case(inp, out, workdir)
+            for name, tag in CKPT_CASES:
+                checkpoint_case(inp, out, workdir, name, tag)
             driver_case(out, workdir)
         blocked = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "repro"))
