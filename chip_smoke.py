@@ -175,11 +175,23 @@ Phases, one line each (any failure exits non-zero):
      launch (forward and reverse on the (2, 256, 2048) slab) == plain;
      (b) recurrentgemma-9b's HERON step (kernel stream, f32, full width,
      4 of 38 layers) against the unsharded step, every K1 / K6 launch ==
-     plain; (c) the same in bf16, timed; (d) xlstm-1.3b (8 of 48 layers,
-     the chunkwise mLSTM) likewise, f32 against the unsharded step and
-     bf16 timed; (e) launch.train --model-parallel 2 under
+     plain; (c) the same in bf16, timed over 3 steps after the first,
+     every K1 / K6 launch of the first == plain; (d) xlstm-1.3b (8 of 48
+     layers, the chunkwise mLSTM) likewise, f32 against the unsharded
+     step and bf16 timed; (e) launch.train --model-parallel 2 under
      torch.distributed.run for both families' smoke configs.
-Phases 9-20 run before phase 8's timings.  The line before the last
+ 21. the vlm and enc-dec families on the mesh, (1, 2) gloo ranks, 2 x
+     256 tokens: (a) qwen2-vl-2b's HERON step (kernel stream, f32, full
+     width and depth, vision-stub embeddings and grid M-RoPE ids) against
+     the unsharded step, launches per rank equal to its, every K1 / K2 /
+     K3 launch == plain; (b) the same in the score probe
+     (attn_probe="scores"), 4 of 28 layers; (c) seamless-m4t-medium's
+     (12 + 12 layers, cut 3: the decoder's cross sub-blocks on the
+     rank's heads, dec_embed vocab-parallel) likewise; (d) (a) and (c) in
+     bf16, timed over 3 steps after the first, every K1 / K2 / K3 launch
+     of the first == plain; (e) launch.train --model-parallel 2 under
+     torch.distributed.run for both archs' smoke configs.
+Phases 9-21 run before phase 8's timings.  The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
 """
@@ -3239,36 +3251,43 @@ def patch_grid_ids(batch, seq, width):
     return np.broadcast_to(ids[:, None, :], (3, batch, seq))
 
 
-def _modality_round_setup(cfg, dev, n_clients, h, batch, seq, mu, lr,
-                          server_lr, seed=0, draw_on_device=False,
-                          server_eps=1e-8, forward_impl="kernel",
-                          scale="sphere"):
-    """A round on the frontend stub's batch from a numpy seed: float (N,
-    h, B, S, d_model) embeddings (qwen2-vl's patches, seamless's frames)
-    and (N, h, B, S) labels; qwen2-vl adds the (N, h, 3, B, S) ids of a
-    sqrt(S)-wide patch grid; seamless its decoder's tokens and the aux
-    head's labels (seeded uniform tokens: BigramLM's vocab^2 table would
-    be 525 GB at 256,206)."""
+def modality_batch(cfg, lead, dev, seed=0):
+    """The frontend stub's batch from a numpy seed, its leading axes
+    ``lead`` ending in (B, S): float (*lead, d_model) embeddings and
+    *lead labels; qwen2-vl adds the (..., 3, B, S) ids of a sqrt(S)-wide
+    patch grid; seamless its decoder's tokens and the aux head's labels
+    (seeded uniform tokens: BigramLM's vocab^2 table would be 525 GB at
+    256,206)."""
     import torch
-    from repro_torch.core import protocols as P
-    from repro_torch.models import transformer as T
-    cfg = cfg.replace(forward_impl=forward_impl)
     rng = np.random.default_rng(seed)
-    lead = (n_clients, h, batch, seq)
+    lead = tuple(lead)
 
     def put(a):
         return torch.as_tensor(a, device=dev)
 
-    rb = {"inputs": put(rng.standard_normal(lead + (cfg.d_model,),
-                                            dtype=np.float32)),
-          "labels": put(rng.integers(0, cfg.vocab, lead))}
+    b = {"inputs": put(rng.standard_normal(lead + (cfg.d_model,),
+                                           dtype=np.float32)),
+         "labels": put(rng.integers(0, cfg.vocab, lead))}
     if cfg.enc_dec:
-        rb["dec_tokens"] = put(rng.integers(0, cfg.vocab, lead))
-        rb["aux_labels"] = put(rng.integers(0, cfg.vocab, lead))
+        b["dec_tokens"] = put(rng.integers(0, cfg.vocab, lead))
+        b["aux_labels"] = put(rng.integers(0, cfg.vocab, lead))
     else:
-        ids = patch_grid_ids(batch, seq, int(round(seq ** 0.5)))
-        rb["positions"] = put(np.broadcast_to(ids, (n_clients, h) +
-                                              ids.shape).copy())
+        ids = patch_grid_ids(lead[-2], lead[-1], int(round(lead[-1] ** 0.5)))
+        b["positions"] = put(np.broadcast_to(ids, lead[:-2] + ids.shape)
+                             .copy())
+    return b
+
+
+def _modality_round_setup(cfg, dev, n_clients, h, batch, seq, mu, lr,
+                          server_lr, seed=0, draw_on_device=False,
+                          server_eps=1e-8, forward_impl="kernel",
+                          scale="sphere"):
+    """A round on the frontend stub's (N, h, B, S) batch from a numpy
+    seed (:func:`modality_batch`)."""
+    from repro_torch.core import protocols as P
+    from repro_torch.models import transformer as T
+    cfg = cfg.replace(forward_impl=forward_impl)
+    rb = modality_batch(cfg, (n_clients, h, batch, seq), dev, seed)
     params = T.init_lm(cfg, seed=seed, device=dev,
                        draw_on_device=draw_on_device)
     return _make_round(P.lm_api(cfg), params, rb, n_clients, h, mu, lr,
@@ -4241,7 +4260,7 @@ def run_train_mesh_ranks(card, case):
 
 
 def run_mesh_driver(card, arch="qwen2-1.5b", phase=18, part="d"):
-    """18(d) / 19(d) / 20(e): ``torchrun --nproc-per-node=2 -m
+    """18(d) / 19(d) / 20(e) / 21(e): ``torchrun --nproc-per-node=2 -m
     repro_torch.launch.train --arch ARCH --smoke --model-parallel 2
     --ckpt-dir D`` (torch.distributed.run on a local rendezvous; gloo,
     the two ranks sharing the card) exits 0, rank 0 alone prints, and its
@@ -4592,32 +4611,54 @@ def run_moe_ep_phase(dev, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 20: the recurrences on the ("data", "model") mesh
+# phases 20 and 21: HERON steps of the families on the ("data", "model") mesh
 # ---------------------------------------------------------------------------
 
-# the model axis of phase 20's ranks, and the tokens (B, S) of every case
-REC_MESH_MP = 2
-REC_MESH_TOKENS = (2, 256)
+# the model axis of the ranks of phases 20 and 21, the tokens (B, S) of
+# every case (seamless: S encoder frames and S decoder tokens a row) and a
+# rank process's time limit
+MESH_STEP_MP = 2
+MESH_STEP_TOKENS = (2, 256)
+MESH_STEP_TIMEOUT_S = 600
+# a bf16 case's timed steps after the first: the median and the range
+MESH_STEP_TIMED = 3
+# the kernels a mesh step counts
+MESH_STEP_KINDS = ("zo_noise", "zo_dual_matmul", "zo_dual_matmul_tc",
+                   "zo_dual_flash_attention", "zo_dual_flash_attention_tc",
+                   "rg_lru_scan", "rg_lru_scan_reverse")
 # 20(a): a rank's bf16 block against the whole block on the card: the
 # column and row slabs' products and the reduce-scatter's partial sums
 # round in other orders; 19(a)'s bars, two bf16 ulps of the whole
 # block's largest entry (2^-6 of it) for the output, four for gradients
 REC_OUT_BAR = 2.0 ** -6
 REC_GRAD_BAR = 2.0 ** -5
-# 20(b)-(d): (arch, layers, dtype, the server AdamW's eps).  recurrentgemma
-# at 4 layers is (rg_lru, rg_lru | local_attn, rg_lru): the server runs
-# one RG-LRU block forward and in reverse; xlstm at 8 is 2 mLSTM | 5
-# mLSTM and the first sLSTM (block 7).  xlstm's f32 stack is
-# ill-conditioned (ROADMAP queue 3), so its server's AdamW runs at eps
-# 1e-3, as the CPU tests hold it
-REC_STEP_CASES = {"b": ("recurrentgemma-9b", 4, "float32", 1e-6),
-                  "c": ("recurrentgemma-9b", 4, "bfloat16", 1e-6),
-                  "d32": ("xlstm-1.3b", 8, "float32", 1e-3),
-                  "d16": ("xlstm-1.3b", 8, "bfloat16", 1e-3)}
-REC_MESH_TIMEOUT_S = 600
-# 20(b) / (d32): a rank's f32 slabs against the unsharded step's, an
-# absolute bar of 2.5e-6 on every entry (phase 18 measured 1.10e-6 and
-# phase 19 2.45e-6 on their f32 steps)
+# A case: (arch, layers or None for all, dtype, attn_probe, the server
+# AdamW's eps).  20(b)-(d): recurrentgemma at 4 layers is (rg_lru, rg_lru
+# | local_attn, rg_lru): the server runs one RG-LRU block forward and in
+# reverse; xlstm at 8 is 2 mLSTM | 5 mLSTM and the first sLSTM (block 7).
+# xlstm's f32 stack is ill-conditioned (ROADMAP queue 3), so its server's
+# AdamW runs at eps 1e-3, as the CPU tests hold it
+REC_STEP_CASES = {"b": ("recurrentgemma-9b", 4, "float32", "weights", 1e-6),
+                  "c": ("recurrentgemma-9b", 4, "bfloat16", "weights", 1e-6),
+                  "d32": ("xlstm-1.3b", 8, "float32", "weights", 1e-3),
+                  "d16": ("xlstm-1.3b", 8, "bfloat16", "weights", 1e-3)}
+# 21(a)-(d): qwen2-vl at 4 layers keeps its two client blocks (cut 2): the
+# score probe's K3 launches with each rank's head offset under M-RoPE ids
+MOD_STEP_CASES = {
+    "a": ("qwen2-vl-2b", None, "float32", "weights", 1e-6),
+    "b": ("qwen2-vl-2b", 4, "float32", "scores", 1e-6),
+    "c": ("seamless-m4t-medium", None, "float32", "weights", 1e-6),
+    "d_vlm": ("qwen2-vl-2b", None, "bfloat16", "weights", 1e-6),
+    "d_s2s": ("seamless-m4t-medium", None, "bfloat16", "weights", 1e-6)}
+# phase -> (its cases, the kernels each of its steps must launch; xlstm
+# has no RG-LRU block)
+MESH_STEP_PHASES = {
+    20: (REC_STEP_CASES, ("zo_noise",)),
+    21: (MOD_STEP_CASES, ("zo_noise", "zo_dual_matmul",
+                          "zo_dual_flash_attention"))}
+# an f32 case's slabs against the unsharded step's, an absolute bar of
+# 2.5e-6 on every entry (phase 18 measured 1.10e-6 and phase 19 2.45e-6
+# on their f32 steps)
 REC_STEP_TOL = dict(rtol=0.0, atol=2.5e-6)
 
 
@@ -4656,10 +4697,12 @@ def check_k6_recorded(desc, calls):
     return [list(c[:2]) for c in calls]
 
 
-def _rec_config(arch, layers, dtype):
+def _step_config(arch, layers, dtype, probe="weights"):
     from repro_torch.configs.registry import get_config
-    cfg = get_config(arch).replace(n_layers=layers, forward_impl="kernel",
+    cfg = get_config(arch).replace(forward_impl="kernel", attn_probe=probe,
                                    param_dtype=dtype, compute_dtype=dtype)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
     return cfg.replace(mlstm_chunk=64) if arch == "xlstm-1.3b" else cfg
 
 
@@ -4674,10 +4717,10 @@ def check_rg_block(rank, rules, dev):
     from repro_torch.models import layers as L
     from repro_torch.models import recurrent as REC
     from repro_torch.tree import tree_leaves_with_path, tree_map
-    cfg = _rec_config("recurrentgemma-9b", 1, "bfloat16")
+    cfg = _step_config("recurrentgemma-9b", 1, "bfloat16")
     gen = torch.Generator(dev).manual_seed(20)
     params = REC.init_rg_lru(gen, cfg)
-    B, S = REC_MESH_TOKENS
+    B, S = MESH_STEP_TOKENS
     x, w = (torch.randn((B, S, cfg.d_model), generator=gen, device=dev
                         ).to(torch.bfloat16) for _ in range(2))
     places = tree_map(lambda r: rules.sharding_for(tuple(r.shape), r.axes),
@@ -4711,22 +4754,64 @@ def check_rg_block(rank, rules, dev):
                  f"max |whole block| {top}")
         errs[name] = (d, top)
     k6 = check_k6_recorded(f"20(a) rank {rank}", calls)
-    want = [[(B, S, cfg.lru_width // REC_MESH_MP), False],
-            [(B, S, cfg.lru_width // REC_MESH_MP), True]]
+    want = [[(B, S, cfg.lru_width // MESH_STEP_MP), False],
+            [(B, S, cfg.lru_width // MESH_STEP_MP), True]]
     if [[tuple(s), r] for s, r in k6] != want:
         fail(f"20(a) rank {rank}: K6 launches {k6}, expected {want}")
     return {"errs": errs, "k6": k6}
 
 
-def rec_mesh_step(case, rank, world, rules, dev, sync):
-    """20(b)-(d) on this rank.  An f32 case: the unsharded HERON step
-    first, one rank at a time (the card holds one whole state at a
-    time), keeping this rank's slabs of its params and its launches;
-    then the mesh step with every K1 and K6 launch recorded and held
-    against plain, its slabs against the unsharded step's at
-    REC_STEP_TOL.  A bf16 case: the mesh step with every K6 launch
-    held against plain, a second timed (wall, peak memory, launches ==
-    the first's), a third under the profiler (busy)."""
+def record_step_calls(fn):
+    """Run ``fn`` with every K1, K2, K3 and K6 launch recorded (each K6
+    launch held against plain as it returns): ``{"k1": (tree calls, rows
+    calls), "k2": ..., "k3": ..., "k6": ...}``."""
+    rec = {}
+
+    def k3():
+        rec["k3"] = record_k3_calls(fn)
+
+    def k2():
+        rec["k2"] = record_k2_calls(k3)
+
+    def k1():
+        rec["k1"] = record_k1_calls(k2)
+
+    rec["k6"] = record_k6_calls(k1)
+    return rec
+
+
+def check_step_recorded(desc, rec, counts, dev):
+    """Each recorded launch of a mesh step against plain: K1 again on
+    fresh inputs bit for bit, K2 and K3 on their own inputs within
+    check_k2's / check_k3's tolerance, K6 bit for bit; the recorded
+    launches equal the counted ones."""
+    n_k1 = (check_k1_recorded(desc, rec["k1"][0], dev)
+            + check_k1_rows_recorded(desc, rec["k1"][1]))
+    got = {"zo_noise": n_k1, "zo_dual_matmul": len(rec["k2"]),
+           "zo_dual_flash_attention": len(rec["k3"]),
+           "rg_lru_scan": len(rec["k6"])}
+    if got != {k: counts[k] for k in got}:
+        fail(f"{desc}: recorded {got} launches, counted {counts}")
+    k6 = check_k6_recorded(desc, rec["k6"])
+    return {"k2_worst": check_k2_recorded(desc, rec["k2"], dev),
+            "k3_worst": check_k3_recorded(desc, rec["k3"]),
+            "k3_shapes": sorted({str(tuple(a["qa"].shape)) + (
+                " scores row_offset " + str(a["row_offset"])
+                if a["perturb_b"] and a["kb"] is None else "")
+                for a, _ in rec["k3"]}),
+            "k6_shapes": sorted({str(s) for s, _ in k6})}
+
+
+def mesh_step(phase, case, rank, world, rules, dev, sync):
+    """20(b)-(d) and 21(a)-(d) on this rank.  An f32 case: the unsharded
+    HERON step first, one rank at a time (the card holds one whole state
+    at a time), keeping this rank's slabs of its params and its
+    launches; then the mesh step, its launches equal to the unsharded
+    step's, its slabs within REC_STEP_TOL of the unsharded step's.  A
+    bf16 case: the mesh step, MESH_STEP_TIMED more timed (wall, peak
+    memory, launches == the first's), one under the profiler (busy).
+    Every launch of the first mesh step is recorded and held against
+    plain (:func:`check_step_recorded`)."""
     import torch
     import torch.distributed as dist
     from repro_torch.core import prng as R
@@ -4736,18 +4821,23 @@ def rec_mesh_step(case, rank, world, rules, dev, sync):
     from repro_torch.distributed import sharding as SH
     from repro_torch.models import transformer as T
     from repro_torch.optim.optimizers import adamw, zo_sgd
-    arch, layers, dtype, eps = REC_STEP_CASES[case]
-    cfg = _rec_config(arch, layers, dtype)
+    cases, must = MESH_STEP_PHASES[phase]
+    *spec, eps = cases[case]
+    cfg = _step_config(*spec)
     r8 = TRAIN_MESH_RATES
     copt, sopt = zo_sgd(r8["lr"]), adamw(r8["server_lr"], eps=eps)
     zo = Z.ZOConfig(mu=r8["mu"], scale="gaussian")
-    batch = _lm_batch(cfg.vocab, *REC_MESH_TOKENS, dev, seed=20)
-    desc = f"20({case}) rank {rank}"
-    f32 = dtype == "float32"
-    kinds = ("zo_noise", "rg_lru_scan", "rg_lru_scan_reverse")
+    batch = (modality_batch(cfg, MESH_STEP_TOKENS, dev, seed=phase)
+             if cfg.family in ("vlm", "audio") else
+             _lm_batch(cfg.vocab, *MESH_STEP_TOKENS, dev, seed=phase))
+    desc = f"{phase}({case}) rank {rank}"
+    f32 = cfg.param_dtype == "float32"
 
     def params():
-        return T.init_lm(cfg, seed=20, device=dev, draw_on_device=True)
+        return T.init_lm(cfg, seed=phase, device=dev, draw_on_device=True)
+
+    def counted():
+        return {k: launch_counts()[k] for k in MESH_STEP_KINDS}
 
     api = P.lm_api(cfg, rules)
     ref = None
@@ -4758,8 +4848,7 @@ def rec_mesh_step(case, rank, world, rules, dev, sync):
             new, rm = P.make_train_step(P.lm_api(cfg), "heron", zo, copt,
                                         sopt)(st, batch)
             sync()
-            ref = (SH.shard_tree(new["params"], api.shardings),
-                   {k: launch_counts()[k] for k in kinds},
+            ref = (SH.shard_tree(new["params"], api.shardings), counted(),
                    float(rm["loss"]), float(rm["client_loss"]))
             del st, new
             if dev.type == "cuda":
@@ -4769,31 +4858,21 @@ def rec_mesh_step(case, rank, world, rules, dev, sync):
                                shardings=api.shardings)
     step = P.make_train_step(api, "heron", zo, copt, sopt)
     b = place_batch(batch, dev, rules)
-    out, k1 = [], ([], [])
-
-    def run():
-        if f32:
-            k1[0][:], k1[1][:] = record_k1_calls(lambda: out.append(
-                step(state, b)))
-        else:
-            out.append(step(state, b))
-
+    out = []
     reset_counts()
-    k6 = check_k6_recorded(desc, record_k6_calls(run))
+    rec = record_step_calls(lambda: out.append(step(state, b)))
     sync()
-    counts = {k: launch_counts()[k] for k in kinds}
+    counts = counted()
     new, m = out.pop()
-    res = {"counts": counts, "k6_shapes": sorted({str(s) for s, _ in k6}),
-           "loss": float(m["loss"]), "client_loss": float(m["client_loss"])}
-    if len(k6) != counts["rg_lru_scan"]:
-        fail(f"{desc}: {len(k6)} K6 launches recorded, counted {counts}")
+    res = {"counts": counts, "loss": float(m["loss"]),
+           "client_loss": float(m["client_loss"]),
+           **check_step_recorded(desc, rec, counts, dev)}
+    del rec
+    if min(counts[k] for k in must) <= 0:
+        fail(f"{desc}: launches {counts}, one of {must} never")
     if f32:
-        n_k1 = (check_k1_recorded(desc, k1[0], dev)
-                + check_k1_rows_recorded(desc, k1[1]))
-        if n_k1 != counts["zo_noise"] or counts != ref[1] or \
-                counts["zo_noise"] <= 0:
-            fail(f"{desc}: launches {counts} ({n_k1} K1 recorded), the "
-                 f"unsharded step {ref[1]}")
+        if counts != ref[1]:
+            fail(f"{desc}: launches {counts}, the unsharded step {ref[1]}")
         for got, want in ((res["loss"], ref[2]), (res["client_loss"],
                                                   ref[3])):
             if not abs(got - want) <= 1e-5 * abs(want):
@@ -4805,15 +4884,19 @@ def rec_mesh_step(case, rank, world, rules, dev, sync):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    sync()
-    reset_counts()
-    t0 = time.perf_counter()
-    new, _ = step(new, b)
-    sync()
-    res["wall_ms"] = 1e3 * (time.perf_counter() - t0)
-    if {k: launch_counts()[k] for k in kinds} != counts:
-        fail(f"{desc}: the second step launched {launch_counts()}, the "
-             f"first {counts}")
+    walls = []
+    for _ in range(MESH_STEP_TIMED):
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        new, _ = step(new, b)
+        sync()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        if counted() != counts:
+            fail(f"{desc}: a timed step launched {counted()}, the first "
+                 f"{counts}")
+    res["walls_ms"] = walls
+    res["wall_ms"] = float(np.median(walls))
     res["peak"] = torch.cuda.max_memory_allocated() if dev.type == "cuda" \
         else 0
     res["busy_ms"] = (sum(r_[0] for r_ in device_rows(
@@ -4821,15 +4904,17 @@ def rec_mesh_step(case, rank, world, rules, dev, sync):
     return res
 
 
-def rec_mesh_rank(rank, world, workdir, device="cuda"):
-    """One rank of 20(a)-(d) (``chip_smoke.py --rec-mesh-rank RANK WORLD
-    DIR``): a gloo group on a FileStore in DIR, every rank on card 0,
-    ``make_local_mesh(REC_MESH_MP)``.  Prints one ``REC_MESH_RANK
+def mesh_step_rank(rank, world, workdir, phase, device="cuda"):
+    """One rank of phase 20's (a)-(d) or phase 21's (a)-(d)
+    (``chip_smoke.py --mesh-step-rank RANK WORLD DIR PHASE``): a gloo
+    group on a FileStore in DIR, every rank on card 0,
+    ``make_local_mesh(MESH_STEP_MP)``.  Prints one ``MESH_STEP_RANK
     {json}`` line."""
     import torch
     import torch.distributed as dist
     from repro_torch.distributed import sharding as SH
     from repro_torch.distributed.mesh import make_local_mesh
+    phase = int(phase)
     cuda = device == "cuda"
     dev = torch.device(device, 0) if cuda else torch.device(device)
     if cuda:
@@ -4844,82 +4929,130 @@ def rec_mesh_rank(rank, world, workdir, device="cuda"):
     dist.init_process_group("gloo", store=dist.FileStore(
         os.path.join(workdir, "store"), world), rank=rank, world_size=world)
     try:
-        mesh = make_local_mesh(REC_MESH_MP)
+        mesh = make_local_mesh(MESH_STEP_MP)
         rules = SH.AxisRules(mesh=mesh, enable_fsdp=False)
-        res = {"a": check_rg_block(rank, rules, dev)}
-        for case in REC_STEP_CASES:
+        res = {"a": check_rg_block(rank, rules, dev)} if phase == 20 else {}
+        for case in MESH_STEP_PHASES[phase][0]:
             t0 = time.perf_counter()
-            res[case] = rec_mesh_step(case, rank, world, rules, dev, sync)
+            res[case] = mesh_step(phase, case, rank, world, rules, dev, sync)
             res[case]["seconds"] = time.perf_counter() - t0
             if cuda:
                 torch.cuda.empty_cache()
         res["coords"] = {a: mesh.rank(a) for a in mesh.shape}
-        print("REC_MESH_RANK " + json.dumps(res), flush=True)
+        print("MESH_STEP_RANK " + json.dumps(res), flush=True)
     finally:
         dist.destroy_process_group()
     return 0
 
 
+def run_mesh_steps(phase, card, what):
+    """Phase ``phase``'s cases as MESH_STEP_MP gloo rank processes on the
+    card, logged; the replicated leaves of each f32 case equal across the
+    ranks.  ``what``: case -> its description.  Returns the ranks'
+    outputs."""
+    cases = MESH_STEP_PHASES[phase][0]
+    outs, wall = run_rank_procs("--mesh-step-rank", MESH_STEP_MP,
+                                [str(phase)], MESH_STEP_TIMEOUT_S,
+                                "MESH_STEP_RANK")
+    f32 = [c for c, v in cases.items() if v[2] == "float32"]
+    for case in f32:
+        if len({o[case]["digest"] for o in outs}) != 1:
+            fail(f"{phase}({case}): the replicated leaves differ across "
+                 "the ranks")
+    B, S = MESH_STEP_TOKENS
+    for r, o in enumerate(outs):
+        if phase == 20:
+            log(20, f"(a) rank {r} at {o['coords']}: recurrentgemma-9b "
+                f"RG-LRU block (d 4096, lru 4096, bf16), {B} x {S} tokens, "
+                f"on its lru slab == the whole block on the card within the "
+                f"bars (out {REC_OUT_BAR}, gradients {REC_GRAD_BAR} x max "
+                f"|whole|): " + ", ".join(
+                    f"{k} max |d| {d} of {t}" for k, (d, t) in
+                    o["a"]["errs"].items())
+                + f"; K6 launches (shape, reverse) {o['a']['k6']}, each == "
+                f"plain bit for bit")
+        for case in cases:
+            s = o[case]
+            plain = (f"every K1 launch run again == plain bit for bit, K2 "
+                     f"max |d| {s['k2_worst']}, K3 max |d| {s['k3_worst']} "
+                     f"on {s['k3_shapes']}, every K6 launch on "
+                     f"{s['k6_shapes']} == plain bit for bit")
+            if case in f32:
+                log(phase, f"({case}) rank {r} at {o['coords']}: "
+                    f"{what[case]}, {B} x {S} tokens: launches "
+                    f"{s['counts']} (== the unsharded step's; {plain}), loss "
+                    f"{s['loss']} client_loss {s['client_loss']} (== the "
+                    f"unsharded step's within 1e-5), slabs within "
+                    f"{REC_STEP_TOL} of the unsharded step's (max |d| "
+                    f"{s['max_abs']}); {s['seconds']:.1f} s")
+                continue
+            idle = (f"busy {s['busy_ms']:.3f} ms, idle share "
+                    f"{1 - s['busy_ms'] / s['wall_ms']:.3f}"
+                    if s["busy_ms"] > 0 else
+                    "busy not measured (the profiler saw no device time)")
+            log(phase, f"({case}) rank {r}: {what[case]}, {B} x {S} tokens: "
+                f"wall median {s['wall_ms']:.3f} ms of the "
+                f"{MESH_STEP_TIMED} steps after the first (each "
+                f"{', '.join(f'{w:.3f}' for w in s['walls_ms'])} ms), "
+                f"{idle} (one more, profiled), max_memory_allocated "
+                f"{s['peak']}; launches {s['counts']} (the first step's: "
+                f"{plain}); loss {s['loss']} client_loss "
+                f"{s['client_loss']}; {s['seconds']:.1f} s")
+    log(phase, f"on {card}: replicated leaves of {', '.join(f32)} equal "
+        f"across the {MESH_STEP_MP} ranks (blake2b); the ranks done in "
+        f"{wall:.1f} s")
+    return outs
+
+
+def step_counts(outs, phase, kinds):
+    """The ranks' launches of ``kinds`` in phase ``phase``'s mesh steps,
+    summed."""
+    return {k: sum(o[c]["counts"][k] for o in outs
+                   for c in MESH_STEP_PHASES[phase][0]) for k in kinds}
+
+
 def run_rec_mesh_phase(dev, card):
-    """Phase 20: (a)-(d) as REC_MESH_MP gloo rank processes on the card,
+    """Phase 20: (a)-(d) as MESH_STEP_MP gloo rank processes on the card,
     (e) the driver under torch.distributed.run for both families.
     Returns the K1 and K6 launches of the ranks' mesh steps in (b)-(d),
     summed."""
     t0 = time.perf_counter()
-    outs, wall = run_rank_procs("--rec-mesh-rank", REC_MESH_MP, [],
-                                REC_MESH_TIMEOUT_S, "REC_MESH_RANK")
-    for case in ("b", "d32"):
-        if len({o[case]["digest"] for o in outs}) != 1:
-            fail(f"20({case}): the replicated leaves differ across the "
-                 "ranks")
-    what = {"b": "recurrentgemma-9b HERON step, kernel stream, f32, full "
-            "width, 4 of 38 layers",
-            "c": "recurrentgemma-9b HERON step, bf16, 4 of 38 layers",
-            "d32": "xlstm-1.3b HERON step, kernel stream, f32, full width, "
-            "8 of 48 layers (chunkwise mLSTM, 64)",
-            "d16": "xlstm-1.3b HERON step, bf16, 8 of 48 layers"}
-    for r, o in enumerate(outs):
-        log(20, f"(a) rank {r} at {o['coords']}: recurrentgemma-9b RG-LRU "
-            f"block (d 4096, lru 4096, bf16), {REC_MESH_TOKENS[0]} x "
-            f"{REC_MESH_TOKENS[1]} tokens, on its lru slab == the whole "
-            f"block on the card within the bars (out {REC_OUT_BAR}, "
-            f"gradients {REC_GRAD_BAR} x max |whole|): "
-            + ", ".join(f"{k} max |d| {d} of {t}" for k, (d, t) in
-                        o["a"]["errs"].items())
-            + f"; K6 launches (shape, reverse) {o['a']['k6']}, each == "
-            f"plain bit for bit")
-        for case in ("b", "d32"):
-            sb = o[case]
-            log(20, f"({case}) rank {r}: {what[case]}, "
-                f"{REC_MESH_TOKENS[0]} x {REC_MESH_TOKENS[1]} tokens: "
-                f"launches {sb['counts']} (== the unsharded step's; every "
-                f"K1 launch run again == plain, every K6 launch on "
-                f"{sb['k6_shapes']} == plain bit for bit), loss "
-                f"{sb['loss']} client_loss {sb['client_loss']} (== the "
-                f"unsharded step's within 1e-5), slabs within "
-                f"{REC_STEP_TOL} of the unsharded step's (max |d| "
-                f"{sb['max_abs']}); {sb['seconds']:.1f} s")
-        for case in ("c", "d16"):
-            sc = o[case]
-            idle = (f"busy {sc['busy_ms']:.3f} ms, idle share "
-                    f"{1 - sc['busy_ms'] / sc['wall_ms']:.3f}"
-                    if sc["busy_ms"] > 0 else
-                    "busy not measured (the profiler saw no device time)")
-            log(20, f"({case}) rank {r}: {what[case]}, {REC_MESH_TOKENS[0]} "
-                f"x {REC_MESH_TOKENS[1]} tokens: wall {sc['wall_ms']:.3f} ms "
-                f"(the second step), {idle} (a third, profiled), "
-                f"max_memory_allocated {sc['peak']}; launches "
-                f"{sc['counts']} (every K6 launch of the first on "
-                f"{sc['k6_shapes']} == plain); loss {sc['loss']} "
-                f"client_loss {sc['client_loss']}; {sc['seconds']:.1f} s")
-    log(20, f"(a)-(d) on {card}: replicated leaves of (b) and (d) equal "
-        f"across the {REC_MESH_MP} ranks (blake2b); the ranks done in "
-        f"{wall:.1f} s")
+    outs = run_mesh_steps(20, card, {
+        "b": "recurrentgemma-9b HERON step, kernel stream, f32, full width, "
+        "4 of 38 layers",
+        "c": "recurrentgemma-9b HERON step, bf16, 4 of 38 layers",
+        "d32": "xlstm-1.3b HERON step, kernel stream, f32, full width, 8 "
+        "of 48 layers (chunkwise mLSTM, 64)",
+        "d16": "xlstm-1.3b HERON step, bf16, 8 of 48 layers"})
     for arch in ("recurrentgemma-9b", "xlstm-1.3b"):
         run_mesh_driver(card, arch, 20, "e")
     log(20, f"(phase 20 took {time.perf_counter() - t0:.1f} s)")
-    return {k: sum(o[c]["counts"][k] for o in outs for c in REC_STEP_CASES)
-            for k in ("zo_noise", "rg_lru_scan")}
+    return step_counts(outs, 20, ("zo_noise", "rg_lru_scan"))
+
+
+def run_mod_mesh_phase(dev, card):
+    """Phase 21: (a)-(d) as MESH_STEP_MP gloo rank processes on the card,
+    (e) the driver under torch.distributed.run for both archs.  Returns
+    the K1 / K2 / K3 launches of the ranks' mesh steps in (a)-(d),
+    summed."""
+    t0 = time.perf_counter()
+    outs = run_mesh_steps(21, card, {
+        "a": "qwen2-vl-2b HERON step, kernel stream, f32, full width and "
+        "depth (28 layers, cut 2), vision-stub embeddings and grid M-RoPE "
+        "ids",
+        "b": "qwen2-vl-2b HERON step, score probe, f32, full width, 4 of "
+        "28 layers",
+        "c": "seamless-m4t-medium HERON step, kernel stream, f32, full "
+        "width and depth (12 + 12 layers, cut 3), frame embeddings and "
+        "decoder tokens",
+        "d_vlm": "qwen2-vl-2b HERON step, bf16, full width and depth",
+        "d_s2s": "seamless-m4t-medium HERON step, bf16, full width and "
+        "depth"})
+    for arch in ("qwen2-vl-2b", "seamless-m4t-medium"):
+        run_mesh_driver(card, arch, 21, "e")
+    log(21, f"(phase 21 took {time.perf_counter() - t0:.1f} s)")
+    return step_counts(outs, 21, ("zo_noise", "zo_dual_matmul",
+                                  "zo_dual_flash_attention"))
 
 
 # ---------------------------------------------------------------------------
@@ -5368,8 +5501,9 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
     rounds (K1-K3) and its qwen2-vl engine run (K5); ``counts_mesh``: of
     phase 17's one-rank sharded replay (K1) and sharded round (K1-K3),
     phase 18's mesh steps on every rank (K1-K3), phase 19's MoE mesh
-    steps on every rank (K1) and phase 20's recurrent mesh steps on every
-    rank (K1, K6), added to K6's."""
+    steps on every rank (K1), phase 20's recurrent mesh steps on every
+    rank (K1, K6), added to K6's, and phase 21's vlm and enc-dec mesh
+    steps on every rank (K1-K3)."""
     import torch
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import ops as O
@@ -5552,9 +5686,9 @@ def main():
                                sys.argv[4], sys.argv[5])
     if sys.argv[1:2] == ["--moe-ep-rank"]:        # a rank of phase 19
         return moe_ep_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
-    if sys.argv[1:2] == ["--rec-mesh-rank"]:      # a rank of phase 20
-        return rec_mesh_rank(int(sys.argv[2]), int(sys.argv[3]),
-                             sys.argv[4])
+    if sys.argv[1:2] == ["--mesh-step-rank"]:     # phase 20's or 21's
+        return mesh_step_rank(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4], sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -5627,14 +5761,16 @@ def main():
     counts_rec_mesh = run_rec_mesh_phase(dev, card)
     torch.cuda.empty_cache()
     took("20")
+    counts_mod_mesh = run_mod_mesh_phase(dev, card)
+    torch.cuda.empty_cache()
+    took("21")
+    mesh_phases = (counts_mesh, counts_train_mesh, counts_moe_ep,
+                   counts_rec_mesh, counts_mod_mesh)
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs,
                         counts_serve, counts_train, counts_family,
-                        counts_modality, {k: counts_mesh.get(k, 0)
-                                          + counts_train_mesh.get(k, 0)
-                                          + counts_moe_ep.get(k, 0)
-                                          + counts_rec_mesh.get(k, 0)
-                                          for k in set(counts_mesh)
-                                          | set(counts_rec_mesh)})
+                        counts_modality, {
+                            k: sum(c.get(k, 0) for c in mesh_phases)
+                            for k in set().union(*mesh_phases)})
     compiler_report()
     check_hgmma()
     k1_sass()

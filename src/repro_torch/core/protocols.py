@@ -10,12 +10,13 @@ rules)``: the API carries the rules and each leaf's placement
 (``ModelAPI.rules`` / ``.shardings``), every rank holds its slabs of the
 params and its slab of the batch (``data.pipeline.place_batch``), the
 losses are the global batch's means on every rank, and the first-order
-gradients are all-reduced over the data group.  The data axis takes
-every LM family, the model axis the dense family (tensor-parallel), MoE
-(expert-parallel, :func:`repro_torch.models.moe.moe_ep`) and the
-recurrent hybrid and xLSTM families (their mixers on "lru" / "heads" /
-"d_ff" slabs, :mod:`repro_torch.models.recurrent`; item 7.4 for the
-vlm and enc-dec families).
+gradients are all-reduced over the data group.  Both axes take every
+LM family: on the model axis the dense family and qwen2-vl's M-RoPE
+attention are tensor-parallel, MoE expert-parallel
+(:func:`repro_torch.models.moe.moe_ep`), the recurrent hybrid and
+xLSTM families run their mixers on "lru" / "heads" / "d_ff" slabs
+(:mod:`repro_torch.models.recurrent`), and the enc-dec's decoder its
+cross sub-blocks on the rank's heads and ``dec_embed`` vocab-parallel.
 
 The notes below are the federated round's.
 
@@ -122,31 +123,12 @@ def kernel_forward(cfg) -> bool:
     return fi == "kernel"
 
 
-MODEL_AXIS_FAMILIES = ("dense", "moe", "hybrid", "ssm")
-
-
-def check_mesh_family(cfg: ModelConfig, mesh) -> None:
-    """The families the datacenter step's mesh takes: the data axis every
-    LM family, the model axis the dense, MoE, recurrent hybrid and xLSTM
-    families.  Raises with the ROADMAP queue 1 sub-item of what is not
-    ported."""
-    if mesh.shape.get("model", 1) > 1 and \
-            cfg.family not in MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a model axis of "
-            f"{mesh.shape['model']}: the model axis runs the "
-            f"{', '.join(MODEL_AXIS_FAMILIES)} families; this family's is "
-            "ROADMAP queue 1 item 7.4")
-
-
 def lm_api(cfg: ModelConfig, rules: SH.AxisRules | None = None) -> ModelAPI:
     """The LM adapter; ``rules`` with a mesh make it the datacenter
     step's mesh mode (each rank's slabs, the global batch's losses)."""
     if rules is not None and (rules.mesh is None or all(
             n == 1 for n in rules.mesh.shape.values())):
         rules = None      # one device: the unsharded step, op for op
-    if rules is not None:
-        check_mesh_family(cfg, rules.mesh)
     W = cfg.vocab_padded
 
     def placed(batch):

@@ -35,14 +35,16 @@ group): ``torchrun --nproc-per-node=N -m repro_torch.launch.train ...
 falls back to 1), with ``AxisRules(mesh, enable_fsdp=False)``: each rank
 holds its slabs of the state and of each batch (``place_batch``), and a
 checkpoint is rank 0's write of the gathered state, restored onto any
-mesh width.  The data axis takes every family, the model axis the dense
-family (tensor-parallel), MoE (expert-parallel, e.g. ``--arch
-qwen3-moe-30b-a3b --smoke --model-parallel 2``) and the recurrent
-families, their mixers on the rank's slabs (``--arch recurrentgemma-9b
+mesh width.  Both axes take every family: on the model axis the dense
+family is tensor-parallel, MoE expert-parallel (e.g. ``--arch
+qwen3-moe-30b-a3b --smoke --model-parallel 2``), the recurrent families
+run their mixers on the rank's slabs (``--arch recurrentgemma-9b
 --smoke --model-parallel 2``: the RG-LRU on its "lru" channels;
 ``--arch xlstm-1.3b``: the mLSTM on its heads, the sLSTM's gates
-gathered); the vlm and enc-dec families raise
-(``protocols.check_mesh_family``).
+gathered), qwen2-vl-2b its M-RoPE attention on the rank's heads and
+seamless-m4t-medium its decoder's cross sub-blocks on the rank's heads
+and ``dec_embed`` vocab-parallel (``--arch qwen2-vl-2b`` or ``--arch
+seamless-m4t-medium --smoke --model-parallel 2``).
 
 The data is ``BigramLM``, whose table is ``vocab x vocab``: at a full
 config's vocab (151,936 for qwen2-1.5b) that is 185 GB, so the driver

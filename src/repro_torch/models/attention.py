@@ -12,9 +12,10 @@ card); the single probe runs its one stream through
 
 Positions rotate q and k by RoPE, or by qwen2-vl's M-RoPE on (3, B, S)
 temporal / height / width ids (2-D ids broadcast to all three).  The
-enc-dec decoder's cross-attention (``cross_kv``) attends the encoder's
-k / v without RoPE or a causal mask, in plain PyTorch, as the JAX package
-keeps it outside any kernel.
+enc-dec decoder's cross-attention (``kv_x``, the encoder output) attends
+k / v projected from it without RoPE or a causal mask, in plain PyTorch,
+as the JAX package keeps it outside any kernel; under a model axis it
+attends the rank's heads as self-attention does.
 
 Serving takes no gradient, so a block prefill into a cache runs K5 on the
 card too (the JAX package keeps it on ``blocked_attention`` only because
@@ -112,6 +113,24 @@ class AttnTP:
                 ids, lo + torch.arange(self.n_local) // (self.n_local // nk)):
             return t[:, :, lo:hi]
         return t.index_select(2, ids.to(t.device))
+
+
+def _kv_proj(w, x, xin, cdt, hd, tp, perturb=None):
+    """k or v, (B, S, heads, hd), from input ``x`` (``xin``: ``x`` through
+    ``copy_to``, what a column slab of W reads): all heads without a
+    mesh; under ``tp`` the rank's slab, gathered where the kv heads do
+    not split by head, narrowed to the rank's q heads."""
+    if tp is None:
+        return _split_heads(L.dense(w, x, cdt, perturb), hd)
+    if tp.kv is not None:
+        t = L.dense(w, xin, cdt, perturb, tp.kv)
+        if not tp.kv_local:
+            t = TP.gather_from(t, tp.mesh, partial=tp.q_local)
+    else:
+        t = L.dense(w, x, cdt, perturb)
+        if tp.q_local:      # a whole k / v read in part on each rank
+            t = TP.copy_to(t, tp.mesh)
+    return tp.kv_heads(_split_heads(t, hd))
 
 
 def _mask(q_pos, kv_pos, causal: bool, window: int):
@@ -286,7 +305,7 @@ def _rope(cfg: ModelConfig, q, k, positions, kv_positions):
 
 def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
                     local: bool = False, cache=None, decode: bool = False,
-                    live=None, cross_kv=None, perturb=None, rules=None):
+                    live=None, kv_x=None, perturb=None, rules=None):
     """Self-attention: q/k/v projections, RoPE (or M-RoPE), attention,
     output projection.  Returns ``(out, cache)``.
 
@@ -297,20 +316,22 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
     k/v are written so decode continues at ``pos = S``.  ``decode``
     takes one token per slot at the cache's positions, writes its k/v
     (kept only for ``live`` slots, when given) and attends the cache.
-    ``cross_kv`` = ``(k, v)``, (B, S_enc, Kv, D) each, makes it the
-    enc-dec decoder's cross-attention: no RoPE, every query over every
-    encoder position, in plain PyTorch (no kernel, as in the reference).
-    ``rules`` with a model axis make it tensor-parallel (:class:`AttnTP`),
-    a training-time path."""
+    ``kv_x``, the encoder output (B, S_enc, d_model) whole on every
+    rank, makes it the enc-dec decoder's cross-attention: k / v projected
+    from ``kv_x`` (under a model axis through ``copy_to`` into the wk /
+    wv column slabs, so its gradient, a partial sum on each rank, is
+    all-reduced over "model"), no RoPE, every query over every encoder
+    position, in plain PyTorch (no kernel, as in the reference).
+    ``rules`` with a model axis make it tensor-parallel
+    (:class:`AttnTP`), a training-time path."""
     if perturb is not None and (cache is not None or decode
-                                or cross_kv is not None):
+                                or kv_x is not None):
         raise ValueError("the ZO perturbed forward is a training-time path")
     tp = AttnTP.of(cfg, rules)
-    if tp is not None and (cache is not None or decode
-                           or cross_kv is not None):
+    if tp is not None and (cache is not None or decode):
         raise NotImplementedError("tensor-parallel attention is the "
-                                  "datacenter step's; serving and cross-"
-                                  "attention run on one device")
+                                  "datacenter step's; serving runs on one "
+                                  "device")
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     cdt = cfg.torch_compute_dtype()
@@ -329,14 +350,18 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
     if rules is not None:
         q = SH.constrain(q, rules, ("batch", None, "heads", None),
                          (None, S, cfg.n_heads, hd))
-    if cross_kv is not None:
-        k, v = cross_kv
+    if kv_x is not None:
+        kv_in = kv_x
+        if tp is not None and tp.kv is not None:
+            kv_in = TP.copy_to(kv_x, tp.mesh)
+        k, v = (_kv_proj(params[w], kv_x, kv_in, cdt, hd, tp)
+                for w in ("wk", "wv"))
         kw = dict(causal=False, cap=cfg.attn_softcap, scale=cfg.attn_scale)
         o = (naive_attention(q, k, v, **kw) if cfg.attn_impl == "naive"
              else blocked_attention(q, k, v, q_chunk=cfg.q_chunk,
                                     kv_chunk=cfg.kv_chunk, **kw))
-        o = o.reshape(B, S, cfg.n_heads * hd)
-        return L.dense(params["wo"], o, cdt), None
+        return _out_proj(params, o.reshape(B, S, q.shape[2] * hd), cdt,
+                         tp), None
     # score-probe mode: k/v come from the CLEAN half only and wk/wv are
     # never weight-perturbed (ops.attn_kv_seed_pred keeps the estimator
     # and replay seed streams consistent with this)
@@ -346,22 +371,9 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
     xkv = x[:half] if score_probe else x
     pkv = None if score_probe else perturb
 
-    def kv_proj(name):
-        if tp is None:
-            return _split_heads(L.dense(params[name], xkv, cdt,
-                                        psub(pkv, name)), hd)
-        if tp.kv is not None:
-            t = L.dense(params[name], xin[:half] if score_probe else xin,
-                        cdt, psub(pkv, name), tp.kv)
-            if not tp.kv_local:
-                t = TP.gather_from(t, tp.mesh, partial=tp.q_local)
-        else:
-            t = L.dense(params[name], xkv, cdt, psub(pkv, name))
-            if tp.q_local:      # a whole k / v read in part on each rank
-                t = TP.copy_to(t, tp.mesh)
-        return tp.kv_heads(_split_heads(t, hd))
-
-    k, v = kv_proj("wk"), kv_proj("wv")
+    xkv_in = xin[:half] if score_probe else xin
+    k, v = (_kv_proj(params[w], xkv, xkv_in, cdt, hd, tp, psub(pkv, w))
+            for w in ("wk", "wv"))
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         if decode:              # each slot (or the batch) at its position
@@ -403,12 +415,18 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
                               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     if cache is not None and not decode:
         _prefill_cache(cache, k, v)
-    o = o.reshape(B, S, q.shape[2] * hd)
+    return _out_proj(params, o.reshape(B, S, q.shape[2] * hd), cdt, tp,
+                     psub(perturb, "wo")), cache
+
+
+def _out_proj(params, o, cdt, tp, perturb=None):
+    """wo on the attention output (B, S, heads * hd): under ``tp`` a row
+    slab, fed the rank's columns of all heads' output where q was
+    gathered."""
     if tp is not None and tp.o is not None and not tp.q_local:
         o = TP.split_to(o, tp.mesh)     # wo's row slab of all heads' output
-    out = L.dense(params["wo"], o, cdt, psub(perturb, "wo"),
-                  None if tp is None else tp.o)
-    return out, cache
+    return L.dense(params["wo"], o, cdt, perturb,
+                   None if tp is None else tp.o)
 
 
 def _prefill_cache(cache, k, v):

@@ -33,8 +33,10 @@ MLP as :mod:`repro_torch.models.attention` and
 untied unembedding and :func:`lm_loss` vocab-parallel), the MoE
 family's FFN expert-parallel (:func:`repro_torch.models.moe.moe_ep`)
 and the recurrent mixers on their "lru" / "heads" / "d_ff" slabs
-(:mod:`repro_torch.models.recurrent`); the "data" axis reduces the
-loss's sums and counts over the data group.
+(:mod:`repro_torch.models.recurrent`); an enc-dec's decoder embedding
+``dec_embed`` is vocab-parallel and its cross sub-blocks attend the
+rank's heads; the "data" axis reduces the loss's sums and counts over
+the data group.
 """
 from __future__ import annotations
 
@@ -183,7 +185,7 @@ def apply_block(params, x, spec: LayerSpec, cfg: ModelConfig, *,
         o = _norm(cfg, params["postnorm1"], o, O.psub(perturb, "postnorm1"))
     x = x + o
     if "cross" in params and enc_out is not None:
-        x = x + _cross_attention(params, x, cfg, enc_out)
+        x = x + _cross_attention(params, x, cfg, enc_out, rules)
     if spec.ffn == "none":
         return _constrain_hidden(x, cfg, rules), cache
     h = _norm(cfg, params["norm2"], x, O.psub(perturb, "norm2"))
@@ -207,16 +209,13 @@ def _constrain_hidden(x, cfg: ModelConfig, rules):
                         (None, None, cfg.d_model))
 
 
-def _cross_attention(params, x, cfg: ModelConfig, enc_out):
+def _cross_attention(params, x, cfg: ModelConfig, enc_out, rules=None):
     """The decoder block's cross sub-block: its norm, then attention of
-    x's queries over k / v projected from ``enc_out``."""
-    cdt, hd = cfg.torch_compute_dtype(), cfg.resolved_head_dim
-    B, S_enc = enc_out.shape[:2]
-    k, v = (L.dense(params["cross"][w], enc_out, cdt).reshape(
-        B, S_enc, cfg.n_kv_heads, hd) for w in ("wk", "wv"))
+    x's queries over k / v projected from ``enc_out`` (under ``rules``'
+    model axis the rank's heads)."""
     o, _ = A.attention_layer(params["cross"],
                              _norm(cfg, params["cross_norm"], x), cfg,
-                             cross_kv=(k, v))
+                             kv_x=enc_out, rules=rules)
     return o
 
 
@@ -473,26 +472,34 @@ def _embed_scale(cfg: ModelConfig, x):
 
 
 def _vocab_v0(cfg: ModelConfig, rules):
-    """The first global vocab row of this rank's slab of the embedding
-    table (and column of the untied unembedding), or None where the
-    rules leave the vocab whole."""
+    """The first global vocab row of this rank's slab of a (vocab_padded,
+    d_model) table (the client's ``embed``, the enc-dec's ``dec_embed``)
+    and column of the untied unembedding, or None where the rules leave
+    the vocab whole."""
     pl = None if rules is None else rules.sharding_for(
         (cfg.vocab_padded, cfg.d_model), ("vocab", "d_model"))
     return pl.bounds[0][0] if pl is not None and pl.sharded else None
+
+
+def _lookup(embed_params, ids, cfg: ModelConfig, rules=None):
+    """Rows ``ids`` of an embedding table (``{"table"}``, the client's
+    ``embed`` or the enc-dec's ``dec_embed``) in the compute dtype,
+    vocab-parallel where the rules split it."""
+    cdt = cfg.torch_compute_dtype()
+    v0 = _vocab_v0(cfg, rules)
+    if v0 is not None:
+        return TP.vocab_embed(embed_params["table"].to(cdt), ids, v0,
+                              rules.mesh)
+    return L.embed(embed_params, ids, cdt)
 
 
 def _embed(client_params, cfg: ModelConfig, inputs, rules=None):
     """Token ids through the embedding table (vocab-parallel where the
     rules split it); float inputs (the vision / audio frontend stub's
     patch or frame embeddings) cast to the compute dtype."""
-    cdt = cfg.torch_compute_dtype()
     if inputs.is_floating_point():
-        return inputs.to(cdt)
-    v0 = _vocab_v0(cfg, rules)
-    if v0 is not None:
-        return TP.vocab_embed(client_params["embed"]["table"].to(cdt),
-                              inputs, v0, rules.mesh)
-    return L.embed(client_params["embed"], inputs, cdt)
+        return inputs.to(cfg.torch_compute_dtype())
+    return _lookup(client_params["embed"], inputs, cfg, rules)
 
 
 def embed_inputs(client_params, cfg: ModelConfig, inputs, rules=None):
@@ -627,20 +634,23 @@ def server_forward(params, cfg: ModelConfig, smashed, positions=None,
     if cfg.enc_dec:
         x = decoder_forward(params, cfg, dec_tokens,
                             _norm(cfg, server["final_norm"], x),
-                            positions=dec_positions)
+                            positions=dec_positions, rules=rules)
     return lm_head(params, cfg, x, rules)
 
 
 def decoder_forward(params, cfg: ModelConfig, tokens, enc_out,
-                    positions=None, caches=None, decode=False, live=None):
+                    positions=None, caches=None, decode=False, live=None,
+                    rules=None):
     """The enc-dec's decoder on ``tokens``, its blocks cross-attending
     ``enc_out`` -> hidden states before the head; with ``caches`` (its
-    stack's, written in place) a prefill or, with ``decode``, a step."""
+    stack's, written in place) a prefill or, with ``decode``, a step.
+    Under ``rules``' mesh ``dec_embed`` is vocab-parallel where they
+    split it and the blocks tensor-parallel, as the encoder's."""
     server = params["server"]
-    y = L.embed(server["dec_embed"], tokens, cfg.torch_compute_dtype())
+    y = _lookup(server["dec_embed"], tokens, cfg, rules)
     return apply_stack(server["decoder"], y, cfg, decoder_specs(cfg),
                        positions=positions, caches=caches, decode=decode,
-                       live=live, enc_out=enc_out)[0]
+                       live=live, enc_out=enc_out, rules=rules)[0]
 
 
 def full_forward(params, cfg: ModelConfig, inputs, positions=None,

@@ -4,7 +4,8 @@ two-rank cases.
 In process, against :mod:`repro`:
 
 * ``transformer.param_axes`` is the reference's ``init_lm(None, cfg,
-  mode="axes")`` leaf for leaf, for gpt2 and every dense config;
+  mode="axes")`` leaf for leaf, for gpt2, every dense config, qwen2-vl-2b
+  and seamless-m4t-medium (``dec_embed``, the decoder's ``cross``);
 * ``AxisRules.sharding_for`` gives the reference's ``spec_for`` decision
   on each shape (its fallbacks included: gpt2-tiny's vocab 211 padded
   to 256, qwen2-1.5b's two kv heads on a model axis of 4) and bounds
@@ -15,8 +16,10 @@ In process, against :mod:`repro`:
   accumulate and field modes) and of the threefry gaussian draw is that
   slab of the unsharded draw bit for bit;
 * a rank's slab of each recurrent leaf on both streams, bit for bit;
-* the recurrent families build on a model axis; the vlm and enc-dec
-  families raise, naming their ROADMAP item.
+* every family builds on a model axis (the recurrent, vlm and enc-dec
+  ones with sharded mixer, attention, ``cross`` and ``dec_embed``
+  leaves); a recurrent state, a KV cache or a decode step under it
+  raises.
 
 Across two gloo ranks (one spawn, ``torch_train_mesh_ranks.py``):
 recurrentgemma's smoke config on the (2, 1) mesh and gpt2-tiny's HERON
@@ -29,14 +32,21 @@ eps 1e-3) against the unsharded step, their kernel-stream HERON steps
 also against JAX's; each recurrent mixer alone on (1, 2) against the
 whole block, and the reduce-scatter pair against a single-process sum;
 qwen3-moe's smoke HERON step on (1, 2) at a capacity no slab fills and
-kimi-k2's with Adafactor on the server against the unsharded step; the
+kimi-k2's with Adafactor on the server against the unsharded step;
+qwen2-vl-2b's smoke config on (1, 2) (HERON on both streams and in the
+score probe, M-RoPE grid ids on the vision stub's batch) and
+seamless-m4t-medium's (HERON on both streams, SFLV2 through the decoder's
+cross sub-blocks) against the unsharded step, qwen2-vl's threefry step
+and seamless's kernel-stream step also against JAX's; seamless's cross
+sub-block alone on (1, 2) against the whole sub-block; the
 expert-parallel ``moe_ep`` on (1, 2) and (2, 1) against the reference's
 jitted ``moe_ep`` on Auto-axes meshes of forced host devices
 (``torch_moe_ep_cases``); the
 threefry sphere's slabs and its all-reduced norm within 4 f32 ulps of
 the unsharded ones; a checkpoint saved on (1, 2) (rank 0 writing the
 gathered state), restored on one device, giving the mesh's next step
-(gpt2-tiny and recurrentgemma)."""
+(gpt2-tiny, recurrentgemma and seamless); the bridge cutting seamless's
+tree to its slabs; the driver on two ranks (qwen2-1.5b and seamless)."""
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -48,11 +58,13 @@ import torch_round_parity as RP
 import torch_train_mesh_ranks as RANKS
 from repro.configs import command_r_35b as JC, gemma2_27b as JG
 from repro.configs import gpt2 as JGPT2, qwen2_1_5b as JQ, qwen2_5_32b as JQ5
+from repro.configs import qwen2_vl_2b as JVL, seamless_m4t_medium as JSM
 from repro.distributed import sharding as JS
 from repro.models import transformer as JT
 from repro_torch.checkpoint import checkpoint as CKPT
 from repro_torch.configs import command_r_35b, gemma2_27b, gpt2
-from repro_torch.configs import qwen2_1_5b, qwen2_5_32b
+from repro_torch.configs import qwen2_1_5b, qwen2_5_32b, qwen2_vl_2b
+from repro_torch.configs import seamless_m4t_medium
 from repro_torch.configs.registry import get_config
 from repro_torch.core import prng as R
 from repro_torch.core import protocols as P
@@ -76,6 +88,9 @@ DENSE = {"gpt2-tiny": (JGPT2.gpt2_tiny, gpt2.gpt2_tiny),
          "qwen2.5-32b": (JQ5.full_config, qwen2_5_32b.full_config),
          "command-r-35b": (JC.full_config, command_r_35b.full_config),
          "gemma2-27b": (JG.full_config, gemma2_27b.full_config)}
+MODALITY = {"qwen2-vl-2b": (JVL.full_config, qwen2_vl_2b.full_config),
+            "seamless-m4t-medium": (JSM.full_config,
+                                    seamless_m4t_medium.full_config)}
 
 
 def _jax_axes(tree, path=""):
@@ -91,9 +106,9 @@ def _jax_axes(tree, path=""):
     return out
 
 
-@pytest.mark.parametrize("arch", list(DENSE))
+@pytest.mark.parametrize("arch", list(DENSE) + list(MODALITY))
 def test_param_axes_match_reference(arch):
-    jcfg, cfg = (f() for f in DENSE[arch])
+    jcfg, cfg = (f() for f in {**DENSE, **MODALITY}[arch])
     want = _jax_axes(JT.init_lm(None, jcfg, mode="axes"))
     got = {p: tuple(lg) for p, lg in tree_leaves_with_path(
         T.param_axes(cfg))}
@@ -316,27 +331,26 @@ def test_async_server_replays_slabs(kernel):
             assert torch.equal(got[k], S.shard(want[k], places[k])), k
 
 
-@pytest.mark.parametrize("arch,mesh,item", [
-    ("recurrentgemma-9b", {"data": 1, "model": 2}, None),
-    ("xlstm-1.3b", {"data": 1, "model": 2}, None),
-    ("qwen2-vl-2b", {"data": 1, "model": 2}, "7.4"),
-    ("seamless-m4t-medium", {"data": 1, "model": 2}, "7.4")])
-def test_unported_families_raise(arch, mesh, item):
-    """The model axis takes the recurrent hybrid and xLSTM families (their
-    mixers on "lru" / "heads" / "d_ff" slabs); the vlm and enc-dec
-    families raise, naming their ROADMAP item.  The data axis takes
-    every family."""
-    rules = S.AxisRules(mesh=Mesh(mesh, coords={"data": 0, "model": 0}))
+@pytest.mark.parametrize("arch,leaves", [
+    ("recurrentgemma-9b", ("/rec/",)),
+    ("xlstm-1.3b", ("/rec/",)),
+    ("qwen2-vl-2b", ("/attn/wq/", "/attn/wk/")),
+    ("seamless-m4t-medium", ("/attn/wq/", "/cross/wq/", "/cross/wk/",
+                             "/cross/wo/", "server/dec_embed/"))])
+def test_every_family_takes_the_model_axis(arch, leaves):
+    """``lm_api`` takes the recurrent hybrid and xLSTM families (their
+    mixers on "lru" / "heads" / "d_ff" slabs), qwen2-vl (its attention
+    on the rank's heads) and the enc-dec (its decoder's ``cross``
+    sub-blocks and ``dec_embed`` too) on (1, 2): leaves of each named
+    kind are cut.  The data axis takes every family."""
+    rules = S.AxisRules(mesh=Mesh({"data": 1, "model": 2},
+                                  coords={"data": 0, "model": 0}))
     cfg = get_config(arch, smoke=True)
-    if item is None:
-        api = P.lm_api(cfg, rules)
-        assert api.rules is rules
-        assert any(pl.sharded for path, pl in tree_leaves_with_path(
-            api.shardings) if "/rec/" in path)
-    else:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1 item {item}"):
-            P.lm_api(cfg, rules)
+    api = P.lm_api(cfg, rules)
+    assert api.rules is rules
+    placed = tree_leaves_with_path(api.shardings)
+    for kind in leaves:
+        assert any(pl.sharded for path, pl in placed if kind in path), kind
     P.lm_api(cfg, S.AxisRules(
         mesh=Mesh({"data": 2, "model": 1}, coords={"data": 0, "model": 0})))
 
@@ -406,6 +420,23 @@ def test_recurrent_state_on_a_model_axis_raises(mixer, decode):
               rules=_slab_rules(2, 0))
 
 
+@pytest.mark.parametrize("decode", [False, True])
+def test_attention_cache_on_a_model_axis_raises(decode):
+    """A block prefill into a KV cache or a decode step of the attention
+    layer under a (1, 2) mesh raises: the mesh runs the training path
+    (self- and cross-attention) alone, as the reference serves with no
+    mesh."""
+    from repro_torch.models import attention as A
+    cfg = get_config("seamless-m4t-medium", smoke=True)
+    params = A.init_attention(torch.Generator().manual_seed(0), cfg)
+    x = torch.zeros((2, 1 if decode else 4, cfg.d_model))
+    with pytest.raises(NotImplementedError,
+                       match="serving runs on one device"):
+        A.attention_layer(params, x, cfg,
+                          cache=A.init_kv_cache(cfg, 2, 8, local=False),
+                          decode=decode, rules=_slab_rules(2, 0))
+
+
 def test_reduce_scatter_is_the_identity_without_a_live_axis():
     from repro_torch.distributed import tensor_parallel as TP
     x = torch.randn(2, 3, 8)
@@ -428,15 +459,24 @@ def test_local_mesh_without_a_group():
 # arch, the server AdamW's eps)
 REC_JAX = [("rg_1x2", "recurrentgemma-9b", RP.FO_EPS),
            ("xlstm_1x2", "xlstm-1.3b", RANKS.XLSTM["eps"])]
+# the modality (1, 2) cases held to it: (tag, arch, stream).  qwen2-vl's
+# on the threefry stream alone: the reference's kernel path concatenates
+# M-RoPE ids on their t / h / w axis and crashes (ROADMAP queue 3)
+MODALITY_JAX = [("vlm_1x2", "qwen2-vl-2b", "threefry"),
+                ("audio_1x2", "seamless-m4t-medium", "kernel")]
 
 
 @pytest.fixture(scope="module")
 def jax_rec_steps():
-    """The reference's jitted HERON steps of ``REC_JAX`` (kernel stream),
-    as futures of a thread that runs while the spawn does."""
+    """The reference's jitted HERON steps of ``REC_JAX`` (kernel stream)
+    and ``MODALITY_JAX``, as futures of a thread that runs while the
+    spawn does."""
     with ThreadPoolExecutor(1) as pool:
-        yield {tag: pool.submit(RP.jax_heron_step, "kernel", arch, eps)
-               for tag, arch, eps in REC_JAX}
+        steps = {tag: pool.submit(RP.jax_heron_step, "kernel", arch, eps)
+                 for tag, arch, eps in REC_JAX}
+        steps.update({tag: pool.submit(RP.jax_heron_step, stream, arch)
+                      for tag, arch, stream in MODALITY_JAX})
+        yield steps
 
 
 @pytest.fixture(scope="module")
@@ -480,6 +520,32 @@ def test_recurrent_heron_kernel_mesh_step_matches_jax(ranks, jax_rec_steps,
     server AdamW at eps 1e-3 on both sides)."""
     RP.assert_mesh_heron_matches_jax(ranks[1][0], f"{tag}_kernel_heron",
                                      jax_step=jax_rec_steps[tag].result())
+
+
+@pytest.mark.parametrize("tag,stream", [(t, s) for t, _, s in MODALITY_JAX])
+def test_modality_heron_mesh_step_matches_jax(ranks, jax_rec_steps, tag,
+                                              stream):
+    """qwen2-vl-2b's smoke HERON step on (1, 2) on the threefry stream
+    (M-RoPE grid ids through each rank's heads) and seamless-m4t-medium's
+    on the kernel stream (the decoder's cross sub-blocks on the rank's
+    heads, ``dec_embed`` vocab-parallel), gathered, against the
+    reference's jitted single-device step from the same params, batch
+    and key."""
+    RP.assert_mesh_heron_matches_jax(ranks[1][0], f"{tag}_{stream}_heron",
+                                     jax_step=jax_rec_steps[tag].result())
+
+
+@pytest.mark.parametrize("case", [c for c, _ in RANKS.CROSS_LAYERS])
+def test_cross_sub_block_on_1x2_matches_unsharded(ranks, case):
+    """seamless-m4t-medium's cross sub-block on (1, 2) against the whole
+    sub-block (``torch_train_mesh_ranks.cross_layer_cases``): the output,
+    the gradients of x and of ``enc_out`` (whole on every rank, entering
+    the wk / wv column slabs through ``copy_to``) and every slab's
+    gradient; with four kv heads, one (k / v gathered below a head) and
+    three q heads (q gathered too)."""
+    for r, out in enumerate(ranks[1]):
+        fails = str(out[f"cross|{case}|fail"])
+        assert not fails, f"rank {r}: {fails}"
 
 
 @pytest.mark.parametrize("case", [c[0] for c in RANKS.REC_LAYERS[2]])
@@ -533,6 +599,15 @@ def test_bridge_loads_slabs(ranks):
     assert all(bool(out["misc|bridge_roundtrip"]) for out in ranks[1])
 
 
+def test_bridge_loads_seamless_slabs(ranks):
+    """``from_jax(shardings=)`` on seamless-m4t-medium's whole smoke tree
+    on (1, 2): every leaf the rank's slab of the numpy leaf, gathered
+    back bit for bit by ``to_numpy``, ``dec_embed`` and the decoder's
+    ``cross`` leaves among those cut."""
+    for out in ranks[1]:
+        assert out["misc|bridge_s2s"].all(), out["misc|bridge_s2s"]
+
+
 def test_sphere_slabs_within_4_ulps(ranks):
     for out in ranks[1]:
         nrm, want = out["misc|sphere_norm"]
@@ -584,6 +659,13 @@ def test_recurrent_checkpoint_saved_on_mesh_restores_on_one_rank(ranks):
                                             "_rg")
 
 
+def test_enc_dec_checkpoint_saved_on_mesh_restores_on_one_rank(ranks):
+    """As above for seamless-m4t-medium's smoke config: ``dec_embed`` and
+    the decoder's ``cross`` leaves saved from their slabs."""
+    _assert_checkpoint_restores_on_one_rank(ranks, "seamless-m4t-medium",
+                                            "_s2s")
+
+
 def test_driver_model_parallel_on_two_ranks(ranks, tmp_path, capsys):
     """``launch.train --model-parallel 2`` on two ranks: exit 0, rank 0
     alone prints, the printed losses are the one-device run's (four
@@ -624,6 +706,25 @@ def test_driver_model_parallel_on_two_ranks(ranks, tmp_path, capsys):
     assert TRAIN.main(RANKS.DRIVER[:-7] + ["3"] + RANKS.DRIVER[-6:] + [
         "--ckpt-dir", f"{workdir}/driver_ckpt"]) == 0
     assert "[train] restored checkpoint at step 2" in capsys.readouterr().out
+
+
+def test_driver_model_parallel_enc_dec_on_two_ranks(ranks, tmp_path,
+                                                    capsys):
+    """``launch.train --arch seamless-m4t-medium --smoke --model-parallel
+    2`` on two ranks: exit 0, rank 0 alone prints, the printed losses
+    are the one-device run's (four decimals)."""
+    from repro_torch.launch import train as TRAIN
+    (rc, out), (rc1, out1) = (o["misc|driver_run_s2s"] for o in ranks[1])
+    assert rc == rc1 == "0" and out1 == ""
+    capsys.readouterr()
+    assert TRAIN.main(RANKS.driver_args("seamless-m4t-medium") + [
+        "--ckpt-dir", str(tmp_path / "one")]) == 0
+    want = capsys.readouterr().out
+
+    def losses(text):
+        return [ln.split(" (")[0] for ln in text.splitlines()
+                if ln.startswith("[train] step")]
+    assert losses(out) == losses(want) and len(losses(want)) == 2
 
 
 @pytest.fixture(scope="module")

@@ -33,7 +33,13 @@ is ``d`` times the losses' rounding) and of every first-order method:
   step on the kernel stream each against the unsharded step; each
   recurrent mixer alone on (1, 4), with the edge layouts (an mLSTM
   "heads" slab below a head, an lru width 4 does not divide), and the
-  reduce-scatter pair.
+  reduce-scatter pair;
+* the vlm and enc-dec families on the model axis: qwen2-vl-2b's smoke
+  config on (1, 4) (its two kv heads split below a head, gathered and
+  narrowed to each rank's q head, with M-RoPE grid ids) and
+  seamless-m4t-medium's on (2, 2) (the decoder's cross sub-blocks on the
+  rank's heads, ``dec_embed`` vocab-parallel), one HERON step on the
+  kernel stream each against the unsharded step.
 
 The two-rank cases and the steps held to JAX's single-device step are in
 ``test_torch_mesh_axes.py``.

@@ -345,8 +345,13 @@ def jax_heron_step(stream, arch="gpt2-tiny", eps=FO_EPS):
         JP.lm_api(jcfg, RULES), "heron", JZ.ZOConfig(mu=mu,
                                                     scale="gaussian"),
         copt, sopt))
-    new, _ = step(state, {"inputs": inp["batch_inputs"] % jcfg.vocab,
-                          "labels": inp["batch_labels"] % jcfg.vocab})
+    if arch in MESH_STUB_ARCHS:
+        p = jcfg.family + "_"
+        batch = {k[len(p):]: v for k, v in inp.items() if k.startswith(p)}
+    else:
+        batch = {"inputs": inp["batch_inputs"] % jcfg.vocab,
+                 "labels": inp["batch_labels"] % jcfg.vocab}
+    new, _ = step(state, batch)
     return tuple(dict(tree_leaves_with_path(jax.tree.map(np.asarray, t)))
                  for t in (new["params"], params))
 
@@ -367,11 +372,27 @@ def assert_mesh_heron_matches_jax(out, case, stream="kernel", jax_step=None):
                if p.startswith("client/"))
 
 
+# the archs whose frontend-stub batches mesh_step_inputs holds, under
+# "<family>_<key>" (torch_train_mesh_ranks.STUB_FAMILIES)
+MESH_STUB_ARCHS = ("qwen2-vl-2b", "seamless-m4t-medium")
+
+
 def mesh_step_inputs():
     """The inputs of the mesh step's ranks (``torch_train_mesh_ranks``):
-    the rates and one 2 x 16 batch from a numpy seed."""
+    the rates, one 2 x 16 text batch from a numpy seed (``batch_*``) and
+    the modality archs' 2 x 16 frontend-stub batches of
+    ``torch_modality_parity.batch``, keyed by family (``vlm_*``: patch
+    embeddings and grid M-RoPE ids with distinct t / h / w; ``audio_*``:
+    frame embeddings, the decoder's tokens and both heads' labels)."""
+    import torch_modality_parity as MP
+    from repro_torch.configs.registry import get_config
     b = step_batches("lm", vocab=jax_gpt2_tiny().vocab, n=1)[0]
-    return dict(kernel_rates=np.array(MESH_KERNEL_RATES),
-                threefry_rates=np.array(THREEFRY_RATES["gaussian"]),
-                fo_rates=np.array([FO_LR, FO_SERVER_LR, FO_EPS]),
-                batch_inputs=b["inputs"], batch_labels=b["labels"])
+    out = dict(kernel_rates=np.array(MESH_KERNEL_RATES),
+               threefry_rates=np.array(THREEFRY_RATES["gaussian"]),
+               fo_rates=np.array([FO_LR, FO_SERVER_LR, FO_EPS]),
+               batch_inputs=b["inputs"], batch_labels=b["labels"])
+    for arch in MESH_STUB_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        out.update({f"{cfg.family}_{k}": v
+                    for k, v in MP.batch(cfg).items()})
+    return out

@@ -17,8 +17,10 @@ its world size in one process and writes ``rank<r>.npz``:
   ``mlstm_block``, ``slstm_block``) on this rank's slabs against the
   unsharded block (each rank runs both), the widths its K6 scans took,
   and the reduce-scatter pair against a single-process sum;
-* ``misc|...``: ``remesh``, the sphere's slabs and the checkpoint
-  cases;
+* ``cross|<case>|fail``: seamless's cross sub-block on this rank's slabs
+  against the whole sub-block;
+* ``misc|...``: ``remesh``, the sphere's slabs, the bridge, the
+  checkpoint and the driver cases;
 * ``moe|<case>|...`` (``torch_moe_ep_cases``): ``moe_ep`` on this rank's
   slabs, its output rows, the gradients of ``sum(out * w)`` (the params'
   summed over the data group where the batch is split, as the step
@@ -74,7 +76,12 @@ STEPS = HERON + [("fo", m) for m in ("cse_fsl", "fsl_sage", "sflv1",
 # (tests/test_torch_family_rounds.py's XLSTM_EPS, XLSTM_MOMENT_ATOL)
 XLSTM = {"eps": 1e-3, "moment_atol": 5e-4}
 # world -> [(tag, config, model_parallel, steps, gathered for JAX[,
-# options])]; options: "cf" the MoE capacity factor (n_experts / top_k:
+# options])]; qwen2-vl-2b (M-RoPE ids, vision-stub inputs; on (1, 4) its
+# two kv heads split below a head and are gathered and narrowed) and
+# seamless-m4t-medium (the decoder's cross sub-blocks on the rank's
+# heads, dec_embed vocab-parallel; sflv2's backward runs through them)
+# take the modality batches; options: "cf" the MoE capacity factor
+# (n_experts / top_k:
 # no slab drops, so the expert-parallel step is the unsharded one),
 # "jax_step" the 4 x 16 batch of torch_moe_ep_cases, the step held to
 # the reference's sharded step (per-slab drops and all) in place of the
@@ -89,7 +96,9 @@ MESHES = {4: [("gpt2_2x2", "gpt2-tiny", 2,
               ("kimi_2x2", "kimi-k2-1t-a32b", 2, HERON[:1], False,
                {"adafactor": True, "cf": 4.0}),
               ("rg_2x2", "recurrentgemma-9b", 2, HERON[:1], False),
-              ("xlstm_1x4", "xlstm-1.3b", 4, HERON[:1], False, XLSTM)],
+              ("xlstm_1x4", "xlstm-1.3b", 4, HERON[:1], False, XLSTM),
+              ("vlm_1x4", "qwen2-vl-2b", 4, HERON[:1], False),
+              ("audio_2x2", "seamless-m4t-medium", 2, HERON[:1], False)],
           2: [("rg_2x1", "recurrentgemma-9b", 1, HERON[:1], False),
               ("gpt2_1x2", "gpt2-tiny", 2, HERON[:1], True),
               ("moe_1x2", "qwen3-moe-30b-a3b", 2, HERON[:1], False,
@@ -98,7 +107,14 @@ MESHES = {4: [("gpt2_2x2", "gpt2-tiny", 2,
                {"adafactor": True, "cf": 4.0}),
               ("rg_1x2", "recurrentgemma-9b", 2, STEPS, True),
               ("xlstm_1x2", "xlstm-1.3b", 2, HERON + [("fo", "cse_fsl")],
-               True, XLSTM)]}
+               True, XLSTM),
+              ("vlm_1x2", "qwen2-vl-2b", 2, HERON + [("scores", "heron")],
+               True),
+              ("audio_1x2", "seamless-m4t-medium", 2,
+               HERON + [("fo", "sflv2")], True)]}
+# the families whose batch is the frontend stub's: inputs.npz keys
+# "<family>_<key>" (torch_round_parity.mesh_step_inputs)
+STUB_FAMILIES = ("vlm", "audio")
 
 
 def config(name, stream, opts=None):
@@ -116,6 +132,10 @@ def batch_of(inp, cfg, opts=None):
     if (opts or {}).get("jax_step"):
         return {k: torch.as_tensor(v).long()
                 for k, v in MC.step_batch(cfg.vocab).items()}
+    if cfg.family in STUB_FAMILIES:
+        p = cfg.family + "_"
+        return {k[len(p):]: torch.as_tensor(v) for k, v in inp.items()
+                if k.startswith(p)}
     b = {k: torch.as_tensor(inp[f"batch_{k}"]) for k in ("inputs",
                                                           "labels")}
     return {k: v % cfg.vocab for k, v in b.items()}
@@ -380,6 +400,62 @@ def rec_layer_cases(out, world):
         torch.equal(g, torch.cat(ws, dim=-1))])
 
 
+# seamless's cross sub-block on (1, 2): (case, config changes); with one
+# kv head its wk / wv slabs are below a head (k / v gathered, each rank's
+# q heads in its GQA group), with three q heads wq's too (q gathered,
+# wo's row slab fed the rank's columns of every head's output)
+CROSS_LAYERS = [("cross", {}), ("cross_kv1", {"n_kv_heads": 1}),
+                ("cross_h3", {"n_heads": 3, "n_kv_heads": 1,
+                              "head_dim": 16})]
+
+
+def cross_layer_cases(out):
+    """seamless-m4t-medium's smoke cross sub-block (``cross_norm``,
+    ``cross``) on this rank's slabs of seeded params (the norm's leaves
+    moved off their init) against the whole sub-block on the same x and
+    encoder output: the output, the gradients of x and ``enc_out`` and
+    each slab's gradient of ``sum(out * w)``."""
+    from repro_torch.models import attention as A
+    mesh = make_local_mesh(2)
+    rules = SH.AxisRules(mesh=mesh, enable_fsdp=False)
+    for case, changes in CROSS_LAYERS:
+        cfg = get_config("seamless-m4t-medium", True).replace(**changes)
+
+        def init(gen):
+            return {"cross_norm": L.init_layernorm(gen, cfg.d_model,
+                                                   torch.float32),
+                    "cross": A.init_attention(gen, cfg)}
+        gen = torch.Generator().manual_seed(0)
+        full = tree_map(lambda t: t + 0.1 * torch.randn(
+            t.shape, generator=gen) if t.dim() == 1 else t, init(gen))
+        places = tree_map(lambda r: rules.sharding_for(r.shape, r.axes),
+                          init(L.RULES))
+        rng = np.random.default_rng(11)
+        x, enc, w = (torch.as_tensor(rng.standard_normal(
+            (2, s, cfg.d_model)).astype(np.float32)) for s in (12, 10, 12))
+        res = []
+        for p, r in ((full, None), (tree_map(SH.shard, full, places),
+                                    rules)):
+            p = tree_map(lambda t: t.clone().requires_grad_(True), p)
+            xr, er = (t.clone().requires_grad_(True) for t in (x, enc))
+            y = T._cross_attention(p, xr, cfg, er, r)
+            leaves = tree_leaves_with_path(p)
+            g = torch.autograd.grad(torch.sum(y * w),
+                                    [xr, er] + [t for _, t in leaves])
+            res.append((y.detach(), g[0], g[1], dict(zip(
+                [q for q, _ in leaves], g[2:]))))
+        (y0, gx0, ge0, gp0), (y1, gx1, ge1, gp1) = res
+        fails = [k for k, a, b in (("out", y1, y0), ("grad x", gx1, gx0),
+                                   ("grad enc_out", ge1, ge0))
+                 if not _close(a, b)]
+        pl = dict(tree_leaves_with_path(places))
+        fails += [f"grad {path}" for path, g in gp1.items()
+                  if not _close(g, SH.shard(gp0[path], pl[path]))]
+        if not any(pl[f"cross/{k}/w"].sharded for k in ("wq", "wk", "wo")):
+            fails.append("no sharded cross leaf")
+        out[f"cross|{case}|fail"] = np.array("\n".join(fails))
+
+
 def lora_dense_case(out, world):
     """A column- and a row-parallel dense layer with LoRA adapters (a
     non-zero ``lora_b``: a step from the adapters' init has ``lora_b``
@@ -460,8 +536,31 @@ def sphere_case(inp, out):
             t.numpy(), SH.shard(_leaf(full, path), pl[path]).numpy()])
 
 
+def bridge_case(out):
+    """seamless-m4t-medium's smoke tree (``dec_embed``, the decoder's
+    cross sub-blocks) through the bridge to this rank's slabs on (1, 2):
+    each leaf the slab of the numpy leaf, and the slabs gathered back
+    bit for bit; how many leaves are cut."""
+    rules = SH.AxisRules(mesh=make_local_mesh(2), enable_fsdp=False)
+    cfg = config("seamless-m4t-medium", "kernel")
+    full_np = to_numpy(T.init_lm(cfg, device="cpu", key=R.PRNGKey(0)))
+    places = T.param_shardings(cfg, rules)
+    slabs = from_jax(full_np, "cpu", places)
+    pl = dict(tree_leaves_with_path(places))
+    want = dict(tree_leaves_with_path(full_np))
+    cut = [p for p, t in tree_leaves_with_path(slabs) if pl[p].sharded]
+    out["misc|bridge_s2s"] = np.array([
+        all(torch.equal(t, SH.shard(torch.as_tensor(want[p]), pl[p]))
+            for p, t in tree_leaves_with_path(slabs)),
+        all(np.array_equal(a, want[p]) for p, a in tree_leaves_with_path(
+            to_numpy(slabs, places))),
+        "server/dec_embed/table" in cut,
+        any("/cross/" in p for p in cut)])
+
+
 # the checkpoint cases: (config, its directory and keys' suffix)
-CKPT_CASES = [("gpt2-tiny", ""), ("recurrentgemma-9b", "_rg")]
+CKPT_CASES = [("gpt2-tiny", ""), ("recurrentgemma-9b", "_rg"),
+              ("seamless-m4t-medium", "_s2s")]
 
 
 def checkpoint_case(inp, out, workdir, name="gpt2-tiny", tag=""):
@@ -496,21 +595,28 @@ def checkpoint_case(inp, out, workdir, name="gpt2-tiny", tag=""):
 DRIVER = ["--arch", "qwen2-1.5b", "--smoke", "--batch", "2", "--seq", "16",
           "--device", "cpu", "--steps", "2", "--zo-mu", "1e-2",
           "--lr-client", "1e-3", "--lr-server", "1e-4"]
+# the driver on seamless-m4t-medium's smoke config: (key suffix, arch)
+DRIVER_ARCHS = [("", "qwen2-1.5b"), ("_s2s", "seamless-m4t-medium")]
 
 
-def driver_case(out, workdir):
-    """``launch.train --model-parallel 2`` on the two ranks (the group
-    running, as torchrun's would be): its exit code and what each rank
-    prints (rank 0 alone prints)."""
+def driver_args(arch):
+    return ["--arch", arch] + DRIVER[2:]
+
+
+def driver_case(out, workdir, arch="qwen2-1.5b", tag=""):
+    """``launch.train --arch ARCH --model-parallel 2`` on the two ranks
+    (the group running, as torchrun's would be): its exit code and what
+    each rank prints (rank 0 alone prints)."""
     import contextlib
     import io
 
     from repro_torch.launch import train as TRAIN
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = TRAIN.main(DRIVER + ["--model-parallel", "2", "--ckpt-dir",
-                                  os.path.join(workdir, "driver_ckpt")])
-    out["misc|driver_run"] = np.array([str(rc), buf.getvalue()])
+        rc = TRAIN.main(driver_args(arch) + [
+            "--model-parallel", "2", "--ckpt-dir",
+            os.path.join(workdir, f"driver_ckpt{tag}")])
+    out[f"misc|driver_run{tag}"] = np.array([str(rc), buf.getvalue()])
 
 
 def run_rank(rank, world, workdir):
@@ -529,10 +635,13 @@ def run_rank(rank, world, workdir):
         if world == 4:
             remesh_case(out)
         else:
+            cross_layer_cases(out)
             sphere_case(inp, out)
+            bridge_case(out)
             for name, tag in CKPT_CASES:
                 checkpoint_case(inp, out, workdir, name, tag)
-            driver_case(out, workdir)
+            for tag, arch in DRIVER_ARCHS:
+                driver_case(out, workdir, arch, tag)
         blocked = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "repro"))
         assert not blocked, blocked
