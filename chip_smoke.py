@@ -191,7 +191,24 @@ Phases, one line each (any failure exits non-zero):
      bf16, timed over 3 steps after the first, every K1 / K2 / K3 launch
      of the first == plain; (e) launch.train --model-parallel 2 under
      torch.distributed.run for both archs' smoke configs.
-Phases 9-21 run before phase 8's timings.  The line before the last
+ 22. the dry-run tooling: (a) one qwen2-1.5b HERON datacenter step (bf16,
+     kernel stream, phase 14's 4 x 256 tokens) counted by
+     launch/costs.py on meta tensors and on the card, the FLOPs and the
+     kernel records equal, every K1-K3 launch of a recorded step ==
+     plain, the timed step's wall and profiled busy beside the roofline
+     step time (launch/roofline.py), the tracked peak beside
+     max_memory_allocated above the bytes held; one launch each of K4,
+     K5 and K6 recording the costs of the same call on meta, each ==
+     plain; (b) the server's blocked attention at qwen2-1.5b's heads
+     (bf16, B 1, S 4096, 1024-chunks) with causal_skip and with
+     attn_p_dtype bf16 within the CPU tests' bars, the skip's counted
+     FLOPs 10 / 16, the three timed; (c) launch/dryrun.py as processes
+     on the host's cores, started after the build (beside phases 2-21;
+     phase 22 waits for them): qwen2-1.5b and
+     qwen3-moe-30b-a3b train_4k on 16x16, qwen2-1.5b train_4k on
+     2x16x16, prefill_32k, and decode_32k (not_ported), then
+     launch/report.py over their records.
+Phases 9-22 run before phase 8's timings.  The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
 """
@@ -210,11 +227,13 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-# f32 off the tensor cores; "tf32" for the 3xTF32 route, whose callers
-# count its three tensor-core products (3 x 2MKN)
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+from repro_torch.launch import roofline as RL  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit) are the
+# dry run's, launch/roofline.py: f32 off the tensor cores; "tf32" for the
+# 3xTF32 route, whose callers count its three tensor-core products (3 x
+# 2MKN)
+HBM_BYTES_PER_S = RL.HBM_BW
 # K1's instructions per element of the field, by class, read from the
 # SASS of csrc/zo_noise.cu (phase 8 prints each kernel's opcode
 # histogram): the hash's LOP3 and SHF (integer), its two IMAD, one I2F
@@ -294,10 +313,8 @@ def time_ms(fn, reps=REPS):
 
 
 def bound_ms(n_bytes, n_ops, dtype_name):
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / PEAK_OPS[dtype_name]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    s, by = RL.bound_s(n_bytes, n_ops, dtype_name)
+    return 1e3 * s, by
 
 
 def max_abs(a, b):
@@ -2723,7 +2740,7 @@ def timed_step(phase, desc, step, state, batch, expect, card):
     return new, counts
 
 
-def recorded_step(desc, step, state, batch, expect, dev, card):
+def recorded_step(desc, step, state, batch, expect, dev, card, phase=14):
     """One step with every K1, K2 and K3 launch recorded, each held
     against its plain version (K1 bit for bit and K2 on fresh inputs of
     the launch's shape, seed and flags; K3 on the call's own inputs), the
@@ -2751,7 +2768,7 @@ def recorded_step(desc, step, state, batch, expect, dev, card):
     shapes = sorted({tuple(a["qa"].shape) + (a["k"].shape[2],)
                      for a, _ in k3_calls})
     torch.cuda.empty_cache()
-    log(14, f"{desc}'s kernels == plain: K1's {len(k1_calls)} tree calls "
+    log(phase, f"{desc}'s kernels == plain: K1's {len(k1_calls)} tree calls "
         f"and {len(k1_rows)} rows calls ({n_k1} launches) bit for bit, "
         f"K2's {len(k2_calls)} launches within check_k2's tolerance (max "
         f"|d| {k2_worst}), K3's {len(k3_calls)} launches (B, S, H, D, Kv "
@@ -5056,6 +5073,302 @@ def run_mod_mesh_phase(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 22: the dry-run tooling (launch/costs.py, roofline.py, dryrun.py)
+# ---------------------------------------------------------------------------
+
+# the bars of tests/test_torch_perf_knobs.py: causal_skip against no skip
+# (absolute), attn_p_dtype "bfloat16" against an f32 p (x max|v|)
+KNOB_SKIP_ATOL = 1e-6
+KNOB_P_BF16_BAR = 2.0 ** -7
+# (b): qwen2-1.5b's server attention (B, S, H, Kv, D) in 1024-chunks
+KNOB_SHAPE = (1, 4096, 12, 2, 128)
+KNOB_CHUNK = 1024
+# (c): the dry-run cells, (arch, shape, flags, the status each must end in)
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", (), "ok"),
+                ("qwen3-moe-30b-a3b", "train_4k", (), "ok"),
+                ("qwen2-1.5b", "train_4k", ("--multi-pod",), "ok"),
+                ("qwen2-1.5b", "prefill_32k", (), "ok"),
+                ("qwen2-1.5b", "decode_32k", (), "not_ported"))
+DRYRUN_TIMEOUT_S = 400
+
+
+def start_dryruns():
+    """(c): each DRYRUN_CELLS cell as its own ``python -m
+    repro_torch.launch.dryrun`` process, all started together: they count
+    on meta tensors on the host's cores (the card hidden from them)
+    while the card runs other phases.  Returns ``(temporary directory,
+    [(proc, out path, log)], start time)``; ``stop_dryruns`` ends any
+    still running when the script exits."""
+    import atexit
+    import tempfile
+    tmp = tempfile.TemporaryDirectory()
+    workdir = tmp.name
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+    for i, (arch, shape, flags, _) in enumerate(DRYRUN_CELLS):
+        out = os.path.join(workdir, f"cell{i}.jsonl")
+        log_f = open(os.path.join(workdir, f"cell{i}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, *flags, "--out", out], cwd=ROOT,
+            env=env, stdout=log_f, stderr=subprocess.STDOUT), out, log_f))
+    atexit.register(stop_dryruns, procs)
+    return tmp, procs, time.perf_counter()
+
+
+def stop_dryruns(procs):
+    for proc, _, log_f in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_f.close()
+
+
+def finish_dryruns(procs, workdir, t_start):
+    """Wait for (c)'s cells: each exits 0 and ends in its status; their
+    records, and ``launch/report.py`` over them."""
+    deadline = t_start + DRYRUN_TIMEOUT_S
+    recs = []
+    for (proc, out, log_f), (arch, shape, flags, want) in zip(
+            procs, DRYRUN_CELLS):
+        try:
+            rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            fail(f"dry run {arch} {shape} {flags} ran past "
+                 f"{DRYRUN_TIMEOUT_S} s")
+        log_f.close()
+        text = open(log_f.name).read()
+        if rc != 0:
+            fail(f"dry run {arch} {shape} {flags} exited {rc}: {text[-2000:]}")
+        rec = json.loads(open(out).read().strip().splitlines()[-1])
+        if rec["status"] != want:
+            fail(f"dry run {arch} {shape} {flags}: status {rec['status']}, "
+                 f"expected {want}: {str(rec)[:2000]}")
+        recs.append(rec)
+        if want != "ok":
+            log(22, f"(c) dry run {arch} {shape} {rec['mesh']}: "
+                f"{rec['status']} ({rec.get('reason', '')})")
+            continue
+        log(22, f"(c) dry run {arch} {shape} {rec['mesh']} rank 0: ok; "
+            f"counted in {rec['seconds_compile']} s (built {rec['seconds_lower']}"
+            f" s); flops {rec['flops']} bytes {rec['bytes_accessed']} "
+            f"collective bytes {rec['collective_by_op']} over "
+            f"{rec['collective_links']}; compute_s {rec['compute_s']} "
+            f"memory_s {rec['memory_s']} collective_s {rec['collective_s']} "
+            f"-> {rec['bottleneck']}, roofline_step_s "
+            f"{rec['roofline_step_s']}; useful/counted flops "
+            f"{rec['useful_flops_ratio']}; peak {rec['memory']['total_hbm_bytes']}"
+            f" B; fsdp {rec['fsdp']} (reference: {rec['fsdp_reference']})")
+    path = os.path.join(workdir, "cells.jsonl")
+    with open(path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in recs)
+    rep = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.report", "--jsonl",
+         path], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    if rep.returncode != 0:
+        fail(f"launch/report.py exited {rep.returncode}: "
+             f"{rep.stderr[-2000:]}")
+    for line in rep.stdout.splitlines():
+        if line.strip():
+            log(22, f"(c) report: {line}")
+
+
+def check_one_launches(dev, card):
+    """(a): one launch each of K4, K5 and K6 at a shape of the kernel
+    table (K4 bf16 1024 x 768x3072, K5 bf16 B4 S256 H12 D64 causal, K6
+    forward f32 (2, 512, 4096)): each records the FLOPs and bytes of the
+    same call on meta tensors, and equals plain (K4, K5 at check_k4 /
+    check_k5's tolerance, K6 bit for bit).  Returns the launches."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import records as REC
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import rg_lru as RG
+    from repro_torch.kernels import zo_matmul as ZM
+    _, x, w = k2_inputs(dev, torch.bfloat16, 1024, 768, 3072)
+    q, _, k, v, _, _ = k3_inputs(dev, torch.bfloat16, 4, 256, 12, 12, 64)
+    a, b, _ = k6_inputs(dev, 2, 512, 4096)
+
+    def bf16_tol(ref, floor):
+        return 2 ** -7 * ref.float().abs() + floor
+
+    cases = (
+        ("K4 zo_matmul", lambda x, w: ZM.zo_matmul(x, w, 3, 1e-3), (x, w),
+         lambda: k4_plain(x, w, 3, 1e-3, True, 0),
+         lambda ref: bf16_tol(ref, 1e-4 * ref.float().abs().max())),
+        ("K5 flash_attention", lambda q, k, v: FA.flash_attention(q, k, v),
+         (q, k, v), lambda: R.flash_attention_ref(q, k, v),
+         lambda ref: bf16_tol(ref, 1e-3)),
+        ("K6 rg_lru_scan", RG.rg_lru_scan, (a, b),
+         lambda: R.rg_lru_scan_ref(a, b), None))
+    total = {}
+    for name, fn, args, plain, tol in cases:
+        reset_counts()
+        with REC.recording() as recs:
+            out = fn(*args)
+        torch.cuda.synchronize()
+        got = {kk: n for kk, n in launch_counts().items() if n}
+        with REC.recording() as meta_recs:
+            fn(*(torch.empty_like(t, device="meta") for t in args))
+        if recs != meta_recs or len(recs) != 1:
+            fail(f"{name}: records {recs} on the card, {meta_recs} on meta")
+        ref = plain()
+        if tol is None:
+            if not torch.equal(out, ref):
+                fail(f"{name}: max |d| {max_abs(out, ref)} from plain")
+        elif not bool(((out.float() - ref.float()).abs()
+                       <= tol(ref)).all()):
+            fail(f"{name}: max |d| {max_abs(out, ref)} from plain")
+        log(22, f"(a) {name} one launch {got} on {card}: record (flops, "
+            f"bytes) {meta_recs[0][1:]} == the call on meta; max |d| from "
+            f"plain "
+            f"{max_abs(out, ref)}")
+        for kk, n in got.items():
+            total[kk] = total.get(kk, 0) + n
+    return total
+
+
+def run_costs_step(dev, card):
+    """(a): one qwen2-1.5b HERON datacenter step (bf16, kernel stream, 4 x
+    256 tokens, phase 14's) counted on meta tensors and on the card: the
+    FLOPs and kernel records equal; the recorded step's K1-K3 launches
+    each == plain; the timed step's wall and profiled busy beside the
+    roofline step time, the tracked peak beside max_memory_allocated
+    above the bytes held before the step.  Returns the launches of the
+    timed and the counted step."""
+    import torch
+    from repro_torch.configs.qwen2_1_5b import full_config
+    from repro_torch.launch import costs as C
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models import transformer as T
+    cfg = full_config().replace(forward_impl="kernel")
+    batch = _lm_batch(cfg.vocab, 4, 256, dev)
+    mstate, mstep = _train_parts(cfg, T.init_lm(cfg, device="meta"),
+                                 lr=1e-4, server_lr=2e-4, mu=1e-3)
+    # the batch's views on meta, their strides and offsets the card's
+    # (a copy of a strided view is an op with bytes of its own)
+    mbatch = {kk: torch.empty(t.untyped_storage().nbytes() //
+                              t.element_size(), dtype=t.dtype,
+                              device="meta").as_strided(
+        t.shape, t.stride(), t.storage_offset()) for kk, t in batch.items()}
+    t0 = time.perf_counter()
+    meta = C.total_costs(mstep, mstate, mbatch)
+    t_meta = time.perf_counter() - t0
+    del mstate
+    state, step = _train_parts(cfg, T.init_lm(cfg, seed=0, device=dev,
+                                              draw_on_device=True),
+                               lr=1e-4, server_lr=2e-4, mu=1e-3)
+    state = recorded_step("qwen2-1.5b step", step, state, batch, QWEN_STEP,
+                          dev, card, phase=22)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    new, _ = step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    counts = launch_counts()
+    check_counts("qwen2-1.5b timed step", counts, QWEN_STEP)
+    del new
+    busy = sum(r[0] for r in device_rows(lambda: step(state, batch))) / 1e3
+    reset_counts()
+    t0 = time.perf_counter()
+    on_card = C.total_costs(step, state, batch)
+    t_card = time.perf_counter() - t0
+    counted = launch_counts()
+    check_counts("qwen2-1.5b counted step", counted, QWEN_STEP)
+    del state
+    keys = ("flops", "kernel_records", "bytes", "collective_bytes")
+    if any(on_card[kk] != meta[kk] for kk in keys):
+        fail(f"(a) counted on the card: {[on_card[kk] for kk in keys]}; on "
+             f"meta: {[meta[kk] for kk in keys]} ({keys})")
+    recs = {kk: r["launches"] for kk, r in meta["kernel_records"].items()}
+    if any(recs.get(kk, 0) != QWEN_STEP[kk] for kk in
+           ("zo_noise", "zo_dual_matmul", "zo_dual_flash_attention")):
+        fail(f"(a) records {recs} against the step's launches {QWEN_STEP}")
+    terms = RL.roofline_terms(meta, cfg)
+    step_s = terms["roofline_step_s"]
+    tracked = meta["peak_bytes"] - meta["argument_bytes"]
+    log(22, f"(a) qwen2-1.5b HERON step counted on meta in {t_meta:.1f} s "
+        f"and on {card} in {t_card:.1f} s: flops {meta['flops']} == "
+        f"{on_card['flops']}, kernel records {meta['kernel_records']}, "
+        f"bytes {meta['bytes']} and collective bytes "
+        f"{meta['collective_bytes']} equal")
+    log(22, f"(a) roofline (H100 SXM published peaks, bf16): compute_s "
+        f"{terms['compute_s']} memory_s {terms['memory_s']} -> "
+        f"{terms['bottleneck']}, roofline_step_s {step_s}; measured wall "
+        f"{wall} s, busy {busy / 1e3} s: roofline / busy {step_s / (busy / 1e3) if busy else float('nan')}, "
+        f"roofline / wall {step_s / wall}")
+    log(22, f"(a) peak: tracked on meta {tracked} B above the arguments "
+        f"({meta['argument_bytes']} B); max_memory_allocated above the "
+        f"{held} B held before the step {peak} B; tracked / measured "
+        f"{tracked / peak}")
+    return {kk: counts[kk] + counted[kk] for kk in counts}
+
+
+def run_knobs(dev, card):
+    """(b): the server's blocked attention at qwen2-1.5b's heads, bf16, B
+    1, S 4096 in 1024-chunks: causal_skip == no skip within
+    KNOB_SKIP_ATOL, attn_p_dtype bf16 within KNOB_P_BF16_BAR x max|v| of
+    the f32 p; the counted FLOPs of the skip 10 / 16 of no skip's; the
+    three timed (plain torch: no kernel of the port)."""
+    import torch
+    from repro_torch.launch import costs as C
+    from repro_torch.models import attention as A
+    B, S, H, Kv, D = KNOB_SHAPE
+    q, _, k, v, _, _ = k3_inputs(dev, torch.bfloat16, B, S, H, Kv, D, seed=5)
+    kw = dict(q_chunk=KNOB_CHUNK, kv_chunk=KNOB_CHUNK)
+    calls = {"no skip": dict(kw),
+             "causal_skip": dict(kw, causal_skip=True),
+             "p bf16": dict(kw, p_dtype=torch.bfloat16)}
+    outs = {n: A.blocked_attention(q, k, v, **c) for n, c in calls.items()}
+    d_skip = max_abs(outs["causal_skip"], outs["no skip"])
+    d_p = max_abs(outs["p bf16"], outs["no skip"])
+    bar = KNOB_P_BF16_BAR * float(v.float().abs().max())
+    if d_skip > KNOB_SKIP_ATOL or d_p > bar:
+        fail(f"(b) causal_skip max |d| {d_skip} (bar {KNOB_SKIP_ATOL}), "
+             f"p bf16 {d_p} (bar {bar})")
+    mq, mk, mv = (torch.empty_like(t, device="meta") for t in (q, k, v))
+    flops = {n: C.total_costs(lambda: A.blocked_attention(
+        mq, mk, mv, **c))["flops"] for n, c in calls.items()}
+    if flops["causal_skip"] * 16 != flops["no skip"] * 10:
+        fail(f"(b) counted flops {flops}: the skip is not 10 / 16")
+    ms = {n: time_ms(lambda: A.blocked_attention(q, k, v, **c), reps=10)
+          for n, c in calls.items()}
+    log(22, f"(b) blocked_attention bf16 B{B} S{S} H{H} Kv{Kv} D{D}, "
+        f"{KNOB_CHUNK}-chunks, on {card}: causal_skip max |d| {d_skip} "
+        f"(bar {KNOB_SKIP_ATOL}), p bf16 max |d| {d_p} (bar {bar}); counted "
+        f"flops {flops} (skip / no skip {flops['causal_skip'] / flops['no skip']}); "
+        f"ms {ms}: skip / no skip {ms['causal_skip'] / ms['no skip']}, "
+        f"p bf16 / no skip {ms['p bf16'] / ms['no skip']}")
+
+
+def run_dryrun_phase(dev, card, dryruns=None):
+    """Phase 22.  ``dryruns``: (c)'s processes (``start_dryruns``; main()
+    starts them after the build, so they count beside phases 2-21), or
+    None to start them here.  Returns its launches: the (a) step's timed
+    and counted steps (K1-K3) and the one K4, K5, K6 launch."""
+    import torch
+    tmp, procs, t0 = dryruns or start_dryruns()
+    try:
+        counts = run_costs_step(dev, card)
+        torch.cuda.empty_cache()
+        for kk, n in check_one_launches(dev, card).items():
+            counts[kk] = counts.get(kk, 0) + n
+        run_knobs(dev, card)
+        torch.cuda.empty_cache()
+        finish_dryruns(procs, tmp.name, t0)
+    finally:
+        stop_dryruns(procs)
+        tmp.cleanup()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 8: times
 # ---------------------------------------------------------------------------
 
@@ -5489,7 +5802,8 @@ def k1_sass():
 
 
 def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
-                 counts_train, counts_family, counts_modality, counts_mesh):
+                 counts_train, counts_family, counts_modality, counts_mesh,
+                 counts_tools):
     """``counts``: launches of the gpt2-small round (K1-K3);
     ``counts_sp``: of the gpt2-small single-probe forward (K4, K5);
     ``counts_rg``: of the recurrentgemma round (K6); ``counts_serve``: of
@@ -5503,7 +5817,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
     phase 18's mesh steps on every rank (K1-K3), phase 19's MoE mesh
     steps on every rank (K1), phase 20's recurrent mesh steps on every
     rank (K1, K6), added to K6's, and phase 21's vlm and enc-dec mesh
-    steps on every rank (K1-K3)."""
+    steps on every rank (K1-K3); ``counts_tools``: of phase 22's timed
+    and counted steps (K1-K3) and its one K4, K5 and K6 launch."""
     import torch
     from repro_torch.kernels import noise as N
     from repro_torch.kernels import ops as O
@@ -5536,7 +5851,7 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
                  "replaces": "src/repro/kernels/zo_matmul.py:274",
                  "launches": counts["zo_noise"] + counts_train["zo_noise"]
                  + counts_family["zo_noise"] + counts_modality["zo_noise"]
-                 + counts_mesh["zo_noise"],
+                 + counts_mesh["zo_noise"] + counts_tools.get("zo_noise", 0),
                  "max_abs_err": errs[0],
                  "ms": ms, "plain_ms": pl, "bound_ms": b,
                  "bound_by": by.split(" ")[0], "library_ms": None})
@@ -5584,7 +5899,9 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
                  "launches": counts["zo_dual_matmul"]
                  + counts_train["zo_dual_matmul"]
                  + counts_modality["zo_dual_matmul"]
-                 + counts_mesh["zo_dual_matmul"], "max_abs_err": errs[1],
+                 + counts_mesh["zo_dual_matmul"]
+                 + counts_tools.get("zo_dual_matmul", 0),
+                 "max_abs_err": errs[1],
                  "ms": ms, "plain_ms": pl, "bound_ms": b, "bound_by": by,
                  "library_ms": lib})
 
@@ -5592,10 +5909,12 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
     k3_row, k5_row = time_attention(dev, counts, counts_sp, errs)
     k5_row["launches"] += (counts_serve["flash_attention"]
                            + counts_family["flash_attention"]
-                           + counts_modality["flash_attention"])
+                           + counts_modality["flash_attention"]
+                           + counts_tools.get("flash_attention", 0))
     k3_row["launches"] += (counts_train["zo_dual_flash_attention"]
                            + counts_modality["zo_dual_flash_attention"]
-                           + counts_mesh["zo_dual_flash_attention"])
+                           + counts_mesh["zo_dual_flash_attention"]
+                           + counts_tools.get("zo_dual_flash_attention", 0))
     rows.append(k3_row)
 
     # K4: gpt2-small's three client shapes in bf16 (768x3072 is the main
@@ -5630,7 +5949,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
     rows.append({"name": "zo_matmul", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/zo_matmul.cu",
                  "replaces": "src/repro/kernels/zo_matmul.py:145",
-                 "launches": counts_sp["zo_matmul"], "max_abs_err": errs[3],
+                 "launches": counts_sp["zo_matmul"]
+                 + counts_tools.get("zo_matmul", 0), "max_abs_err": errs[3],
                  "ms": ms, "plain_ms": pl, "bound_ms": b, "bound_by": by,
                  "library_ms": lib})
 
@@ -5663,7 +5983,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
                  "replaces": "src/repro/kernels/rg_lru.py:50",
                  "launches": counts_rg["rg_lru_scan"]
                  + counts_serve["rg_lru_scan"]
-                 + counts_mesh["rg_lru_scan"], "max_abs_err": errs[5],
+                 + counts_mesh["rg_lru_scan"]
+                 + counts_tools.get("rg_lru_scan", 0), "max_abs_err": errs[5],
                  "ms": ms, "plain_ms": pl, "bound_ms": bd, "bound_by": by,
                  "library_ms": None})
 
@@ -5710,6 +6031,7 @@ def main():
     secs = build.build_all()
     log(1, f"built kernels in {secs:.1f} s (registers, shared memory and "
         f"spills per kernel in phase 8)")
+    dryruns = start_dryruns()         # phase 22 (c), on the host's cores
 
     start = [time.perf_counter()]
 
@@ -5764,13 +6086,17 @@ def main():
     counts_mod_mesh = run_mod_mesh_phase(dev, card)
     torch.cuda.empty_cache()
     took("21")
+    counts_tools = run_dryrun_phase(dev, card, dryruns)
+    torch.cuda.empty_cache()
+    took("22")
     mesh_phases = (counts_mesh, counts_train_mesh, counts_moe_ep,
                    counts_rec_mesh, counts_mod_mesh)
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs,
                         counts_serve, counts_train, counts_family,
                         counts_modality, {
                             k: sum(c.get(k, 0) for c in mesh_phases)
-                            for k in set().union(*mesh_phases)})
+                            for k in set().union(*mesh_phases)},
+                        counts_tools)
     compiler_report()
     check_hgmma()
     k1_sass()

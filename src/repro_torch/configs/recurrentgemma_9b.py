@@ -1,8 +1,8 @@
 """recurrentgemma-9b [hybrid]: 38L d=4096 16H (kv=1, MQA on attention
 layers) d_ff=12288 vocab=256000 — RG-LRU + local attn 1:2
 [arXiv:2402.19427; unverified].  Same values as
-:mod:`repro.configs.recurrentgemma_9b`, less the two fields the port
-does not read (``subquadratic``, ``optimizer``)."""
+:mod:`repro.configs.recurrentgemma_9b`.  Sub-quadratic (bounded window +
+LRU state) => runs long_500k (``configs.base.supports_shape``)."""
 from repro_torch.models.config import LayerSpec, ModelConfig
 
 ID = "recurrentgemma-9b"
@@ -16,7 +16,8 @@ def full_config() -> ModelConfig:
         name=ID, n_layers=38, d_model=4096, n_heads=16, n_kv_heads=1,
         d_ff=12288, vocab=256000, head_dim=256, pattern=_PATTERN,
         window=2048, lru_width=4096, activation="gelu",
-        tie_embeddings=True, cut_layers=2, family="hybrid")
+        tie_embeddings=True, cut_layers=2, family="hybrid",
+        subquadratic=True, optimizer="adamw")
 
 
 def smoke_config() -> ModelConfig:

@@ -123,21 +123,31 @@ def kernel_forward(cfg) -> bool:
     return fi == "kernel"
 
 
+def _mesh_rules(rules):
+    """``rules``, or None on one device (every mesh axis 1): the
+    unsharded program, op for op."""
+    if rules is not None and (rules.mesh is None or all(
+            n == 1 for n in rules.mesh.shape.values())):
+        return None
+    return rules
+
+
+def _placed(rules, batch):
+    """The rules for this batch: whether its rows are this rank's slab
+    (``place_batch``'s ``"batch_split"``)."""
+    if rules is None or rules.batch_split == batch.get("batch_split", True):
+        return rules
+    return dataclasses.replace(rules, batch_split=batch["batch_split"])
+
+
 def lm_api(cfg: ModelConfig, rules: SH.AxisRules | None = None) -> ModelAPI:
     """The LM adapter; ``rules`` with a mesh make it the datacenter
     step's mesh mode (each rank's slabs, the global batch's losses)."""
-    if rules is not None and (rules.mesh is None or all(
-            n == 1 for n in rules.mesh.shape.values())):
-        rules = None      # one device: the unsharded step, op for op
+    rules = _mesh_rules(rules)
     W = cfg.vocab_padded
 
     def placed(batch):
-        """The rules for this batch: whether its rows are this rank's
-        slab (``place_batch``'s ``"batch_split"``)."""
-        if rules is None or rules.batch_split == batch.get("batch_split",
-                                                           True):
-            return rules
-        return dataclasses.replace(rules, batch_split=batch["batch_split"])
+        return _placed(rules, batch)
 
     def loss(logits, labels):
         return T.lm_loss(logits, labels, cfg.vocab, rules, W)
@@ -452,13 +462,19 @@ def _decoder_only(cfg, what: str):
                          "the token loop")
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, rules: SH.AxisRules | None = None):
     """``prefill(params, batch) -> logits``: the whole model's forward
-    (an enc-dec's decoder on ``batch["dec_tokens"]``)."""
+    (an enc-dec's decoder on ``batch["dec_tokens"]``).  ``rules`` with a
+    mesh run it as the training step's mesh mode does: ``params`` the
+    rank's slabs (``shard_tree`` by ``T.param_shardings``), ``batch``
+    placed by ``place_batch``, the logits this rank's vocab slab."""
+    rules = _mesh_rules(rules)
+
     def prefill(params, batch):
         return T.full_forward(params, cfg, batch["inputs"],
                               batch.get("positions"),
-                              batch.get("dec_tokens"))
+                              batch.get("dec_tokens"),
+                              rules=_placed(rules, batch))
 
     return prefill
 

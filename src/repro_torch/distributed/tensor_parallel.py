@@ -200,13 +200,15 @@ def all_to_all(x, mesh, axis: str = "model", split_dim: int = 0,
 
 def all_gather_ints(x, mesh, axis: str = "data"):
     """``(n, *x.shape)``: the integer tensor ``x`` of every rank of the
-    axis, in rank order, outside autograd; ``x[None]`` without a live
-    axis."""
+    axis's group, in group rank order, outside autograd (``n`` the
+    group's size: the dry run's 2x16x16 "data" group spans the pods);
+    ``x[None]`` without a live axis."""
     x = x.detach()
     if not _live(mesh, axis):
         return x[None]
-    parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
-    dist.all_gather(parts, x.contiguous(), group=mesh.group(axis))
+    group = mesh.group(axis)
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
     return torch.stack(parts)
 
 

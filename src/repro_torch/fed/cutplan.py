@@ -6,12 +6,13 @@ memory bandwidth, memory budget, round deadline) and picks the split
 point.  The per-cut costs are counted, not modelled: the client loss
 runs once at every candidate cut on the ``meta`` device (shapes alone:
 nothing is allocated or launched, as the reference's ``eval_shape`` and
-compile), under :class:`torch.utils.flop_counter.FlopCounterMode` for
-the FLOPs and a dispatch mode that adds up the operand and result bytes
-of every non-view op for the bytes.  The reference reads both from the
-compiled HLO (``launch/hlo_costs.total_costs``).  The FLOPs are the
-same products; the bytes are eager PyTorch's, op by op and unfused, so
-they are not held to XLA's fused count.
+compile), under the port's cost counter
+(:func:`repro_torch.launch.costs.total_costs`: ``FlopCounterMode``'s
+FLOPs, the operand and result bytes of every non-view op).  The
+reference reads both from the compiled HLO
+(``launch/hlo_costs.total_costs``).  The FLOPs are the same products;
+the bytes are eager PyTorch's, op by op and unfused, so they are not
+held to XLA's fused count.
 
 The plan picks the deepest cut that fits the device (client parameter
 bytes within the memory budget, estimated round time within the
@@ -24,11 +25,9 @@ import dataclasses
 import math
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.core.split import param_bytes
+from repro_torch.launch.costs import total_costs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,29 +81,11 @@ def cut_candidates(cfg) -> list[int]:
     return list(range(1, max(total, 2)))
 
 
-class _ByteCounter(TorchDispatchMode):
-    """Adds up the bytes of every tensor operand and result of the ops
-    it sees; views (which move nothing) are skipped."""
-
-    def __init__(self):
-        super().__init__()
-        self.bytes = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if not func.is_view:
-            leaves, _ = tree_flatten((args, kwargs, out))
-            self.bytes += sum(t.numel() * t.element_size() for t in leaves
-                              if isinstance(t, torch.Tensor))
-        return out
-
-
 def _loss_costs(loss_fn, *args) -> tuple[float, float]:
     """``(flops, bytes)`` of one call of ``loss_fn`` on meta tensors."""
-    bc = _ByteCounter()
-    with torch.no_grad(), FlopCounterMode(display=False) as fc, bc:
-        loss_fn(*args)
-    return float(fc.get_total_flops()), float(bc.bytes)
+    with torch.no_grad():
+        c = total_costs(loss_fn, *args)
+    return c["flops"], c["bytes"]
 
 
 def candidate_costs(base_cfg, batch, cuts=None) -> list[CutCost]:

@@ -141,13 +141,17 @@ def stream(device: torch.device) -> int:
 
 
 def require_cuda(what: str, *tensors: torch.Tensor) -> torch.device:
-    """Check that the tensors share one CUDA device and are contiguous."""
+    """Check that the tensors share one CUDA device and are contiguous.
+    The ``meta`` device passes too: there a wrapper checks the launch's
+    shapes, records its cost (:mod:`repro_torch.kernels.records`) and
+    returns empty outputs without launching."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{what}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: non-contiguous input {tuple(t.shape)}")
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: expected CUDA tensors, got {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"{what}: expected CUDA (or meta) tensors, got "
+                         f"{dev}")
     return dev

@@ -5,8 +5,10 @@
 
 A kernel launches for CUDA tensors (or raises); CPU tensors take the
 plain versions of :mod:`repro_torch.kernels.ref`, K3's with the score
-field materialised from the same hash stream.  ``LAUNCHES`` counts
-kernel launches only.
+field materialised from the same hash stream; ``meta`` tensors get empty
+outputs and no launch.  ``LAUNCHES`` counts kernel launches only; each
+launch, and each meta call in its place, records its cost
+(:mod:`repro_torch.kernels.records`).
 
 K3 and K5 have two routes on the card, chosen by :func:`route`: bf16
 operands whose head width and pointers suit TMA run on the tensor cores
@@ -25,6 +27,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import noise as N
+from repro_torch.kernels import records as REC
 from repro_torch.kernels import ref as R
 
 LAUNCHES = {"zo_dual_flash_attention": 0, "zo_dual_flash_attention_tc": 0,
@@ -134,7 +137,11 @@ def zo_dual_flash_attention(qa, qb, k, v, kb=None, vb=None, seed=0,
     ob = torch.empty_like(qb)
     dev, tc = _check_attention("zo_dual_flash_attention", (qa, qb),
                                (k, v, kb, vb), (oa, ob))
-    if oa.numel():
+    cost = REC.attention_cost(B, Sq, Skv, H, Kv, D, qa.element_size(),
+                              streams=2, kv_sets=1 if shared else 2)
+    if oa.numel() and dev.type == "meta":
+        REC.record("zo_dual_flash_attention", *cost)
+    elif oa.numel():
         sc = float(scale) if scale is not None else D ** -0.5
         lib = build.library("zo_dual_flash_attention")
         ptrs = (qa.data_ptr(), qb.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -151,6 +158,7 @@ def zo_dual_flash_attention(qa, qb, k, v, kb=None, vb=None, seed=0,
         build.check(err, "zo_dual_flash_attention")
         LAUNCHES["zo_dual_flash_attention"] += 1
         LAUNCHES["zo_dual_flash_attention_tc"] += int(tc)
+        REC.record("zo_dual_flash_attention", *cost)
     return oa, ob
 
 
@@ -168,7 +176,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0,
     dev, tc = _check_attention("flash_attention", (q,), (k, v), (o,))
     B, Sq, H, D = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
-    if o.numel():
+    cost = REC.attention_cost(B, Sq, Skv, H, Kv, D, q.element_size())
+    if o.numel() and dev.type == "meta":
+        REC.record("flash_attention", *cost)
+    elif o.numel():
         sc = float(scale) if scale is not None else D ** -0.5
         lib = build.library("flash_attention")
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
@@ -181,4 +192,5 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0,
         build.check(err, "flash_attention")
         LAUNCHES["flash_attention"] += 1
         LAUNCHES["flash_attention_tc"] += int(tc)
+        REC.record("flash_attention", *cost)
     return o

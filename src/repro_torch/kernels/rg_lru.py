@@ -6,8 +6,11 @@ For CUDA tensors :func:`rg_lru_scan` runs :class:`RGLRUScan`, whose
 forward is K6 and whose backward is K6 in reverse mode, so the server's
 first-order step differentiates the recurrence through the kernel.  For
 CPU tensors it runs the plain sequential version, which autograd
-differentiates.  ``LAUNCHES["rg_lru_scan"]`` counts K6 launches, forward
-and reverse; ``["rg_lru_scan_reverse"]`` the reverse ones among them.
+differentiates.  ``meta`` tensors take :class:`RGLRUScan` too, which
+launches nothing there and records each launch's cost
+(:mod:`repro_torch.kernels.records`).  ``LAUNCHES["rg_lru_scan"]``
+counts K6 launches, forward and reverse; ``["rg_lru_scan_reverse"]`` the
+reverse ones among them.
 K6 takes any (B, S, W); the kernel chooses its loads (TMA where W % 4
 == 0 and the pointers are 16-byte aligned, cp.async otherwise).
 """
@@ -16,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import records as REC
 from repro_torch.kernels import ref as R
 
 LAUNCHES = {"rg_lru_scan": 0, "rg_lru_scan_reverse": 0}
@@ -38,6 +42,9 @@ def _launch(a, x, hs, out, da, reverse: bool):
                              *([hs, da] if reverse else []))
     if not out.numel():
         return
+    if dev.type == "meta":
+        REC.record("rg_lru_scan", 0, REC.scan_bytes(out.numel(), reverse))
+        return
     err = build.library("rg_lru_scan").rg_lru_scan(
         a.data_ptr(), x.data_ptr(), hs.data_ptr() if reverse else None,
         out.data_ptr(), da.data_ptr() if reverse else None, B, S, W,
@@ -45,6 +52,7 @@ def _launch(a, x, hs, out, da, reverse: bool):
     build.check(err, "rg_lru_scan")
     LAUNCHES["rg_lru_scan"] += 1
     LAUNCHES["rg_lru_scan_reverse"] += int(reverse)
+    REC.record("rg_lru_scan", 0, REC.scan_bytes(out.numel(), reverse))
 
 
 def rg_lru_scan_reverse(a, g, h):

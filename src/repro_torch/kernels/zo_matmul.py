@@ -5,9 +5,12 @@ counterparts of ``zo_noise``, ``zo_dual_matmul`` and ``zo_matmul`` in
 
 A wrapper launches its kernel for CUDA tensors, on PyTorch's current
 stream, and raises if the launch fails.  It takes the plain PyTorch
-version only for tensors on the CPU.  ``LAUNCHES`` counts kernel
-launches (never plain-version calls), so a run can show that it went
-through the kernels.
+version only for tensors on the CPU.  On ``meta`` tensors it checks the
+shapes, launches nothing and returns empty outputs (a dry run's cost
+count).  ``LAUNCHES`` counts kernel launches (never plain-version calls),
+so a run can show that it went through the kernels; each launch, and
+each meta call in its place, records its cost
+(:mod:`repro_torch.kernels.records`).
 
 K1 draws U(seed) for a list of leaves in one launch (:func:`zo_noise_tree`,
 one launch per ``MAX_SEGMENTS`` leaves) and hands each element to its
@@ -32,6 +35,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import noise as N
+from repro_torch.kernels import records as REC
 from repro_torch.kernels import ref as R
 
 LAUNCHES = {"zo_noise": 0, "zo_dual_matmul": 0, "zo_dual_matmul_tc": 0,
@@ -114,7 +118,8 @@ def zo_noise_tree(mode: str, segments, outs, ins=None, scale=None,
       * ``"perturb"``: ``outs[i] = (ins[i].float() + mu*U_i).to(dtype)``
         (f32 or bf16, ``outs[i]`` of ``ins[i]``'s dtype).
     A segment with ``seed=None`` has U = 0.  CPU tensors run the plain
-    tensor code of each mode, leaf by leaf."""
+    tensor code of each mode, leaf by leaf; meta tensors launch nothing
+    (the outputs are the caller's) and record each launch's cost."""
     code = MODES[mode]
     if not outs:
         return
@@ -151,8 +156,13 @@ def zo_noise_tree(mode: str, segments, outs, ins=None, scale=None,
                              f"{o.dtype} {tuple(o.shape)}")
         if mode != "accumulate" and seg.seed is None:
             raise ValueError(f"zo_noise_tree {mode}: leaf {i} has no seed")
+    launches = plan_launches(segments)
+    if dev.type == "meta":
+        for idx, _, _ in launches:
+            _record_tree(mode, segments, outs, idx)
+        return
     lib = build.library("zo_noise")
-    for idx, t0s, tiles in plan_launches(segments):
+    for idx, t0s, tiles in launches:
         t = _Table()
         for k, (i, t0) in enumerate(zip(idx, t0s)):
             seg, o = segments[i], outs[i]
@@ -173,6 +183,14 @@ def zo_noise_tree(mode: str, segments, outs, ins=None, scale=None,
         build.check(lib.zo_noise_tree(ctypes.byref(t), build.stream(dev)),
                     "zo_noise_tree")
         LAUNCHES["zo_noise"] += 1
+        _record_tree(mode, segments, outs, idx)
+
+
+def _record_tree(mode, segments, outs, idx):
+    """The cost record of one K1 tree launch over ``segments[idx]``."""
+    REC.record("zo_noise", 0, sum(REC.noise_tree_bytes(
+        mode, segments[i].rows * segments[i].cols, outs[i].element_size())
+        for i in idx))
 
 
 def zo_noise(seed, shape, row_offset=0, col_offset=0, *, device):
@@ -200,11 +218,13 @@ def zo_noise_rows(seed, ids: torch.Tensor, n_cols: int):
                       device=ids.device)
     dev = build.require_cuda("zo_noise_rows", flat, out)
     if out.numel():
-        err = build.library("zo_noise").zo_noise_rows(
-            out.data_ptr(), flat.data_ptr(), flat.numel(), n_cols,
-            int(N._u32(seed)), build.stream(dev))
-        build.check(err, "zo_noise_rows")
-        LAUNCHES["zo_noise"] += 1
+        if dev.type != "meta":
+            err = build.library("zo_noise").zo_noise_rows(
+                out.data_ptr(), flat.data_ptr(), flat.numel(), n_cols,
+                int(N._u32(seed)), build.stream(dev))
+            build.check(err, "zo_noise_rows")
+            LAUNCHES["zo_noise"] += 1
+        REC.record("zo_noise", 0, 4 * flat.numel() * (n_cols + 1))
     return out.reshape(tuple(ids.shape) + (n_cols,))
 
 
@@ -269,7 +289,10 @@ def zo_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
     Nn = w.shape[1]
     ya = torch.empty((M, Nn), dtype=xa.dtype, device=dev)
     yb = torch.empty((M, Nn), dtype=xa.dtype, device=dev)
-    if ya.numel():
+    if ya.numel() and dev.type == "meta":
+        REC.record("zo_dual_matmul", *REC.matmul_cost(
+            M, K, Nn, xa.element_size(), streams=2))
+    elif ya.numel():
         lib = build.library("zo_dual_matmul")
         ptrs = (xa.data_ptr(), xb.data_ptr(), w.data_ptr(), ya.data_ptr(),
                 yb.data_ptr())
@@ -288,6 +311,8 @@ def zo_dual_matmul(xa, xb, w, seed, mu_a, mu_b, *, row_offset=0,
         build.check(err, "zo_dual_matmul")
         LAUNCHES["zo_dual_matmul"] += 1
         LAUNCHES["zo_dual_matmul_tc"] += int(tc)
+        REC.record("zo_dual_matmul", *REC.matmul_cost(
+            M, K, Nn, xa.element_size(), streams=2))
     return ya, yb
 
 
@@ -311,7 +336,9 @@ def zo_matmul(x, w, seed, mu, *, row_offset=0, col_offset=0,
     M, K = x.shape
     Nn = w.shape[1]
     y = torch.empty((M, Nn), dtype=x.dtype, device=dev)
-    if y.numel():
+    if y.numel() and dev.type == "meta":
+        REC.record("zo_matmul", *REC.matmul_cost(M, K, Nn, x.element_size()))
+    elif y.numel():
         lib = build.library("zo_matmul")
         ptrs = (x.data_ptr(), w.data_ptr(), y.data_ptr())
         args = (*ptrs, M, K, Nn, build.DTYPE_CODES[x.dtype], int(perturb),
@@ -328,4 +355,5 @@ def zo_matmul(x, w, seed, mu, *, row_offset=0, col_offset=0,
         build.check(err, "zo_matmul")
         LAUNCHES["zo_matmul"] += 1
         LAUNCHES["zo_matmul_tc"] += int(tc)
+        REC.record("zo_matmul", *REC.matmul_cost(M, K, Nn, x.element_size()))
     return y

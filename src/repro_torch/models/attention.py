@@ -38,7 +38,7 @@ from repro_torch.kernels import ops as O
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.ops import psub
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import DTYPES, ModelConfig
 
 NEG_INF = -2.0e38
 
@@ -156,38 +156,57 @@ def naive_attention(q, k, v, *, causal=True, window=0, cap=None, scale=None):
 
 
 def blocked_attention(q, k, v, *, causal=True, window=0, cap=None,
-                      scale=None, q_chunk=1024, kv_chunk=1024):
+                      scale=None, q_chunk=1024, kv_chunk=1024,
+                      causal_skip=False, p_dtype=torch.float32):
     """Online-softmax attention over (q_chunk x kv_chunk) tiles in plain
-    PyTorch; never materializes the whole (Sq, Skv) score matrix."""
+    PyTorch; never materializes the whole (Sq, Skv) score matrix.
+
+    With ``causal_skip`` each q block visits only the kv blocks that its
+    causal and window masks leave open (the reference's static bounds:
+    about half the products of a causal call, O(S * window) for a local
+    one).  ``p`` and ``v`` enter ``p @ v`` in ``p_dtype``; the running
+    max, sum and accumulator stay f32."""
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
     scale = scale if scale is not None else D ** -0.5
     cq, ck = min(q_chunk, Sq), min(kv_chunk, Skv)
+    pos = torch.arange(max(Sq, Skv), device=q.device)
+    neg_inf = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
     outs = []
     for q0 in range(0, Sq, cq):
         q_blk = q[:, q0:q0 + cq]
         n_q = q_blk.shape[1]
         q_blk = q_blk.reshape(B, n_q, K, G, D).to(torch.float32)
-        q_pos = torch.arange(q0, q0 + n_q, device=q.device)
+        q_pos = pos[q0:q0 + n_q]
         m = torch.full((B, K, G, n_q), NEG_INF, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros((B, K, G, n_q), dtype=torch.float32, device=q.device)
         acc = torch.zeros((B, n_q, K, G, D), dtype=torch.float32,
                           device=q.device)
+        lo, hi = 0, Skv
+        if causal_skip:
+            hi = min(Skv, q0 + n_q) if causal else Skv
+            lo = max(0, q0 - window + 1) if window > 0 else 0
         for k0 in range(0, Skv, ck):
+            if k0 >= hi or k0 + ck <= lo:
+                continue            # every (q, kv) pair of the tile masked
             k_blk = k[:, k0:k0 + ck].to(torch.float32)
-            v_blk = v[:, k0:k0 + ck].to(torch.float32)
-            kv_pos = torch.arange(k0, k0 + k_blk.shape[1], device=q.device)
+            v_blk = v[:, k0:k0 + ck].to(p_dtype)
+            n_k = k_blk.shape[1]
             s = torch.einsum("bqkgd,bskd->bkgqs", q_blk, k_blk) * scale
             s = L.softcap(s, cap)
-            msk = _mask(q_pos, kv_pos, causal, window)
-            s = torch.where(msk[None, None, None], s, _neg_inf_like(s))
+            if (causal and k0 + n_k - 1 > q0) or (
+                    window > 0 and q0 + n_q - 1 - k0 >= window):
+                # some (q, kv) pair of the tile is masked
+                msk = _mask(q_pos, pos[k0:k0 + n_k], causal, window)
+                s = torch.where(msk[None, None, None], s, neg_inf)
             m_new = torch.maximum(m, torch.amax(s, dim=-1))
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = l * alpha + torch.sum(p, dim=-1)
-            pv = torch.einsum("bkgqs,bskd->bqkgd", p, v_blk)
+            pv = torch.einsum("bkgqs,bskd->bqkgd", p.to(p_dtype),
+                              v_blk).to(torch.float32)
             acc = acc * torch.movedim(alpha, 3, 1)[..., None] + pv
             m = m_new
         l = torch.movedim(l, 3, 1)[..., None]
@@ -412,7 +431,9 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
     else:
         o = blocked_attention(q, k, v, causal=True, window=window,
                               cap=cfg.attn_softcap, scale=cfg.attn_scale,
-                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                              causal_skip=cfg.causal_skip,
+                              p_dtype=DTYPES[cfg.attn_p_dtype])
     if cache is not None and not decode:
         _prefill_cache(cache, k, v)
     return _out_proj(params, o.reshape(B, S, q.shape[2] * hd), cdt, tp,

@@ -2,7 +2,10 @@
 ModelConfig` that the dense transformer family, the RG-LRU hybrid
 (RecurrentGemma), xLSTM (mLSTM / sLSTM), the MoE family (qwen3-moe,
 kimi-k2), M-RoPE with its vision stub (qwen2-vl) and the enc-dec with its
-audio stub (seamless-m4t) read, with the same names and defaults."""
+audio stub (seamless-m4t) read, with the same names and defaults.  Of
+the reference's performance knobs it has ``causal_skip`` and
+``attn_p_dtype``; the four that shape XLA's program (``seq_sharding``,
+``remat``, ``remat_policy``, ``scan_layers``) have no eager meaning."""
 from __future__ import annotations
 
 import dataclasses
@@ -68,11 +71,14 @@ class ModelConfig:
     # --- numerics ---
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    # --- server attention (plain PyTorch online softmax) ---
+    # --- server attention (plain PyTorch online softmax) and its knobs ---
     attn_impl: str = "blocked"     # naive | blocked
     q_chunk: int = 1024
     kv_chunk: int = 1024
+    causal_skip: bool = False      # each q block visits only the kv blocks
+                                   # the causal / window mask leaves open
     mlstm_chunk: int = 0           # 0 = sequential scan; >0 = chunkwise
+    attn_p_dtype: str = "float32"  # dtype of the softmax p fed to p @ v
     forward_impl: str = "xla"      # xla | kernel: the client's ZO probe on
                                    # JAX's threefry stream (plain
                                    # forwards, the reference's default) or

@@ -40,6 +40,7 @@ import contextlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models import layers as L
@@ -163,7 +164,8 @@ def _dispatch_compute_combine(xf, gates, idx, up, gate, down,
         C = _capacity(T, cfg)
     else:
         every = TP.all_gather_ints(counts, data_mesh, "data")
-        pos = pos + every[:data_mesh.rank("data")].sum(0)[e_flat]
+        before = dist.get_rank(data_mesh.group("data"))
+        pos = pos + every[:before].sum(0)[e_flat]
         C = _capacity(T * every.shape[0], cfg)
     keep = pos < C
     if _DROPS is not None:

@@ -654,13 +654,15 @@ def decoder_forward(params, cfg: ModelConfig, tokens, enc_out,
 
 
 def full_forward(params, cfg: ModelConfig, inputs, positions=None,
-                 dec_tokens=None):
+                 dec_tokens=None, rules=None):
     """Whole-model forward (client blocks, then server blocks; no aux
     head) -> logits; an enc-dec's decoder runs on ``dec_tokens`` at
-    ``positions``."""
-    smashed = client_forward(params["client"], cfg, inputs, positions)
+    ``positions``.  Under ``rules``' mesh every block is the rank's
+    slab, as in training, and the logits are its vocab slab."""
+    smashed = client_forward(params["client"], cfg, inputs, positions,
+                             rules=rules)
     return server_forward(params, cfg, smashed, positions, dec_tokens,
-                          positions if cfg.enc_dec else None)
+                          positions if cfg.enc_dec else None, rules=rules)
 
 
 def lm_loss(logits, labels, vocab: int, rules=None, width=None):

@@ -1,0 +1,49 @@
+"""Every architecture's config in the port equals the reference's on
+every field both have, at full and at smoke size (the nested ``MoECfg``
+and the ``LayerSpec`` pattern field by field).  The only reference
+fields the port's ``ModelConfig`` lacks are the four that shape XLA's
+program and have no eager meaning (``seq_sharding``, ``remat``,
+``remat_policy``, ``scan_layers``; ROADMAP 7.5)."""
+import dataclasses
+
+import pytest
+
+from repro.configs import gpt2 as JGPT2
+from repro.configs import registry as JREG
+from repro.models.config import ModelConfig as JModelConfig
+from repro_torch.configs import registry as REG
+from repro_torch.models.config import ModelConfig
+
+XLA_ONLY = {"seq_sharding", "remat", "remat_policy", "scan_layers"}
+
+
+def _jax_config(arch, smoke):
+    if arch == "gpt2":
+        return JGPT2.gpt2_tiny() if smoke else JGPT2.gpt2_small()
+    return JREG.get_config(arch, smoke)
+
+
+def _value(v):
+    if dataclasses.is_dataclass(v):
+        return dataclasses.asdict(v)
+    if isinstance(v, tuple):
+        return tuple(_value(x) for x in v)
+    return v
+
+
+def test_port_lacks_only_the_xla_knobs():
+    ours = {f.name for f in dataclasses.fields(ModelConfig)}
+    theirs = {f.name for f in dataclasses.fields(JModelConfig)}
+    assert theirs - ours == XLA_ONLY
+    assert ours <= theirs
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", REG.ARCH_IDS)
+def test_config_equals_reference(arch, smoke):
+    cfg, jcfg = REG.get_config(arch, smoke), _jax_config(arch, smoke)
+    diff = {f.name: (_value(getattr(cfg, f.name)),
+                     _value(getattr(jcfg, f.name)))
+            for f in dataclasses.fields(cfg)
+            if _value(getattr(cfg, f.name)) != _value(getattr(jcfg, f.name))}
+    assert not diff, diff

@@ -45,7 +45,11 @@ NEW_MODULES = ("repro_torch.data.synthetic", "repro_torch.data.partition",
                "repro_torch.distributed.sharding",
                "repro_torch.distributed.collectives",
                "repro_torch.distributed.mesh", "repro_torch.launch.mesh",
-               "repro_torch.distributed.tensor_parallel")
+               "repro_torch.distributed.tensor_parallel",
+               "repro_torch.configs.base", "repro_torch.kernels.records",
+               "repro_torch.launch.costs", "repro_torch.launch.roofline",
+               "repro_torch.launch.dryrun", "repro_torch.launch.sweep",
+               "repro_torch.launch.report")
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_repro():

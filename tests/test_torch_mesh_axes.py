@@ -561,6 +561,17 @@ def test_recurrent_layers_on_1x2_match_unsharded(ranks, case):
         assert widths == ([32] if case == "rg_lru" else []), widths
 
 
+@pytest.mark.parametrize("tag", [c[0] for c in RANKS.PREFILL[2]])
+def test_sharded_prefill_on_1x2_is_the_unsharded_slab(ranks, tag):
+    """The sharded prefill of recurrentgemma, xlstm and kimi-k2 on (1, 2):
+    each rank's logits the vocab slab of the unsharded prefill's
+    (``torch_train_mesh_ranks.prefill_cases``)."""
+    for r, out in enumerate(ranks[1]):
+        fails = str(out[f"prefill|{tag}|fail"])
+        assert not fails, f"rank {r}: {fails}"
+        assert bool(out[f"prefill|{tag}|cut"])
+
+
 def test_reduce_scatter_pair_on_two_ranks(ranks):
     """``reduce_scatter`` on (1, 2): the rank's slice of the sum of the
     ranks' inputs, and its backward the all-gather of the slices'

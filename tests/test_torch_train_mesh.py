@@ -39,7 +39,10 @@ is ``d`` times the losses' rounding) and of every first-order method:
   narrowed to each rank's q head, with M-RoPE grid ids) and
   seamless-m4t-medium's on (2, 2) (the decoder's cross sub-blocks on the
   rank's heads, ``dec_embed`` vocab-parallel), one HERON step on the
-  kernel stream each against the unsharded step.
+  kernel stream each against the unsharded step;
+* the sharded prefill (``make_prefill_step(cfg, rules)``) of gpt2-tiny,
+  qwen2-1.5b, qwen3-moe, qwen2-vl and seamless: each rank's logits the
+  slab of the unsharded prefill's.
 
 The two-rank cases and the steps held to JAX's single-device step are in
 ``test_torch_mesh_axes.py``.
@@ -84,6 +87,18 @@ def test_replicated_leaves_equal_across_ranks(ranks, tag):
                       and "|rep|" in k) == sorted(keys)
         for k in keys:
             np.testing.assert_array_equal(out[k], ranks[0][k], err_msg=k)
+
+
+@pytest.mark.parametrize("tag", [c[0] for c in RANKS.PREFILL[4]])
+def test_sharded_prefill_is_the_unsharded_slab(ranks, tag):
+    """``make_prefill_step(cfg, rules)`` on each rank's slabs: its logits
+    are the (batch rows, vocab columns) slab of the unsharded prefill's
+    at ``RANKS.PREFILL_TOL`` (``torch_train_mesh_ranks.prefill_cases``),
+    and a slab, not the whole."""
+    for r, out in enumerate(ranks):
+        fails = str(out[f"prefill|{tag}|fail"])
+        assert not fails, f"rank {r}: {fails}"
+        assert bool(out[f"prefill|{tag}|cut"])
 
 
 def test_heron_threefry_mesh_step_matches_jax(ranks):

@@ -21,6 +21,9 @@ its world size in one process and writes ``rank<r>.npz``:
   against the whole sub-block;
 * ``misc|...``: ``remesh``, the sphere's slabs, the bridge, the
   checkpoint and the driver cases;
+* ``prefill|<case>|fail``: ``make_prefill_step(cfg, rules)`` on this
+  rank's slabs, its logits against the slab (batch rows, vocab columns)
+  of the unsharded prefill's (each rank runs both);
 * ``moe|<case>|...`` (``torch_moe_ep_cases``): ``moe_ep`` on this rank's
   slabs, its output rows, the gradients of ``sum(out * w)`` (the params'
   summed over the data group where the batch is split, as the step
@@ -500,6 +503,52 @@ def lora_dense_case(out, world):
     out["lora|fail"] = np.array("\n".join(fails))
 
 
+# world -> [(tag, config, model_parallel[, capacity factor])]: the whole
+# model's forward under the rules (a MoE at n_experts / top_k, so no slab
+# drops)
+PREFILL = {4: [("gpt2_2x2", "gpt2-tiny", 2), ("qwen_1x4", "qwen2-1.5b", 4),
+               ("moe_2x2", "qwen3-moe-30b-a3b", 2, 4.0),
+               ("vlm_1x4", "qwen2-vl-2b", 4),
+               ("audio_2x2", "seamless-m4t-medium", 2)],
+           2: [("rg_1x2", "recurrentgemma-9b", 2),
+               ("xlstm_1x2", "xlstm-1.3b", 2),
+               ("kimi_1x2", "kimi-k2-1t-a32b", 2, 4.0)]}
+PREFILL_TOL = dict(rtol=2e-5, atol=2e-5)
+# xlstm's f32 stack is ill-conditioned (ROADMAP queue 3): its forwards
+# are held at an absolute floor of 1e-4 x max|logits|, as in
+# torch_serve_parity
+XLSTM_FLOOR = 1e-4
+
+
+def prefill_cases(inp, out, world):
+    """The sharded prefill of each ``PREFILL`` case against the slab of
+    the unsharded one's logits."""
+    for tag, name, mp, *cf in PREFILL[world]:
+        cfg = config(name, "xla", {"cf": cf[0]} if cf else None)
+        xlstm = cfg.family == "ssm"
+        rules = SH.AxisRules(mesh=make_local_mesh(mp), enable_fsdp=False)
+        params = T.init_lm(cfg, seed=0, device="cpu")
+        batch = batch_of(inp, cfg)
+        with torch.no_grad():
+            full = P.make_prefill_step(cfg)(params, batch)
+            got = P.make_prefill_step(cfg, rules)(
+                SH.shard_tree(params, T.param_shardings(cfg, rules)),
+                place_batch(batch, "cpu", rules))
+        want = SH.shard(full, rules.sharding_for(
+            full.shape, ("batch", None, "vocab")))
+        tol = dict(rtol=0.0, atol=XLSTM_FLOOR * float(full.abs().max())) \
+            if xlstm else PREFILL_TOL
+        fails = []
+        if got.shape != want.shape:
+            fails.append(f"logits {tuple(got.shape)}, the slab "
+                         f"{tuple(want.shape)}")
+        elif not torch.allclose(got, want, **tol):
+            fails.append(f"max err {float((got - want).abs().max()):.3g}")
+        out[f"prefill|{tag}|fail"] = np.array("\n".join(fails))
+        out[f"prefill|{tag}|cut"] = np.array(tuple(got.shape) !=
+                                            tuple(full.shape))
+
+
 def remesh_case(out):
     """``fault.remesh`` over the four ranks: (2, 2), and (4, 1) where the
     model axis does not divide the world."""
@@ -630,6 +679,7 @@ def run_rank(rank, world, workdir):
         for case in MC.world_cases(world):
             moe_case(case, out)
         step_cases(inp, out, world)
+        prefill_cases(inp, out, world)
         rec_layer_cases(out, world)
         lora_dense_case(out, world)
         if world == 4:
