@@ -206,9 +206,25 @@ Phases, one line each (any failure exits non-zero):
      on the host's cores, started after the build (beside phases 2-21;
      phase 22 waits for them): qwen2-1.5b and
      qwen3-moe-30b-a3b train_4k on 16x16, qwen2-1.5b train_4k on
-     2x16x16, prefill_32k, and decode_32k (not_ported), then
-     launch/report.py over their records.
-Phases 9-22 run before phase 8's timings.  The line before the last
+     2x16x16, prefill_32k, and the decode cells (one rank's serve step
+     on its slabs) qwen2-1.5b and qwen3-moe-30b-a3b decode_32k and
+     recurrentgemma-9b long_500k on 16x16, xlstm-1.3b decode_32k on
+     2x16x16, then launch/report.py over their records.
+ 23. serving over the model axis (core/decode.DecodeEngine(rules=)),
+     (1, 2) gloo ranks on the card, each on its slabs: (a) qwen2-1.5b at
+     full width and depth in f32 (8 slots, 24 requests of 256 / 384 /
+     512 prompt tokens, 8 new): greedy streams == the unsharded
+     engine's (run on rank 0) and every rank's, K5 28 an admission on
+     the rank's q heads == the unsharded engine's, none in decode
+     segments, every K5 launch of both engines recorded == plain; (b)
+     recurrentgemma-9b cut 38 -> 4 layers, f32 (4 slots, 8 requests):
+     the same, every K6 launch on the rank's lru slab == plain; (c)
+     qwen2-1.5b in bf16, phase 13's queue at 16 new: a warm-up on every
+     prompt length with every K5 launch recorded == plain, then timed:
+     sustained tok/s, ms a decode step against the rank slab's byte
+     bound, one segment's busy and idle share, peak, the streams' match
+     with phase 13's.  Its decode dry-run cells run in phase 22 (c).
+Phases 9-23 run before phase 8's timings.  The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
 """
@@ -2256,6 +2272,7 @@ def run_threefry_phase(dev, card):
 
 # the sampled configuration of phase 13 (a) and the sampler timing of (b)
 SERVE_SAMPLED = dict(greedy=False, temperature=0.8, top_k=40, top_p=0.95)
+# phase 13's greedy streams of its full-width engines, by config name
 # bf16 tolerance of the last-position logits of an admission's prefill
 # through K5 (and K6) against the same prefill on the plain versions:
 # each K5 output is within one bf16 rounding step (2^-8 relative) of the
@@ -2454,7 +2471,7 @@ def run_serve(dev, card, desc, cfg, slots, prompt_len, max_new, n_req,
     its plain version on its own inputs.  A decode step's byte bound:
     every weight read once (bf16) and every slot's recurrent state read
     and written, over the card's memory rate.  Returns the run's launch
-    counts."""
+    counts and its greedy streams."""
     import torch
     from repro_torch.core import decode as D
     from repro_torch.core import protocols as P
@@ -2569,7 +2586,7 @@ def run_serve(dev, card, desc, cfg, slots, prompt_len, max_new, n_req,
     if not compare:
         del params
         torch.cuda.empty_cache()
-        return counts
+        return counts, streams
     # the eager per-token loop on the queue's shortest-prompt requests:
     # one batch (its time grows with the prompt tokens it feeds one by
     # one; it launches no kernel of the port)
@@ -2605,7 +2622,7 @@ def run_serve(dev, card, desc, cfg, slots, prompt_len, max_new, n_req,
         f"{'agrees' if agree else 'differs'} (plain top-2 gap {gap})")
     del params
     torch.cuda.empty_cache()
-    return counts
+    return counts, streams
 
 
 def run_serve_phase(dev, card):
@@ -2614,12 +2631,13 @@ def run_serve_phase(dev, card):
     least once: 0.92 ms at 3.35 TB/s.  (c) recurrentgemma-9b at full
     width and depth, 38 layers (serving keeps no optimizer state, so
     phase 10's cut does not apply): 18.7 GB, 5.6 ms.  Returns the K5 and
-    K6 launches of (b) and (c)."""
+    K6 launches of (b) and (c), and (b)'s greedy streams (phase 23 (c)
+    holds its own beside them)."""
     import torch
     from repro_torch.configs import qwen2_1_5b, recurrentgemma_9b
     check_serve_smoke(dev)
     torch.cuda.empty_cache()
-    counts = {}
+    counts, streams = {}, {}
     for desc, cfg, kw in (
             ("qwen2-1.5b engine (28 layers, bf16, greedy)",
              qwen2_1_5b.full_config(),
@@ -2629,10 +2647,10 @@ def run_serve_phase(dev, card):
              recurrentgemma_9b.full_config(),
              dict(slots=4, prompt_len=512, max_new=64, n_req=8,
                   segment=16))):
-        c = run_serve(dev, card, desc, cfg, **kw)
+        c, streams[cfg.name] = run_serve(dev, card, desc, cfg, **kw)
         for k in ("flash_attention", "rg_lru_scan"):
             counts[k] = counts.get(k, 0) + c[k]
-    return counts
+    return counts, streams[qwen2_1_5b.full_config().name]
 
 
 # ---------------------------------------------------------------------------
@@ -2941,31 +2959,45 @@ def run_cli(card):
     """14(d): the launch driver as a user runs it, one process each, on
     the smoke config (BigramLM's table is vocab x vocab): a checkpointed
     run of 6 steps and one of 10 that resumes from it, a --fed round and
-    a --fed-async --cutplan round."""
+    a --fed-async --cutplan round.  The three chains (the resume waits
+    for its checkpoint) run side by side: each process spends most of
+    its time starting up on the host."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
     base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
             "qwen2-1.5b", "--smoke", "--device", "cuda", "--batch", "2",
             "--seq", "16"]
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
     with tempfile.TemporaryDirectory() as d:
-        runs = [
-            ("steps 6", ["--ckpt-dir", d, "--ckpt-every", "4", "--steps",
-                         "6"], None),
-            ("steps 10 (resume)", ["--ckpt-dir", d, "--ckpt-every", "4",
-                                   "--steps", "10"],
-             "[train] restored checkpoint at step 6"),
-            ("--fed", ["--fed", "--clients", "4", "--local-steps", "2",
-                       "--uplink", "seed_replay", "--steps", "2"],
-             "[fed] round   1"),
-            ("--fed-async --cutplan", [
+        chains = [
+            [("steps 6", ["--ckpt-dir", d, "--ckpt-every", "4", "--steps",
+                          "6"], None),
+             ("steps 10 (resume)", ["--ckpt-dir", d, "--ckpt-every", "4",
+                                    "--steps", "10"],
+              "[train] restored checkpoint at step 6")],
+            [("--fed", ["--fed", "--clients", "4", "--local-steps", "2",
+                        "--uplink", "seed_replay", "--steps", "2"],
+              "[fed] round   1")],
+            [("--fed-async --cutplan", [
                 "--fed-async", "--clients", "4", "--local-steps", "2",
                 "--steps", "2", "--staleness", "0.5", "--buffer-k", "2",
-                "--cutplan"], "[cutplan] client 3")]
-        for desc, args, want in runs:
-            t0 = time.perf_counter()
-            out = subprocess.run(base + args, capture_output=True, text=True,
-                                 cwd=ROOT, env=env, timeout=600)
-            wall = time.perf_counter() - t0
+                "--cutplan"], "[cutplan] client 3")]]
+
+        def run_chain(chain):
+            done = []
+            for desc, args, want in chain:
+                t0 = time.perf_counter()
+                out = subprocess.run(base + args, capture_output=True,
+                                     text=True, cwd=ROOT, env=env,
+                                     timeout=600)
+                done.append((desc, want, out, time.perf_counter() - t0))
+                if out.returncode != 0:
+                    break
+            return done
+
+        with ThreadPoolExecutor(len(chains)) as pool:
+            results = [r for rs in pool.map(run_chain, chains) for r in rs]
+        for desc, want, out, wall in results:
             if out.returncode != 0:
                 fail(f"launch.train {desc}: exit {out.returncode}: "
                      f"{out.stderr[-2000:]}")
@@ -2973,8 +3005,8 @@ def run_cli(card):
                 fail(f"launch.train {desc}: no {want!r} in its output: "
                      f"{out.stdout[-2000:]}")
             last = out.stdout.strip().splitlines()[-1]
-            log(14, f"launch.train {desc} on {card}: exit 0 in {wall:.1f} s; "
-                f"last line: {last}")
+            log(14, f"launch.train {desc} on {card}: exit 0 in {wall:.1f} s "
+                f"(beside the other chains); last line: {last}")
 
 
 # the ZO kernels a HERON step or round on the kernel stream launches
@@ -3221,7 +3253,7 @@ def run_family_phase(dev, card):
         "experts top-8, vocab 151936 untied, bf16, cut 2; N=2 h=1 "
         "n_pairs=1, 4x256 tokens per client, seed_replay)")
     took("15c")
-    serve = run_serve(dev, card, "qwen3-moe-30b-a3b engine (4 of 48 layers, "
+    serve, _ = run_serve(dev, card, "qwen3-moe-30b-a3b engine (4 of 48 layers, "
                       "bf16, greedy)", moe_round_config(), slots=8,
                       prompt_len=256, max_new=64, n_req=24, segment=16,
                       phase=15, compare=False)
@@ -3538,7 +3570,7 @@ def run_modality_phase(dev, card):
         "n_pairs=1, 4x256 frame embeddings and decoder tokens per client, "
         "seed_replay)", ENC_DEC_ROUND)
     took("16b")
-    serve = run_serve(dev, card, "qwen2-vl-2b engine (28 layers, bf16, "
+    serve, _ = run_serve(dev, card, "qwen2-vl-2b engine (28 layers, bf16, "
                       "greedy, M-RoPE from each slot's position)",
                       qwen2_vl_2b.full_config(), slots=8, prompt_len=512,
                       max_new=64, n_req=8, segment=16, phase=16,
@@ -4329,6 +4361,17 @@ def run_mesh_driver(card, arch="qwen2-1.5b", phase=18, part="d"):
         f"state (finite)")
 
 
+def run_mesh_drivers(card, archs, phase):
+    """20(e) / 21(e): ``run_mesh_driver`` for each of ``archs``, side by
+    side (each torchrun spends most of its time starting up on the
+    host)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(archs)) as pool:
+        for f in [pool.submit(run_mesh_driver, card, a, phase, "e")
+                  for a in archs]:
+            f.result()
+
+
 def run_train_mesh_phase(dev, card):
     """Phase 18: (a) K2 / K4 on column slabs with ``col_offset`` == the
     full-width launch's columns; (b) qwen2-1.5b on (1, 2) as two gloo
@@ -4922,8 +4965,8 @@ def mesh_step(phase, case, rank, world, rules, dev, sync):
 
 
 def mesh_step_rank(rank, world, workdir, phase, device="cuda"):
-    """One rank of phase 20's (a)-(d) or phase 21's (a)-(d)
-    (``chip_smoke.py --mesh-step-rank RANK WORLD DIR PHASE``): a gloo
+    """One rank of phase 20's (a)-(d), phase 21's (a)-(d) or phase 23's
+    (a)-(c) (``chip_smoke.py --mesh-step-rank RANK WORLD DIR PHASE``): a gloo
     group on a FileStore in DIR, every rank on card 0,
     ``make_local_mesh(MESH_STEP_MP)``.  Prints one ``MESH_STEP_RANK
     {json}`` line."""
@@ -4949,9 +4992,12 @@ def mesh_step_rank(rank, world, workdir, phase, device="cuda"):
         mesh = make_local_mesh(MESH_STEP_MP)
         rules = SH.AxisRules(mesh=mesh, enable_fsdp=False)
         res = {"a": check_rg_block(rank, rules, dev)} if phase == 20 else {}
-        for case in MESH_STEP_PHASES[phase][0]:
+        cases, run = ((SERVE_MESH_CASES, serve_mesh_case)
+                      if phase == SERVE_PHASE else
+                      (MESH_STEP_PHASES[phase][0], mesh_step))
+        for case in cases:
             t0 = time.perf_counter()
-            res[case] = mesh_step(phase, case, rank, world, rules, dev, sync)
+            res[case] = run(phase, case, rank, world, rules, dev, sync)
             res[case]["seconds"] = time.perf_counter() - t0
             if cuda:
                 torch.cuda.empty_cache()
@@ -5041,8 +5087,7 @@ def run_rec_mesh_phase(dev, card):
         "d32": "xlstm-1.3b HERON step, kernel stream, f32, full width, 8 "
         "of 48 layers (chunkwise mLSTM, 64)",
         "d16": "xlstm-1.3b HERON step, bf16, 8 of 48 layers"})
-    for arch in ("recurrentgemma-9b", "xlstm-1.3b"):
-        run_mesh_driver(card, arch, 20, "e")
+    run_mesh_drivers(card, ("recurrentgemma-9b", "xlstm-1.3b"), 20)
     log(20, f"(phase 20 took {time.perf_counter() - t0:.1f} s)")
     return step_counts(outs, 20, ("zo_noise", "rg_lru_scan"))
 
@@ -5065,8 +5110,7 @@ def run_mod_mesh_phase(dev, card):
         "d_vlm": "qwen2-vl-2b HERON step, bf16, full width and depth",
         "d_s2s": "seamless-m4t-medium HERON step, bf16, full width and "
         "depth"})
-    for arch in ("qwen2-vl-2b", "seamless-m4t-medium"):
-        run_mesh_driver(card, arch, 21, "e")
+    run_mesh_drivers(card, ("qwen2-vl-2b", "seamless-m4t-medium"), 21)
     log(21, f"(phase 21 took {time.perf_counter() - t0:.1f} s)")
     return step_counts(outs, 21, ("zo_noise", "zo_dual_matmul",
                                   "zo_dual_flash_attention"))
@@ -5083,12 +5127,16 @@ KNOB_P_BF16_BAR = 2.0 ** -7
 # (b): qwen2-1.5b's server attention (B, S, H, Kv, D) in 1024-chunks
 KNOB_SHAPE = (1, 4096, 12, 2, 128)
 KNOB_CHUNK = 1024
-# (c): the dry-run cells, (arch, shape, flags, the status each must end in)
-DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", (), "ok"),
-                ("qwen3-moe-30b-a3b", "train_4k", (), "ok"),
-                ("qwen2-1.5b", "train_4k", ("--multi-pod",), "ok"),
-                ("qwen2-1.5b", "prefill_32k", (), "ok"),
-                ("qwen2-1.5b", "decode_32k", (), "not_ported"))
+# (c): the dry-run cells, (arch, shape, flags); each must end "ok".  The
+# last four are decode cells on the model axis (serving over the mesh)
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", ()),
+                ("qwen3-moe-30b-a3b", "train_4k", ()),
+                ("qwen2-1.5b", "train_4k", ("--multi-pod",)),
+                ("qwen2-1.5b", "prefill_32k", ()),
+                ("qwen2-1.5b", "decode_32k", ()),
+                ("qwen3-moe-30b-a3b", "decode_32k", ()),
+                ("recurrentgemma-9b", "long_500k", ()),
+                ("xlstm-1.3b", "decode_32k", ("--multi-pod",)))
 DRYRUN_TIMEOUT_S = 400
 
 
@@ -5106,7 +5154,7 @@ def start_dryruns():
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
            "CUDA_VISIBLE_DEVICES": ""}
     procs = []
-    for i, (arch, shape, flags, _) in enumerate(DRYRUN_CELLS):
+    for i, (arch, shape, flags) in enumerate(DRYRUN_CELLS):
         out = os.path.join(workdir, f"cell{i}.jsonl")
         log_f = open(os.path.join(workdir, f"cell{i}.log"), "w")
         procs.append((subprocess.Popen(
@@ -5126,12 +5174,12 @@ def stop_dryruns(procs):
 
 
 def finish_dryruns(procs, workdir, t_start):
-    """Wait for (c)'s cells: each exits 0 and ends in its status; their
-    records, and ``launch/report.py`` over them."""
+    """Wait for (c)'s cells: each exits 0 and ends "ok"; their records,
+    and ``launch/report.py`` over them."""
     deadline = t_start + DRYRUN_TIMEOUT_S
     recs = []
-    for (proc, out, log_f), (arch, shape, flags, want) in zip(
-            procs, DRYRUN_CELLS):
+    for (proc, out, log_f), (arch, shape, flags) in zip(procs,
+                                                         DRYRUN_CELLS):
         try:
             rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
         except subprocess.TimeoutExpired:
@@ -5142,14 +5190,10 @@ def finish_dryruns(procs, workdir, t_start):
         if rc != 0:
             fail(f"dry run {arch} {shape} {flags} exited {rc}: {text[-2000:]}")
         rec = json.loads(open(out).read().strip().splitlines()[-1])
-        if rec["status"] != want:
-            fail(f"dry run {arch} {shape} {flags}: status {rec['status']}, "
-                 f"expected {want}: {str(rec)[:2000]}")
+        if rec["status"] != "ok":
+            fail(f"dry run {arch} {shape} {flags}: status {rec['status']}: "
+                 f"{str(rec)[:2000]}")
         recs.append(rec)
-        if want != "ok":
-            log(22, f"(c) dry run {arch} {shape} {rec['mesh']}: "
-                f"{rec['status']} ({rec.get('reason', '')})")
-            continue
         log(22, f"(c) dry run {arch} {shape} {rec['mesh']} rank 0: ok; "
             f"counted in {rec['seconds_compile']} s (built {rec['seconds_lower']}"
             f" s); flops {rec['flops']} bytes {rec['bytes_accessed']} "
@@ -5366,6 +5410,294 @@ def run_dryrun_phase(dev, card, dryruns=None):
         stop_dryruns(procs)
         tmp.cleanup()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 23: serving over the model axis
+# ---------------------------------------------------------------------------
+
+SERVE_PHASE = 23
+# case -> (arch, layers or None for all, dtype, slots, requests, prompt
+# length, new tokens, segment, params seed).  (a) / (b) f32, held to the
+# unsharded engine; (c) bf16, timed, phase 13's qwen2-1.5b engine (its
+# params, queue and slots) at 16 new tokens.  Two gloo ranks on one H100
+# take ~0.19-0.28 s a bf16 decode step (~57 collectives a step through
+# host memory), so the new tokens are few
+SERVE_MESH_CASES = {
+    "a": ("qwen2-1.5b", None, "float32", 8, 24, 512, 8, 8, 23),
+    "b": ("recurrentgemma-9b", 4, "float32", 4, 8, 512, 16, 16, 23),
+    "c": ("qwen2-1.5b", None, "bfloat16", 8, 24, 512, 16, 8, 0)}
+SERVE_MESH_KERNELS = ("flash_attention", "rg_lru_scan")
+
+
+def _serve_mesh_setup(case, dev):
+    """``(cfg, prompts, engine keywords, [K5, K6] per admission)`` of a
+    phase 23 case."""
+    from repro_torch.configs.registry import get_config
+    arch, layers, dtype, slots, n_req, plen, max_new, seg, _ = \
+        SERVE_MESH_CASES[case]
+    cfg = get_config(arch).replace(param_dtype=dtype, compute_dtype=dtype)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    kw = dict(slots=slots, capacity=plen + max_new, segment_len=seg,
+              device=dev)
+    return (cfg, serve_queue(cfg.vocab, n_req, plen), kw,
+            list(n_mixers(cfg)))
+
+
+def _serve_params(cfg, seed, dev, rules=None):
+    """The seeded params, whole, or this rank's slabs under ``rules``."""
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
+    full = T.init_lm(cfg, seed=seed, device=dev, draw_on_device=True)
+    if rules is None:
+        return full
+    slab = SH.shard_tree(full, T.param_shardings(cfg, rules))
+    del full
+    torch.cuda.empty_cache()
+    return slab
+
+
+def _per_call(rec):
+    """The K5 / K6 launches of each recorded admission or segment."""
+    return [[c[k] for k in SERVE_MESH_KERNELS] for _, c in rec]
+
+
+def _counted():
+    return {k: launch_counts()[k] for k in SERVE_MESH_KERNELS}
+
+
+def _check_launch_pattern(desc, rec, n_mixer, n_req):
+    """K5 / K6 ``n_mixer`` per admission, none in decode segments.
+    Returns the admissions' launches."""
+    admit = _per_call(rec["admit"])
+    in_segments = sum(map(sum, _per_call(rec["segment"])))
+    if admit != [n_mixer] * n_req or in_segments:
+        fail(f"{desc}: K5 / K6 per admission {admit} (expected {n_mixer} "
+             f"each), {in_segments} in decode segments")
+    return admit
+
+
+def checked_engine_run(desc, eng, prompts, max_new, n_mixer):
+    """``prompts`` through ``eng`` (greedy) with every K5 launch recorded
+    and held against plain at check_k5's tolerance, and every K6 launch
+    held against plain bit for bit as it returns; ``n_mixer`` K5 / K6
+    launches per admission, none in decode segments.  Returns the
+    streams, the launches and what was checked."""
+    rec = timed_engine(eng)
+    reset_counts()
+    out, k6 = [], []
+    k5 = record_k5_calls(lambda: k6.extend(record_k6_calls(
+        lambda: out.append(run_engine(eng, prompts, max_new)))))
+    del eng._admit_one, eng._decode_segment          # the wrappers' cycle
+    counts = _counted()
+    streams = out.pop()
+    admit = _check_launch_pattern(desc, rec, n_mixer, len(prompts))
+    if sum(map(len, streams)) != len(prompts) * max_new:
+        fail(f"{desc}: {sum(map(len, streams))} tokens")
+    if len(k5) != counts["flash_attention"] or \
+            len(k6) != counts["rg_lru_scan"]:
+        fail(f"{desc}: recorded {len(k5)} K5 / {len(k6)} K6 calls, "
+             f"counted {counts}")
+    return {"streams": streams, "counts": counts, "admit": admit,
+            "k5_worst": check_k5_recorded(desc, k5) if k5 else 0.0,
+            "k5_shapes": sorted({str(tuple(a["q"].shape)) for a, _ in k5}),
+            "k6_shapes": sorted({str(c) for c in check_k6_recorded(desc,
+                                                                   k6)})}
+
+
+def serve_mesh_case(phase, case, rank, world, rules, dev, sync):
+    """23(a)-(c) on this rank: an f32 case held to the unsharded engine
+    (``serve_mesh_check``), the bf16 case timed (``serve_mesh_timed``)."""
+    run = (serve_mesh_check if SERVE_MESH_CASES[case][2] == "float32"
+           else serve_mesh_timed)
+    return run(case, rank, rules, dev, sync)
+
+
+def serve_mesh_check(case, rank, rules, dev, sync):
+    """23(a) / (b) on this rank.  The unsharded engine first, on rank 0
+    alone (the others wait), through ``checked_engine_run``; its greedy
+    streams and launches sent to every rank.  Then the engine on this
+    rank's slabs (``DecodeEngine(rules=)``), checked the same way: its
+    streams equal the unsharded engine's, and its launches too."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import decode as D
+    from repro_torch.tree import tree_leaves
+    cfg, prompts, kw, n_mixer = _serve_mesh_setup(case, dev)
+    max_new, seed = SERVE_MESH_CASES[case][6], SERVE_MESH_CASES[case][8]
+    desc = f"23({case}) rank {rank}"
+    one = [None]
+    if rank == 0:
+        one = [checked_engine_run(
+            f"{desc}, the unsharded engine",
+            D.DecodeEngine(_serve_params(cfg, seed, dev), cfg, **kw),
+            prompts, max_new, n_mixer)]
+        torch.cuda.empty_cache()
+    dist.broadcast_object_list(one, src=0)
+    ref = one[0]
+    slab = _serve_params(cfg, seed, dev, rules)
+    res = checked_engine_run(
+        desc, D.DecodeEngine(slab, cfg, rules=rules, **kw), prompts,
+        max_new, n_mixer)
+    res["slab_bytes"] = sum(t.numel() * t.element_size()
+                            for t in tree_leaves(slab))
+    res["unsharded"] = ref if rank == 0 else None
+    if res["streams"] != ref["streams"]:
+        bad = [i for i, (a, b) in enumerate(zip(res["streams"],
+                                                ref["streams"])) if a != b]
+        fail(f"{desc}: the mesh engine's greedy streams differ from the "
+             f"unsharded engine's in requests {bad}")
+    if res["admit"] != ref["admit"] or res["counts"] != ref["counts"]:
+        fail(f"{desc}: launches {res['counts']}, the unsharded engine's "
+             f"{ref['counts']}")
+    return res
+
+
+def serve_mesh_timed(case, rank, rules, dev, sync):
+    """23(c) on this rank.  A warm-up over the queue's first ``slots``
+    requests, which hold every prompt length of the queue and so every
+    K5 shape of the timed run, through ``checked_engine_run``: every K5
+    launch held against plain.  Then the engine timed per admission and
+    segment (sustained tok/s, ms a decode step against the byte bound of
+    the rank's slab), one segment profiled (busy, idle share), peak
+    memory."""
+    import torch
+    from repro_torch.core import decode as D
+    from repro_torch.tree import tree_leaves
+    cfg, prompts, kw, n_mixer = _serve_mesh_setup(case, dev)
+    max_new, seed = SERVE_MESH_CASES[case][6], SERVE_MESH_CASES[case][8]
+    slots = kw["slots"]
+    desc = f"23({case}) rank {rank}"
+    if {len(p) for p in prompts[:slots]} != {len(p) for p in prompts}:
+        fail(f"{desc}: the warm-up lacks a prompt length of the queue")
+    slab = _serve_params(cfg, seed, dev, rules)
+    warm = checked_engine_run(
+        f"{desc} warm-up", D.DecodeEngine(slab, cfg, rules=rules, **kw),
+        prompts[:slots], 2, n_mixer)
+    eng = D.DecodeEngine(slab, cfg, rules=rules, **kw)
+    rec = timed_engine(eng)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    streams = run_engine(eng, prompts, max_new)
+    wall = time.perf_counter() - t0
+    res = {"counts": _counted(), "streams": streams, "wall_s": wall,
+           "peak": torch.cuda.max_memory_allocated(),
+           "admit": _check_launch_pattern(desc, rec, n_mixer, len(prompts)),
+           "admit_s": sum(t for t, _ in rec["admit"]),
+           "segment_s": [t for t, _ in rec["segment"]],
+           "prefill_tokens": eng.prefill_tokens, "unsharded": None,
+           "slab_bytes": sum(t.numel() * t.element_size()
+                             for t in tree_leaves(slab)),
+           "warm": {k: warm[k] for k in ("counts", "k5_worst", "k5_shapes")}}
+    if sum(map(len, streams)) != len(prompts) * max_new:
+        fail(f"{desc}: {sum(map(len, streams))} tokens")
+    del eng._admit_one, eng._decode_segment
+    with torch.inference_mode():          # one segment, profiled
+        for p in prompts[:slots]:
+            eng.submit(p, max_new)
+        eng._admit()
+        sync()
+        t0 = time.perf_counter()
+        eng._decode_segment()
+        sync()
+        res["segment_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+        res["busy_ms"] = sum(r[0] for r in device_rows(
+            eng._decode_segment)) / 1e3
+    return res
+
+
+def run_serve_mesh_phase(dev, card, unsharded_streams):
+    """Phase 23: (a)-(c) as MESH_STEP_MP gloo rank processes on the card
+    (``chip_smoke.py --mesh-step-rank R W DIR 23``), every rank's streams
+    equal; (c)'s beside ``unsharded_streams`` (phase 13's qwen2-1.5b
+    engine).  Its decode dry-run cells count in phase 22 (c).  Returns
+    the K5 / K6 launches of the ranks' engine runs (rank 0's unsharded
+    ones of (a) / (b) included, (c)'s warm-up not), summed."""
+    t0 = time.perf_counter()
+    outs, wall = run_rank_procs("--mesh-step-rank", MESH_STEP_MP,
+                                [str(SERVE_PHASE)], MESH_STEP_TIMEOUT_S,
+                                "MESH_STEP_RANK")
+    for case in SERVE_MESH_CASES:
+        if len({json.dumps(o[case]["streams"]) for o in outs}) != 1:
+            fail(f"23({case}): the ranks' streams differ")
+    log_serve_mesh(outs, card, unsharded_streams)
+    log(23, f"on {card}: the ranks done in {wall:.1f} s (phase 23 took "
+        f"{time.perf_counter() - t0:.1f} s)")
+    runs = [r for o in outs for c in SERVE_MESH_CASES
+            for r in (o[c], o[c]["unsharded"]) if r]
+    return {k: sum(r["counts"][k] for r in runs) for k in SERVE_MESH_KERNELS}
+
+
+def log_serve_mesh(outs, card, unsharded_streams):
+    """Phase 23's lines: (a) / (b) per rank, and rank 0's unsharded
+    engine; (c) per rank beside phase 13's unsharded streams."""
+    from repro_torch.launch.serve import prompt_lengths
+
+    def checked(s):
+        return (f"launches {s['counts']}, K5 / K6 per admission "
+                f"{s['admit'][0]}, none in decode segments; every K5 launch "
+                f"recorded == plain within check_k5's tolerance (max |d| "
+                f"{s['k5_worst']}) on q {s['k5_shapes']}, every K6 launch on "
+                f"{s['k6_shapes']} == plain bit for bit")
+
+    what = {"a": "qwen2-1.5b engine, f32, full width and depth",
+            "b": "recurrentgemma-9b engine, f32, full width, 4 of 38 layers",
+            "c": "qwen2-1.5b engine, bf16, full width and depth"}
+    for case, (arch, _, dtype, slots, n_req, plen, max_new, seg, _) in \
+            SERVE_MESH_CASES.items():
+        head = (f"({case}) {what[case]} on (1, {MESH_STEP_MP}); {slots} "
+                f"slots, {n_req} requests, prompts "
+                f"{prompt_lengths(plen)}, "
+                f"{max_new} new, segments of {seg}")
+        for r, o in enumerate(outs):
+            s = o[case]
+            if dtype == "float32":
+                if s["unsharded"]:
+                    log(23, f"{head}: the unsharded engine on rank {r}: "
+                        f"{checked(s['unsharded'])}")
+                log(23, f"{head}: rank {r} at {o['coords']}: greedy streams "
+                    f"== the unsharded engine's ({sum(map(len, s['streams']))}"
+                    f" tokens) and every rank's; {checked(s)}; launches == "
+                    f"the unsharded engine's; rank slab {s['slab_bytes']} B; "
+                    f"{s['seconds']:.1f} s")
+                continue
+            total = sum(map(len, s["streams"]))
+            decoded = total - n_req
+            step_ms = statistics.median(1e3 * t / seg
+                                        for t in s["segment_s"])
+            bound, by = bound_ms(s["slab_bytes"], 0, "bfloat16")
+            busy = s["busy_ms"]
+            idle = (f"busy {busy:.3f} ms, idle share "
+                    f"{1 - busy / s['segment_wall_ms']:.3f}" if busy > 0
+                    else "busy not measured (the profiler saw no device "
+                    "time)")
+            same = sum(a == b[:max_new]
+                       for a, b in zip(s["streams"], unsharded_streams))
+            same8 = sum(a[:8] == b[:8]
+                        for a, b in zip(s["streams"], unsharded_streams))
+            w = s["warm"]
+            log(23, f"{head}: rank {r} on {card}: warm-up ({slots} requests, "
+                f"2 new) launches {w['counts']}, every K5 launch recorded == "
+                f"plain within check_k5's tolerance (max |d| {w['k5_worst']})"
+                f" on q {w['k5_shapes']}, the timed run's shapes; timed: "
+                f"{total} tokens in wall_s {s['wall_s']} = sustained "
+                f"{total / s['wall_s']} tok/s; prefill {n_req} admissions "
+                f"{s['admit_s']} s = {s['prefill_tokens'] / s['admit_s']} "
+                f"prompt tok/s; decode {sum(s['segment_s'])} s = "
+                f"{decoded / sum(s['segment_s'])} tok/s; median ms per "
+                f"decode step {step_ms} vs the rank slab's byte bound {bound}"
+                f" ms ({s['slab_bytes']} B, {by}) ({step_ms / bound:.1f}x); "
+                f"one profiled segment of {seg} steps, {slots} live slots: "
+                f"wall {s['segment_wall_ms']} ms, {idle}; "
+                f"max_memory_allocated {s['peak']}; launches {s['counts']} "
+                f"({s['admit'][0]} per admission); streams equal to phase "
+                f"13's unsharded first {max_new} tokens in {same} of {n_req} "
+                f"requests, the first 8 in {same8} (bf16; not gated); "
+                f"{s['seconds']:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -5808,7 +6140,8 @@ def time_kernels(dev, counts, counts_sp, counts_rg, errs, counts_serve,
     ``counts_sp``: of the gpt2-small single-probe forward (K4, K5);
     ``counts_rg``: of the recurrentgemma round (K6); ``counts_serve``: of
     phase 13's two full-width engine runs (K5, K6), added to K5's and
-    K6's; ``counts_train``: of phase 14's two full-width train steps
+    K6's (phase 23's engines on the mesh added to them);
+    ``counts_train``: of phase 14's two full-width train steps
     (K1-K3), added to K1's, K2's and K3's; ``counts_family``: of phase
     15's two full-width rounds (K1) and its MoE engine run (K5), added
     to K1's and K5's; ``counts_modality``: of phase 16's two full-width
@@ -6007,7 +6340,7 @@ def main():
                                sys.argv[4], sys.argv[5])
     if sys.argv[1:2] == ["--moe-ep-rank"]:        # a rank of phase 19
         return moe_ep_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
-    if sys.argv[1:2] == ["--mesh-step-rank"]:     # phase 20's or 21's
+    if sys.argv[1:2] == ["--mesh-step-rank"]:     # phase 20's, 21's or 23's
         return mesh_step_rank(int(sys.argv[2]), int(sys.argv[3]),
                               sys.argv[4], sys.argv[5])
     if not torch.cuda.is_available():
@@ -6059,7 +6392,7 @@ def main():
     took("11")
     run_threefry_phase(dev, card)
     took("12")
-    counts_serve = run_serve_phase(dev, card)
+    counts_serve, qwen_streams = run_serve_phase(dev, card)
     torch.cuda.empty_cache()
     took("13")
     counts_train = run_train_phase(dev, card)
@@ -6089,6 +6422,10 @@ def main():
     counts_tools = run_dryrun_phase(dev, card, dryruns)
     torch.cuda.empty_cache()
     took("22")
+    counts_serve_mesh = run_serve_mesh_phase(dev, card, qwen_streams)
+    counts_serve = {k: counts_serve[k] + counts_serve_mesh[k]
+                    for k in counts_serve}
+    took("23")
     mesh_phases = (counts_mesh, counts_train_mesh, counts_moe_ep,
                    counts_rec_mesh, counts_mod_mesh)
     rows = time_kernels(dev, counts, counts_sp, counts_rg, errs,

@@ -31,6 +31,15 @@ the step as the reference's does (its attention sees the token it feeds,
 whose k/v are then discarded): in an MoE block every slot's token is
 routed and competes for the experts' capacity, so a finished slot's
 hidden state can decide which live tokens an expert drops.
+
+Every piece takes the reference's ``rules``.  On a ("data", "model")
+mesh the serve step and the prefill run on the rank's slabs of the
+params and the caches and return its vocab slab of the logits; the
+sampler reads them gathered over "model"
+(:func:`repro_torch.core.protocols.vocab_logits`), so every rank draws
+the same token from the same key and feeds it to the next step.  The
+engine takes a model axis; its slot batch over "data" is not ported
+(ROADMAP 7.6b), so a mesh whose data axis is above 1 raises there.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ import torch
 from repro_torch.core import prng as R
 from repro_torch.core import protocols as P
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_leaves
@@ -104,7 +114,8 @@ def sample_logits(logits, keys, sampler: SamplerConfig):
 # ===========================================================================
 
 def make_segment_decoder(cfg: ModelConfig, sampler: SamplerConfig,
-                         segment_len: int):
+                         segment_len: int,
+                         rules: SH.AxisRules | None = None):
     """Returns ``segment(params, caches, tok, live, gen, keys, max_new,
     eos_id) -> (caches, tok, out, live, gen)``.
 
@@ -113,8 +124,9 @@ def make_segment_decoder(cfg: ModelConfig, sampler: SamplerConfig,
     each slot emitted (``PAD_ID`` where the slot was finished).  ``gen``
     counts the tokens generated per request (the prefill's first token
     included); a slot finishes when it emits ``eos_id`` or reaches its
-    ``max_new``."""
-    serve = P.make_serve_step(cfg)
+    ``max_new``.  ``rules``: the serve step's on the rank's slabs, its
+    logits gathered over "model" before the sampler."""
+    serve = P.make_serve_step(cfg, rules)
 
     def segment(params, caches, tok, live, gen, keys, max_new, eos_id):
         B = tok.shape[0]
@@ -122,6 +134,7 @@ def make_segment_decoder(cfg: ModelConfig, sampler: SamplerConfig,
                          device=tok.device)
         for s in range(segment_len):
             logits, caches = serve(params, caches, tok, live)
+            logits = P.vocab_logits(logits, cfg, rules)
             step_keys = R.fold_in_many(keys, gen) if sampler.draws else None
             nxt = sample_logits(logits[:, -1, :cfg.vocab].to(torch.float32),
                                 step_keys, sampler)
@@ -136,19 +149,22 @@ def make_segment_decoder(cfg: ModelConfig, sampler: SamplerConfig,
     return segment
 
 
-def make_prompt_consume(cfg: ModelConfig):
+def make_prompt_consume(cfg: ModelConfig,
+                        rules: SH.AxisRules | None = None):
     """``consume(params, caches, prompt) -> (last_logits, caches)``: the
     prompt (B, S) fed one column at a time through the serve step;
     ``last_logits`` (B, 1, vocab_padded) f32 are the logits after its
-    last token."""
-    serve = P.make_serve_step(cfg)
+    last token, the whole vocab (gathered over "model" under
+    ``rules``)."""
+    serve = P.make_serve_step(cfg, rules)
 
     def consume(params, caches, prompt):
         last = torch.zeros((prompt.shape[0], cfg.vocab_padded),
                            dtype=torch.float32, device=prompt.device)
         for t in range(prompt.shape[1]):
             logits, caches = serve(params, caches, prompt[:, t:t + 1])
-            last = logits[:, -1].to(torch.float32)
+            last = P.vocab_logits(logits, cfg, rules)[:, -1].to(
+                torch.float32)
         return last[:, None, :], caches
 
     return consume
@@ -177,24 +193,41 @@ class DecodeEngine:
     for the whole pool, then finished slots are drained.  The slots'
     state (last token, liveness, generated count, key, budget) lives on
     the device; the host reads it after each admission and each
-    segment."""
+    segment.
+
+    ``rules`` with a model axis (the reference's ``DecodeEngine(params,
+    cfg, rules)``): ``params`` are this rank's slabs
+    (``T.param_shardings(cfg, rules)``), every rank of the model group
+    runs the engine on the same queue, and its caches, prefill and steps
+    hold and read the rank's slabs; every rank emits the same tokens.
+    A data axis above 1 raises: the slot batch over "data" is not
+    ported (ROADMAP 7.6b)."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
                  capacity: int = 64, segment_len: int = 32,
                  sampler: SamplerConfig = SamplerConfig(),
-                 eos_id: int = -1, seed: int = 0, device="cuda"):
+                 eos_id: int = -1, seed: int = 0, device="cuda",
+                 rules: SH.AxisRules | None = None):
         P._decoder_only(cfg, "DecodeEngine")
+        rules = P._mesh_rules(rules)
+        if rules is not None and rules.mesh.shape.get("data", 1) > 1:
+            raise NotImplementedError(
+                "DecodeEngine on a data axis above 1: the slot batch over "
+                "\"data\" is not ported (ROADMAP 7.6b); the serve step and "
+                "the prefill take data x model")
         self.device = dev = resolve_device(device)
-        self.params, self.cfg = params, cfg
+        self.params, self.cfg, self.rules = params, cfg, rules
         self.slots, self.capacity = int(slots), int(capacity)
         self.segment_len = int(segment_len)
         self.sampler = sampler
         self.eos_id = int(eos_id)
         self._base_key = R.PRNGKey(seed)
-        self._segment = make_segment_decoder(cfg, sampler, self.segment_len)
+        self._segment = make_segment_decoder(cfg, sampler, self.segment_len,
+                                             rules)
 
         self.caches = P.init_serve_caches(cfg, self.slots, self.capacity,
-                                          per_slot=True, device=dev)
+                                          per_slot=True, device=dev,
+                                          rules=rules)
         self.tok = torch.zeros((self.slots, 1), dtype=torch.int32,
                                device=dev)
         self.live = torch.zeros((self.slots,), dtype=torch.bool, device=dev)
@@ -246,15 +279,18 @@ class DecodeEngine:
         first token with the request's ``fold_in(key, 0)``, copy the
         caches into the slot (KV rows, recurrent state and ``pos``) and
         set the slot's state.  The slot goes live only if the first token
-        is not EOS and the budget allows more.  Returns the first token."""
-        cfg, dev = self.cfg, self.device
+        is not EOS and the budget allows more.  Returns the first token.
+        The batch-1 caches are built under the engine's rules, so their
+        leaves are the slot caches' in the same order."""
+        cfg, dev, rules = self.cfg, self.device, self.rules
         tmp = P.init_serve_caches(cfg, 1, self.capacity, per_slot=True,
-                                  device=dev)
+                                  device=dev, rules=rules)
         prompt = torch.as_tensor(req.prompt, device=dev)[None, :]
-        x = P.decoder_hidden(self.params, cfg, tmp, prompt)
+        x = P.decoder_hidden(self.params, cfg, tmp, prompt, rules=rules)
         # the head on the last position only: the reference's logits
         # [:, -1] of the whole prompt's, without the (S, vocab) f32 block
-        logits = T.lm_head(self.params, cfg, x[:, -1:])
+        logits = P.vocab_logits(T.lm_head(self.params, cfg, x[:, -1:],
+                                          rules), cfg, rules)
         key0 = (R.fold_in(req.key, 0)[None].to(dev) if self.sampler.draws
                 else None)
         first = sample_logits(logits[:, -1, :cfg.vocab].to(torch.float32),

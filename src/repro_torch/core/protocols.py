@@ -54,7 +54,9 @@ The serving steps (``make_cached_prefill_step``, ``make_serve_step``,
 ``init_serve_caches``) are the reference's: the decoder-only archs' cached
 block prefill and decode step, and the enc-dec's decoder step, one token
 cross-attending the encoder output kept in its caches;
-:mod:`repro_torch.core.decode` drives them.
+:mod:`repro_torch.core.decode` drives them.  Like the reference's they
+take ``rules``: on a ("data", "model") mesh each rank holds its slabs of
+the params and the caches and returns its vocab slab of the logits.
 """
 from __future__ import annotations
 
@@ -480,40 +482,61 @@ def make_prefill_step(cfg: ModelConfig, rules: SH.AxisRules | None = None):
 
 
 def decoder_hidden(params, cfg: ModelConfig, caches, tokens, *,
-                   decode: bool = False, live=None):
+                   decode: bool = False, live=None, rules=None):
     """Client then server blocks over ``tokens`` with the serving caches
     (written in place): a block prefill of fresh caches, or with
     ``decode`` one token per slot (cache writes only for ``live`` slots
-    when given).  Returns the hidden states before the head."""
-    x = T.embed_inputs(params["client"], cfg, tokens)
+    when given).  Returns the hidden states before the head.  ``rules``
+    with a mesh: every block on the rank's slabs, the caches
+    :func:`init_serve_caches`' under the same rules."""
+    rules = _mesh_rules(rules)
+    x = T.embed_inputs(params["client"], cfg, tokens, rules)
     x, _ = T.apply_stack(params["client"]["layers"], x, cfg,
                          T.client_specs(cfg), caches=caches["client"],
-                         decode=decode, live=live)
+                         decode=decode, live=live, rules=rules)
     x, _ = T.apply_stack(params["server"]["layers"], x, cfg,
                          T.server_specs(cfg), caches=caches["server"],
-                         decode=decode, live=live)
+                         decode=decode, live=live, rules=rules)
     return x
 
 
-def make_cached_prefill_step(cfg: ModelConfig):
+def vocab_logits(logits, cfg: ModelConfig, rules=None):
+    """The whole padded vocab of logits whose last dim is this rank's
+    vocab slab under ``rules`` (all-gathered over "model"); ``logits``
+    themselves where the rules leave the vocab whole.  The sampler reads
+    the gathered logits, so every rank draws the same token; crop to
+    ``cfg.vocab`` after it, a slab is not the first columns."""
+    rules = _mesh_rules(rules)
+    if T._vocab_v0(cfg, rules) is None:
+        return logits
+    return TP.gather_from(logits, rules.mesh, dim=-1)
+
+
+def make_cached_prefill_step(cfg: ModelConfig,
+                             rules: SH.AxisRules | None = None):
     """Block prefill for serving: one forward over the whole prompt that
     writes the KV / recurrent caches, so decode continues at ``pos =
     prompt_len``.  Returns ``prefill(params, caches, tokens) -> (logits,
     caches)``; the caches must be fresh (``init_serve_caches``, pos 0)
     and are written in place.  On the card the attention layers run K5
     and the RG-LRU layers K6; the mLSTM / sLSTM cells and the MoE
-    dispatch are plain torch, as in the reference."""
+    dispatch are plain torch, as in the reference.  ``rules`` with a
+    mesh: ``params`` the rank's slabs, ``tokens`` its batch rows, the
+    caches ``init_serve_caches(..., rules=rules)``'s, the logits its
+    vocab slab (as :func:`make_prefill_step`)."""
     _decoder_only(cfg, "the cached block prefill")
+    rules = _mesh_rules(rules)
 
     def prefill(params, caches, tokens):
-        x = decoder_hidden(params, cfg, caches, tokens)
-        return T.lm_head(params, cfg, x), caches
+        x = decoder_hidden(params, cfg, caches, tokens, rules=rules)
+        return T.lm_head(params, cfg, x, rules), caches
 
     return prefill
 
 
 def init_serve_caches(cfg: ModelConfig, batch: int, seq: int,
-                      per_slot: bool = False, device="cuda"):
+                      per_slot: bool = False, device="cuda",
+                      rules: SH.AxisRules | None = None):
     """Zeroed caches of the client and server stacks, ``seq`` tokens per
     row.  ``per_slot=True`` lays them out for the decode engine
     (:mod:`repro_torch.core.decode`): every KV cache carries a per-slot
@@ -522,34 +545,46 @@ def init_serve_caches(cfg: ModelConfig, batch: int, seq: int,
     enc-dec's caches are its decoder stack's (``"dec"``, scalar ``pos``
     as in the reference) and the encoder output its cross-attention
     reads, ``"enc_out"`` (batch, seq, d_model), zeros for the caller to
-    fill."""
+    fill.  ``rules`` with a mesh give this rank's slab: its rows of the
+    global ``batch`` over "data" (all of them where the data axis does
+    not divide it), and of each block what it reads on the rank (its kv
+    heads, its recurrent channels or heads); ``enc_out`` whole on
+    d_model."""
     dev = resolve_device(device)
+    rules = _mesh_rules(rules)
+    if rules is not None:
+        batch = rules.sharding_for((batch,), ("batch",)).local_shape[0]
     if cfg.enc_dec:
         return {"dec": T.init_stack_cache(cfg, T.decoder_specs(cfg), batch,
-                                          seq, device=dev),
+                                          seq, device=dev, rules=rules),
                 "enc_out": torch.zeros((batch, seq, cfg.d_model),
                                        dtype=cfg.torch_compute_dtype(),
                                        device=dev)}
     return {part: T.init_stack_cache(cfg, specs(cfg), batch, seq, per_slot,
-                                     dev)
+                                     dev, rules)
             for part, specs in (("client", T.client_specs),
                                 ("server", T.server_specs))}
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, rules: SH.AxisRules | None = None):
     """One decode step: ``serve(params, caches, token, live=None) ->
     (logits, caches)`` for ``token`` (B, 1), the caches written in place
     (only the ``live`` slots' when given).  An enc-dec's step runs its
-    decoder on the token, cross-attending ``caches["enc_out"]``."""
+    decoder on the token, cross-attending ``caches["enc_out"]``.
+    ``rules`` with a mesh: ``params`` the rank's slabs, ``token`` its
+    rows, the caches ``init_serve_caches(..., rules=rules)``'s, the
+    logits its vocab slab (:func:`vocab_logits` gathers them)."""
+    rules = _mesh_rules(rules)
+
     def serve(params, caches, token, live=None):
         if cfg.enc_dec:
             x = T.decoder_forward(params, cfg, token, caches["enc_out"],
                                   caches=caches["dec"], decode=True,
-                                  live=live)
+                                  live=live, rules=rules)
         else:
             x = decoder_hidden(params, cfg, caches, token, decode=True,
-                               live=live)
-        return T.lm_head(params, cfg, x), caches
+                               live=live, rules=rules)
+        return T.lm_head(params, cfg, x, rules), caches
 
     return serve
 

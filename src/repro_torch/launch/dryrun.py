@@ -21,9 +21,10 @@ Each record carries the reference's keys (``seconds_lower`` is the time
 to build the rank's state and batch, ``seconds_compile`` the counted
 run's) and ``"fsdp": false``: the port's mesh step reads every leaf
 whole over "data", where the reference shards storage over it above
-3e9 params (``"fsdp_reference"``; ROADMAP 7.7).  A decode cell whose mesh
-has a model axis above 1 is ``status: "not_ported"``: the port's decode
-step takes no rules (ROADMAP 7.6).  The default output,
+3e9 params (``"fsdp_reference"``; ROADMAP 7.7).  A decode cell counts
+one serve step of the rank's batch rows against its slab of the caches
+(its kv heads, its recurrent channels or heads), as the reference shards
+them.  The default output,
 ``experiments/torch_dryrun.jsonl``, is the port's own.
 """
 from __future__ import annotations
@@ -58,14 +59,7 @@ OUT = os.path.join("experiments", "torch_dryrun.jsonl")
 # the sweep's architectures: the reference's registry (the port's adds
 # gpt2, the paper's LM split)
 SWEEP_ARCHS = tuple(a for a in ARCH_IDS if a != "gpt2")
-DONE = ("ok", "skipped", "not_ported")
-NOT_PORTED = ("decode over the model axis is not ported: the port's "
-              "make_serve_step takes no rules, and a state or a decode step "
-              "under a model axis raises (ROADMAP 7.6)")
-
-
-class NotPorted(Exception):
-    """A cell the port cannot run yet."""
+DONE = ("ok", "skipped")
 
 
 def build_rules(cfg, mesh, n_params: float) -> SH.AxisRules:
@@ -136,18 +130,19 @@ def count_prefill(cfg, shape, mesh):
 
 
 def count_decode(cfg, shape, mesh):
-    """The same for one decode step of a rank's batch slab against its
-    caches (``shape.seq_len`` tokens a row).  Raises :class:`NotPorted`
-    on a mesh with a model axis above 1."""
-    if mesh.shape.get("model", 1) > 1:
-        raise NotPorted(NOT_PORTED)
+    """The same for one decode step (:func:`protocols.make_serve_step`
+    under the rules) of a rank's batch slab against its slab of the
+    caches (``shape.seq_len`` tokens a row): the logits its vocab
+    slab."""
     t0 = time.time()
     counts, rules, params = _setup(cfg, mesh)
-    tok = place_batch({"inputs": CB.decode_token_specs(cfg, shape)},
-                      "meta", rules)["inputs"]
-    caches = P.init_serve_caches(cfg, tok.shape[0], shape.seq_len,
-                                 device="meta")
-    serve = P.make_serve_step(cfg)
+    params = SH.shard_tree(params, T.param_shardings(cfg, rules))
+    b = place_batch({"inputs": CB.decode_token_specs(cfg, shape)}, "meta",
+                    rules)
+    caches = P.init_serve_caches(cfg, shape.global_batch, shape.seq_len,
+                                 device="meta", rules=rules)
+    serve = P.make_serve_step(cfg, P._placed(rules, b))
+    tok = b["inputs"]
     built = time.time() - t0
     with torch.no_grad():
         return C.total_costs(serve, params, caches, tok), counts, built
@@ -201,9 +196,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             costs, counts, built = count_decode(cfg, shape, mesh)
             tokens = shape.global_batch
         t_count = time.time() - t0 - built
-    except NotPorted as e:
-        rec.update(status="not_ported", reason=str(e))
-        return rec
     finally:
         dist.destroy_process_group()
     n_chips = int(np.prod(list(mesh.shape.values())))

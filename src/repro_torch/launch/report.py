@@ -1,6 +1,5 @@
 """Aggregate the port's dry-run jsonl records into roofline tables
-(markdown to stdout), as :mod:`repro.launch.report`; ``not_ported``
-cells are counted apart from errors.
+(markdown to stdout), as :mod:`repro.launch.report`.
 
     PYTHONPATH=src python -m repro_torch.launch.report \\
         [--jsonl experiments/torch_dryrun.jsonl] [--mesh 16x16]
@@ -59,10 +58,6 @@ def table(recs, mesh="16x16"):
             print(f"| {r['arch']} | {r['shape']} | skipped "
                   f"({r.get('reason','')[:40]}...) | | | | | | |")
             continue
-        if r.get("status") == "not_ported":
-            print(f"| {r['arch']} | {r['shape']} | not_ported "
-                  f"({r.get('reason','')[:40]}...) | | | | | | |")
-            continue
         if r.get("status") != "ok":
             print(f"| {r['arch']} | {r['shape']} | ERROR | | | | | | |")
             continue
@@ -80,11 +75,10 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None)
     args = ap.parse_args(argv)
     recs = load(args.jsonl)
-    by = {s: sum(1 for r in recs if r.get("status") == s)
-          for s in ("ok", "skipped", "not_ported")}
-    er = len(recs) - sum(by.values())
-    print(f"cells: {len(recs)} ok={by['ok']} skipped={by['skipped']} "
-          f"not_ported={by['not_ported']} error={er}")
+    ok = sum(1 for r in recs if r.get("status") == "ok")
+    sk = sum(1 for r in recs if r.get("status") == "skipped")
+    er = len(recs) - ok - sk
+    print(f"cells: {len(recs)} ok={ok} skipped={sk} error={er}")
     for mesh in ([args.mesh] if args.mesh else ("16x16", "2x16x16")):
         table(recs, mesh)
 

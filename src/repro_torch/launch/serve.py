@@ -53,7 +53,8 @@ def _sync(dev):
 
 
 def enc_dec_stream(params, cfg, batch: int, prompt_len: int, max_new: int,
-                   sampler: D.SamplerConfig, seed: int = 0, device="cuda"):
+                   sampler: D.SamplerConfig, seed: int = 0, device="cuda",
+                   rules=None):
     """The reference's enc-dec serving loop (``repro.launch.serve.
     _serve_enc_dec``): caches for ``prompt_len + max_new`` tokens whose
     ``enc_out`` is ``normal(PRNGKey(3))``, a ``randint(PRNGKey(1))``
@@ -61,17 +62,27 @@ def enc_dec_stream(params, cfg, batch: int, prompt_len: int, max_new: int,
     make_prompt_consume`), then ``max_new`` tokens, each sampled under
     ``fold_in(fold_in(PRNGKey(seed), row), step)`` and fed back through
     the decoder step.  Returns ``(tokens (batch, max_new), prefill_s,
-    decode_s)``, the seconds on the host clock to the device's end."""
+    decode_s)``, the seconds on the host clock to the device's end.
+
+    ``rules`` with a mesh: ``params`` this rank's slabs, the caches its
+    slab (:func:`repro_torch.core.protocols.init_serve_caches`), the
+    encoder output, prompt and keys its rows of the global ones, the
+    logits gathered over "model" before the sampler; the tokens are its
+    rows."""
     dev = resolve_device(device)
-    serve = P.make_serve_step(cfg)
-    consume = D.make_prompt_consume(cfg)
+    serve = P.make_serve_step(cfg, rules)
+    consume = D.make_prompt_consume(cfg, rules)
     caches = P.init_serve_caches(cfg, batch, prompt_len + max_new,
-                                 device=dev)
-    enc = caches["enc_out"]
-    enc.copy_(R.normal(R.PRNGKey(3), tuple(enc.shape), device=dev))
+                                 device=dev, rules=rules)
+    rows = (slice(None) if P._mesh_rules(rules) is None else
+            slice(*rules.sharding_for((batch,), ("batch",)).bounds[0]))
+    caches["enc_out"].copy_(R.normal(R.PRNGKey(3), (
+        batch, prompt_len + max_new, cfg.d_model), device=dev)[rows])
     prompt = R.randint(R.PRNGKey(1), (batch, prompt_len), 0, cfg.vocab,
-                       device=dev)
-    keys = R.fold_in_many(R.PRNGKey(seed), torch.arange(batch, device=dev))
+                       device=dev)[rows]
+    keys = R.fold_in_many(R.PRNGKey(seed),
+                          torch.arange(batch, device=dev))[rows]
+    batch = prompt.shape[0]
 
     def pick(logits, step):
         sk = (R.fold_in_many(keys, torch.full((batch,), step, device=dev))
@@ -89,7 +100,7 @@ def enc_dec_stream(params, cfg, batch: int, prompt_len: int, max_new: int,
         t0 = time.perf_counter()
         for step in range(1, max_new):
             logits, caches = serve(params, caches, toks[-1])
-            toks.append(pick(logits, step))
+            toks.append(pick(P.vocab_logits(logits, cfg, rules), step))
         _sync(dev)
         t_decode = time.perf_counter() - t0
     return torch.cat(toks, dim=1), t_prefill, t_decode

@@ -1,7 +1,7 @@
 """Run the whole (arch x shape x mesh) dry-run sweep of the port, one
 subprocess per cell (``python -m repro_torch.launch.dryrun``: a fresh
 process group each), resumable from the output jsonl: a cell with an
-``ok``, ``skipped`` or ``not_ported`` record is done.  As
+``ok`` or ``skipped`` record is done.  As
 :mod:`repro.launch.sweep`.
 
     PYTHONPATH=src python -m repro_torch.launch.sweep \\

@@ -27,6 +27,11 @@ prefill and decode write in place; ``pos`` is a scalar, or a ``(B,)``
 vector in the slot-paged layout where every slot decodes at its own
 position.  A local layer's cache is a ring of ``min(seq, window)``
 entries: absolute position ``p`` lives at slot ``p % size``.
+
+Under a model axis (``rules``) serving runs on the rank's heads, as
+training does: the prefill's K5 on its q heads and their kv heads, the
+decode step on the same heads against a cache that holds only those kv
+heads (:attr:`AttnTP.n_kv`), ``wo`` a row slab summed over "model".
 """
 from __future__ import annotations
 
@@ -77,7 +82,7 @@ class AttnTP:
     slab's columns out of the output).  Its k / v heads are its own slab
     where that holds the kv heads of its q heads, else gathered (or, for
     a whole wk / wv, computed whole) and narrowed to its q heads' GQA
-    groups."""
+    groups: ``n_kv`` heads, what a serving cache holds on this rank."""
 
     def __init__(self, cfg: ModelConfig, rules):
         H, K, hd, d = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
@@ -92,6 +97,20 @@ class AttnTP:
         self.h0, self.n_local = ((self.q.col0 // hd, H // mp)
                                  if self.q_local else (0, H))
         self.G = H // K
+        # the narrowing of the k / v heads: None (the rank's q heads fill
+        # their GQA groups in order), a slice of whole groups, or one kv
+        # head per q head
+        self.kv_sel, self.n_kv = None, self.n_local // self.G
+        if not (self.kv_local or self.n_local == H):
+            ids = (self.h0 + torch.arange(self.n_local)) // self.G
+            lo, hi = int(ids[0]), int(ids[-1]) + 1
+            nk = hi - lo
+            if self.n_local % nk == 0 and torch.equal(
+                    ids, lo + torch.arange(self.n_local)
+                    // (self.n_local // nk)):
+                self.kv_sel, self.n_kv = slice(lo, hi), nk
+            else:
+                self.kv_sel, self.n_kv = ids, self.n_local
 
     @classmethod
     def of(cls, cfg, rules):
@@ -104,15 +123,11 @@ class AttnTP:
         """k or v (B, S, K, D) narrowed to this rank's q heads: a slice of
         whole GQA groups where the local heads fill them in order, else
         one kv head per q head."""
-        if self.kv_local or self.n_local == t.shape[2] * self.G:
+        if self.kv_sel is None:
             return t
-        ids = (self.h0 + torch.arange(self.n_local)) // self.G
-        lo, hi = int(ids[0]), int(ids[-1]) + 1
-        nk = hi - lo
-        if self.n_local % nk == 0 and torch.equal(
-                ids, lo + torch.arange(self.n_local) // (self.n_local // nk)):
-            return t[:, :, lo:hi]
-        return t.index_select(2, ids.to(t.device))
+        if isinstance(self.kv_sel, slice):
+            return t[:, :, self.kv_sel]
+        return t.index_select(2, self.kv_sel.to(t.device))
 
 
 def _kv_proj(w, x, xin, cdt, hd, tp, perturb=None):
@@ -342,15 +357,12 @@ def attention_layer(params, x, cfg: ModelConfig, *, positions=None,
     all-reduced over "model"), no RoPE, every query over every encoder
     position, in plain PyTorch (no kernel, as in the reference).
     ``rules`` with a model axis make it tensor-parallel
-    (:class:`AttnTP`), a training-time path."""
+    (:class:`AttnTP`): training, and serving against a cache of the
+    rank's kv heads (:func:`init_kv_cache` with the same rules)."""
     if perturb is not None and (cache is not None or decode
                                 or kv_x is not None):
         raise ValueError("the ZO perturbed forward is a training-time path")
     tp = AttnTP.of(cfg, rules)
-    if tp is not None and (cache is not None or decode):
-        raise NotImplementedError("tensor-parallel attention is the "
-                                  "datacenter step's; serving runs on one "
-                                  "device")
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     cdt = cfg.torch_compute_dtype()
@@ -467,14 +479,23 @@ def _prefill_cache(cache, k, v):
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, seq: int, *, local: bool,
-                  per_slot: bool = False, device="cpu"):
+                  per_slot: bool = False, device="cpu", rules=None):
     """``per_slot=True`` makes ``pos`` a (batch,) vector: the slot-paged
     layout the decode engine uses so requests of different lengths share
-    one batch (see :mod:`repro_torch.core.decode`)."""
+    one batch (see :mod:`repro_torch.core.decode`).
+
+    ``rules`` with a model axis: the kv heads this rank's attention reads
+    (:attr:`AttnTP.n_kv`): its ``n_kv_heads / n`` where the axis divides
+    them and its q heads, else the heads its q heads' GQA groups narrow
+    to, else all.  The reference lays the cache out as ``("batch",
+    "seq_shard", "kv_heads", None)`` and keeps it whole where the model
+    axis does not divide the kv heads; the port keeps only what the rank
+    reads, so a decode step reads it without a gather."""
     size = min(seq, cfg.window) if local and cfg.window > 0 else seq
     hd = cfg.resolved_head_dim
     dt = cfg.torch_compute_dtype()
-    shape = (batch, size, cfg.n_kv_heads, hd)
+    tp = AttnTP.of(cfg, rules)
+    shape = (batch, size, cfg.n_kv_heads if tp is None else tp.n_kv, hd)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
             "pos": torch.zeros((batch,) if per_slot else (),

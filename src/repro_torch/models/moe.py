@@ -304,9 +304,13 @@ def moe_ep_plain(params, x, cfg: ModelConfig, n_data: int, n_model: int):
 
 
 def moe_ffn(params, x, cfg: ModelConfig, rules=None):
-    """The block's MoE FFN: :func:`moe_ep` under ``rules`` with a mesh
-    and more than one token a row (the reference's dispatch rule), else
-    :func:`moe_xla`."""
-    if rules is not None and rules.mesh is not None and x.shape[1] > 1:
+    """The block's MoE FFN: :func:`moe_ep` under ``rules`` with a mesh,
+    else :func:`moe_xla`.  The reference sends one token a row (a decode
+    step) to its ``moe_xla`` under the rules, the global view of the
+    rank's expert slabs; here that is ``moe_ep``'s global-view branch
+    (the model axis never divides ``S == 1``), which gathers the slabs,
+    not :func:`moe_xla`, which would read the rank's slab as if it held
+    every expert."""
+    if rules is not None and rules.mesh is not None:
         return moe_ep(params, x, cfg, rules)
     return moe_xla(params, x, cfg)

@@ -18,24 +18,29 @@ for the mLSTM with ``cfg.mlstm_chunk > 0`` over chunks of that many
 tokens (the chunkwise-parallel form, which keeps one matrix state per
 chunk for the backward instead of one per token).
 
-Under the datacenter step's mesh (``rules`` with a "model" axis, a
-training path) each block runs on the rank's slabs of its leaves, which
-the reference's logical axes place:
+Under a mesh (``rules`` with a "model" axis: the datacenter step, and
+serving, whose states hold what the rank's block reads) each block runs
+on the rank's slabs of its leaves, which the reference's logical axes
+place:
 
 * the RG-LRU on the rank's ``W / n`` "lru" channels: ``in_x`` /
   ``in_gate`` column slabs, the conv's channel slab, ``w_r`` / ``w_i``
   row slabs whose partial products each rank reads only in its own
   columns (:func:`repro_torch.distributed.tensor_parallel.
   reduce_scatter`), their replicated biases read in part, K6 on the
-  ``(B, S, W / n)`` slab, ``out`` a row slab;
+  ``(B, S, W / n)`` slab, ``out`` a row slab; its state ``h`` and conv
+  tail on the same channels;
 * the mLSTM on the rank's heads: ``up``'s column slab gathered whole
   (it does not line up with the cell input / output gate halves), the
   conv on the rank's channels and gathered, ``wq`` / ``wk`` / ``wv``
   column slabs on "heads", the replicated ``w_if`` and norm scale read at
   the rank's heads, ``down`` a row slab; where the "heads" slab cuts
   below a head, q / k / v are gathered and every rank runs every head;
+  its state: the cell's ``(C, n, m)`` of those heads and the conv tail of
+  the rank's channels;
 * the sLSTM whole on every rank (the reference keeps its ``h``
-  replicated): the ``wx`` and ``r`` column slabs gathered once a call.
+  replicated): the ``wx`` and ``r`` column slabs gathered once a call;
+  its state whole.
 
 Every rank reads a replicated input or a gathered tensor only in its own
 part, so a replicated leaf read in part enters through ``copy_to`` (its
@@ -88,13 +93,6 @@ def _conv_tail(xb, cw: int):
     return F.pad(xb, (0, 0, cw - 1, 0))[:, xb.shape[1]:]
 
 
-def _no_state_on_mesh(mixer: str):
-    raise NotImplementedError(
-        f"{mixer}: a cache or a decode step under a model axis is not "
-        "ported; the mesh runs the training path (the sequence without a "
-        "state)")
-
-
 def _rg_lru_gate(p, xc, mesh, c0: int):
     """sigmoid of ``xc @ W + b`` in f32 for ``w_r`` / ``w_i`` (``p``) on
     the ``xc.shape[-1]`` channels from ``c0``: under a live axis W is a
@@ -134,24 +132,24 @@ def rg_lru_block(params, x, cfg: ModelConfig, state=None,
     it (None without a state); decode writes only the rows where ``live``
     is set (all rows when it is None).
 
-    ``rules`` with a model axis dividing W: the sequence path on this
-    rank's "lru" channels ``[c0, c0 + W / n)`` (``x`` enters the
+    ``rules`` with a model axis dividing W: both paths on this rank's
+    "lru" channels ``[c0, c0 + W / n)`` (``x`` enters the
     column-parallel ``in_x`` / ``in_gate`` through one ``copy_to``, K6
-    scans the ``(B, S, W / n)`` slab, ``out`` is a row slab); a state or
-    a decode step there raises."""
+    scans the ``(B, S, W / n)`` slab, the decode step's ``w_r`` / ``w_i``
+    row slabs are reduce-scattered to those channels, ``out`` is a row
+    slab), the state those channels' (:func:`init_rg_lru_state` with the
+    same rules)."""
     w = cfg.lru_width or cfg.d_model
     tp = L.DenseTP.of(rules, (cfg.d_model, w), ("d_model", "lru"))
     tp_out = L.DenseTP.of(rules, (w, cfg.d_model), ("lru", "d_model"))
     mesh, c0 = (None, 0) if tp is None else (tp.mesh, tp.col0)
-    if mesh is not None and (state is not None or decode):
-        _no_state_on_mesh("RG-LRU")
     cdt = cfg.torch_compute_dtype()
     x = TP.copy_to(x, mesh)
     xb = L.dense(params["in_x"], x, cdt, tp=tp)
     gateb = L.dense(params["in_gate"], x, cdt, tp=tp)
     if decode:
         xc, conv = L.causal_conv1d(params["conv"], xb, state["conv"])
-        a, b = _rg_lru_coeffs(params, xc)
+        a, b = _rg_lru_coeffs(params, xc, mesh, c0)
         h = a[:, 0] * state["h"].to(torch.float32) + b[:, 0]
         _store((state["h"], state["conv"]), (h, conv), live)
         y = h[:, None, :]
@@ -167,8 +165,14 @@ def rg_lru_block(params, x, cfg: ModelConfig, state=None,
     return L.dense(params["out"], y, cdt, tp=tp_out), state
 
 
-def init_rg_lru_state(cfg: ModelConfig, batch: int, device="cpu"):
+def init_rg_lru_state(cfg: ModelConfig, batch: int, device="cpu",
+                      rules=None):
+    """Zeroed ``h`` and conv tail; under ``rules`` on this rank's "lru"
+    channels (all of them where the model axis does not divide W)."""
     w = cfg.lru_width or cfg.d_model
+    tp = L.DenseTP.of(rules, (cfg.d_model, w), ("d_model", "lru"))
+    if tp is not None:
+        w //= tp.mesh.shape["model"]
     cdt = cfg.torch_compute_dtype()
     return {"h": torch.zeros((batch, w), dtype=cdt, device=device),
             "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=cdt,
@@ -328,33 +332,24 @@ def mlstm_block(params, x, cfg: ModelConfig, state=None,
     below a head q / k / v are gathered and every head runs on every
     rank; either way ``down``'s row slab reads the rank's channels of the
     gated output.  Every gathered tensor is read in part, so the gathers
-    are ``partial``.  A state or a decode step there raises."""
+    are ``partial``.  The state there is the cell's of the heads the rank
+    runs and the conv tail of its channels (:func:`init_mlstm_state` with
+    the same rules)."""
     cdt, f32 = cfg.torch_compute_dtype(), torch.float32
     B, S, d = x.shape
     H = cfg.n_heads
     dh = d // H
-    tp_up = L.DenseTP.of(rules, (d, 2 * d), ("d_model", "d_ff"))
-    tp_q = L.DenseTP.of(rules, (d, d), ("d_model", "heads"))
-    tp_down = L.DenseTP.of(rules, (d, d), ("d_ff", "d_model"))
-    mesh = None if tp_up is None else tp_up.mesh
-    if mesh is not None:
-        if state is not None or decode:
-            _no_state_on_mesh("mLSTM")
-        if tp_q is None or tp_down is None:
-            raise NotImplementedError(f"mLSTM: a model axis of "
-                                      f"{mesh.shape['model']} divides 2 "
-                                      f"d_model but not d_model {d}")
-    c0, dn = (0, d) if mesh is None else (tp_down.row0,
-                                          d // mesh.shape["model"])
+    tp_up, tp_q, tp_down, mesh, c0, dn = _mlstm_layout(cfg, rules)
     x = TP.copy_to(x, mesh)
     up = TP.gather_from(L.dense(params["up"], x, cdt, tp=tp_up), mesh,
                         partial=True)
     xm, z = torch.chunk(up, 2, dim=-1)
+    xr = xm[..., c0:c0 + dn]            # the rank's conv channels
     if decode:
-        xc, conv = L.causal_conv1d(params["conv"], xm, state["conv"])
+        xc, conv = L.causal_conv1d(params["conv"], xr, state["conv"])
     else:
-        xc = L.causal_conv1d(params["conv"], xm[..., c0:c0 + dn])
-        conv = _conv_tail(xm, cfg.conv_width)
+        xc = L.causal_conv1d(params["conv"], xr)
+        conv = _conv_tail(xr, cfg.conv_width)
     xc = TP.gather_from(F.silu(xc), mesh, partial=True)
     q = L.dense(params["wq"], xc, cdt, tp=tp_q)
     k = L.dense(params["wk"], xc, cdt, tp=tp_q) * (dh ** -0.5)
@@ -386,10 +381,36 @@ def mlstm_block(params, x, cfg: ModelConfig, state=None,
     return L.dense(params["down"], y, cdt, tp=tp_down), state
 
 
-def init_mlstm_state(cfg: ModelConfig, batch: int, device="cpu"):
+def _mlstm_layout(cfg: ModelConfig, rules):
+    """``(tp_up, tp_q, tp_down, mesh, c0, dn)``: the mLSTM's dense
+    layouts under ``rules`` and the rank's channels ``[c0, c0 + dn)``
+    (all ``d`` without a live model axis)."""
+    d = cfg.d_model
+    tp_up = L.DenseTP.of(rules, (d, 2 * d), ("d_model", "d_ff"))
+    tp_q = L.DenseTP.of(rules, (d, d), ("d_model", "heads"))
+    tp_down = L.DenseTP.of(rules, (d, d), ("d_ff", "d_model"))
+    mesh = None if tp_up is None else tp_up.mesh
+    if mesh is None:
+        return tp_up, tp_q, tp_down, None, 0, d
+    if tp_q is None or tp_down is None:
+        raise NotImplementedError(f"mLSTM: a model axis of "
+                                  f"{mesh.shape['model']} divides 2 "
+                                  f"d_model but not d_model {d}")
+    return (tp_up, tp_q, tp_down, mesh, tp_down.row0,
+            d // mesh.shape["model"])
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int, device="cpu",
+                     rules=None):
+    """Zeroed cell ``(C, n, m)`` and conv tail; under ``rules`` the cell
+    of the heads the rank's block runs (its own where its channels hold
+    whole heads, else all) and the tail of its channels."""
     d, H = cfg.d_model, cfg.n_heads
-    return {"cell": _mlstm_state0(batch, H, d // H, device),
-            "conv": torch.zeros((batch, cfg.conv_width - 1, d),
+    dh = d // H
+    dn = _mlstm_layout(cfg, rules)[5]
+    return {"cell": _mlstm_state0(batch, dn // dh if dn % dh == 0 else H,
+                                  dh, device),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, dn),
                                 dtype=cfg.torch_compute_dtype(),
                                 device=device)}
 
@@ -453,14 +474,13 @@ def slstm_block(params, x, cfg: ModelConfig, state=None,
     column slabs of the four gates, whose cell needs every gate of a
     channel and the whole ``h`` each token; so ``x @ wx`` (``x`` through
     ``copy_to``) and ``r`` are gathered once a call and the cell runs
-    whole on every rank (plain gathers: it is replicated)."""
+    whole on every rank (plain gathers: it is replicated), and so does
+    its state."""
     cdt = cfg.torch_compute_dtype()
     B, S, d = x.shape
     r = params["r"]
     tp = L.DenseTP.of(rules, (d, 4 * d), ("d_model", "d_ff"))
     if tp is not None:
-        if state is not None or decode:
-            _no_state_on_mesh("sLSTM")
         x = TP.copy_to(x, tp.mesh)
         r = TP.gather_from(r, tp.mesh)
     gx = L.dense(params["wx"], x, torch.float32)
@@ -475,5 +495,7 @@ def slstm_block(params, x, cfg: ModelConfig, state=None,
     return L.dense(params["out"], h, cdt), state
 
 
-def init_slstm_state(cfg: ModelConfig, batch: int, device="cpu"):
+def init_slstm_state(cfg: ModelConfig, batch: int, device="cpu",
+                     rules=None):
+    """Zeroed ``(c, n, h, m)``, whole on every rank under ``rules``."""
     return {"cell": _slstm_state0(batch, cfg.d_model, device)}

@@ -220,12 +220,16 @@ def _cross_attention(params, x, cfg: ModelConfig, enc_out, rules=None):
 
 
 def init_block_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
-                     seq: int, per_slot: bool = False, device="cpu"):
+                     seq: int, per_slot: bool = False, device="cpu",
+                     rules=None):
+    """A block's zeroed cache; under ``rules`` what the block reads on
+    this rank (its kv heads, its recurrent state's channels or heads)."""
     if spec.mixer in ATTN_MIXERS:
         return {"attn": A.init_kv_cache(cfg, batch, seq,
                                         local=(spec.mixer == "local_attn"),
-                                        per_slot=per_slot, device=device)}
-    return {"rec": _REC[spec.mixer][2](cfg, batch, device)}
+                                        per_slot=per_slot, device=device,
+                                        rules=rules)}
+    return {"rec": _REC[spec.mixer][2](cfg, batch, device, rules=rules)}
 
 
 # ---------------------------------------------------------------------------
@@ -268,13 +272,14 @@ def init_stack(gen, cfg: ModelConfig, specs: Sequence[LayerSpec],
 
 def init_stack_cache(cfg: ModelConfig, specs: Sequence[LayerSpec],
                      batch: int, seq: int, per_slot: bool = False,
-                     device="cpu"):
+                     device="cpu", rules=None):
     """Per segment, a tuple (per unit position) of block caches whose
-    leaves carry a leading ``reps`` axis, as the segment's params do."""
+    leaves carry a leading ``reps`` axis, as the segment's params do
+    (each block's under ``rules``: :func:`init_block_cache`)."""
     out = []
     for unit, reps in build_segments(specs):
-        one = tuple(init_block_cache(spec, cfg, batch, seq, per_slot, device)
-                    for spec in unit)
+        one = tuple(init_block_cache(spec, cfg, batch, seq, per_slot, device,
+                                     rules) for spec in unit)
         out.append(tree_map(
             lambda t: t[None].repeat((reps,) + (1,) * t.dim()), one))
     return out

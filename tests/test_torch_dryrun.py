@@ -12,10 +12,11 @@
   program counts fewer FLOPs and a smaller peak than the unsharded
   program's, with the collectives its mesh implies;
 * one 16x16 ``train_4k`` cell (qwen2-1.5b at full width) has status
-  ``ok`` and the reference's record keys; a decode cell on the model
-  axis is ``not_ported`` and exits 0;
-* the sweep resumes from its jsonl: only cells without an ``ok``,
-  ``skipped`` or ``not_ported`` record run.
+  ``ok`` and the reference's record keys; a 16x16 ``decode_32k`` cell is
+  counted: one rank's serve step on its slabs, fewer FLOPs than the
+  unsharded step's, with the model axis's collectives;
+* the sweep resumes from its jsonl: only cells without an ``ok`` or
+  ``skipped`` record run.
 """
 import json
 import os
@@ -119,15 +120,14 @@ dec = CB.ShapeSpec("d", 64, 8, "decode")
 cfg = get_config("qwen2-1.5b", smoke=True)
 out["decode"] = [D.count_decode(cfg, dec, m)[0]
                  for m in (make_local_mesh(1), one)]
-try:
-    D.count_decode(cfg, dec, mesh)
-    out["decode_model"] = "ran"
-except D.NotPorted as e:
-    out["decode_model"] = str(e)
 dist.destroy_process_group()
 rec = D.run_cell("qwen2-1.5b", "decode_32k", False)
 out["cell"] = rec
 out["group_left"] = dist.is_initialized()
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+out["cell_whole"] = D.count_decode(get_config("qwen2-1.5b"),
+                                   CB.SHAPES["decode_32k"], one)[0]
+dist.destroy_process_group()
 print(json.dumps(out))
 """
 
@@ -170,19 +170,25 @@ def test_count_prefill_on_a_2x4_fake_mesh(fake_mesh, arch):
 
 def test_count_decode_on_the_data_axis(fake_mesh):
     """Decode on (8, 1): each rank decodes its slab of the batch, so an
-    eighth of the unsharded step's work and no collective; on a model
-    axis it is not ported."""
+    eighth of the unsharded step's work and no collective."""
     rank, whole = fake_mesh["decode"]
     assert rank["flops"] * 8 == whole["flops"] > 0
     assert rank["n_collectives"] == 0
-    assert "not ported" in fake_mesh["decode_model"]
-    assert "ROADMAP 7.6" in fake_mesh["decode_model"]
 
 
-def test_decode_cell_on_the_model_axis_is_not_ported(fake_mesh):
-    rec = fake_mesh["cell"]
-    assert rec["status"] == "not_ported" and "7.6" in rec["reason"]
+def test_decode_cell_on_16x16_is_counted(fake_mesh):
+    """qwen2-1.5b's decode_32k cell on 16x16: status ``ok``, the rank's
+    serve step on its slabs (8 of the 128 rows, its heads and vocab
+    slab) counts fewer FLOPs than the unsharded step, and the model
+    axis's all-reduces and logits' gathers are there."""
+    rec, whole = fake_mesh["cell"], fake_mesh["cell_whole"]
+    assert rec["status"] == "ok", rec
+    assert RECORD_KEYS <= set(rec)
     assert rec["mesh"] == "16x16" and rec["method"] == "decode"
+    assert rec["tokens_global"] == 128
+    assert 0 < rec["flops"] < whole["flops"]
+    assert rec["collective_bytes"] > 0 == whole["collective_bytes"]
+    assert rec["collective_by_op"]["all-reduce"] > 0
     assert not fake_mesh["group_left"]
 
 
@@ -206,15 +212,16 @@ def test_train_cell_on_16x16_is_ok(tmp_path):
 
 def test_sweep_resumes(tmp_path):
     """Every cell of the single-pod sweep but one has a done record
-    (``ok``, ``skipped``, ``not_ported``); the one has an ``error``
-    record: the sweep runs that cell alone, and it ends ``not_ported``."""
+    (``ok``, ``skipped``); the one has an ``error`` record: the sweep
+    runs that cell alone, and it ends ``ok``."""
     out = tmp_path / "sweep.jsonl"
     todo = ("qwen2-1.5b", "decode_32k")
     lines = []
     for i, arch in enumerate(D.SWEEP_ARCHS):
         for shape, spec in CB.SHAPES.items():
             method = "heron" if spec.kind == "train" else spec.kind
-            status = (("error" if (arch, shape) == todo else D.DONE[i % 3]))
+            status = (("error" if (arch, shape) == todo else
+                       D.DONE[i % len(D.DONE)]))
             lines.append(json.dumps({"arch": arch, "shape": shape,
                                      "mesh": "16x16", "method": method,
                                      "status": status}))
@@ -225,7 +232,7 @@ def test_sweep_resumes(tmp_path):
            and "done" not in ln]
     assert len(ran) == 1 and "qwen2-1.5b decode_32k 16x16" in ran[0], log
     last = json.loads(out.read_text().strip().splitlines()[-1])
-    assert last["status"] == "not_ported"
+    assert last["status"] == "ok"
     assert len(out.read_text().strip().splitlines()) == len(lines) + 1
     assert np.all([json.loads(ln)["mesh"] == "16x16"
                    for ln in out.read_text().splitlines()])

@@ -18,8 +18,8 @@ In process, against :mod:`repro`:
 * a rank's slab of each recurrent leaf on both streams, bit for bit;
 * every family builds on a model axis (the recurrent, vlm and enc-dec
   ones with sharded mixer, attention, ``cross`` and ``dec_embed``
-  leaves); a recurrent state, a KV cache or a decode step under it
-  raises.
+  leaves); a KV cache holds the kv heads the rank's attention reads;
+  the decode engine refuses a data axis above 1.
 
 Across two gloo ranks (one spawn, ``torch_train_mesh_ranks.py``):
 recurrentgemma's smoke config on the (2, 1) mesh and gpt2-tiny's HERON
@@ -46,7 +46,13 @@ threefry sphere's slabs and its all-reduced norm within 4 f32 ulps of
 the unsharded ones; a checkpoint saved on (1, 2) (rank 0 writing the
 gathered state), restored on one device, giving the mesh's next step
 (gpt2-tiny, recurrentgemma and seamless); the bridge cutting seamless's
-tree to its slabs; the driver on two ranks (qwen2-1.5b and seamless)."""
+tree to its slabs; the driver on two ranks (qwen2-1.5b and seamless);
+serving on (1, 2) (``torch_serve_mesh_ranks``): the engines of
+qwen2-1.5b, recurrentgemma, xlstm and qwen3-moe against the unsharded
+engine and the JAX package's (``jax_serve_reference.py``, beside the
+spawn), seamless's token loop, the MoE at one token a row, each
+recurrent mixer's state and the attention layer's KV cache through a
+prefill and a decode step."""
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -55,6 +61,7 @@ import torch
 
 import torch_moe_ep_cases as MC
 import torch_round_parity as RP
+import torch_serve_mesh_cases as SC
 import torch_train_mesh_ranks as RANKS
 from repro.configs import command_r_35b as JC, gemma2_27b as JG
 from repro.configs import gpt2 as JGPT2, qwen2_1_5b as JQ, qwen2_5_32b as JQ5
@@ -67,6 +74,7 @@ from repro_torch.configs import qwen2_1_5b, qwen2_5_32b, qwen2_vl_2b
 from repro_torch.configs import seamless_m4t_medium
 from repro_torch.configs.registry import get_config
 from repro_torch.core import prng as R
+from repro_torch.core import decode as D
 from repro_torch.core import protocols as P
 from repro_torch.core import zo as Z
 from repro_torch.data.pipeline import place_batch
@@ -75,7 +83,6 @@ from repro_torch.distributed.mesh import Mesh, make_local_mesh
 from repro_torch.kernels import noise as N
 from repro_torch.kernels import ops as O
 from repro_torch.kernels import zo_matmul as ZM
-from repro_torch.models import recurrent as REC
 from repro_torch.models import transformer as T
 from repro_torch.optim import optimizers as OPT
 from repro_torch.tree import tree_leaves_with_path
@@ -398,43 +405,37 @@ def test_recurrent_slabs_of_both_streams_are_the_unsharded_draw(mp):
             assert torch.equal(got_acc[k], S.shard(acc[k], places[k])), k
 
 
-@pytest.mark.parametrize("mixer", ["rg_lru", "mlstm", "slstm"])
-@pytest.mark.parametrize("decode", [False, True])
-def test_recurrent_state_on_a_model_axis_raises(mixer, decode):
-    """A block prefill into a state or a decode step of each recurrent
-    mixer under a (1, 2) mesh raises, naming the mixer: the mesh runs
-    the training path alone."""
-    cfg = get_config("recurrentgemma-9b" if mixer == "rg_lru"
-                     else "xlstm-1.3b", smoke=True)
-    init, block = RANKS._MIXERS[mixer]
-    init_state = {"rg_lru": REC.init_rg_lru_state,
-                  "mlstm": REC.init_mlstm_state,
-                  "slstm": REC.init_slstm_state}[mixer]
-    params = init(torch.Generator().manual_seed(0), cfg)
-    x = torch.zeros((2, 1 if decode else 4, cfg.d_model))
-    name = {"rg_lru": "RG-LRU", "mlstm": "mLSTM", "slstm": "sLSTM"}[mixer]
-    with pytest.raises(NotImplementedError,
-                       match=f"{name}: a cache or a decode step under a "
-                       "model axis is not ported"):
-        block(params, x, cfg, state=init_state(cfg, 2), decode=decode,
-              rules=_slab_rules(2, 0))
+def test_engine_refuses_a_data_axis():
+    """``DecodeEngine`` with a data axis above 1 raises, naming ROADMAP:
+    its slot batch over "data" is not ported (the serve step and the
+    prefill take data x model, for the dry run)."""
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    rules = S.AxisRules(mesh=Mesh({"data": 2, "model": 1},
+                                  coords={"data": 0, "model": 0}))
+    with pytest.raises(NotImplementedError, match="ROADMAP 7.6b"):
+        D.DecodeEngine({}, cfg, device="cpu", rules=rules)
 
 
-@pytest.mark.parametrize("decode", [False, True])
-def test_attention_cache_on_a_model_axis_raises(decode):
-    """A block prefill into a KV cache or a decode step of the attention
-    layer under a (1, 2) mesh raises: the mesh runs the training path
-    (self- and cross-attention) alone, as the reference serves with no
-    mesh."""
+@pytest.mark.parametrize("mp", [2, 4])
+def test_kv_cache_holds_the_heads_the_rank_reads(mp):
+    """``init_kv_cache(rules=)`` on each coordinate of (1, mp): as many kv
+    heads as the rank's attention reads (``AttnTP.kv_heads`` of a k of
+    all heads, or its own slab where the axis divides the kv heads),
+    for qwen2-1.5b's two kv heads (on 4 below a head) and
+    recurrentgemma's one under four q heads."""
     from repro_torch.models import attention as A
-    cfg = get_config("seamless-m4t-medium", smoke=True)
-    params = A.init_attention(torch.Generator().manual_seed(0), cfg)
-    x = torch.zeros((2, 1 if decode else 4, cfg.d_model))
-    with pytest.raises(NotImplementedError,
-                       match="serving runs on one device"):
-        A.attention_layer(params, x, cfg,
-                          cache=A.init_kv_cache(cfg, 2, 8, local=False),
-                          decode=decode, rules=_slab_rules(2, 0))
+    for arch in ("qwen2-1.5b", "recurrentgemma-9b"):
+        cfg = get_config(arch, smoke=True)
+        K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        for m in range(mp):
+            rules = _slab_rules(mp, m)
+            tp = A.AttnTP.of(cfg, rules)
+            read = (K // mp if tp.kv_local else
+                    tp.kv_heads(torch.zeros((1, 1, K, hd))).shape[2])
+            cache = A.init_kv_cache(cfg, 2, 8, local=False, rules=rules)
+            assert cache["k"].shape == (2, 8, read, hd) == \
+                cache["v"].shape, (arch, m)
+            assert tp.n_kv == read == 1, (arch, m)
 
 
 def test_reduce_scatter_is_the_identity_without_a_live_axis():
@@ -481,7 +482,8 @@ def jax_rec_steps():
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory, jax_rec_steps):
-    MC.start_jax(tmp_path_factory)     # overlaps the spawn
+    MC.start_jax(tmp_path_factory)     # overlap the spawn
+    MC.start_jax(tmp_path_factory, *SC.JAX)
     workdir = str(tmp_path_factory.mktemp("world2"))
     return workdir, RANKS.spawn(2, workdir, RP.mesh_step_inputs(),
                                 SPAWN_TIMEOUT_S)
@@ -746,3 +748,85 @@ def jax_moe(tmp_path_factory):
 @pytest.mark.parametrize("case", MC.world_cases(2))
 def test_moe_ep_on_two_ranks_matches_jax(ranks, jax_moe, case):
     MC.assert_ranks_match(ranks[1], case, jax_moe)
+
+
+@pytest.fixture(scope="module")
+def jax_serve(tmp_path_factory):
+    return MC.jax_results(tmp_path_factory, *SC.JAX)
+
+
+@pytest.mark.parametrize("tag,arch,cf", [(t, a, cf) for t, a, _, cf in
+                                         SC.ENGINES[2]])
+def test_engine_on_1x2_matches_unsharded_and_jax(ranks, jax_serve, tag,
+                                                 arch, cf):
+    """``DecodeEngine(rules=)`` on (1, 2), each rank on its slabs
+    (``torch_serve_mesh_ranks.engine_case``; several slots, mixed prompt
+    lengths, slots refilled): its greedy streams equal the unsharded port
+    engine's, every rank's, and the JAX package's engine's on the same
+    params; the logits along them within ``PREFILL_TOL`` (xlstm's at
+    ``XLSTM_FLOOR`` x max |logits|).  qwen2-1.5b (dense), recurrentgemma
+    (RG-LRU on "lru" slabs, local attention on a ring that the 9-token
+    prompts wrap), xlstm (mLSTM heads, sLSTM whole) and qwen3-moe (at a
+    capacity no slab fills)."""
+    SC.assert_engine_matches(ranks[1], tag, arch, cf, jax_serve)
+
+
+def test_s2s_token_loop_on_1x2_matches_jax(ranks, jax_serve):
+    """seamless-m4t-medium's token loop (``launch/serve.enc_dec_stream``:
+    ``make_prompt_consume`` and ``make_serve_step`` with ``rules``) on
+    (1, 2): the unsharded loop's tokens and the JAX package's, the logits
+    along them within ``PREFILL_TOL``."""
+    want = jax_serve["s2s"]
+    for r, out in enumerate(ranks[1]):
+        fails = str(out["serve|s2s|fail"])
+        assert not fails, f"rank {r}:\n{fails}"
+        np.testing.assert_array_equal(out["serve|s2s|mesh"],
+                                      out["serve|s2s|full"])
+        np.testing.assert_array_equal(out["serve|s2s|mesh"], want)
+
+
+@pytest.mark.parametrize("tag", ["shared0", "shared1"])
+def test_moe_ffn_one_token_a_row_on_1x2_matches_unsharded(ranks, tag):
+    """``moe_ffn`` on a (16, 1, d) input (a decode step's) under the
+    (1, 2) mesh, each rank holding half the experts: the unsharded
+    layer's output and its dropped entries (capacity factor 1.0: the
+    capacity binds), with and without a shared expert.  It reached
+    ``moe_xla`` with the rank's expert slab as if it held every expert
+    (ROADMAP queue 3)."""
+    for r, out in enumerate(ranks[1]):
+        fails = str(out[f"serve|moe1|{tag}|fail"])
+        assert not fails, f"rank {r}:\n{fails}"
+        got, want = out[f"serve|moe1|{tag}|drops"]
+        assert got == want > 0, (r, got, want)
+
+
+@pytest.mark.parametrize("decode", [False, True])
+@pytest.mark.parametrize("mixer", ["rg_lru", "mlstm", "slstm"])
+def test_recurrent_state_on_1x2_matches_unsharded(ranks, mixer, decode):
+    """Each recurrent mixer on (1, 2): a block prefill into a fresh state
+    (``init_*_state(rules=)``) and then one decode step with a slot not
+    live, on the rank's slabs against the whole block
+    (``torch_serve_mesh_ranks.rec_state_cases``): the output and the
+    state slab (the RG-LRU's "lru" channels, the mLSTM's heads and conv
+    channels, the sLSTM whole) at ``LAYER_RTOL`` / ``LAYER_ATOL``."""
+    for r, out in enumerate(ranks[1]):
+        err = str(out[f"serve|rec|{mixer}|error"])
+        assert not err, f"rank {r}:\n{err}"
+        fails = str(out[f"serve|rec|{mixer}|{int(decode)}|fail"])
+        assert not fails, f"rank {r}:\n{fails}"
+
+
+@pytest.mark.parametrize("decode", [False, True])
+def test_attention_cache_on_1x2_matches_unsharded(ranks, decode):
+    """The attention layer on (1, 2): a block prefill into a fresh
+    per-slot cache (``init_kv_cache(rules=)``) and then one decode step
+    with a slot not live, against the whole layer: the output and the
+    cache of the kv heads the rank reads, for qwen2-1.5b (a kv head a
+    rank), recurrentgemma's local attention (one kv head narrowed to the
+    rank's GQA group; a 12-token prompt on a ring of 8) and seamless
+    (two kv heads a rank)."""
+    for r, out in enumerate(ranks[1]):
+        err = str(out["serve|attn|error"])
+        assert not err, f"rank {r}:\n{err}"
+        fails = str(out[f"serve|attn|{int(decode)}|fail"])
+        assert not fails, f"rank {r}:\n{fails}"

@@ -82,9 +82,10 @@ def test_per_slab_capacity_is_not_the_global_view():
 
 
 def test_moe_ffn_dispatch_rule(monkeypatch):
-    """``moe_ep`` under rules with a mesh and more than one token a row
-    (the reference's rule); ``moe_xla`` without a mesh and for a decode
-    step's single token."""
+    """``moe_ep`` under rules with a mesh, a decode step's single token a
+    row too (its global view gathers the rank's expert slabs, as the
+    reference's ``moe_xla`` under the rules reads them whole);
+    ``moe_xla`` without a mesh."""
     cfg = RANKS.moe_config(1.0, 0)
     params, x, _ = MC.inputs("1x2_cf1")
     p, tx = tree_map(torch.as_tensor, params), torch.as_tensor(x)
@@ -93,7 +94,7 @@ def test_moe_ffn_dispatch_rule(monkeypatch):
     rules = S.AxisRules(mesh=Mesh({"data": 1, "model": 2},
                                   coords={"data": 0, "model": 0}))
     for r, xs, n in ((None, tx, 0), (S.AxisRules(), tx, 0),
-                     (rules, tx[:, :1], 0), (rules, tx, 1)):
+                     (rules, tx[:, :1], 1), (rules, tx, 1)):
         before = len(calls)
         out = M.moe_ffn(p, xs, cfg, r)
         assert len(calls) - before == n

@@ -123,16 +123,15 @@ def test_report_table_rows_equal_reference(mesh):
     assert "H100" in REPORT.header(mesh)
 
 
-def test_report_counts_not_ported_apart(tmp_path):
+def test_report_summary_equals_reference(tmp_path, monkeypatch):
     import json
-    recs = RECORDS + [{"arch": "qwen2-1.5b", "shape": "decode_32k",
-                       "mesh": "16x16", "status": "not_ported",
-                       "reason": "decode over the model axis"}]
+    import sys
     path = tmp_path / "d.jsonl"
-    path.write_text("".join(json.dumps(r) + "\n" for r in recs))
-    out = "\n".join(_printed(REPORT.main, ["--jsonl", str(path)]))
-    assert "cells: 5 ok=2 skipped=1 not_ported=1 error=1" in out
-    assert "| qwen2-1.5b | decode_32k | not_ported" in out
+    path.write_text("".join(json.dumps(r) + "\n" for r in RECORDS))
+    out = _printed(REPORT.main, ["--jsonl", str(path)])
+    monkeypatch.setattr(sys, "argv", ["report", "--jsonl", str(path)])
+    assert out == _printed(JREPORT.main)
+    assert out[0] == "cells: 4 ok=2 skipped=1 error=1"
 
 
 @pytest.mark.parametrize("arch", ["gpt2-tiny", "qwen2-1.5b"])

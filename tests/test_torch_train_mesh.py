@@ -42,7 +42,12 @@ is ``d`` times the losses' rounding) and of every first-order method:
   kernel stream each against the unsharded step;
 * the sharded prefill (``make_prefill_step(cfg, rules)``) of gpt2-tiny,
   qwen2-1.5b, qwen3-moe, qwen2-vl and seamless: each rank's logits the
-  slab of the unsharded prefill's.
+  slab of the unsharded prefill's;
+* serving (``torch_serve_mesh_ranks``): qwen2-1.5b's ``DecodeEngine`` on
+  (1, 4), its two kv heads below a head (each rank's cache the one kv
+  head of its q head's group), against the unsharded engine and the JAX
+  package's; gpt2-tiny's cached prefill and serve steps on (2, 2), each
+  rank's logits the slab of the unsharded ones'.
 
 The two-rank cases and the steps held to JAX's single-device step are in
 ``test_torch_mesh_axes.py``.
@@ -54,6 +59,7 @@ import pytest
 
 import torch_moe_ep_cases as MC
 import torch_round_parity as RP
+import torch_serve_mesh_cases as SC
 import torch_train_mesh_ranks as RANKS
 
 SPAWN_TIMEOUT_S = 240
@@ -66,7 +72,8 @@ CASES = [f"{tag}_{stream}_{method}" for tag, _, _, steps, _, *opts in
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    MC.start_jax(tmp_path_factory)     # overlaps the spawn
+    MC.start_jax(tmp_path_factory)     # overlap the spawn
+    MC.start_jax(tmp_path_factory, *SC.JAX)
     return RANKS.spawn(4, str(tmp_path_factory.mktemp("world4")),
                        RP.mesh_step_inputs(), SPAWN_TIMEOUT_S)
 
@@ -179,3 +186,29 @@ def test_adafactor_stats_of_a_cut_attention_leaf_are_whole(ranks):
     for out in ranks:
         assert vr in out and vc not in out
         assert not str(out["kimi_2x2_kernel_heron|fail"])
+
+
+@pytest.fixture(scope="module")
+def jax_serve(tmp_path_factory):
+    return MC.jax_results(tmp_path_factory, *SC.JAX)
+
+
+def test_engine_on_1x4_matches_unsharded_and_jax(ranks, jax_serve):
+    """qwen2-1.5b's ``DecodeEngine`` on (1, 4): its two kv heads split
+    below a head, so each rank's caches hold the one kv head its q head
+    reads; greedy streams equal to the unsharded engine's, every rank's
+    and the JAX package's, the logits along them within
+    ``PREFILL_TOL``."""
+    (tag, arch, _, cf), = SC.ENGINES[4]
+    SC.assert_engine_matches(ranks, tag, arch, cf, jax_serve)
+
+
+def test_serve_step_on_2x2_is_the_unsharded_slab(ranks):
+    """gpt2-tiny's cached prefill (``make_cached_prefill_step(cfg,
+    rules)``) and two serve steps (``make_serve_step(cfg, rules)``) on
+    (2, 2), caches from ``init_serve_caches(rules=)`` (each rank's two
+    rows of the four): each call's logits the (batch rows, vocab
+    columns) slab of the unsharded calls' at ``PREFILL_TOL``."""
+    for r, out in enumerate(ranks):
+        fails = str(out["serve|step|fail"])
+        assert not fails, f"rank {r}:\n{fails}"

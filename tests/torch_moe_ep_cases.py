@@ -100,23 +100,25 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 _STARTED = []          # the reference subprocess this worker started
 
 
-def _paths(tmp_path_factory):
-    """The reference's results, log and lock in the session's shared
+def _paths(tmp_path_factory, stem="jax_moe_ep"):
+    """A reference script's results, log and lock in the session's shared
     temporary directory (pytest-xdist's workers share the parent of their
     base temporary directories)."""
     root = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         root = root.parent
-    return (root / "jax_moe_ep.npz", root / "jax_moe_ep.log",
-            root / "jax_moe_ep.lock")
+    return (root / f"{stem}.npz", root / f"{stem}.log",
+            root / f"{stem}.lock")
 
 
-def start_jax(tmp_path_factory):
-    """Start ``jax_moe_ep_reference.py`` (one subprocess on 4 forced host
-    devices) in the background, once a session: the first caller under
-    the file lock starts it, later callers find its log.  A spawning
-    fixture calls it first, so the two overlap."""
-    path, log, lock = _paths(tmp_path_factory)
+def start_jax(tmp_path_factory, stem="jax_moe_ep",
+              script="jax_moe_ep_reference.py"):
+    """Start a JAX reference script (by default ``jax_moe_ep_reference.py``,
+    one subprocess on 4 forced host devices) in the background, once a
+    session: the first caller under the file lock starts it, later
+    callers find its log.  A spawning fixture calls it first, so the two
+    overlap."""
+    path, log, lock = _paths(tmp_path_factory, stem)
     with open(lock, "a") as held:
         fcntl.flock(held, fcntl.LOCK_EX)
         if log.exists():
@@ -128,16 +130,17 @@ def start_jax(tmp_path_factory):
                              "=4").strip()}
         with open(log, "w") as out:
             _STARTED.append(subprocess.Popen(
-                [sys.executable, os.path.join(HERE, "jax_moe_ep_reference.py"),
-                 str(path)], env=env, stdout=out, stderr=subprocess.STDOUT))
+                [sys.executable, os.path.join(HERE, script), str(path)],
+                env=env, stdout=out, stderr=subprocess.STDOUT))
 
 
-def jax_results(tmp_path_factory):
-    """The reference's results (``start_jax``'s subprocess, started here
-    if no worker has): waits for its file, or fails with its log when it
-    failed or outlives ``JAX_TIMEOUT_S``."""
-    start_jax(tmp_path_factory)
-    path, log, _ = _paths(tmp_path_factory)
+def jax_results(tmp_path_factory, stem="jax_moe_ep",
+                script="jax_moe_ep_reference.py"):
+    """A reference script's results (``start_jax``'s subprocess, started
+    here if no worker has): waits for its file, or fails with its log
+    when it failed or outlives ``JAX_TIMEOUT_S``."""
+    start_jax(tmp_path_factory, stem, script)
+    path, log, _ = _paths(tmp_path_factory, stem)
     failed = path.with_suffix(".failed")
     deadline = time.monotonic() + JAX_TIMEOUT_S
     while not path.exists():

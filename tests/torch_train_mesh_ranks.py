@@ -28,7 +28,11 @@ its world size in one process and writes ``rank<r>.npz``:
   slabs, its output rows, the gradients of ``sum(out * w)`` (the params'
   summed over the data group where the batch is split, as the step
   does) with each slab's global bounds, and the dropped entries of the
-  distinct token slabs beside :func:`repro_torch.models.moe.moe_ep_plain`'s.
+  distinct token slabs beside :func:`repro_torch.models.moe.moe_ep_plain`'s;
+* ``serve|...`` (``torch_serve_mesh_ranks``): serving on the rank's
+  slabs (the engines, seamless's token loop, the (2, 2) serve step, the
+  MoE at one token a row, the mixers' states and the KV caches) against
+  the unsharded runs.
 """
 import dataclasses
 import hashlib
@@ -43,6 +47,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 import torch_moe_ep_cases as MC
+import torch_serve_mesh_ranks as SERVE
 from repro_torch.bridge import from_jax, to_numpy
 from repro_torch.checkpoint import checkpoint as CKPT
 from repro_torch.configs.gpt2 import gpt2_tiny
@@ -692,6 +697,7 @@ def run_rank(rank, world, workdir):
                 checkpoint_case(inp, out, workdir, name, tag)
             for tag, arch in DRIVER_ARCHS:
                 driver_case(out, workdir, arch, tag)
+        SERVE.run_cases(out, world)
         blocked = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "repro"))
         assert not blocked, blocked
