@@ -29,8 +29,11 @@ Phases, one line each (any failure exits non-zero):
      n_pairs=1, 4 x 256 tokens each, lean seed-replay uplink): losses,
      uplink bytes, wall time, peak memory, device busy time and idle share,
      and kernel launch counts (all 48 K2 and all 8 K3 launches on the
-     tensor-core route, K1 as phase 2 recorded); and a small round on the
-     card held against the same round on the CPU;
+     tensor-core route, K1 as phase 2 recorded); the same round with
+     remat off (the server keeps every activation) and remat on,
+     alternated, their walls and busy side by side, the launches equal;
+     and a small round on the card held against the same round on the
+     CPU;
   6. the same for ResNet-18 on 32x32x3 images (N=5 clients, 64 images
      each; 10 of the 20 K2 launches, block 0's convs, on the tensor
      cores), and its small config on the card against the CPU;
@@ -57,20 +60,23 @@ Phases, one line each (any failure exits non-zero):
      38 -> 8 layers (N=2 clients, h=1, 2 x 512 tokens each, lean
      seed-replay uplink): the RG-LRU client blocks through the whole-block
      fallback (K1 perturb trees, K6 scan), the server's RG-LRU blocks
-     through K6 forward and backward; and its smoke config on the card
+     through K6 forward (twice: the backward recomputes each checkpointed
+     rep, cfg.remat) and backward; and its smoke config on the card
      against the CPU.
  11. the paper's first-order baselines: one round each of CSE-FSL, SFLV1,
      SFLV2 and SplitLoRA (rank-8 adapters) on gpt2-small at phase 5's
      size and of CSE-FSL and SFLV2 on ResNet-18 at phase 6's: losses,
      wall, device busy and idle share, peak memory, uplink bytes, and no
      K1-K5 launch; one client's local step alone, HERON against CSE-FSL
-     and SFLV2, on both models: device time and peak memory beside the
-     paper's Table I (split.client_costs); a HERON gpt2-small round at
+     and SFLV2 (on gpt2-small each with remat on and off), on both
+     models: device time and peak memory beside the paper's Table I
+     (split.client_costs); a HERON gpt2-small round at
      h=2 with upload_every=2 and the int8 smashed uplink (the server steps
      twice); every method's small round on the card against the CPU,
-     CSE-FSL on the recurrentgemma smoke config through K6 forward and
-     reverse; K2 f32 at ResNet-18's im2col shape timed on the tensor
-     cores (3xTF32) and on the CUDA-core loop.
+     CSE-FSL on the recurrentgemma smoke config through K6 forward (and
+     again in the backward's recompute) and reverse; K2 f32 at
+     ResNet-18's im2col shape timed on the tensor cores (3xTF32) and on
+     the CUDA-core loop.
  12. the threefry stream (forward_impl="xla", the reference's default):
      keys, fold_in, split, bits, uniforms, permutation and Bernoulli
      masks against JAX's golden table bit for bit, normals within 4
@@ -197,7 +203,9 @@ Phases, one line each (any failure exits non-zero):
      kernel records equal, every K1-K3 launch of a recorded step ==
      plain, the timed step's wall and profiled busy beside the roofline
      step time (launch/roofline.py), the tracked peak beside
-     max_memory_allocated above the bytes held; one launch each of K4,
+     max_memory_allocated above the bytes held; the same step with
+     remat off: its wall, busy and both peaks beside remat on's, its
+     updated params within the bf16 bar of remat on's; one launch each of K4,
      K5 and K6 recording the costs of the same call on meta, each ==
      plain; (b) the server's blocked attention at qwen2-1.5b's heads
      (bf16, B 1, S 4096, 1024-chunks) with causal_skip and with
@@ -1250,15 +1258,57 @@ def run_round(dev, k1_launches):
     norms, biases and the tied table) and the direction tree; the
     replay's two direction trees)."""
     from repro_torch.configs.gpt2 import gpt2_small
-    return drive_round(
+    cfg = gpt2_small()
+    if not cfg.remat:
+        fail("gpt2-small has remat off")
+    rates = dict(mu=1e-3, lr=1e-4, server_lr=2e-4)
+    setup = _round_setup(cfg, dev, n_clients=2, h=1, batch=4, seq=256,
+                         **rates)
+    counts = drive_round(
         5, "gpt2-small round (N=2 h=1 n_pairs=1, 4x256 tokens per client, "
-        "seed_replay)",
-        _round_setup(gpt2_small(), dev, n_clients=2, h=1, batch=4, seq=256,
-                     mu=1e-3, lr=1e-4, server_lr=2e-4),
+        "seed_replay)", setup,
         {"zo_dual_matmul": 48, "zo_dual_matmul_tc": 48,
          "zo_dual_flash_attention": 8, "zo_dual_flash_attention_tc": 8,
          "zo_noise": k1_launches, "zo_matmul": 0, "flash_attention": 0,
          "rg_lru_scan": 0})
+    remat_round_walls(cfg, setup, counts, rates)
+    return counts
+
+
+def remat_round_walls(cfg, setup, counts, rates, reps=3):
+    """Phase 5's round from the same state with remat on (its server's
+    backward recomputes each block's forward) and off, alternated
+    ``reps`` times on the host's clock, then each once under the
+    profiler; the remat-off round's launches == ``counts``."""
+    import torch
+    from repro_torch.core import protocols as P
+    state, rb, rnd = setup
+    _, _, rnd_off = _make_round(
+        P.lm_api(cfg.replace(forward_impl="kernel", remat=False)),
+        {"client": state["client"], "server": state["server"]}, rb, 2, 1,
+        **rates)
+    walls = {True: [], False: []}
+    for _ in range(reps):
+        for remat, fn in ((False, rnd_off), (True, rnd)):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = fn(state, rb, ROUND_KEY)
+            torch.cuda.synchronize()
+            walls[remat].append(time.perf_counter() - t0)
+            del out
+            if not remat:
+                check_counts("gpt2-small round, remat off", launch_counts(),
+                             counts)
+    busy = {remat: sum(r[0] for r in device_rows(
+        lambda: fn(state, rb, ROUND_KEY))) / 1e3
+        for remat, fn in ((False, rnd_off), (True, rnd))}
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    log(5, f"gpt2-small round remat on / off, alternated {reps} times: "
+        f"walls {walls[True]} / {walls[False]} s, medians {med[True]} / "
+        f"{med[False]} s ({med[True] / med[False]:.4f}); busy {busy[True]} "
+        f"/ {busy[False]} ms ({busy[True] / busy[False]:.4f}); the "
+        f"remat-off round's launches == the round's")
 
 
 def run_cnn_round(dev):
@@ -1594,10 +1644,11 @@ def rg_round_config():
 
 
 def run_rg_round(dev, card):
-    """Launches: K6 24 = 8 client (2 RG-LRU blocks x 2 halves of the dual
-    batch x 2 clients) + 8 server forward (4 RG-LRU blocks x 2 clients) + 8
-    server backward.  K1 14 = per client 6 (the embedding's noise rows;
-    one theta + mu*U tree for each of the two client blocks' fallback, one
+    """Launches: K6 32 = 8 client (2 RG-LRU blocks x 2 halves of the dual
+    batch x 2 clients) + 16 server forward (4 RG-LRU blocks x 2 clients,
+    each again in the backward's recompute of its checkpointed rep,
+    cfg.remat) + 8 server backward.  K1 14 = per client 6 (the
+    embedding's noise rows; one theta + mu*U tree for each of the two client blocks' fallback, one
     for the aux norm and one for the tied table; the direction tree, all
     17 leaves in one launch) x 2, and the seed replay's two direction
     trees.  No K2-K5: the fallback's products are plain matmuls and the
@@ -1621,7 +1672,7 @@ def run_rg_round(dev, card):
     counts = drive_round(
         10, f"recurrentgemma-9b 8-layer round (N=2 h=1 n_pairs=1, 2x512 "
         f"tokens per client, seed_replay) on {card}", setup,
-        {"rg_lru_scan": 24, "zo_noise": 14, "zo_dual_matmul": 0,
+        {"rg_lru_scan": 32, "zo_noise": 14, "zo_dual_matmul": 0,
          "zo_dual_matmul_tc": 0, "zo_dual_flash_attention": 0,
          "zo_dual_flash_attention_tc": 0, "zo_matmul": 0, "zo_matmul_tc": 0,
          "flash_attention": 0, "flash_attention_tc": 0})
@@ -1704,12 +1755,17 @@ def step_device_time(fn):
             [sum(r[1] for r in rows) for rows in reps], varied, reps[mid])
 
 
-def client_step_costs(desc, api, params, batch, fwd, mu, lr, card):
+def client_step_costs(desc, api, params, batch, fwd, mu, lr, card,
+                      api_remat_off=None):
     """One client's local step alone, HERON against the first-order
     clients: HERON's dual-probe step (K1-K3 or K1-K2, plain SGD on the
     lean uplink), CSE-FSL's (autograd through client and aux head, AdamW)
     and SFLV2's (autograd through client and server, both AdamW; its
-    transient holds the server's activations and gradients too).
+    transient holds the server's activations and gradients too).  With
+    ``api_remat_off`` (the same model with remat off) CSE-FSL's and
+    SFLV2's steps run a second time on it: ``api``'s stacks recompute
+    each rep's forward in the backward (cfg.remat, the reference's
+    default), ``api_remat_off``'s keep every activation.
 
     Peak: ``reset_peak_memory_stats``, then ``max_memory_allocated`` less
     what was allocated before the step (params, optimizer states, batch):
@@ -1740,9 +1796,18 @@ def client_step_costs(desc, api, params, batch, fwd, mu, lr, card):
     cse = P.make_local_update(api, "cse_fsl", zo, adam)
     locked = P.make_locked_step(api, adam, adam)
     oc_h, oc_a, os_ = sgd.init(cp), adam.init(cp), adam.init(sp)
-    steps = {"heron": (lambda: heron(cp, oc_h, batch, 1234), oc_h),
-             "cse_fsl": (lambda: cse(cp, oc_a, batch, 0), oc_a),
-             "sflv2": (lambda: locked(cp, oc_a, sp, os_, batch), oc_a)}
+    # name -> (method, step, its optimizer state)
+    steps = {"heron": ("heron", lambda: heron(cp, oc_h, batch, 1234), oc_h),
+             "cse_fsl": ("cse_fsl", lambda: cse(cp, oc_a, batch, 0), oc_a),
+             "sflv2": ("sflv2", lambda: locked(cp, oc_a, sp, os_, batch),
+                       oc_a)}
+    if api_remat_off is not None:
+        cse_off = P.make_local_update(api_remat_off, "cse_fsl", zo, adam)
+        locked_off = P.make_locked_step(api_remat_off, adam, adam)
+        steps["cse_fsl remat off"] = (
+            "cse_fsl", lambda: cse_off(cp, oc_a, batch, 0), oc_a)
+        steps["sflv2 remat off"] = (
+            "sflv2", lambda: locked_off(cp, oc_a, sp, os_, batch), oc_a)
 
     with torch.no_grad(), FlopCounterMode(display=False) as fc:
         smashed = fwd["client"](cp, batch)
@@ -1761,7 +1826,7 @@ def client_step_costs(desc, api, params, batch, fwd, mu, lr, card):
     del smashed
     resident_params = state_bytes(cp)
     out = {}
-    for name, (fn, opt_state) in steps.items():
+    for name, (method, fn, opt_state) in steps.items():
         fn()
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -1774,7 +1839,7 @@ def client_step_costs(desc, api, params, batch, fwd, mu, lr, card):
         del res
         busy_ms, lo, hi, n_kernels, varied, rows = step_device_time(fn)
         resident = resident_params + state_bytes(opt_state)
-        table = S.client_costs(name, **costs_kw)
+        table = S.client_costs(method, **costs_kw)
         out[name] = (resident + transient, transient, busy_ms)
         log(11, f"{desc} client step {name}: device busy median {busy_ms} "
             f"ms of {STEP_REPS} steps (min {lo}, max {hi}), kernels per "
@@ -1791,8 +1856,10 @@ def client_step_costs(desc, api, params, batch, fwd, mu, lr, card):
             f"{table['peak_mem_bytes']} flops {table['flops']} comm_bytes "
             f"{table['comm_bytes']} on {card}")
     t_h = S.client_costs("heron", **costs_kw)
-    for fo in ("cse_fsl", "sflv2"):
-        t_f = S.client_costs(fo, **costs_kw)
+    for fo, (method, _, _) in steps.items():
+        if method == "heron":
+            continue
+        t_f = S.client_costs(method, **costs_kw)
         log(11, f"{desc} HERON / {fo}: client peak "
             f"{out['heron'][0] / out[fo][0]:.4f} (Table I "
             f"{t_h['peak_mem_bytes'] / t_f['peak_mem_bytes']:.4f}), step "
@@ -1801,6 +1868,14 @@ def client_step_costs(desc, api, params, batch, fwd, mu, lr, card):
             f"{out['heron'][2] / out[fo][2]:.4f} (Table I flops "
             f"{t_h['flops'] / t_f['flops']:.4f}); f_c {f_c} f_a {f_a} "
             f"client params {n_client} aux params {n_aux}")
+    for fo in ("cse_fsl", "sflv2"):
+        if f"{fo} remat off" in out:
+            on, off = out[fo], out[f"{fo} remat off"]
+            log(11, f"{desc} {fo} remat on / off: client peak {on[0]} / "
+                f"{off[0]} B ({on[0] / off[0]:.4f}), step transient {on[1]} "
+                f"/ {off[1]} B, median device busy {on[2]} / {off[2]} ms "
+                f"({on[2] / off[2]:.4f}); HERON {out['heron'][0]} B, "
+                f"{out['heron'][2]} ms on {card}")
     return out
 
 
@@ -1812,6 +1887,8 @@ def run_client_steps(dev, card):
     from repro_torch.models import cnn as CNN
     from repro_torch.models import transformer as T
     cfg = gpt2_small()
+    if not cfg.remat:
+        fail("gpt2-small has remat off")
     rng = np.random.default_rng(0)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 257)), device=dev)
     client_step_costs(
@@ -1821,7 +1898,9 @@ def run_client_steps(dev, card):
         {"inputs": toks[:, :-1], "labels": toks[:, 1:]},
         {"client": lambda cp, b: T.client_forward(cp, cfg, b["inputs"]),
          "aux": lambda cp, s, b: T.aux_forward(cp, cfg, s)},
-        mu=1e-3, lr=1e-4, card=card)
+        mu=1e-3, lr=1e-4, card=card,
+        api_remat_off=P.lm_api(cfg.replace(forward_impl="kernel",
+                                           remat=False)))
     ccfg = full_config()
     client_step_costs(
         "resnet18 (64 images 32x32x3)",
@@ -1903,16 +1982,21 @@ def check_fo_small_rounds():
                           server_eps=1e-6, method="cse_fsl"))
     counts = launch_counts()
     # per (client, step): the client and aux RG-LRU blocks forward and
-    # backward; per server step: its RG-LRU blocks forward and backward
+    # backward; per server step: its RG-LRU blocks forward and backward;
+    # every forward twice, the second in the backward's recompute
+    # (cfg.remat); rg_lru_scan counts the reverse launches too
     n_rg = sum(s.mixer == "rg_lru" for s in T.client_specs(cfg)
                + T.aux_specs(cfg) + T.server_specs(cfg))
     want = 2 * 2 * n_rg
+    if not cfg.remat:
+        fail("the recurrentgemma smoke config has remat off")
     check_counts("recurrentgemma cse_fsl round on the card", counts,
-                 dict(NO_ZO_KERNELS, rg_lru_scan=2 * want,
+                 dict(NO_ZO_KERNELS, rg_lru_scan=3 * want,
                       rg_lru_scan_reverse=want))
-    log(11, f"recurrentgemma cse_fsl round: K6 {want} forward and {want} "
-        f"reverse launches (the FO client's and the server's backward "
-        f"through the scan), no K1-K5")
+    log(11, f"recurrentgemma cse_fsl round: K6 {2 * want} forward ({want} "
+        f"of them the backward's recompute) and {want} reverse launches "
+        f"(the FO client's and the server's backward through the scan), "
+        f"no K1-K5")
 
 
 def time_k2_f32(dev, cnn_k2_launches):
@@ -2685,18 +2769,25 @@ def _lm_batch(vocab, batch, seq, dev, seed=0):
     return {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
 
 
-def _train_parts(cfg, params, lr, server_lr, mu, method="heron"):
-    """``(state, step)``: HERON's datacenter step (ZO-SGD client at
-    ``lr``, AdamW server) from ``PRNGKey(1)``, as the launch driver."""
-    from repro_torch.core import prng as R
+def _train_step(cfg, lr, server_lr, mu, method="heron"):
+    """``(client optimizer, server optimizer, step)``: HERON's datacenter
+    step (ZO-SGD client at ``lr``, AdamW server), as the launch
+    driver."""
     from repro_torch.core import protocols as P
     from repro_torch.core import zo as Z
     from repro_torch.optim.optimizers import adamw, zo_sgd
     copt = zo_sgd(lr) if method == "heron" else adamw(lr, eps=1e-6)
     sopt = adamw(server_lr, eps=1e-6)
-    state = P.init_train_state(R.PRNGKey(1), params, copt, sopt)
-    return state, P.make_train_step(P.lm_api(cfg), method,
-                                    Z.ZOConfig(mu=mu), copt, sopt)
+    return copt, sopt, P.make_train_step(P.lm_api(cfg), method,
+                                         Z.ZOConfig(mu=mu), copt, sopt)
+
+
+def _train_parts(cfg, params, lr, server_lr, mu, method="heron"):
+    """``(state, step)``: :func:`_train_step` from ``PRNGKey(1)``."""
+    from repro_torch.core import prng as R
+    from repro_torch.core import protocols as P
+    copt, sopt, step = _train_step(cfg, lr, server_lr, mu, method)
+    return P.init_train_state(R.PRNGKey(1), params, copt, sopt), step
 
 
 def _state_finite(desc, state):
@@ -4660,7 +4751,8 @@ def run_moe_ep_phase(dev, card):
             f"wall {sc['wall_ms']:.3f} ms (the second step), {idle} (a "
             f"third, profiled), max_memory_allocated {sc['peak']}; "
             f"{sc['k1']} K1 launches; dropped entries by dispatch (client "
-            f"blocks 0-1 clean, perturbed; server blocks 2-3) "
+            f"blocks 0-1 clean, perturbed; server blocks 2-3, then 3 and 2 "
+            f"again in the backward's recompute) "
             f"{sc['drops']} of {sc['entries']} each; loss {sc['loss']} "
             f"client_loss {sc['client_loss']}")
     log(19, f"(a)-(c) on {card}: replicated leaves of (b) equal across the "
@@ -4694,8 +4786,9 @@ REC_OUT_BAR = 2.0 ** -6
 REC_GRAD_BAR = 2.0 ** -5
 # A case: (arch, layers or None for all, dtype, attn_probe, the server
 # AdamW's eps).  20(b)-(d): recurrentgemma at 4 layers is (rg_lru, rg_lru
-# | local_attn, rg_lru): the server runs one RG-LRU block forward and in
-# reverse; xlstm at 8 is 2 mLSTM | 5 mLSTM and the first sLSTM (block 7).
+# | local_attn, rg_lru): the server runs one RG-LRU block forward, again
+# in the backward's recompute (cfg.remat), and in reverse; xlstm at 8 is
+# 2 mLSTM | 5 mLSTM and the first sLSTM (block 7).
 # xlstm's f32 stack is ill-conditioned (ROADMAP queue 3), so its server's
 # AdamW runs at eps 1e-3, as the CPU tests hold it
 REC_STEP_CASES = {"b": ("recurrentgemma-9b", 4, "float32", "weights", 1e-6),
@@ -5274,38 +5367,12 @@ def check_one_launches(dev, card):
     return total
 
 
-def run_costs_step(dev, card):
-    """(a): one qwen2-1.5b HERON datacenter step (bf16, kernel stream, 4 x
-    256 tokens, phase 14's) counted on meta tensors and on the card: the
-    FLOPs and kernel records equal; the recorded step's K1-K3 launches
-    each == plain; the timed step's wall and profiled busy beside the
-    roofline step time, the tracked peak beside max_memory_allocated
-    above the bytes held before the step.  Returns the launches of the
-    timed and the counted step."""
+def _timed_step(desc, step, state, batch):
+    """One qwen2-1.5b step from ``state`` on the host's clock, then one
+    more under the profiler: ``(its updated params, wall s, busy ms,
+    max_memory_allocated above the bytes held before it, those bytes,
+    its launches)``, the launches checked against QWEN_STEP."""
     import torch
-    from repro_torch.configs.qwen2_1_5b import full_config
-    from repro_torch.launch import costs as C
-    from repro_torch.launch import roofline as RL
-    from repro_torch.models import transformer as T
-    cfg = full_config().replace(forward_impl="kernel")
-    batch = _lm_batch(cfg.vocab, 4, 256, dev)
-    mstate, mstep = _train_parts(cfg, T.init_lm(cfg, device="meta"),
-                                 lr=1e-4, server_lr=2e-4, mu=1e-3)
-    # the batch's views on meta, their strides and offsets the card's
-    # (a copy of a strided view is an op with bytes of its own)
-    mbatch = {kk: torch.empty(t.untyped_storage().nbytes() //
-                              t.element_size(), dtype=t.dtype,
-                              device="meta").as_strided(
-        t.shape, t.stride(), t.storage_offset()) for kk, t in batch.items()}
-    t0 = time.perf_counter()
-    meta = C.total_costs(mstep, mstate, mbatch)
-    t_meta = time.perf_counter() - t0
-    del mstate
-    state, step = _train_parts(cfg, T.init_lm(cfg, seed=0, device=dev,
-                                              draw_on_device=True),
-                               lr=1e-4, server_lr=2e-4, mu=1e-3)
-    state = recorded_step("qwen2-1.5b step", step, state, batch, QWEN_STEP,
-                          dev, card, phase=22)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -5316,16 +5383,78 @@ def run_costs_step(dev, card):
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - held
     counts = launch_counts()
-    check_counts("qwen2-1.5b timed step", counts, QWEN_STEP)
+    check_counts(desc, counts, QWEN_STEP)
+    params = new["params"]
     del new
     busy = sum(r[0] for r in device_rows(lambda: step(state, batch))) / 1e3
+    return params, wall, busy, peak, held, counts
+
+
+def run_costs_step(dev, card):
+    """(a): one qwen2-1.5b HERON datacenter step (bf16, kernel stream, 4 x
+    256 tokens, phase 14's) counted on meta tensors and on the card: the
+    FLOPs and kernel records equal; the recorded step's K1-K3 launches
+    each == plain; the timed step's wall and profiled busy beside the
+    roofline step time, the tracked peak beside max_memory_allocated
+    above the bytes held before the step.  Then the same step with remat
+    off (every server activation kept) from the same state: its wall,
+    busy, measured and tracked peaks beside remat on's, its updated
+    params within KNOB_P_BF16_BAR x each leaf's max |entry| of remat on's.
+    Returns the launches of the timed and the counted step."""
+    import torch
+    from repro_torch.configs.qwen2_1_5b import full_config
+    from repro_torch.launch import costs as C
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cfg = full_config().replace(forward_impl="kernel")
+    if not cfg.remat:
+        fail("(a) qwen2-1.5b has remat off")
+    cfg_off = cfg.replace(remat=False)
+    rates = dict(lr=1e-4, server_lr=2e-4, mu=1e-3)
+    batch = _lm_batch(cfg.vocab, 4, 256, dev)
+    # the batch's views on meta, their strides and offsets the card's
+    # (a copy of a strided view is an op with bytes of its own)
+    mbatch = {kk: torch.empty(t.untyped_storage().nbytes() //
+                              t.element_size(), dtype=t.dtype,
+                              device="meta").as_strided(
+        t.shape, t.stride(), t.storage_offset()) for kk, t in batch.items()}
+    metas, t_metas = {}, {}
+    for c in (cfg, cfg_off):
+        mstate, mstep = _train_parts(c, T.init_lm(c, device="meta"),
+                                     **rates)
+        t0 = time.perf_counter()
+        metas[c.remat] = C.total_costs(mstep, mstate, mbatch)
+        t_metas[c.remat] = time.perf_counter() - t0
+        del mstate
+    meta, t_meta = metas[True], t_metas[True]
+    state, step = _train_parts(cfg, T.init_lm(cfg, seed=0, device=dev,
+                                              draw_on_device=True),
+                               **rates)
+    state = recorded_step("qwen2-1.5b step", step, state, batch, QWEN_STEP,
+                          dev, card, phase=22)
+    new_on, wall, busy, peak, held, counts = _timed_step(
+        "qwen2-1.5b timed step", step, state, batch)
     reset_counts()
     t0 = time.perf_counter()
     on_card = C.total_costs(step, state, batch)
     t_card = time.perf_counter() - t0
     counted = launch_counts()
     check_counts("qwen2-1.5b counted step", counted, QWEN_STEP)
-    del state
+    # the same step with remat off, from the same state
+    new_off, wall_off, busy_off, peak_off, _, _ = _timed_step(
+        "qwen2-1.5b timed step, remat off", _train_step(cfg_off, **rates)[2],
+        state, batch)
+    worst, n_equal, n_leaves = 0.0, 0, 0
+    for a, b in zip(tree_leaves(new_off), tree_leaves(new_on)):
+        d = float((a.float() - b.float()).abs().max())
+        bar = KNOB_P_BF16_BAR * float(b.float().abs().max())
+        if not d <= bar:
+            fail(f"(a) remat off: a leaf {tuple(a.shape)} max |d| {d} from "
+                 f"remat on's (bar {bar})")
+        worst, n_equal, n_leaves = (max(worst, d / max(bar, 1e-30)),
+                                    n_equal + int(d == 0), n_leaves + 1)
+    del new_off, new_on, state
     keys = ("flops", "kernel_records", "bytes", "collective_bytes")
     if any(on_card[kk] != meta[kk] for kk in keys):
         fail(f"(a) counted on the card: {[on_card[kk] for kk in keys]}; on "
@@ -5351,6 +5480,16 @@ def run_costs_step(dev, card):
         f"({meta['argument_bytes']} B); max_memory_allocated above the "
         f"{held} B held before the step {peak} B; tracked / measured "
         f"{tracked / peak}")
+    tracked_off = metas[False]["peak_bytes"] - metas[False]["argument_bytes"]
+    log(22, f"(a) remat on / off on {card}: max_memory_allocated above the "
+        f"held state {peak} / {peak_off} B ({peak / peak_off:.4f}); tracked "
+        f"on meta {tracked} / {tracked_off} B; busy {busy} / {busy_off} ms "
+        f"({busy / busy_off if busy_off else float('nan'):.4f}); wall "
+        f"{wall} / {wall_off} s; counted flops {meta['flops']} / "
+        f"{metas[False]['flops']} (remat off counted in "
+        f"{t_metas[False]:.1f} s); updated params: {n_equal} of {n_leaves} "
+        f"leaves equal bit for bit, the worst leaf at {worst:.4f} of its "
+        f"bar ({KNOB_P_BF16_BAR} x its max |entry|)")
     return {kk: counts[kk] + counted[kk] for kk in counts}
 
 

@@ -3,9 +3,13 @@ ModelConfig` that the dense transformer family, the RG-LRU hybrid
 (RecurrentGemma), xLSTM (mLSTM / sLSTM), the MoE family (qwen3-moe,
 kimi-k2), M-RoPE with its vision stub (qwen2-vl) and the enc-dec with its
 audio stub (seamless-m4t) read, with the same names and defaults.  Of
-the reference's performance knobs it has ``causal_skip`` and
-``attn_p_dtype``; the four that shape XLA's program (``seq_sharding``,
-``remat``, ``remat_policy``, ``scan_layers``) have no eager meaning."""
+the reference's performance knobs it has ``causal_skip``,
+``attn_p_dtype`` and ``remat`` (activation checkpointing:
+``torch.utils.checkpoint`` where the reference has ``jax.checkpoint``);
+the two that shape only XLA's program (``seq_sharding``,
+``scan_layers``) have no eager meaning, and ``remat_policy`` has none
+yet: its ``"save_gathers"`` keeps FSDP-gathered MoE weights across the
+backward's recompute, and the port gathers none (ROADMAP 7.7)."""
 from __future__ import annotations
 
 import dataclasses
@@ -79,6 +83,8 @@ class ModelConfig:
                                    # the causal / window mask leaves open
     mlstm_chunk: int = 0           # 0 = sequential scan; >0 = chunkwise
     attn_p_dtype: str = "float32"  # dtype of the softmax p fed to p @ v
+    remat: bool = True             # activation checkpointing on each rep
+                                   # of a stack segment (training only)
     forward_impl: str = "xla"      # xla | kernel: the client's ZO probe on
                                    # JAX's threefry stream (plain
                                    # forwards, the reference's default) or

@@ -44,6 +44,7 @@ import dataclasses
 from typing import Any, Sequence
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as SH
@@ -285,6 +286,19 @@ def init_stack_cache(cfg: ModelConfig, specs: Sequence[LayerSpec],
     return out
 
 
+def _apply_rep(x, unit, params_rep, cache_rep, seg_seeds, r, cfg, perturb,
+               kw):
+    """Rep ``r`` of a segment's ``unit``: its blocks in order."""
+    for j, spec in enumerate(unit):
+        pj = None
+        if seg_seeds is not None and O.any_seed(seg_seeds[j]):
+            pj = dataclasses.replace(perturb, seeds=seg_seeds[j], rep=r)
+        x, _ = apply_block(params_rep[j], x, spec, cfg,
+                           cache=None if cache_rep is None else cache_rep[j],
+                           perturb=pj, **kw)
+    return x
+
+
 def apply_stack(stack_params, x, cfg: ModelConfig,
                 specs: Sequence[LayerSpec], *, positions=None, caches=None,
                 decode=False, live=None, enc_out=None, perturb=None,
@@ -292,24 +306,30 @@ def apply_stack(stack_params, x, cfg: ModelConfig,
     """Returns ``(x, caches)``; the caches (``init_stack_cache``'s
     layout) are written in place, rep r through its views ``c[r]``.
     ``perturb.seeds`` (if given) is a list mirroring ``stack_params``: one
-    seed per stacked leaf; rep r runs with ``Perturb.rep = r``."""
+    seed per stacked leaf; rep r runs with ``Perturb.rep = r``.
+
+    With ``cfg.remat``, outside decode, without caches and where autograd
+    records (a first-order forward), each rep of a segment's unit runs
+    under a non-reentrant ``torch.utils.checkpoint``, as the reference
+    wraps its scan body in ``jax.checkpoint``: the backward recomputes
+    the rep's forward from its input.  The params reach the rep nested in
+    lists and dicts, which only the non-reentrant variant differentiates.
+    No block draws from a global generator, so no RNG state is stashed."""
+    remat = (cfg.remat and not decode and caches is None
+             and torch.is_grad_enabled())
+    kw = dict(positions=positions, decode=decode, live=live,
+              enc_out=enc_out, rules=rules)
     for si, (unit, reps) in enumerate(build_segments(specs)):
         seg_params = stack_params[si]
         seg_seeds = perturb.seeds[si] if perturb is not None else None
         for r in range(reps):
-            params_rep = tree_map(lambda p: p[r], seg_params)
-            cache_rep = (None if caches is None
-                         else tree_map(lambda c: c[r], caches[si]))
-            for j, spec in enumerate(unit):
-                pj = None
-                if seg_seeds is not None and O.any_seed(seg_seeds[j]):
-                    pj = dataclasses.replace(perturb, seeds=seg_seeds[j],
-                                             rep=r)
-                x, _ = apply_block(
-                    params_rep[j], x, spec, cfg, positions=positions,
-                    cache=None if cache_rep is None else cache_rep[j],
-                    decode=decode, live=live, enc_out=enc_out, perturb=pj,
-                    rules=rules)
+            args = (x, unit, tree_map(lambda p: p[r], seg_params),
+                    None if caches is None
+                    else tree_map(lambda c: c[r], caches[si]),
+                    seg_seeds, r, cfg, perturb, kw)
+            x = (torch.utils.checkpoint.checkpoint(
+                _apply_rep, *args, use_reentrant=False,
+                preserve_rng_state=False) if remat else _apply_rep(*args))
     return x, caches
 
 

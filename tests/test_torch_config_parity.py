@@ -1,9 +1,12 @@
 """Every architecture's config in the port equals the reference's on
 every field both have, at full and at smoke size (the nested ``MoECfg``
-and the ``LayerSpec`` pattern field by field).  The only reference
-fields the port's ``ModelConfig`` lacks are the four that shape XLA's
-program and have no eager meaning (``seq_sharding``, ``remat``,
-``remat_policy``, ``scan_layers``; ROADMAP 7.5)."""
+and the ``LayerSpec`` pattern field by field), ``remat`` included
+(activation checkpointing, ROADMAP 7.8).  The only reference fields the
+port's ``ModelConfig`` lacks are the two that shape only XLA's program
+and have no eager meaning (``seq_sharding``, ``scan_layers``) and
+``remat_policy``, which has no counterpart yet: its ``"save_gathers"``
+keeps FSDP-gathered MoE weights, and the port gathers none until ROADMAP
+7.7 ports FSDP storage."""
 import dataclasses
 
 import pytest
@@ -14,7 +17,7 @@ from repro.models.config import ModelConfig as JModelConfig
 from repro_torch.configs import registry as REG
 from repro_torch.models.config import ModelConfig
 
-XLA_ONLY = {"seq_sharding", "remat", "remat_policy", "scan_layers"}
+NO_COUNTERPART = {"seq_sharding", "scan_layers", "remat_policy"}
 
 
 def _jax_config(arch, smoke):
@@ -34,7 +37,7 @@ def _value(v):
 def test_port_lacks_only_the_xla_knobs():
     ours = {f.name for f in dataclasses.fields(ModelConfig)}
     theirs = {f.name for f in dataclasses.fields(JModelConfig)}
-    assert theirs - ours == XLA_ONLY
+    assert theirs - ours == NO_COUNTERPART
     assert ours <= theirs
 
 

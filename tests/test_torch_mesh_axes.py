@@ -52,7 +52,8 @@ qwen2-1.5b, recurrentgemma, xlstm and qwen3-moe against the unsharded
 engine and the JAX package's (``jax_serve_reference.py``, beside the
 spawn), seamless's token loop, the MoE at one token a row, each
 recurrent mixer's state and the attention layer's KV cache through a
-prefill and a decode step."""
+prefill and a decode step; gpt2-tiny's FSL-SAGE step on (1, 2) with
+remat on equal to the step with remat off bit for bit."""
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -501,6 +502,14 @@ def test_two_rank_step_slabs_match_unsharded(ranks, case):
     assert keys
     for k in keys:
         np.testing.assert_array_equal(outs[1][k], outs[0][k], err_msg=k)
+
+
+@pytest.mark.parametrize("case", [f"{t}_{s}_{m}" for t, _, _, s, m, _ in
+                                  RANKS.REMAT[2]])
+def test_remat_mesh_step_equals_remat_off(ranks, case):
+    for r, out in enumerate(ranks[1]):
+        fails = str(out[f"remat|{case}|fail"])
+        assert not fails, f"rank {r}:\n{fails}"
 
 
 def test_heron_kernel_mesh_step_matches_jax(ranks):

@@ -10,12 +10,17 @@
 * the counted FLOPs of one unsharded HERON datacenter step on the
   threefry stream (gpt2-tiny and qwen2-1.5b's smoke config, 4 x 32
   tokens) equal ``hlo_costs.total_costs`` of the reference's jitted step
-  with ``remat=False`` and ``scan_layers=False`` (with remat XLA counts
-  the forward again; with a scan it counts a layer's body once a trip,
-  which ``hlo_costs`` multiplies out).  The tolerance the count is held
-  to is exact equality: both count the same products (``2 * M * K * N``
-  a dot or matmul, the blocked attention's two einsums a tile, the
-  server's backward products), and nothing else enters either count.
+  with ``remat=False`` on both sides and ``scan_layers=False`` on the
+  reference's (with a scan it counts a layer's body once a trip, which
+  ``hlo_costs`` multiplies out); and with ``remat=True`` on both sides
+  (gpt2-tiny), where both count the server stack's forward again in the
+  backward: the port's non-reentrant checkpoint stops each rep's replay
+  at its last saved tensor, the input of the MLP's down projection, and
+  XLA drops that same dead product from ``jax.checkpoint``'s replay.
+  The tolerance the count is held to is exact equality: both count the
+  same products (``2 * M * K * N`` a dot or matmul, the blocked
+  attention's two einsums a tile, the server's backward products), and
+  nothing else enters either count.
 """
 import contextlib
 import dataclasses
@@ -134,12 +139,11 @@ def test_report_summary_equals_reference(tmp_path, monkeypatch):
     assert out[0] == "cells: 4 ok=2 skipped=1 error=1"
 
 
-@pytest.mark.parametrize("arch", ["gpt2-tiny", "qwen2-1.5b"])
-def test_heron_step_flops_equal_reference_hlo(arch):
+def _jax_step_flops(arch, remat):
+    """``hlo_costs``' FLOPs of the reference's jitted HERON step."""
     jcfg = (jax_gpt2_tiny() if arch == "gpt2-tiny"
             else JREG.get_config(arch, smoke=True))
-    jcfg = dataclasses.replace(jcfg, remat=False, scan_layers=False)
-    cfg = gpt2_tiny() if arch == "gpt2-tiny" else get_config(arch, True)
+    jcfg = dataclasses.replace(jcfg, remat=remat, scan_layers=False)
     params = JT.init_lm(jax.random.PRNGKey(0), jcfg)
     jcopt, jsopt = JOPT.zo_sgd(1e-3), JOPT.adamw(1e-3)
     jstate = JP.init_train_state(jax.random.PRNGKey(1), params, jcopt,
@@ -149,13 +153,31 @@ def test_heron_step_flops_equal_reference_hlo(arch):
     toks = np.zeros((B, S), np.int32)
     text = jax.jit(jstep).lower(jstate, {"inputs": toks, "labels": toks}
                                 ).compile().as_text()
-    want = hlo_total_costs(text)["flops"]
+    return hlo_total_costs(text)["flops"]
+
+
+def _port_step_flops(arch, remat):
+    """``launch/costs``' FLOPs of the port's HERON step on meta."""
+    cfg = (gpt2_tiny() if arch == "gpt2-tiny"
+           else get_config(arch, True)).replace(remat=remat)
     copt, sopt = OPT.zo_sgd(1e-3), OPT.adamw(1e-3)
     state = P.init_train_state(R.PRNGKey(1), T.init_lm(cfg, device="meta"),
                                copt, sopt)
     tok = torch.empty((B, S), dtype=torch.int32, device="meta")
     step = P.make_train_step(P.lm_api(cfg), "heron", Z.ZOConfig(mu=1e-3),
                              copt, sopt)
-    got = C.total_costs(step, state, {"inputs": tok, "labels": tok})
+    return C.total_costs(step, state, {"inputs": tok, "labels": tok}
+                         )["flops"]
+
+
+@pytest.mark.parametrize("arch", ["gpt2-tiny", "qwen2-1.5b"])
+def test_heron_step_flops_equal_reference_hlo(arch):
+    want = _jax_step_flops(arch, remat=False)
     assert want > 0
-    assert got["flops"] == want
+    assert _port_step_flops(arch, remat=False) == want
+
+
+def test_heron_step_flops_with_remat_equal_reference_hlo():
+    want = _jax_step_flops("gpt2-tiny", remat=True)
+    assert want > _port_step_flops("gpt2-tiny", remat=False)
+    assert _port_step_flops("gpt2-tiny", remat=True) == want

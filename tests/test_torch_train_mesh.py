@@ -47,7 +47,9 @@ is ``d`` times the losses' rounding) and of every first-order method:
   (1, 4), its two kv heads below a head (each rank's cache the one kv
   head of its q head's group), against the unsharded engine and the JAX
   package's; gpt2-tiny's cached prefill and serve steps on (2, 2), each
-  rank's logits the slab of the unsharded ones'.
+  rank's logits the slab of the unsharded ones';
+* qwen3-moe's HERON step on (2, 2) with remat on (the configs' default,
+  every case above) equal to the step with remat off bit for bit.
 
 The two-rank cases and the steps held to JAX's single-device step are in
 ``test_torch_mesh_axes.py``.
@@ -82,6 +84,14 @@ def ranks(tmp_path_factory):
 def test_mesh_step_slabs_match_unsharded(ranks, case):
     for r, out in enumerate(ranks):
         fails = str(out[f"{case}|fail"])
+        assert not fails, f"rank {r}:\n{fails}"
+
+
+@pytest.mark.parametrize("case", [f"{t}_{s}_{m}" for t, _, _, s, m, _ in
+                                  RANKS.REMAT[4]])
+def test_remat_mesh_step_equals_remat_off(ranks, case):
+    for r, out in enumerate(ranks):
+        fails = str(out[f"remat|{case}|fail"])
         assert not fails, f"rank {r}:\n{fails}"
 
 

@@ -32,7 +32,11 @@ its world size in one process and writes ``rank<r>.npz``:
 * ``serve|...`` (``torch_serve_mesh_ranks``): serving on the rank's
   slabs (the engines, seamless's token loop, the (2, 2) serve step, the
   MoE at one token a row, the mixers' states and the KV caches) against
-  the unsharded runs.
+  the unsharded runs;
+* ``remat|<case>|fail``: a mesh step with remat on (the configs'
+  default) against the same step with remat off, every leaf of the
+  state and every metric bit for bit (each rank's backward recomputes
+  its checkpointed forward, collectives and all, in the same order).
 """
 import dataclasses
 import hashlib
@@ -250,6 +254,36 @@ def step_cases(inp, out, world):
                     for path, t in tree_leaves_with_path(full):
                         out[f"{case}|full|{path}"] = t.numpy()
             dist.barrier()
+
+
+# world -> the mesh steps run again with remat off: (tag, config,
+# model_parallel, stream, method, options as MESHES'); on (1, 2) a dense
+# FSL-SAGE step (client, aux head and server checkpointed under
+# tensor-parallel collectives, the alignment's double backward through
+# the aux block), on (2, 2) the MoE's HERON step (moe_ep's all_to_all and
+# capacity offsets in the server's recompute)
+REMAT = {2: [("gpt2_1x2", "gpt2-tiny", 2, "fo", "fsl_sage", {})],
+         4: [("moe_2x2", "qwen3-moe-30b-a3b", 2, "kernel", "heron",
+              {"jax_step": True})]}
+
+
+def remat_cases(inp, out, world):
+    for tag, name, mp, stream, method, opts in REMAT[world]:
+        rules = SH.AxisRules(mesh=make_local_mesh(mp), enable_fsdp=False)
+        cfg = config(name, stream, opts)
+        assert cfg.remat
+        batch = batch_of(inp, cfg, opts)
+        runs = []
+        for c in (cfg, cfg.replace(remat=False)):
+            new, m, _ = run_step(c, rules, method, stream, inp, batch, opts)
+            runs.append({"state": new, "metrics": m})
+        want = dict(tree_leaves_with_path(runs[1]))
+        fails = [f"{path}: max |d| {float((got - want[path]).abs().max())}"
+                 for path, got in tree_leaves_with_path(runs[0])
+                 if isinstance(got, torch.Tensor)
+                 and not torch.equal(got, want[path])]
+        out[f"remat|{tag}_{stream}_{method}|fail"] = np.array("\n".join(
+            fails))
 
 
 def _leaf(tree, path):
@@ -684,6 +718,7 @@ def run_rank(rank, world, workdir):
         for case in MC.world_cases(world):
             moe_case(case, out)
         step_cases(inp, out, world)
+        remat_cases(inp, out, world)
         prefill_cases(inp, out, world)
         rec_layer_cases(out, world)
         lora_dense_case(out, world)
